@@ -7,16 +7,30 @@ Phases, one output line each (any failure raises, so the exit code is
 non-zero; without a CUDA device it exits non-zero before printing a result):
 
 0. environment: torch/CUDA versions, the card, its power limit;
-1. build: nvcc builds the kernels from desenet_tpu_torch/csrc (ptxas lines);
-2. each kernel against its plain PyTorch version on the card;
-3. the tiny model and the whole served program on the card against the CPU
-   (float32, TF32 off);
-4. the main path: yolov5s_seg at full width, random weights from seed 0,
+1. build: nvcc builds the kernels from desenet_tpu_torch/csrc, one process
+   per source, all at once (ptxas lines);
+2. each kernel against its plain PyTorch version on the card: K1 and K3 on
+   the shared-memory and the global-scratch path, K4 in f32 and bf16;
+3. the tiny model, the whole served program and the validation step (module
+   and fused seg head) on the card against the CPU (float32, TF32 off);
+4. the serving path: yolov5s_seg at full width, random weights from seed 0,
    served at 640 through BatchRunner (a single request, then a burst of 5;
-   plus HTTP when cv2 imports), with the kernels' launch counters reset
-   before and read after;
-5. numbers: the device program at batch 128 / 640 px, each kernel beside its
-   plain version at the served shapes, peak device memory.
+   plus HTTP when cv2 imports), with K1/K2's launch counters reset before
+   and read after;
+4b. the validation path: the same model in bf16 through Validator.run over
+   an in-memory loader of 4 batches of 32 images at 640 (made with numpy
+   from a seed), once with the module seg head and once with the fused one,
+   with K3/K4's launch counters reset before each run and read after;
+5. numbers: the served program at batch 128 / 640 px, the validation step
+   at batch 32 with either seg head, each kernel beside its plain version
+   at the main path's shapes, K4 also beside the cuDNN module head, peak
+   device memory. K3 and K4 are first held against their plain versions
+   on the validation forward's own tensors (K3 on its top-16384 candidate
+   set, where bf16 scores tie often; K4 on its seg head's inputs, and
+   against the module head).
+
+Inputs of the kernel checks come from desenet_tpu_torch.testing, shared with
+tests/test_torch_kernels_cuda.py.
 
 The last three lines are the kernels' JSON record, the card's name and power
 limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
@@ -24,6 +38,7 @@ limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -34,6 +49,8 @@ import numpy as np
 import torch
 
 B_SERVE = 128
+B_VAL = 32
+N_VAL_BATCHES = 4
 IMGSZ = 640
 CSRC = "desenet_tpu_torch/csrc"
 
@@ -74,16 +91,45 @@ def in_turns(plain, kernel, reps_plain: int, reps_kernel: int):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def synthetic_decode(rng, b: int, a: int, nc: int, frac: float):
-    """(B, A, 5+nc) decode in pixel xywh + obj + cls; about ``frac`` of the
-    anchors carry obj in [0.3, 1], the rest obj < 0.05."""
-    cxy = rng.uniform(50, 600, (b, a, 2))
-    wh = rng.uniform(10, 120, (b, a, 2))
-    obj = rng.uniform(0, 0.05, (b, a, 1))
-    live = rng.uniform(0, 1, (b, a, 1)) < frac
-    obj[live] = rng.uniform(0.3, 1.0, int(live.sum()))
-    cls = rng.uniform(0, 1, (b, a, nc))
-    return np.concatenate([cxy, wh, obj, cls], -1).astype(np.float32)
+@contextlib.contextmanager
+def no_tf32():
+    """Full f32 matmuls and convolutions inside the block."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def val_batches(seed: int, n: int, b: int, imgsz: int, nc: int, se_nc: int,
+                max_targets: int = 16):
+    """In-memory loader: ``n`` batches with the keys of
+    desenet_tpu.data.dataset.collate, made with numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        n_t = rng.integers(1, max_targets + 1, b)
+        tg = np.zeros((b, max_targets, 5), np.float32)
+        tg[..., 0] = rng.integers(0, nc, (b, max_targets))
+        tg[..., 1:3] = rng.uniform(0.15, 0.85, (b, max_targets, 2))
+        tg[..., 3:5] = rng.uniform(0.05, 0.3, (b, max_targets, 2))
+        mask = np.arange(max_targets)[None] < n_t[:, None]
+        tg[~mask] = 0
+        coarse = rng.integers(0, se_nc, (b, imgsz // 32, imgsz // 32))
+        out.append({
+            "image": rng.integers(0, 256, (b, imgsz, imgsz, 3),
+                                  dtype=np.uint8),
+            "det_targets": tg,
+            "det_mask": mask,
+            "seg_labels": np.repeat(np.repeat(coarse, 32, 1), 32, 2).astype(
+                np.uint8),
+            "shapes": [None] * b,
+        })
+    return out
 
 
 def tiny_cfg():
@@ -129,7 +175,11 @@ def phase1():
 
 
 def phase2(errs: dict):
-    from desenet_tpu_torch.ops import nms_fused, seg_pallas
+    from desenet_tpu_torch.ops import (nms_fused, nms_pallas, seg_head_pallas,
+                                       seg_pallas)
+    from desenet_tpu_torch.testing import (check_psp2, greedy_candidates,
+                                           psp2_inputs, random_psp2_head,
+                                           synthetic_decode)
 
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
@@ -176,16 +226,59 @@ def phase2(errs: dict):
         log(2, f"K2 seg_tail ({b},80,80,{c}) {str(dt)[6:]}: {agree:.6f} of "
             f"pixels equal to plain, all clear-margin pixels equal")
 
+    for b, k in ((4, 2048), (2, nms_pallas.SMEM_CAP + 5000)):
+        boxes, scores = (t.to(dev) for t in greedy_candidates(rng, b, k))
+        idx, sc = nms_pallas.greedy_nms_pallas(boxes, scores, 0.6, 300)
+        ridx, rsc = nms_pallas.greedy_nms_plain(boxes, scores, 0.6, 300)
+        torch.cuda.synchronize()
+        if not torch.equal(idx, ridx) or not torch.equal(sc, rsc):
+            raise AssertionError(
+                f"K3 ({b}, {k}): kernel keep-set differs from plain in "
+                f"{int((idx != ridx).sum())} of {idx.numel()} rows")
+        err = float((sc - rsc).abs().max())
+        errs["nms_greedy"] = max(errs.get("nms_greedy", 0.0), err)
+        path = ("shared-memory" if k <= nms_pallas.SMEM_CAP
+                else "global-scratch")
+        log(2, f"K3 nms_greedy ({b}, {k}) {path} path, max_det 300, IoU "
+            f"0.6: {int((sc > 0).sum())} picks, identical to plain (max abs "
+            f"err {err})")
+
+    with no_tf32():
+        # yolov5s_seg's widths (inputs 256/256/512, c_hid 128), then l's
+        for c_hid, dt, b in ((128, torch.float32, 4),
+                             (128, torch.bfloat16, 4),
+                             (256, torch.float32, 2)):
+            chans = (2 * c_hid, 2 * c_hid, 4 * c_hid)
+            head = random_psp2_head(chans, c_hid).to(dev)
+            xs = [x.to(dev, dt) for x in psp2_inputs(b, 80, 80, chans)]
+            got = seg_head_pallas.fused_psp2_eval(xs, head, 3)
+            ref = seg_head_pallas.fused_psp2_eval_plain(xs, head, 3)
+            torch.cuda.synchronize()
+            err, agree = check_psp2(got, ref, dt)
+            errs["seg_head_psp2"] = max(errs.get("seg_head_psp2", 0.0), err)
+            bar = ("within rtol/atol 1e-4 of plain" if dt == torch.float32
+                   else "within 1e-2 of |plain| max, argmax agreement >= 0.99")
+            log(2, f"K4 seg_head_psp2 ({b}, 80, 80) c_hid {c_hid} "
+                f"{str(dt)[6:]}: {bar} (max abs err {err:.6g}, |plain| max "
+                f"{float(ref.abs().max()):.6g}, argmax agreement {agree:.6f})")
+
+
+def match_boxes(got, want) -> float:
+    """Largest distance from a box of one set to its nearest box in the
+    other (picks whose scores differ by rounding may swap order)."""
+    if len(got) == 0 and len(want) == 0:
+        return 0.0
+    dist = (got[:, None] - want[None]).abs().amax(-1)
+    return float(max(dist.amin(1).max(), dist.amin(0).max()))
+
 
 def phase3():
     from desenet_tpu_torch.api import Predictor
+    from desenet_tpu_torch.eval import Validator
     from desenet_tpu_torch.models import build_model, init_weights
+    from desenet_tpu_torch.utils.convert import load_state_dict
 
-    tf32 = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with no_tf32():
         cfg = tiny_cfg()
         model, _ = build_model(cfg)
         init_weights(model, torch.Generator().manual_seed(1))
@@ -224,9 +317,36 @@ def phase3():
         log(3, f"tiny served program CUDA vs CPU: num {ng.tolist()} equal, "
             f"box max abs err {box_err:.3g} (atol 1e-3), seg maps "
             f"{seg_eq:.6f} equal (>= 0.999)")
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+        batch = val_batches(3, 1, 4, 64, 3, 2)[0]
+        for fused in (False, True):
+            outs = {}
+            for dev in ("cpu", "cuda"):
+                m, _ = build_model(cfg, decode_cat=False,
+                                   seg_head_fused=fused)
+                load_state_dict(m, sd)
+                m = m.to(dev, memory_format=torch.channels_last
+                         if dev == "cuda" else torch.contiguous_format)
+                nms, seg = Validator(m, nc=3, se_nc=2).eval_step(
+                    torch.from_numpy(batch["image"]).to(dev),
+                    torch.from_numpy(batch["det_targets"]).to(dev),
+                    torch.from_numpy(batch["det_mask"]).to(dev))
+                outs[dev] = (nms.num.cpu(), nms.boxes.cpu(), seg.cpu())
+            (nc, bc, sc), (ng, bg, sg) = outs["cpu"], outs["cuda"]
+            if not torch.equal(nc, ng) or int(nc.min()) < 1:
+                raise AssertionError(f"val step (fused head {fused}): num "
+                                     f"CPU {nc} vs CUDA {ng}")
+            box_err = max(match_boxes(bg[i, :n], bc[i, :n])
+                          for i, n in enumerate(nc.tolist()))
+            seg_eq = float((sc == sg).float().mean())
+            if box_err > 1e-3 or seg_eq < 0.999:
+                raise AssertionError(
+                    f"val step (fused head {fused}) CUDA vs CPU: box err "
+                    f"{box_err}, seg agreement {seg_eq}")
+            log(3, f"tiny val step (multi-label NMS, fused seg head {fused}) "
+                f"CUDA vs CPU: num {ng.tolist()} equal, boxes within "
+                f"{box_err:.3g} (atol 1e-3), seg maps {seg_eq:.6f} equal "
+                f"(>= 0.999)")
 
 
 def check_response(res: dict, what: str) -> None:
@@ -323,12 +443,64 @@ def phase4():
     if min(launches.values()) < 1:
         raise AssertionError(f"main path did not launch every kernel: "
                              f"{launches}")
-    log(4, f"kernel launches on the main path: {launches}")
-    return pred, launches
+    log(4, f"kernel launches on the serving path: {launches}")
+    return pred, launches, sd
+
+
+def phase4b(sd):
+    from desenet_tpu_torch.eval import Validator
+    from desenet_tpu_torch.models import build_model, config_path
+    from desenet_tpu_torch.ops import nms_pallas, seg_head_pallas
+    from desenet_tpu_torch.utils.convert import load_state_dict
+
+    model, spec = build_model(config_path("yolov5s_seg"))
+    load_state_dict(model, sd)
+    model = model.to("cuda", torch.bfloat16, memory_format=torch.channels_last)
+    t = time.perf_counter()
+    batches = val_batches(0, N_VAL_BATCHES, B_VAL, IMGSZ, spec.de_nc,
+                          spec.se_nc)
+    log("4b", f"in-memory loader: {N_VAL_BATCHES} batches of {B_VAL} "
+        f"images at {IMGSZ} made in {time.perf_counter() - t:.3f} s")
+    validator = Validator(model, nc=spec.de_nc, se_nc=spec.se_nc)
+    launches = {"nms_greedy": 0, "seg_head_psp2": 0}
+    results = {}
+    for fused in (False, True):
+        model.seg_head_fused = fused
+        nms_pallas.launches = 0
+        seg_head_pallas.launches = 0
+        t = time.perf_counter()
+        res = validator.run(batches)
+        wall = time.perf_counter() - t
+        k3, k4 = nms_pallas.launches, seg_head_pallas.launches
+        if k3 < N_VAL_BATCHES or (k4 < N_VAL_BATCHES if fused else k4 != 0):
+            raise AssertionError(f"val run (fused head {fused}): K3 launched "
+                                 f"{k3}, K4 {k4} times over {N_VAL_BATCHES} "
+                                 "batches")
+        launches["nms_greedy"] += k3
+        launches["seg_head_psp2"] += k4
+        summary = {k: v for k, v in res.items() if k != "per_class"}
+        vals = [summary[k] for k in ("mp", "mr", "map50", "map", "miou",
+                                     "pix_acc")]
+        if summary["seen"] != N_VAL_BATCHES * B_VAL or not all(
+                np.isfinite(v) and 0 <= v <= 1 for v in vals):
+            raise AssertionError(f"val run (fused head {fused}): {summary}")
+        results[fused] = summary
+        log("4b", f"yolov5s_seg bf16 val at {IMGSZ}, fused seg head {fused}: "
+            f"{json.dumps(summary)}; {wall:.3f} s wall; launches K3 {k3}, "
+            f"K4 {k4}")
+    d = abs(results[True]["miou"] - results[False]["miou"])
+    if d > 0.05:
+        raise AssertionError(f"fused and module seg heads disagree: mIoU "
+                             f"{results[True]['miou']} vs "
+                             f"{results[False]['miou']}")
+    log("4b", f"mIoU fused vs module head differ by {d:.3g} (bf16, <= 0.05)")
+    model.seg_head_fused = False
+    return model, spec, validator, batches[0], launches
 
 
 def phase5(pred, card: str) -> dict:
     from desenet_tpu_torch.ops import nms_fused, seg_pallas
+    from desenet_tpu_torch.testing import synthetic_decode
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -369,6 +541,116 @@ def phase5(pred, card: str) -> dict:
     return timing
 
 
+def phase5_val(model, spec, validator, batch, card: str, timing: dict,
+               errs: dict):
+    from desenet_tpu_torch.eval.validator import _to_input
+    from desenet_tpu_torch.ops import nms_pallas, seg_head_pallas
+    from desenet_tpu_torch.ops.nms import MAX_WH, PRE_TOPK_VAL, _prep_candidates
+    from desenet_tpu_torch.testing import check_psp2
+
+    dev = torch.device("cuda")
+    img = torch.from_numpy(batch["image"]).to(dev)
+    tgts = torch.from_numpy(batch["det_targets"]).to(dev)
+    tmask = torch.from_numpy(batch["det_mask"]).to(dev)
+
+    def step(fused: bool):
+        model.seg_head_fused = fused
+        return validator.eval_step(img, tgts, tmask)
+
+    on, off = in_turns(lambda: step(False), lambda: step(True), 5, 5)
+    model.seg_head_fused = False
+    log(5, f"val device step b{B_VAL}/{IMGSZ} bf16 (uint8 in, forward, "
+        f"multi-label top-{PRE_TOPK_VAL} + K3 NMS, seg argmax): module seg "
+        f"head {off:.3f} ms/batch, fused head (K4) {on:.3f} ms/batch "
+        f"[{card}]")
+
+    head = model.model[spec.seg_layer]
+    seen = []
+    hook = head.register_forward_pre_hook(lambda m, args: seen.append(args[0]))
+    try:
+        with torch.inference_mode():
+            (dec, _), _ = model(_to_input(img, torch.bfloat16, dev))
+    finally:
+        hook.remove()
+    with torch.inference_mode():
+        boxes, scores, cls = _prep_candidates(dec.float(), 0.001,
+                                              PRE_TOPK_VAL, True)
+        boxes = (boxes + cls[..., None] * float(MAX_WH)).contiguous()
+        scores = scores.contiguous()
+    live = float((scores > 0).sum(1).float().mean())
+    # the top set is sorted, so equal scores sit side by side
+    ties = int(((scores[:, 1:] == scores[:, :-1]) & (scores[:, 1:] > 0)).sum())
+    idx, sc = nms_pallas.greedy_nms_pallas(boxes, scores, 0.6, 300)
+    ridx, rsc = nms_pallas.greedy_nms_plain(boxes, scores, 0.6, 300)
+    torch.cuda.synchronize()
+    if not torch.equal(idx, ridx) or not torch.equal(sc, rsc):
+        raise AssertionError(
+            f"K3 on the val decode ({B_VAL}, {boxes.shape[1]}): kernel "
+            f"keep-set differs from plain in {int((idx != ridx).sum())} of "
+            f"{idx.numel()} rows")
+    err = float((sc - rsc).abs().max())
+    errs["nms_greedy"] = max(errs.get("nms_greedy", 0.0), err)
+    picks = float((sc > 0).sum(1).float().mean())
+    k, p = in_turns(
+        lambda: nms_pallas.greedy_nms_plain(boxes, scores, 0.6, 300),
+        lambda: nms_pallas.greedy_nms_pallas(boxes, scores, 0.6, 300), 1, 10)
+    timing["nms_greedy"] = (k, p)
+    log(5, f"K3 nms_greedy ({B_VAL}, {boxes.shape[1]}) from the val decode, "
+        f"{live:.0f} live candidates ({ties} equal to their neighbour in "
+        f"the batch) and {picks:.0f} picks per image, max_det 300, IoU 0.6: "
+        f"identical to plain (max abs err {err}); kernel {k:.3f} ms, plain "
+        f"{p:.3f} ms [{card}]")
+
+    # K4 on the seg head's inputs of that forward (channels_last NCHW)
+    nchw = seen[0]
+    xs = [x.permute(0, 2, 3, 1).contiguous() for x in nchw]
+    n = spec.se_nc
+    head.upsample = False
+    try:
+        with torch.inference_mode(), no_tf32():
+            got = seg_head_pallas.fused_psp2_eval(xs, head, n)
+            ref = seg_head_pallas.fused_psp2_eval_plain(xs, head, n)
+            mod = head(nchw).permute(0, 2, 3, 1).float()
+        torch.cuda.synchronize()
+        err, agree = check_psp2(got, ref, torch.bfloat16)
+        errs["seg_head_psp2"] = max(errs.get("seg_head_psp2", 0.0), err)
+        # the JAX package's bar between the fused and the module head in
+        # bf16 (tests/test_seg_head_pallas.py)
+        torch.testing.assert_close(got, mod, rtol=0.1, atol=0.15)
+        mod_err = float((got - mod).abs().max())
+        mod_agree = float((got.argmax(-1) == mod.argmax(-1)).float().mean())
+        if mod_agree <= 0.99:
+            raise AssertionError(f"K4 vs the module head: argmax agreement "
+                                 f"{mod_agree}")
+        log(5, f"K4 seg_head_psp2 ({B_VAL}, 80, 80) bf16 on the val "
+            f"forward's features: against plain max abs err {err:.6g} "
+            f"(|plain| max {float(ref.abs().max()):.6g}, bound 1e-2 of it), "
+            f"argmax agreement {agree:.6f}; against the cuDNN module head "
+            f"max abs err {mod_err:.6g} (rtol 0.1, atol 0.15), argmax "
+            f"agreement {mod_agree:.6f} (> 0.99)")
+        with torch.inference_mode():
+            k, p = in_turns(
+                lambda: seg_head_pallas.fused_psp2_eval_plain(xs, head, n),
+                lambda: seg_head_pallas.fused_psp2_eval(xs, head, n), 3, 10)
+            k2, cudnn = in_turns(lambda: head(nchw),
+                                 lambda: seg_head_pallas.fused_psp2_eval(
+                                     xs, head, n), 10, 10)
+    finally:
+        head.upsample = True
+    timing["seg_head_psp2"] = (k, p)
+    log(5, f"K4 seg_head_psp2 ({B_VAL}, 80, 80) bf16, full-width head: "
+        f"kernel {k:.3f} ms, plain {p:.3f} ms; against the cuDNN module head "
+        f"in one call: kernel {k2:.3f} ms, module {cudnn:.3f} ms [{card}]")
+    timing["seg_head_cudnn"] = cudnn
+
+
+def kernel_entry(name, replaces, launches, errs, timing):
+    return {"name": name, "route": "cuda", "source": f"{CSRC}/{name}.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": errs[name], "ms": timing[name][0],
+            "plain_ms": timing[name][1]}
+
+
 def main() -> None:
     phase0()
     card = card_line()
@@ -376,21 +658,21 @@ def main() -> None:
     phase1()
     phase2(errs)
     phase3()
-    pred, launches = phase4()
+    pred, launches, sd = phase4()
+    model, spec, validator, batch, val_launches = phase4b(sd)
+    launches.update(val_launches)
     timing = phase5(pred, card)
+    del pred
+    phase5_val(model, spec, validator, batch, card, timing, errs)
     record = {"kernels": [
-        {"name": "nms_fused", "route": "cuda",
-         "source": f"{CSRC}/nms_fused.cu",
-         "replaces": "desenet_tpu/ops/nms_fused.py:46",
-         "launches": launches["nms_fused"],
-         "max_abs_err": errs["nms_fused"],
-         "ms": timing["nms_fused"][0], "plain_ms": timing["nms_fused"][1]},
-        {"name": "seg_tail", "route": "cuda",
-         "source": f"{CSRC}/seg_tail.cu",
-         "replaces": "desenet_tpu/ops/seg_pallas.py:35",
-         "launches": launches["seg_tail"],
-         "max_abs_err": errs["seg_tail"],
-         "ms": timing["seg_tail"][0], "plain_ms": timing["seg_tail"][1]},
+        kernel_entry("nms_fused", "desenet_tpu/ops/nms_fused.py:46",
+                     launches, errs, timing),
+        kernel_entry("seg_tail", "desenet_tpu/ops/seg_pallas.py:35",
+                     launches, errs, timing),
+        kernel_entry("nms_greedy", "desenet_tpu/ops/nms_pallas.py:30",
+                     launches, errs, timing),
+        kernel_entry("seg_head_psp2", "desenet_tpu/ops/seg_head_pallas.py:239",
+                     launches, errs, timing),
     ]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

@@ -6,9 +6,10 @@ its counterpart's file path and function names, and the tests hold each one
 against it on the CPU. This package imports ``torch`` and never JAX.
 
 Covered so far: the serving path of ``yolov5s_seg`` (model forward, Detect
-decode, single-label NMS, seg tail), with the JAX package's two Pallas
-kernels on that path rewritten as CUDA C++ kernels for ``sm_90a``
-(``csrc/``), built with nvcc at first use.
+decode, single-label NMS, seg tail) and its validation path (multi-label
+NMS, the fused eval seg head, ``eval.Validator``, ``cli.val``), with the
+JAX package's four Pallas kernels on those paths rewritten as CUDA C++
+kernels for ``sm_90a`` (``csrc/``), built with nvcc at first use.
 """
 
 __version__ = "0.1.0"

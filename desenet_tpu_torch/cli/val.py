@@ -1,0 +1,245 @@
+"""Validation CLI on the port.
+
+    python -m desenet_tpu_torch.cli.val --data data.yaml --cfg yolov5s_seg \\
+        --weights sd.npz
+
+Tasks: val/test/train (metrics on that split), speed (device latency at the
+val shape), study (speed over image sizes). ``--weights`` is a torch-named
+state dict saved with ``np.savez`` (``tools/export_torch_sd.py`` writes one
+from a JAX checkpoint); the class counts come from the data yaml. Reading
+the image dataset uses the JAX package's jax-free data pipeline
+(``desenet_tpu.data``), which needs cv2, PIL and PyYAML.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import torch
+
+from desenet_tpu_torch.eval.validator import Validator
+from desenet_tpu_torch.models import build_model, config_path
+from desenet_tpu_torch.ops import PRE_TOPK_VAL, non_max_suppression
+from desenet_tpu_torch.utils.convert import load_npz_state_dict, load_state_dict
+
+_ROADMAP = "is not ported to desenet_tpu_torch yet (ROADMAP.md, Queue 1)"
+
+
+def load_model(cfg, weights, nc: int, se_nc: int, half: bool = True,
+               device="cuda", seg_head_fused: bool = False):
+    """Build ``cfg`` with full-resolution seg logits, load the npz state
+    dict, and place it on ``device`` in bf16 (``half``) or f32."""
+    model, spec = build_model(config_path(cfg), nc=nc, se_nc=se_nc,
+                              seg_head_fused=seg_head_fused)
+    load_state_dict(model, load_npz_state_dict(weights))
+    device = torch.device(device)
+    mf = (torch.channels_last if device.type == "cuda"
+          else torch.contiguous_format)
+    dtype = torch.bfloat16 if half else torch.float32
+    return model.to(device, dtype, memory_format=mf), spec
+
+
+def _refuse_unported(weights, augment=False, int8=False, act_store=None,
+                     coco_anno=""):
+    if not isinstance(weights, (str, os.PathLike)) and len(weights) > 1:
+        raise NotImplementedError(f"ensembles of several --weights {_ROADMAP}")
+    if augment:
+        raise NotImplementedError(f"--augment (test-time augmentation) "
+                                  f"{_ROADMAP}")
+    if int8:
+        raise NotImplementedError(f"--int8 inference {_ROADMAP}")
+    if act_store is not None:
+        raise NotImplementedError(f"--act-store {_ROADMAP}")
+    if coco_anno:
+        raise NotImplementedError(f"COCO-protocol re-scoring (--coco-anno) "
+                                  f"{_ROADMAP}")
+
+
+def run(
+    data,
+    weights,
+    cfg="yolov5s_seg",
+    batch_size=32,
+    imgsz=640,
+    conf_thres=0.001,
+    iou_thres=0.6,
+    task="val",
+    single_cls=False,
+    verbose=False,
+    half=True,
+    plots=False,
+    save_dir="",
+    workers=8,
+    augment=False,
+    save_txt=False,
+    save_conf=False,
+    save_json=False,
+    save_hybrid=False,
+    coco_anno="",
+    int8=False,
+    act_store=None,
+    device="cuda",
+    seg_head_fused=False,
+):
+    _refuse_unported(weights, augment, int8, act_store, coco_anno)
+    from desenet_tpu.data import create_mixed_dataloader
+    from desenet_tpu.utils.general import (check_dataset, check_img_size,
+                                           coco80_to_coco91_class)
+
+    is_coco = str(data).endswith("coco.yaml")
+    data = check_dataset(data)
+    weights = weights if isinstance(weights, (str, os.PathLike)) \
+        else weights[0]
+    model, spec = load_model(cfg, weights, int(data["de"]["nc"]),
+                             int(data["se"]["nc"]), half, device,
+                             seg_head_fused)
+    imgsz = check_img_size(imgsz, s=max(spec.det_strides))
+    nc = 1 if single_cls else int(data["de"]["nc"])
+    se_nc = int(data["se"]["nc"])
+    names = dict(enumerate(data["de"]["names"]))
+
+    task = task if task in ("train", "val", "test") else "val"
+    loader, _ = create_mixed_dataloader(
+        data[task], img_size=imgsz, batch_size=batch_size, augment=False,
+        rect=True, pad=0.5, stride=max(spec.det_strides),
+        single_cls=single_cls, workers=workers)
+    validator = Validator(
+        model, nc=nc, se_nc=se_nc, conf_thres=conf_thres,
+        iou_thres=iou_thres, single_cls=single_cls, plots=plots,
+        save_dir=save_dir, names=names, save_txt=save_txt,
+        save_conf=save_conf, save_json=save_json, save_hybrid=save_hybrid,
+        class_map=coco80_to_coco91_class() if is_coco else None)
+    if save_hybrid:
+        print("WARNING: --save-hybrid returns high mAP from hybrid labels, "
+              "not from predictions alone")
+    results = validator.run(loader)
+
+    pf = "%20s" + "%11i" * 1 + "%11.3g" * 6
+    print(("%20s" + "%11s" * 7) % ("Class", "Images", "P", "R", "mAP@.5",
+                                   "mAP@.5:.95", "mIoU", "pixAcc"))
+    print(pf % ("all", results["seen"], results["mp"], results["mr"],
+                results["map50"], results["map"], results["miou"],
+                results["pix_acc"]))
+    if verbose:
+        for c, m in results["per_class"].items():
+            print(f"{names.get(c, c):>20} {m['p']:.3f} {m['r']:.3f} "
+                  f"{m['ap50']:.3f} {m['ap']:.3f}")
+    sp = results["speed_ms"]
+    print(f"Speed: {sp[0]:.1f}ms host-stage, {sp[1]:.1f}ms device "
+          f"(fwd+decode+NMS), {sp[2]:.1f}ms metrics per image on "
+          f"{_device_name(model)}")
+    if save_json and save_dir:
+        print("predictions.json written; COCO-protocol re-scoring " + _ROADMAP)
+    return results
+
+
+def _device_name(model) -> str:
+    dev = next(model.parameters()).device
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def run_speed(cfg, weights, nc, se_nc, batch_size=32, imgsz=640, half=True,
+              device="cuda", seg_head_fused=False, reps=8):
+    """--task speed: steady-state ms/image of the device step (forward,
+    multi-label NMS, seg argmax) on random inputs at the val shape."""
+    model, _ = load_model(cfg, weights, nc, se_nc, half, device,
+                          seg_head_fused)
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    xs = [torch.rand((batch_size, 3, imgsz, imgsz), generator=gen,
+                     device=dev).to(next(model.parameters()).dtype)
+          for _ in range(reps + 1)]
+
+    @torch.inference_mode()
+    def step(x):
+        (dec, _), seg = model(x)
+        nms = non_max_suppression(dec, 0.001, 0.6, multi_label=True,
+                                  pre_topk=PRE_TOPK_VAL)
+        return nms.num.sum() + seg.argmax(1).sum()
+
+    step(xs[0])
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    outs = [step(x) for x in xs[1:]]
+    torch.stack(outs).cpu()
+    dt = (time.perf_counter() - t0) / reps / batch_size * 1e3
+    print(f"{dt:.2f} ms/image at batch {batch_size}, {imgsz}px on "
+          f"{_device_name(model)}")
+    return dt
+
+
+def parse_opt(argv=None):
+    p = argparse.ArgumentParser("desenet_tpu_torch val")
+    p.add_argument("--data", type=str, required=True)
+    p.add_argument("--cfg", type=str, default="yolov5s_seg",
+                   help="bundled config name or .json/.yaml path")
+    p.add_argument("--weights", type=str, nargs="+", required=True,
+                   help="torch-named state dict (.npz)")
+    p.add_argument("--batch-size", type=int, default=32)
+    p.add_argument("--img-size", "--imgsz", type=int, default=640)
+    p.add_argument("--conf-thres", type=float, default=0.001)
+    p.add_argument("--iou-thres", type=float, default=0.6)
+    p.add_argument("--task", type=str, default="val",
+                   choices=["val", "test", "train", "speed", "study"])
+    p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--seg-head-fused", action="store_true",
+                   help="run the SegMaskPSP2 head as the fused kernel K4")
+    p.add_argument("--single-cls", action="store_true")
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--no-half", action="store_true")
+    p.add_argument("--plots", action="store_true")
+    p.add_argument("--save-dir", type=str, default=None,
+                   help="explicit output dir (overrides --project/--name)")
+    p.add_argument("--project", type=str, default="runs/val")
+    p.add_argument("--name", type=str, default="exp")
+    p.add_argument("--exist-ok", action="store_true")
+    p.add_argument("--workers", type=int, default=8)
+    p.add_argument("--augment", action="store_true", help="not ported")
+    p.add_argument("--save-txt", action="store_true")
+    p.add_argument("--save-conf", action="store_true")
+    p.add_argument("--save-json", action="store_true")
+    p.add_argument("--save-hybrid", action="store_true",
+                   help="inject GT labels pre-NMS and save hybrid "
+                        "label+prediction txt (auto-labelling)")
+    p.add_argument("--coco-anno", type=str, default="", help="not ported")
+    p.add_argument("--int8", action="store_true", help="not ported")
+    p.add_argument("--act-store", choices=["fp8", "fp8_e5m2"], default=None,
+                   help="not ported")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    o = parse_opt(argv)
+    _refuse_unported(o.weights, o.augment, o.int8, o.act_store, o.coco_anno)
+    from desenet_tpu.utils.general import (check_dataset, increment_path,
+                                           set_logging)
+
+    set_logging()
+    if o.task in ("speed", "study"):
+        data = check_dataset(o.data)
+        nc, se_nc = int(data["de"]["nc"]), int(data["se"]["nc"])
+        sizes = (o.img_size,) if o.task == "speed" else (256, 384, 512, 640)
+        out = {size: run_speed(o.cfg, o.weights[0], nc, se_nc, o.batch_size,
+                               size, not o.no_half, o.device,
+                               o.seg_head_fused) for size in sizes}
+        if o.task == "study":
+            print(json.dumps(out))
+        return out if o.task == "study" else out[o.img_size]
+    if o.save_dir is None:
+        o.save_dir = str(increment_path(os.path.join(o.project, o.name),
+                                        exist_ok=o.exist_ok, mkdir=True))
+    return run(
+        o.data, o.weights, o.cfg, o.batch_size, o.img_size, o.conf_thres,
+        o.iou_thres, o.task, o.single_cls, o.verbose, not o.no_half,
+        o.plots, o.save_dir, o.workers, save_txt=o.save_txt,
+        save_conf=o.save_conf, save_json=o.save_json,
+        save_hybrid=o.save_hybrid, device=o.device,
+        seg_head_fused=o.seg_head_fused)
+
+
+if __name__ == "__main__":
+    main()

@@ -24,7 +24,8 @@ from torch import nn
 
 from desenet_tpu_torch.models import heads as H
 from desenet_tpu_torch.models import layers as L
-from desenet_tpu_torch.ops.resize import upsample_nearest
+from desenet_tpu_torch.ops.resize import resize_bilinear, upsample_nearest
+from desenet_tpu_torch.ops.seg_head_pallas import MAX_P8, fused_psp2_eval
 
 # rows the port builds; width-scaled blocks take their output width first
 _BLOCKS_WITH_WIDTH = {"Focus", "Conv", "C3", "SPP"}
@@ -227,15 +228,16 @@ def parse_config(cfg, nc: Optional[int] = None,
     )
 
 
-def _instantiate(ls: LayerSpec, c1, spec: ModelSpec,
-                 seg_upsample: bool) -> nn.Module:
+def _instantiate(ls: LayerSpec, c1, spec: ModelSpec, seg_upsample: bool,
+                 decode_cat: bool = True) -> nn.Module:
     """LayerSpec -> torch module (nn.Identity for parameterless rows).
     ``c1`` is the input channel count, or the list of them for heads."""
     a = ls.args
     if ls.name in ("Upsample", "Concat"):
         return nn.Identity()
     if ls.name == "Detect":
-        return H.Detect(a[0], a[1], c1, spec.det_strides)
+        return H.Detect(a[0], a[1], c1, spec.det_strides,
+                        decode_cat=decode_cat)
     if ls.name == "SegMaskPSP2":
         n_segcls, _, c_hid, _ = a
         return H.SegMaskPSP2(c1, n_segcls=n_segcls, c_hid=c_hid,
@@ -260,11 +262,20 @@ class DeSeNet(nn.Module):
     ``((decoded (B, A, 5+nc), det_feats [per-scale (B, na, ny, nx, no)]),
     seg)``, the JAX model's eval-mode outputs, with ``seg`` NCHW:
     full-resolution logits, or 1/8-resolution ones when built with
-    ``seg_upsample=False``. Module ``model.{i}`` is DSL row i."""
+    ``seg_upsample=False``. Module ``model.{i}`` is DSL row i.
 
-    def __init__(self, spec: ModelSpec, seg_upsample: bool = True):
+    ``decode_cat=False``: ``decoded`` is the per-scale list of decodes (the
+    NMS front end then selects candidates per scale). ``seg_head_fused``:
+    in eval mode a SegMaskPSP2 head with at most ``MAX_P8`` positions at
+    1/8 resolution runs as kernel K4 (``ops/seg_head_pallas.py``; its plain
+    version on a CPU tensor) instead of the module graph."""
+
+    def __init__(self, spec: ModelSpec, seg_upsample: bool = True,
+                 decode_cat: bool = True, seg_head_fused: bool = False):
         super().__init__()
         self.spec = spec
+        self.seg_upsample = seg_upsample
+        self.seg_head_fused = seg_head_fused
         chs = [spec.ch_in]
         mods = []
         for ls in spec.layers:
@@ -274,7 +285,8 @@ class DeSeNet(nn.Module):
                 c1 = sum(chs[x + 1] for x in ls.f)
             else:
                 c1 = chs[ls.f[0] + 1]
-            mods.append(_instantiate(ls, c1, spec, seg_upsample))
+            mods.append(_instantiate(ls, c1, spec, seg_upsample,
+                                     decode_cat))
             chs.append(ls.c2)
         self.model = nn.ModuleList(mods)
 
@@ -291,18 +303,31 @@ class DeSeNet(nn.Module):
                 out = upsample_nearest(inp, ls.args[0])
             elif ls.name == "Concat":
                 out = torch.cat(inp, 1)
-            elif ls.name in ("Detect", "SegMaskPSP2"):
-                out = m(inp if isinstance(inp, list) else [inp])
-                if ls.name == "Detect":
-                    det_out = out
-                else:
-                    seg_out = out
+            elif ls.name == "Detect":
+                out = det_out = m(inp if isinstance(inp, list) else [inp])
+            elif ls.name == "SegMaskPSP2":
+                out = seg_out = self._seg_head(
+                    ls, m, inp if isinstance(inp, list) else [inp])
             else:
                 out = m(inp)
             if ls.i in self.spec.save:
                 cache[ls.i] = out
             prev = out
         return det_out, seg_out
+
+    def _seg_head(self, ls: LayerSpec, m: nn.Module, xs) -> torch.Tensor:
+        """The seg head: kernel K4 under the conditions of the JAX
+        package (eval, SegMaskPSP2, P8 <= MAX_P8), else the module."""
+        if not (self.seg_head_fused and not self.training
+                and xs[0].shape[2] * xs[0].shape[3] <= MAX_P8):
+            return m(xs)
+        nhwc = [x.permute(0, 2, 3, 1).contiguous() for x in xs]
+        out = fused_psp2_eval(nhwc, m, int(ls.args[0])).to(xs[0].dtype)
+        out = out.permute(0, 3, 1, 2)  # NCHW view of the NHWC logits
+        if self.seg_upsample:
+            h8, w8 = out.shape[2:]
+            out = resize_bilinear(out, (h8 * 8, w8 * 8), align_corners=True)
+        return out
 
     def quirk_bn_keys(self) -> list:
         """State-dict keys of the BNs that never run (their conv's input is
@@ -318,11 +343,13 @@ class DeSeNet(nn.Module):
 
 
 def build_model(cfg, nc: Optional[int] = None, se_nc: Optional[int] = None,
-                seg_upsample: bool = True) -> Tuple[DeSeNet, ModelSpec]:
+                seg_upsample: bool = True, decode_cat: bool = True,
+                seg_head_fused: bool = False) -> Tuple[DeSeNet, ModelSpec]:
     """Parse ``cfg`` and build the model in eval mode (BN uses its running
     statistics; training is not ported yet)."""
     spec = parse_config(cfg, nc=nc, se_nc=se_nc)
-    return DeSeNet(spec, seg_upsample=seg_upsample).eval(), spec
+    return DeSeNet(spec, seg_upsample=seg_upsample, decode_cat=decode_cat,
+                   seg_head_fused=seg_head_fused).eval(), spec
 
 
 @torch.no_grad()

@@ -44,11 +44,15 @@ class Detect(nn.Module):
     ``forward(xs)`` takes the per-scale NCHW feature maps and returns
     ``(decoded (B, A, 5+nc), feats [per-scale (B, na, ny, nx, no)])``, the
     JAX head's eval-mode outputs. ``A`` runs over scale, anchor, y, x in
-    that order, so NMS picks break ties as in the JAX package."""
+    that order, so NMS picks break ties as in the JAX package. With
+    ``decode_cat=False`` ``decoded`` is the per-scale list of
+    (B, A_s, 5+nc) decodes, for the scale-local NMS prefilter."""
 
     def __init__(self, nc: int, anchors: Sequence[Sequence[float]],
-                 ch: Sequence[int], strides: Sequence[int]):
+                 ch: Sequence[int], strides: Sequence[int],
+                 decode_cat: bool = True):
         super().__init__()
+        self.decode_cat = decode_cat
         self.nc = nc
         self.no = nc + 5
         self.nl = len(anchors)
@@ -91,6 +95,8 @@ class Detect(nn.Module):
             wh = (s[..., 2:4] * 2.0) ** 2 * anchor
             z = torch.cat([xy, wh, s[..., 4:]], -1)
             decoded.append(z.reshape(b, -1, self.no))
+        if not self.decode_cat:
+            return decoded, feats
         return torch.cat(decoded, 1), feats
 
 

@@ -1,5 +1,12 @@
 from desenet_tpu_torch.ops.boxes import box_iou, np_scale_coords, xywh2xyxy
-from desenet_tpu_torch.ops.nms import MAX_WH, NMSOutput, non_max_suppression
+from desenet_tpu_torch.ops.nms import (
+    MAX_WH,
+    PRE_TOPK_PRODUCTION,
+    PRE_TOPK_VAL,
+    NMSOutput,
+    batched_nms,
+    non_max_suppression,
+)
 from desenet_tpu_torch.ops.resize import (
     adaptive_avg_pool,
     max_pool_same,
@@ -14,6 +21,9 @@ __all__ = [
     "np_scale_coords",
     "xywh2xyxy",
     "MAX_WH",
+    "PRE_TOPK_PRODUCTION",
+    "PRE_TOPK_VAL",
+    "batched_nms",
     "NMSOutput",
     "non_max_suppression",
     "adaptive_avg_pool",

@@ -37,6 +37,23 @@ _SIGNATURES = {
                                      _I],
     # x, is_bf16, ys, wy, xs, wx, B, h, w, C, H, W, out, stream, device
     "desenet_seg_tail": [_P, _I, _P, _P, _P, _P] + [_I] * 6 + [_P, _P, _I],
+    # boxes, scores, B, K, max_det, iou_thres, scratch, keep_idx, keep_sc,
+    # stream, device
+    "desenet_nms_greedy": [_P, _P, _I, _I, _I, ctypes.c_float, _P, _P, _P,
+                           _P, _I],
+    # K4 (seg_head_psp2.cu). in1, ld1, c1, in2, ld2, c2, w, bias, rowbias,
+    # add, add_ld, out, out_ld, B, H, W, taps, dil, O, mode, is_bf16,
+    # stream, device
+    "desenet_psp2_conv": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P]
+                         + [_I] * 9 + [_P, _I],
+    # in, ld, C, P, weights, KK, B, out, is_bf16, stream, device
+    "desenet_psp2_reduce": [_P, _I, _I, _I, _P, _I, _I, _P, _I, _P, _I],
+    # in, N, Cin, w, bias, Cout, mode, is_bf16, out, stream, device
+    "desenet_psp2_small": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _I],
+    # up, ck, C, P, KK, B, out, ld_out, is_bf16, stream, device
+    "desenet_psp2_unpool": [_P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _I],
+    # feat, gate, C, P, B, is_bf16, stream, device
+    "desenet_psp2_gate": [_P, _P, _I, _I, _I, _I, _P, _I],
 }
 
 _lock = threading.Lock()
@@ -70,16 +87,39 @@ def _nvcc() -> str:
 
 
 def _build(out_dir: str) -> None:
+    """One nvcc per source, all started together, then one link."""
     os.makedirs(out_dir, exist_ok=True)
-    tmp = os.path.join(out_dir, f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    jobs = []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = os.path.join(out_dir, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *compile_flags, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    tmp = os.path.join(out_dir, f"{LIB_NAME}.{tag}")
+    link = [nvcc, *NVCC_FLAGS, "-o", tmp, *[obj for _, obj, _ in jobs]]
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{out}")
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n"
+                          f"{proc.stdout}{proc.stderr}")
+    for _, obj, _ in jobs:
+        if os.path.exists(obj):
+            os.remove(obj)
     with open(os.path.join(out_dir, "build.log"), "w") as fh:
-        fh.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+        fh.write("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, os.path.join(out_dir, LIB_NAME))
 
 

@@ -80,10 +80,21 @@ def test_front_end_counts_and_refuses_unported_modes():
     assert out.boxes.shape == (3, 16, 4)
     assert out.num.dtype == torch.int32
     assert torch.equal(out.num, out.valid.sum(1).int())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        non_max_suppression(pred, multi_label=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        non_max_suppression([pred])
+    # multi-label and per-scale lists take the top-k + greedy-NMS route
+    # (tests/test_torch_nms_val.py holds it against JAX)
+    for kw in (dict(prediction=pred, multi_label=True),
+               dict(prediction=[pred])):
+        got = non_max_suppression(conf_thres=0.25, iou_thres=0.45,
+                                  max_det=16, **kw)
+        assert got.boxes.shape == (3, 16, 4)
+        assert torch.equal(got.num, got.valid.sum(1).int())
+    # the single-label list is the one-array result
+    lst = non_max_suppression([pred], conf_thres=0.25, iou_thres=0.45,
+                              max_det=16)
+    assert torch.equal(lst.num, out.num)
+    # a device that is neither CPU nor CUDA is refused, never computed
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        non_max_suppression(pred.to("meta"), multi_label=True)
 
 
 def test_greedy_select_checks_its_inputs():

@@ -1,6 +1,6 @@
-"""desenet_tpu_torch imports and serves with JAX, flax, optax, orbax, cv2
-and PyYAML blocked: the port never needs JAX, and the card's machine may
-lack cv2 and PyYAML."""
+"""desenet_tpu_torch imports, serves and validates (on an in-memory loader)
+with JAX, flax, optax, orbax, cv2 and PyYAML blocked: the port never needs
+JAX, and the card's machine may lack cv2 and PyYAML."""
 
 import os
 import subprocess
@@ -22,6 +22,8 @@ import torch
 import desenet_tpu_torch
 from desenet_tpu_torch.api import Predictor
 from desenet_tpu_torch.cli import serve as cli_serve  # noqa: F401
+from desenet_tpu_torch.cli import show_seg_miou, val as cli_val  # noqa: F401
+from desenet_tpu_torch.eval import Validator
 from desenet_tpu_torch.models import build_model, config_path, init_weights
 from desenet_tpu_torch.serve import BatchRunner, InferenceServer  # noqa: F401
 
@@ -39,6 +41,22 @@ img = np.random.default_rng(0).integers(0, 256, (64, 64, 3), dtype=np.uint8)
 res = pred(img)
 assert len(res) == 1 and res.masks[0].shape == (64, 64)
 assert res.xyxy[0].shape[1] == 6
+
+# the validation path: multi-label NMS, fused seg head, numpy metrics
+val_model, _ = build_model(cfg, decode_cat=False, seg_head_fused=True)
+val_model.load_state_dict(sd)
+rng = np.random.default_rng(1)
+batches = [{
+    "image": rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8),
+    "det_targets": np.concatenate(
+        [rng.integers(0, 3, (2, 4, 1)), rng.uniform(0.2, 0.8, (2, 4, 2)),
+         rng.uniform(0.1, 0.3, (2, 4, 2))], -1).astype(np.float32),
+    "det_mask": np.ones((2, 4), bool),
+    "seg_labels": rng.integers(0, 2, (2, 64, 64), dtype=np.uint8),
+    "shapes": [None, None],
+} for _ in range(2)]
+metrics = Validator(val_model, nc=3, se_nc=2).run(batches)
+assert metrics["seen"] == 4 and 0 <= metrics["miou"] <= 1, metrics
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in {b.split(".")[0] for b in BLOCKED}
                 and sys.modules[m] is not None)

@@ -10,7 +10,9 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
 1. build: nvcc builds the kernels from desenet_tpu_torch/csrc, one process
    per source, all at once (ptxas lines);
 2. each kernel against its plain PyTorch version on the card: K1 and K3 on
-   the shared-memory and the global-scratch path, K4 in f32 and bf16;
+   the shared-memory and the global-scratch path, K4 in f32 and bf16, K5
+   at (4, 640, 640, 3) with CO 32 and 64, K6 at yolov5s_seg's eight C3
+   shapes at batch 2, both in f32 (TF32 off) and bf16;
 3. the tiny model, the whole served program and the validation step (module
    and fused seg head) on the card against the CPU (float32, TF32 off);
 4. the serving path: yolov5s_seg at full width, random weights from seed 0,
@@ -27,7 +29,15 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
    device memory. K3 and K4 are first held against their plain versions
    on the validation forward's own tensors (K3 on its top-16384 candidate
    set, where bf16 scores tie often; K4 on its seg head's inputs, and
-   against the module head).
+   against the module head);
+6. the K5/K6 slice: its two entry points (desenet_tpu_torch.tools
+   probe_stem_pallas and proto_c3_kernel: parity in f32 and bf16, timing
+   at b128/640 bf16) with K5/K6's
+   launch counters reset before and read after; then, on the b128/640 bf16
+   served forward, the input and output of the Focus stem and of every C3
+   are hooked, K5 (on fold_focus's weights) and K6 (on fold_c3's) are held
+   against their plain versions and against the modules' outputs, and the
+   three are timed in turns, one line per layer.
 
 Inputs of the kernel checks come from desenet_tpu_torch.testing, shared with
 tests/test_torch_kernels_cuda.py.
@@ -38,15 +48,16 @@ limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+from desenet_tpu_torch.testing import check_bf16, check_close, no_tf32
+from desenet_tpu_torch.tools.timing import card_line, cuda_ms, in_turns
 
 B_SERVE = 128
 B_VAL = 32
@@ -57,52 +68,6 @@ CSRC = "desenet_tpu_torch/csrc"
 
 def log(phase, msg: str) -> None:
     print(f"[phase {phase}] {msg}", flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn()`` over ``reps`` back-to-back runs, timed
-    with CUDA events after one untimed run."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def in_turns(plain, kernel, reps_plain: int, reps_kernel: int):
-    """Time plain, kernel, kernel, plain; return the two means (ms)."""
-    p1 = cuda_ms(plain, reps_plain)
-    k1 = cuda_ms(kernel, reps_kernel)
-    k2 = cuda_ms(kernel, reps_kernel)
-    p2 = cuda_ms(plain, reps_plain)
-    return (k1 + k2) / 2, (p1 + p2) / 2
-
-
-@contextlib.contextmanager
-def no_tf32():
-    """Full f32 matmuls and convolutions inside the block."""
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 def val_batches(seed: int, n: int, b: int, imgsz: int, nc: int, se_nc: int,
@@ -175,11 +140,13 @@ def phase1():
 
 
 def phase2(errs: dict):
-    from desenet_tpu_torch.ops import (nms_fused, nms_pallas, seg_head_pallas,
-                                       seg_pallas)
-    from desenet_tpu_torch.testing import (check_psp2, greedy_candidates,
-                                           psp2_inputs, random_psp2_head,
-                                           synthetic_decode)
+    from desenet_tpu_torch.ops import (c3_fused, nms_fused, nms_pallas,
+                                       seg_head_pallas, seg_pallas,
+                                       stem_pallas)
+    from desenet_tpu_torch.testing import (C3_SERVED, check_psp2,
+                                           greedy_candidates, psp2_inputs,
+                                           random_c3_params, random_psp2_head,
+                                           stem_inputs, synthetic_decode)
 
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
@@ -261,6 +228,39 @@ def phase2(errs: dict):
             log(2, f"K4 seg_head_psp2 ({b}, 80, 80) c_hid {c_hid} "
                 f"{str(dt)[6:]}: {bar} (max abs err {err:.6g}, |plain| max "
                 f"{float(ref.abs().max()):.6g}, argmax agreement {agree:.6f})")
+
+        for co in (32, 64):
+            x, w6, bias = stem_inputs(4, IMGSZ, IMGSZ, co)
+            for dt in (torch.float32, torch.bfloat16):
+                xd = x.to(dev, dt)
+                wm = stem_pallas.stem_weight_matrix(w6, dt).to(dev)
+                bd = torch.from_numpy(bias).to(dev)
+                got = stem_pallas.stem_conv(xd, wm, bd)
+                ref = stem_pallas.stem_conv_plain(xd, wm, bd)
+                torch.cuda.synchronize()
+                err = check_close(got, ref, f"K5 CO {co}", 1e-5)
+                errs["stem_conv"] = max(errs.get("stem_conv", 0.0), err)
+                log(2, f"K5 stem_conv (4, {IMGSZ}, {IMGSZ}, 3) -> CO {co} "
+                    f"{str(dt)[6:]}: max abs err {err:.6g} against plain "
+                    f"(|plain| max {float(ref.float().abs().max()):.6g})")
+
+        for row, c, c2, c_, n, sc, side in C3_SERVED:
+            raw = random_c3_params(np.random.default_rng(row), c, c_, c2, n)
+            x = torch.from_numpy(rng.normal(size=(2, side, side, c)).astype(
+                np.float32))
+            for dt in (torch.float32, torch.bfloat16):
+                params = c3_fused.c3_params(raw, dev, dt)
+                xd = x.to(dev, dt)
+                got = c3_fused.c3_fused(xd, params, n, sc)
+                ref = c3_fused.c3_plain(xd, params, n, sc)
+                torch.cuda.synchronize()
+                err = check_close(got, ref, f"K6 row {row}", 1e-4)
+                errs["c3_fused"] = max(errs.get("c3_fused", 0.0), err)
+                log(2, f"K6 c3_fused row {row} (2, {side}, {side}, {c}) -> "
+                    f"{c2}, c_ {c_}, n {n}, shortcut {sc}, {str(dt)[6:]}: "
+                    f"max abs err {err:.6g} against plain (|plain| max "
+                    f"{float(ref.float().abs().max()):.6g}, tile "
+                    f"{c3_fused.pick_tile(c_, n, xd.element_size())})")
 
 
 def match_boxes(got, want) -> float:
@@ -515,15 +515,17 @@ def phase5(pred, card: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     log(5, f"device program b{B_SERVE}/{IMGSZ} (uint8 in, forward + K1 + K2, "
         f"bf16): {ms:.3f} ms/batch = {B_SERVE / ms * 1e3:.1f} img/s; peak "
-        f"allocated {peak / 2**30:.3f} GiB [{card}]")
+        f"allocated {peak / 2**30:.3f} GiB [{card}] (it runs neither K5 "
+        f"nor K6)")
 
     timing = {}
     rng = np.random.default_rng(1)
     pred_np = synthetic_decode(rng, B_SERVE, 25200, 6, 0.01)
     planes = nms_fused.nms_planes(torch.from_numpy(pred_np).to(dev), 0.25)
     n_cand = float((planes[4] > 0).sum(1).float().mean())
-    k, p = in_turns(lambda: nms_fused.greedy_select_plain(*planes, 300, 0.45),
-                    lambda: nms_fused.greedy_select(*planes, 300, 0.45), 2, 20)
+    p, k = in_turns(
+        (lambda: nms_fused.greedy_select_plain(*planes, 300, 0.45), 2),
+        (lambda: nms_fused.greedy_select(*planes, 300, 0.45), 20))
     timing["nms_fused"] = (k, p)
     log(5, f"K1 nms_fused ({B_SERVE}, 25200) planes, {n_cand:.0f} "
         f"candidates/image, max_det 300: kernel {k:.3f} ms, plain {p:.3f} ms "
@@ -533,8 +535,9 @@ def phase5(pred, card: str) -> dict:
         np.float32)).to(dev, torch.bfloat16)
     taps = (*seg_pallas.seg_taps(80, 640, True, dev),
             *seg_pallas.seg_taps(80, 640, True, dev))
-    k, p = in_turns(lambda: seg_pallas.upsample_argmax_plain(logits, *taps),
-                    lambda: seg_pallas.upsample_argmax(logits, 8, True), 3, 20)
+    p, k = in_turns(
+        (lambda: seg_pallas.upsample_argmax_plain(logits, *taps), 3),
+        (lambda: seg_pallas.upsample_argmax(logits, 8, True), 20))
     timing["seg_tail"] = (k, p)
     log(5, f"K2 seg_tail ({B_SERVE}, 80, 80, 3) bf16 -> ({B_SERVE}, 640, 640) "
         f"uint8: kernel {k:.3f} ms, plain {p:.3f} ms [{card}]")
@@ -557,7 +560,7 @@ def phase5_val(model, spec, validator, batch, card: str, timing: dict,
         model.seg_head_fused = fused
         return validator.eval_step(img, tgts, tmask)
 
-    on, off = in_turns(lambda: step(False), lambda: step(True), 5, 5)
+    off, on = in_turns((lambda: step(False), 5), (lambda: step(True), 5))
     model.seg_head_fused = False
     log(5, f"val device step b{B_VAL}/{IMGSZ} bf16 (uint8 in, forward, "
         f"multi-label top-{PRE_TOPK_VAL} + K3 NMS, seg argmax): module seg "
@@ -591,9 +594,9 @@ def phase5_val(model, spec, validator, batch, card: str, timing: dict,
     err = float((sc - rsc).abs().max())
     errs["nms_greedy"] = max(errs.get("nms_greedy", 0.0), err)
     picks = float((sc > 0).sum(1).float().mean())
-    k, p = in_turns(
-        lambda: nms_pallas.greedy_nms_plain(boxes, scores, 0.6, 300),
-        lambda: nms_pallas.greedy_nms_pallas(boxes, scores, 0.6, 300), 1, 10)
+    p, k = in_turns(
+        (lambda: nms_pallas.greedy_nms_plain(boxes, scores, 0.6, 300), 1),
+        (lambda: nms_pallas.greedy_nms_pallas(boxes, scores, 0.6, 300), 10))
     timing["nms_greedy"] = (k, p)
     log(5, f"K3 nms_greedy ({B_VAL}, {boxes.shape[1]}) from the val decode, "
         f"{live:.0f} live candidates ({ties} equal to their neighbour in "
@@ -629,12 +632,13 @@ def phase5_val(model, spec, validator, batch, card: str, timing: dict,
             f"max abs err {mod_err:.6g} (rtol 0.1, atol 0.15), argmax "
             f"agreement {mod_agree:.6f} (> 0.99)")
         with torch.inference_mode():
-            k, p = in_turns(
-                lambda: seg_head_pallas.fused_psp2_eval_plain(xs, head, n),
-                lambda: seg_head_pallas.fused_psp2_eval(xs, head, n), 3, 10)
-            k2, cudnn = in_turns(lambda: head(nchw),
-                                 lambda: seg_head_pallas.fused_psp2_eval(
-                                     xs, head, n), 10, 10)
+            p, k = in_turns(
+                (lambda: seg_head_pallas.fused_psp2_eval_plain(xs, head, n),
+                 3),
+                (lambda: seg_head_pallas.fused_psp2_eval(xs, head, n), 10))
+            cudnn, k2 = in_turns(
+                (lambda: head(nchw), 10),
+                (lambda: seg_head_pallas.fused_psp2_eval(xs, head, n), 10))
     finally:
         head.upsample = True
     timing["seg_head_psp2"] = (k, p)
@@ -651,6 +655,101 @@ def kernel_entry(name, replaces, launches, errs, timing):
             "plain_ms": timing[name][1]}
 
 
+def phase6(pred, card: str, timing: dict, errs: dict) -> dict:
+    from desenet_tpu_torch.models.layers import C3, Focus
+    from desenet_tpu_torch.ops import c3_fused, stem_pallas
+    from desenet_tpu_torch.testing import BF16_MODULE_BAR, C3_SERVED
+    from desenet_tpu_torch.tools import probe_stem_pallas, proto_c3_kernel
+    from desenet_tpu_torch.utils.fold import fold_c3, fold_focus
+
+    # the slice's main path: its two entry points, as a user runs them
+    stem_pallas.launches = 0
+    c3_fused.launches = 0
+    t = time.perf_counter()
+    dev = pred.device
+    argv = ["--device", dev.type, "--batch", str(B_SERVE), "--imgsz",
+            str(IMGSZ)]
+    for tool in (probe_stem_pallas, proto_c3_kernel):
+        if tool.main(argv) != 0:
+            raise AssertionError(f"{tool.__name__} failed")
+    launches = {"stem_conv": stem_pallas.launches,
+                "c3_fused": c3_fused.launches}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"the entry points did not launch K5 and K6: "
+                             f"{launches}")
+    log(6, f"entry points probe_stem_pallas and proto_c3_kernel (f32 and "
+        f"bf16 parity, b{B_SERVE}/{IMGSZ} bf16 timing) passed in {time.perf_counter() - t:.3f} s; kernel "
+        f"launches {launches}")
+
+    # K5 and K6 on the served forward's own tensors, beside the modules
+    net = pred.model.model
+    rows = [i for i, m in enumerate(net) if isinstance(m, (Focus, C3))]
+    seen = {}
+    hooks = [net[i].register_forward_hook(
+        lambda m, args, out, i=i: seen.__setitem__(i, (args[0], out)))
+        for i in rows]
+    g = torch.Generator(device=dev).manual_seed(3)
+    try:
+        pred.infer(torch.randint(0, 256, (B_SERVE, IMGSZ, IMGSZ, 3),
+                                 dtype=torch.uint8, device=dev, generator=g))
+    finally:
+        for h in hooks:
+            h.remove()
+    shapes = [(i, m.cv1.conv.in_channels, m.cv3.conv.out_channels,
+               m.cv1.conv.out_channels, len(m.m), m.m[0].add,
+               seen[i][0].shape[2]) for i, m in enumerate(net) if i in rows[1:]]
+    if rows[0] != 0 or not isinstance(net[0], Focus) or \
+            tuple(shapes) != C3_SERVED:
+        raise AssertionError(f"served C3 rows {shapes} differ from "
+                             f"testing.C3_SERVED")
+    total = {"stem_conv": [0.0, 0.0, 0.0], "c3_fused": [0.0, 0.0, 0.0]}
+    for i in rows:
+        inp, out = seen[i]
+        x = inp.permute(0, 2, 3, 1)  # NHWC view of the channels_last input
+        hw = tuple(inp.shape[2:])
+        m = net[i]
+        if i == 0:
+            name = "stem_conv"
+            w6, bias = fold_focus(m, hw)
+            wm = stem_pallas.stem_weight_matrix(w6, x.dtype).to(dev)
+            bd = torch.from_numpy(bias).to(dev)
+            kern = lambda: stem_pallas.stem_conv(x, wm, bd)  # noqa: E731
+            plain = lambda: stem_pallas.stem_conv_plain(x, wm, bd)  # noqa
+        else:
+            name = "c3_fused"
+            p = c3_fused.c3_params(fold_c3(m, hw), dev, x.dtype)
+            n, sc = len(m.m), m.m[0].add
+            kern = lambda: c3_fused.c3_fused(x, p, n, sc)  # noqa: E731
+            plain = lambda: c3_fused.c3_plain(x, p, n, sc)  # noqa: E731
+        with torch.inference_mode():
+            got, ref = kern(), plain()
+            torch.cuda.synchronize()
+            err = check_bf16(got, ref, f"{name} row {i} vs plain")
+            mod_err = check_bf16(got, out.permute(0, 2, 3, 1),
+                                 f"{name} row {i} vs the module",
+                                 BF16_MODULE_BAR)
+            del got, ref
+            errs[name] = max(errs.get(name, 0.0), err)
+            pms, kms, mms = in_turns((plain, 1), (kern, 5),
+                                           (lambda: m(inp), 5))
+        total[name][0] += kms
+        total[name][1] += pms
+        total[name][2] += mms
+        log(6, f"row {i} {type(m).__name__} {tuple(x.shape)} -> "
+            f"{out.shape[1]} bf16 on the served forward: max abs err "
+            f"vs plain {err:.6g}, vs the module {mod_err:.6g} (|module| max "
+            f"{float(out.float().abs().max()):.6g}); kernel {kms:.3f} ms, "
+            f"plain {pms:.3f} ms, module (cuDNN) {mms:.3f} ms [{card}]")
+    for name, (k, p, _) in total.items():
+        timing[name] = (k, p)
+    (k5, p5, m5), (k6, p6, m6) = total["stem_conv"], total["c3_fused"]
+    log(6, f"served forward b{B_SERVE}/{IMGSZ} bf16: at the stem K5 {k5:.3f} "
+        f"ms, plain {p5:.3f} ms, module Focus {m5:.3f} ms; over the "
+        f"{len(rows) - 1} C3 blocks K6 {k6:.3f} ms, plain {p6:.3f} ms, "
+        f"modules {m6:.3f} ms [{card}]")
+    return launches
+
+
 def main() -> None:
     phase0()
     card = card_line()
@@ -662,8 +761,10 @@ def main() -> None:
     model, spec, validator, batch, val_launches = phase4b(sd)
     launches.update(val_launches)
     timing = phase5(pred, card)
-    del pred
     phase5_val(model, spec, validator, batch, card, timing, errs)
+    del model, validator
+    launches.update(phase6(pred, card, timing, errs))
+    del pred
     record = {"kernels": [
         kernel_entry("nms_fused", "desenet_tpu/ops/nms_fused.py:46",
                      launches, errs, timing),
@@ -672,6 +773,10 @@ def main() -> None:
         kernel_entry("nms_greedy", "desenet_tpu/ops/nms_pallas.py:30",
                      launches, errs, timing),
         kernel_entry("seg_head_psp2", "desenet_tpu/ops/seg_head_pallas.py:239",
+                     launches, errs, timing),
+        kernel_entry("stem_conv", "desenet_tpu/ops/stem_pallas.py:77",
+                     launches, errs, timing),
+        kernel_entry("c3_fused", "tools/proto_c3_kernel.py:35",
                      launches, errs, timing),
     ]}
     print(json.dumps(record), flush=True)

@@ -14,7 +14,10 @@ from desenet_tpu_torch.ops.resize import (
     resize_nearest,
     upsample_nearest,
 )
+# ``ops.c3_fused`` stays the module (its launch counter lives there)
+from desenet_tpu_torch.ops.c3_fused import c3_params
 from desenet_tpu_torch.ops.seg_pallas import upsample_argmax
+from desenet_tpu_torch.ops.stem_pallas import stem_conv, stem_weight_matrix
 
 __all__ = [
     "box_iou",
@@ -32,4 +35,7 @@ __all__ = [
     "resize_nearest",
     "upsample_nearest",
     "upsample_argmax",
+    "c3_params",
+    "stem_conv",
+    "stem_weight_matrix",
 ]

@@ -54,6 +54,12 @@ _SIGNATURES = {
     "desenet_psp2_unpool": [_P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _I],
     # feat, gate, C, P, B, is_bf16, stream, device
     "desenet_psp2_gate": [_P, _P, _I, _I, _I, _I, _P, _I],
+    # K5 (stem_conv.cu). x, wm, bias, B, H, W, CO, silu_on, is_bf16, out,
+    # stream, device
+    "desenet_stem_conv": [_P] * 3 + [_I] * 6 + [_P, _P, _I],
+    # K6 (c3_fused.cu). x, w12, b12, wb1, bb1, wb2, bb2, w3, b3, B, H, W, C,
+    # c_, C2, n, shortcut, tile, is_bf16, out, stream, device
+    "desenet_c3_fused": [_P] * 9 + [_I] * 10 + [_P, _P, _I],
 }
 
 _lock = threading.Lock()

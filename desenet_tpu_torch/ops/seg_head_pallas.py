@@ -1,7 +1,8 @@
 """The SegMaskPSP2 seg head fused for eval, BN folded.
 
 Counterpart of ``desenet_tpu/ops/seg_head_pallas.py``. The host part runs
-as tensor ops outside the kernel, as there: the BN fold (eps 1e-3; the two
+as tensor ops outside the kernel, as there: the BN fold
+(``utils/fold.fold_conv``, eps 1e-3; the two
 convs on a 1x1 input, the global branch and pyramid k=1, fold to conv only),
 the m16/m32 stems at their native resolution with their 1x1 branch0_a /
 context_red slices applied, then the commuted align-corners bilinear
@@ -28,10 +29,10 @@ import torch.nn.functional as F
 from desenet_tpu_torch.ops import _ext
 from desenet_tpu_torch.ops.resize import (_adaptive_pool_matrix,
                                           _linear_matrix, resize_bilinear)
+from desenet_tpu_torch.utils.fold import fold_conv
 
 launches = 0  # calls of fused_psp2_eval that launched the kernels
 MAX_P8 = 8192
-BN_EPS = 1e-3
 POOL_SIZES = (2, 3, 6)
 _CONV_SILU, _CONV_LINEAR_F32 = 0, 1
 _SMALL_NONE, _SMALL_SILU, _SMALL_SIGMOID = 0, 1, 2
@@ -46,37 +47,24 @@ def _mm(a, w):
     return torch.matmul(a.float(), w.float())
 
 
-def _fold(conv, bn):
-    """Conv (+ eval BN) -> (W f32, b f32): W in HWIO for a 3x3, (ci, co) for
-    a 1x1; ``bn`` None for a conv whose BN never runs."""
-    w = conv.weight.detach().float().permute(2, 3, 1, 0)
-    if w.shape[0] == 1 and w.shape[1] == 1:
-        w = w[0, 0]
-    if bn is None:
-        return w, torch.zeros(w.shape[-1], device=w.device)
-    s = bn.weight.detach().float() * torch.rsqrt(
-        bn.running_var.detach().float() + BN_EPS)
-    return w * s, bn.bias.detach().float() - bn.running_mean.detach().float() * s
-
-
 def fold_head(head) -> dict:
     """The port's ``SegMaskPSP2`` module -> its folded f32 weights."""
     sp = head.spatial_path
     pp = head.context_path[1]
-    cba = lambda m: _fold(m.conv, m.bn)  # noqa: E731
+    cba = lambda m: fold_conv(m.conv, m.bn)  # noqa: E731
     f = {
         "m8": cba(head.m8[0]), "m16": cba(head.m16[0]),
         "m32": cba(head.m32[0]),
         "b0a": cba(sp.branch0[0]), "b0b": cba(sp.branch0[1]),
-        "b1": _fold(sp.branch1[0], sp.branch1[1]),
-        "b2": _fold(sp.branch2[0], sp.branch2[1]),
-        "g": _fold(sp.branch_global[1].conv, None),
+        "b1": fold_conv(sp.branch1[0], sp.branch1[1]),
+        "b2": fold_conv(sp.branch2[0], sp.branch2[1]),
+        "g": fold_conv(sp.branch_global[1].conv, None),
         "lin": cba(sp.ConvLinear), "red": cba(head.context_path[0]),
-        "pp1": _fold(pp.conv1.conv, None),
+        "pp1": fold_conv(pp.conv1.conv, None),
         "pp": [cba(getattr(pp, f"conv{i}")) for i in (2, 3, 4)],
         "cb": cba(head.ffm.convblk),
-        "fc1": _fold(head.ffm.channel_attention[1], None)[0],
-        "fc2": _fold(head.ffm.channel_attention[3], None)[0],
+        "fc1": fold_conv(head.ffm.channel_attention[1], None)[0],
+        "fc2": fold_conv(head.ffm.channel_attention[3], None)[0],
         "out": (head.out[0].weight.detach().float()[:, :, 0, 0].t(),
                 head.out[0].bias.detach().float()),
     }

@@ -1,15 +1,33 @@
 """Seeded synthetic inputs for holding the port's kernels against their
-plain PyTorch versions. ``chip_smoke.py`` and
-``tests/test_torch_kernels_cuda.py`` both draw from here, so the checks on
-the card and the card tests see the same data at the same shapes.
+plain PyTorch versions, and the bars they are held to. ``chip_smoke.py``,
+the probes in ``desenet_tpu_torch/tools`` and
+``tests/test_torch_kernels_cuda.py`` draw from here, so the checks on the
+card and the card tests see the same data at the same shapes.
 
 Everything is made on the CPU; callers move it to the device.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Full f32 matmuls and convolutions inside the block (cuDNN takes f32
+    convolutions in TF32 by default)."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 def synthetic_decode(rng, b: int, a: int, nc: int, frac: float) -> np.ndarray:
@@ -78,6 +96,107 @@ def check_psp2(got: torch.Tensor, want: torch.Tensor, dtype) -> tuple:
                 f"K4 {dtype}: max abs err {err} (bound {bound}), argmax "
                 f"agreement {agree} (bound 0.99)")
     return err, agree
+
+
+# bf16 bars of kernels K5 and K6, as fractions of the largest |want|.
+# Against the plain version, which rounds to bf16 at the kernel's own points
+# and differs only in the order of its f32 sums, an element may land an ulp
+# away, and an ulp's step in an intermediate moves the output by about as
+# much (at most 0.4% of the largest value in the CPU tests): 2^-6, at least
+# two bf16 ulps of the largest value (bf16 keeps 8 significant bits).
+# Against the cuDNN modules, which also round after every conv, BN and SiLU
+# and keep their BN apart from the bf16 weights (up to 1.23% in the CPU
+# tests): 2^-5.
+BF16_BAR = 2.0 ** -6
+BF16_MODULE_BAR = 2.0 ** -5
+
+
+def check_bf16(got: torch.Tensor, want: torch.Tensor, what: str,
+               bar: float = BF16_BAR) -> float:
+    """Hold a bf16 output to ``bar`` (a fraction of the largest |want|)
+    after checking its shape and that it is finite. Raises AssertionError;
+    returns the max abs err."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    err = float((got - want).abs().max())
+    bound = bar * float(want.abs().max())
+    if not err <= bound:
+        raise AssertionError(f"{what}: max abs err {err} above the bf16 bar "
+                             f"{bound} ({bar:g} of |want| max)")
+    return err
+
+
+def check_close(got: torch.Tensor, want: torch.Tensor, what: str,
+                f32_tol: float, bar: float = BF16_BAR) -> float:
+    """Hold a K5/K6 output to its bar by its dtype: float32 at rtol/atol
+    ``f32_tol``, bfloat16 by ``check_bf16`` at ``bar``. Raises
+    AssertionError; returns the max abs err."""
+    if got.dtype == torch.bfloat16:
+        return check_bf16(got, want, what, bar)
+    torch.testing.assert_close(got, want.to(got.dtype), rtol=f32_tol,
+                               atol=f32_tol, msg=lambda m: f"{what}: {m}")
+    return float((got - want).abs().max())
+
+
+def randomize_bn(module: torch.nn.Module, seed: int) -> torch.nn.Module:
+    """Seeded BN statistics and affine parameters for every BatchNorm2d of
+    ``module`` (in place), so that BN folds are exercised."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.copy_(torch.rand(m.weight.shape, generator=g) + 0.5)
+                m.bias.copy_(torch.randn(m.bias.shape, generator=g) * 0.2)
+                m.running_mean.copy_(
+                    torch.randn(m.running_mean.shape, generator=g) * 0.2)
+                m.running_var.copy_(
+                    torch.rand(m.running_var.shape, generator=g) + 0.5)
+    return module
+
+
+def stem_inputs(b: int, h: int, w: int, co: int, seed: int = 0):
+    """K5's inputs: NHWC f32 image in [0, 1) as a tensor, a (6, 6, 3, CO)
+    HWIO kernel (normal x 0.3, as tests/test_stem_pallas.py draws it) and a
+    (CO,) bias, both numpy f32."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 1, (b, h, w, 3)).astype(np.float32)
+    w6 = (rng.normal(size=(6, 6, 3, co)) * 0.3).astype(np.float32)
+    bias = (rng.normal(size=co) * 0.1).astype(np.float32)
+    return torch.from_numpy(x), w6, bias
+
+
+# yolov5s_seg's eight C3 rows at 640 px (depth 0.33, width 0.5):
+# (row, C, C2, c_, n, shortcut, side of the square map)
+C3_SERVED = (
+    (2, 64, 64, 32, 1, True, 160),
+    (4, 128, 128, 64, 3, True, 80),
+    (6, 256, 256, 128, 3, True, 40),
+    (9, 512, 512, 256, 1, False, 20),
+    (13, 512, 256, 128, 1, False, 40),
+    (17, 256, 128, 64, 1, False, 80),
+    (20, 256, 256, 128, 1, False, 40),
+    (23, 512, 512, 256, 1, False, 20),
+)
+
+
+def random_c3_params(rng, c: int, c_: int, c2: int, n: int) -> dict:
+    """K6's params in the proto's layout (numpy f32): weights normal over
+    sqrt(fan-in), so activations stay of order 1 through the block, biases
+    normal x 0.1."""
+    def w(fan_in, *shape):
+        return (rng.normal(size=shape) / np.sqrt(fan_in)).astype(np.float32)
+
+    def b(*shape):
+        return (rng.normal(size=shape) * 0.1).astype(np.float32)
+
+    return {"w12": w(c, c, 2 * c_), "b12": b(2 * c_),
+            "wb1": w(c_, n, c_, c_), "bb1": b(n, c_),
+            "wb2": w(9 * c_, n, 9, c_, c_), "bb2": b(n, c_),
+            "w3": w(2 * c_, 2 * c_, c2), "b3": b(c2)}
 
 
 def psp2_inputs(b: int, h8: int, w8: int, chans, seed: int = 0):

@@ -1,0 +1,93 @@
+"""Where the served program's time goes, kernel by kernel.
+
+    python -m desenet_tpu_torch.tools.profile_served       # card, b128/640
+    python -m desenet_tpu_torch.tools.profile_served --device cpu \\
+        --batch 1 --imgsz 64
+
+``torch.profiler`` over ``RUNS`` warm calls of the served device program
+(``Predictor.infer``: yolov5s_seg, random weights from seed 0, bf16 on a
+card, uint8 images in), then over the model's Focus stem alone on that
+program's stem input. For each, a table of the device kernels (on the CPU:
+the host ops, by self time) with milliseconds and calls per run, most time
+first, and their total, with the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from desenet_tpu_torch.api import Predictor
+from desenet_tpu_torch.models import build_model, config_path, init_weights
+from desenet_tpu_torch.tools.timing import card_line
+
+RUNS = 5  # profiled calls
+TOP = 30  # table rows printed
+
+
+def kernel_table(fn, device: torch.device):
+    """[(name, ms per run, calls per run)] of the kernels (the host ops on
+    the CPU) that ``RUNS`` calls of ``fn`` launch, most time first."""
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    fn()
+    sync()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        for _ in range(RUNS):
+            fn()
+        sync()
+    want = DeviceType.CUDA if cuda else DeviceType.CPU
+    rows = [(e.key, (e.self_device_time_total if cuda
+                     else e.self_cpu_time_total) / 1e3 / RUNS, e.count / RUNS)
+            for e in prof.key_averages() if e.device_type == want]
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def show(title: str, rows, tail: str) -> float:
+    total = sum(ms for _, ms, _ in rows)
+    print(f"{title}: {total:.3f} ms per run in {len(rows)} kernels "
+          f"{tail}", flush=True)
+    for name, ms, calls in rows[:TOP]:
+        print(f"  {ms:9.3f} ms {calls:7.1f} calls  {name[:110]}", flush=True)
+    return total
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--imgsz", type=int, default=640)
+    args = ap.parse_args(argv)
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("profile_served: no CUDA device")
+    tail = f"[{card_line()}]" if dev.type == "cuda" else "(host ops, CPU)"
+
+    model, _ = build_model(config_path("yolov5s_seg"))
+    sd = init_weights(model, torch.Generator().manual_seed(0)).state_dict()
+    pred = Predictor("yolov5s_seg", sd, imgsz=args.imgsz,
+                     half=dev.type == "cuda", device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    img = torch.randint(0, 256, (args.batch, args.imgsz, args.imgsz, 3),
+                        dtype=torch.uint8, device=dev, generator=g)
+    seen = []
+    hook = pred.model.model[0].register_forward_hook(
+        lambda m, a, out: seen.append(a[0]))
+    try:
+        show(f"served program b{args.batch}/{args.imgsz} {pred.dtype}",
+             kernel_table(lambda: pred.infer(img), dev), tail)
+    finally:
+        hook.remove()
+    stem, x = pred.model.model[0], seen[-1]
+    with torch.inference_mode():
+        show(f"its {type(stem).__name__} stem alone on {tuple(x.shape)}",
+             kernel_table(lambda: stem(x), dev), tail)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,6 +1,6 @@
 """The CUDA kernels K1 (csrc/nms_fused.cu), K2 (csrc/seg_tail.cu), K3
-(csrc/nms_greedy.cu) and K4 (csrc/seg_head_psp2.cu) against their plain
-PyTorch versions, on the card. Each test skips without
+(csrc/nms_greedy.cu), K4 (csrc/seg_head_psp2.cu), K5 (csrc/stem_conv.cu) and
+K6 (csrc/c3_fused.cu) against their plain PyTorch versions, on the card. Each test skips without
 a CUDA device (decided in the fixture, never at import). Run on the card:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
@@ -13,7 +13,11 @@ fused multiply-adds, so the results must be equal. K4 sums its products in
 another order than the plain version's matmuls: it is held to
 ``desenet_tpu_torch.testing.check_psp2``'s bars (f32 at rtol/atol 1e-4 with
 TF32 off; bf16 within 1e-2 of the largest plain logit and class decisions
-equal on at least 99% of positions). The inputs come from
+equal on at least 99% of positions). K5 and K6 also sum in another order
+than their plain versions: f32 (TF32 off) at rtol/atol 1e-5 (K5, 108
+products a pixel, as tests/test_stem_pallas.py holds the TPU kernel) and
+1e-4 (K6, sums up to 2304 long through a chain of five products); bf16 at
+``desenet_tpu_torch.testing.check_bf16``'s bar. The inputs come from
 ``desenet_tpu_torch.testing``, as chip_smoke.py's do.
 """
 
@@ -21,10 +25,12 @@ import numpy as np
 import pytest
 import torch
 
-from desenet_tpu_torch.ops import (nms_fused, nms_pallas, seg_head_pallas,
-                                   seg_pallas)
-from desenet_tpu_torch.testing import (check_psp2, greedy_candidates,
-                                       psp2_inputs, random_psp2_head,
+from desenet_tpu_torch.ops import (c3_fused, nms_fused, nms_pallas,
+                                   seg_head_pallas, seg_pallas, stem_pallas)
+from desenet_tpu_torch.testing import (C3_SERVED, check_close, check_psp2,
+                                       greedy_candidates, no_tf32,
+                                       psp2_inputs, random_c3_params,
+                                       random_psp2_head, stem_inputs,
                                        synthetic_decode)
 
 pytestmark = pytest.mark.cuda
@@ -35,6 +41,12 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def full_f32():
+    with no_tf32():
+        yield
 
 
 @pytest.mark.parametrize("frac", [0.0, 0.01, 0.8])  # none, sparse, > smem cap
@@ -81,21 +93,58 @@ def test_greedy_nms_kernel_matches_plain(cuda, b, k):
 @pytest.mark.parametrize("c_hid,dtype", [(128, torch.float32),
                                          (128, torch.bfloat16),
                                          (256, torch.float32)])
-def test_seg_head_kernel_matches_plain(cuda, c_hid, dtype):
-    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        chans = (2 * c_hid, 2 * c_hid, 4 * c_hid)  # the model family's
-        head = random_psp2_head(chans, c_hid).to(cuda)
-        xs = [x.to(cuda, dtype) for x in psp2_inputs(2, 80, 80, chans)]
-        before = seg_head_pallas.launches
-        got = seg_head_pallas.fused_psp2_eval(xs, head, 3)
-        assert seg_head_pallas.launches == before + 1
-        want = seg_head_pallas.fused_psp2_eval_plain(xs, head, 3)
-        torch.cuda.synchronize()
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = tf32
+def test_seg_head_kernel_matches_plain(cuda, full_f32, c_hid, dtype):
+    chans = (2 * c_hid, 2 * c_hid, 4 * c_hid)  # the model family's
+    head = random_psp2_head(chans, c_hid).to(cuda)
+    xs = [x.to(cuda, dtype) for x in psp2_inputs(2, 80, 80, chans)]
+    before = seg_head_pallas.launches
+    got = seg_head_pallas.fused_psp2_eval(xs, head, 3)
+    assert seg_head_pallas.launches == before + 1
+    want = seg_head_pallas.fused_psp2_eval_plain(xs, head, 3)
+    torch.cuda.synchronize()
     assert got.shape == want.shape == (2, 80, 80, 3)
     check_psp2(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw,co,silu", [((640, 640), 32, True),
+                                        ((640, 640), 64, True),
+                                        ((640, 640), 24, False),
+                                        ((100, 70), 16, True)])  # ragged
+def test_stem_kernel_matches_plain(cuda, full_f32, dtype, hw, co, silu):
+    x, w6, bias = stem_inputs(2, *hw, co)
+    x = x.to(cuda, dtype)
+    wm = stem_pallas.stem_weight_matrix(w6, dtype).to(cuda)
+    bias = torch.from_numpy(bias).to(cuda)
+    before = stem_pallas.launches
+    got = stem_pallas.stem_conv(x, wm, bias, silu=silu)
+    assert stem_pallas.launches == before + 1
+    want = stem_pallas.stem_conv_plain(x, wm, bias, silu)
+    torch.cuda.synchronize()
+    assert got.shape == (2, hw[0] // 2, hw[1] // 2, co)
+    assert got.dtype == dtype
+    check_close(got, want, f"K5 CO {co}", 1e-5)
+
+
+# yolov5s_seg's eight C3 rows, then ragged maps (tiles cut by the border)
+C3_CASES = [(row, c, c2, c_, n, sc, (side, side))
+            for row, c, c2, c_, n, sc, side in C3_SERVED] + [
+    (0, 32, 32, 16, 3, True, (12, 20)), (1, 128, 64, 32, 2, False, (7, 9))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("row,c,c2,c_,n,shortcut,hw", C3_CASES)
+def test_c3_kernel_matches_plain(cuda, full_f32, dtype, row, c, c2, c_, n,
+                                 shortcut, hw):
+    rng = np.random.default_rng(row)
+    params = c3_fused.c3_params(random_c3_params(rng, c, c_, c2, n), cuda,
+                                dtype)
+    x = torch.from_numpy(rng.normal(size=(2, *hw, c)).astype(
+        np.float32)).to(cuda, dtype)
+    before = c3_fused.launches
+    got = c3_fused.c3_fused(x, params, n, shortcut)
+    assert c3_fused.launches == before + 1
+    want = c3_fused.c3_plain(x, params, n, shortcut)
+    torch.cuda.synchronize()
+    assert got.shape == (2, *hw, c2) and got.dtype == dtype
+    check_close(got, want, f"K6 row {row}", 1e-4)

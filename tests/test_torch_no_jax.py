@@ -1,6 +1,7 @@
-"""desenet_tpu_torch imports, serves and validates (on an in-memory loader)
-with JAX, flax, optax, orbax, cv2 and PyYAML blocked: the port never needs
-JAX, and the card's machine may lack cv2 and PyYAML."""
+"""desenet_tpu_torch imports, serves, validates (on an in-memory loader)
+and runs its kernel probes (K5, K6), its profiler importing, with JAX, flax, optax, orbax, cv2 and
+PyYAML blocked: the port never needs JAX, and the card's machine may lack
+cv2 and PyYAML."""
 
 import os
 import subprocess
@@ -25,7 +26,11 @@ from desenet_tpu_torch.cli import serve as cli_serve  # noqa: F401
 from desenet_tpu_torch.cli import show_seg_miou, val as cli_val  # noqa: F401
 from desenet_tpu_torch.eval import Validator
 from desenet_tpu_torch.models import build_model, config_path, init_weights
+from desenet_tpu_torch.ops import c3_fused, stem_pallas  # noqa: F401
 from desenet_tpu_torch.serve import BatchRunner, InferenceServer  # noqa: F401
+from desenet_tpu_torch.tools import probe_stem_pallas, proto_c3_kernel
+from desenet_tpu_torch.tools import profile_served  # noqa: F401
+from desenet_tpu_torch.utils import fold  # noqa: F401
 
 model, spec = build_model(config_path("yolov5s_seg"))
 assert sum(p.numel() for p in model.parameters()) == 7594268
@@ -57,6 +62,14 @@ batches = [{
 } for _ in range(2)]
 metrics = Validator(val_model, nc=3, se_nc=2).run(batches)
 assert metrics["seen"] == 4 and 0 <= metrics["miou"] <= 1, metrics
+
+# the K5/K6 slice's entry points
+import contextlib, io
+for tool in (probe_stem_pallas, proto_c3_kernel):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = tool.main(["--device", "cpu", "--batch", "1", "--imgsz", "64"])
+    assert rc == 0 and "parity" in buf.getvalue(), buf.getvalue()
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in {b.split(".")[0] for b in BLOCKED}
                 and sys.modules[m] is not None)

@@ -8,11 +8,16 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
 
 0. environment: torch/CUDA versions, the card, its power limit;
 1. build: nvcc builds the kernels from desenet_tpu_torch/csrc, one process
-   per source, all at once (ptxas lines);
-2. each kernel against its plain PyTorch version on the card: K1 and K3 on
-   the shared-memory and the global-scratch path, K4 in f32 and bf16, K5
-   at (4, 640, 640, 3) with CO 32 and 64, K6 at yolov5s_seg's eight C3
-   shapes at batch 2, both in f32 (TF32 off) and bf16;
+   per source, all at once (ptxas lines; the two tensor-core kernels must
+   not spill, and their SASS must hold HMMA instructions where cuobjdump is
+   at hand);
+2. each kernel against its plain PyTorch version on the card: the shared
+   tensor-core tile alone (one bf16 1x1 stage, K 512, N 256) against
+   torch.matmul in f32, K1 and K3 on the shared-memory and the
+   global-scratch path, K4 in f32 and bf16, K5 at (4, 640, 640, 3) with CO
+   32 and 64, K6 at yolov5s_seg's eight C3 shapes at batch 2, both in f32
+   (TF32 off, the CUDA-core kernel) and bf16 (which must take the
+   tensor-core kernel);
 3. the tiny model, the whole served program and the validation step (module
    and fused seg head) on the card against the CPU (float32, TF32 off);
 4. the serving path: yolov5s_seg at full width, random weights from seed 0,
@@ -25,8 +30,12 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
    with K3/K4's launch counters reset before each run and read after;
 5. numbers: the served program at batch 128 / 640 px, the validation step
    at batch 32 with either seg head, each kernel beside its plain version
-   at the main path's shapes, K4 also beside the cuDNN module head, peak
-   device memory. K3 and K4 are first held against their plain versions
+   at the main path's shapes, beside the one PyTorch call that computes the
+   same function where there is one (K2: interpolate + argmax; K4: the
+   cuDNN module head; K5, K6 in phase 6: the cuDNN modules) and beside its
+   bound (desenet_tpu_torch.tools.timing: bytes over 3.35 TB/s or
+   operations over the card's peak rate, whichever is larger, from this
+   run's shapes and counts), peak device memory. K3 and K4 are first held against their plain versions
    on the validation forward's own tensors (K3 on its top-16384 candidate
    set, where bf16 scores tie often; K4 on its seg head's inputs, and
    against the module head);
@@ -42,14 +51,19 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
 Inputs of the kernel checks come from desenet_tpu_torch.testing, shared with
 tests/test_torch_kernels_cuda.py.
 
-The last three lines are the kernels' JSON record, the card's name and power
-limit as nvidia-smi gives them, and {"ok": true, "device": {...}}.
+Every timing line carries the card's name and power limit. The last three
+lines are the kernels' JSON record (name, route, source, replaces,
+launches, max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms), the
+card's name and power limit as nvidia-smi gives them, and {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
+import subprocess
 import sys
 import time
 
@@ -57,6 +71,7 @@ import numpy as np
 import torch
 
 from desenet_tpu_torch.testing import check_bf16, check_close, no_tf32
+from desenet_tpu_torch.tools import timing as tm
 from desenet_tpu_torch.tools.timing import card_line, cuda_ms, in_turns
 
 B_SERVE = 128
@@ -66,6 +81,10 @@ IMGSZ = 640
 CSRC = "desenet_tpu_torch/csrc"
 
 
+# the tensor-core kernels: the bf16 variants of K6 and of K4's conv
+MMA_KERNELS = ("c3_mma_kernel", "conv_gemm_mma_kernel")
+
+
 def log(phase, msg: str) -> None:
     print(f"[phase {phase}] {msg}", flush=True)
 
@@ -73,7 +92,7 @@ def log(phase, msg: str) -> None:
 def val_batches(seed: int, n: int, b: int, imgsz: int, nc: int, se_nc: int,
                 max_targets: int = 16):
     """In-memory loader: ``n`` batches with the keys of
-    desenet_tpu.data.dataset.collate, made with numpy from ``seed``."""
+    desenet_tpu_torch.data.dataset.collate, made with numpy from ``seed``."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n):
@@ -133,23 +152,78 @@ def phase1():
     dt = time.perf_counter() - t
     log(1, f"kernels ready in {dt:.3f} s ({_ext.build_dir()})")
     logf = os.path.join(_ext.build_dir(), "build.log")
+    entry, spills = None, {}
     with open(logf) as fh:
         for line in fh:
             if "ptxas info" in line and ("Used" in line or "Compiling" in line):
                 log(1, line.strip())
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "bytes spill stores" in line and entry is not None:
+                spills[entry] = line.strip()
+    for kernel in MMA_KERNELS:
+        lines = [v for k, v in spills.items() if kernel in k]
+        if len(lines) != 1 or " 0 bytes spill stores, 0 bytes spill loads" \
+                not in " " + lines[0]:
+            raise AssertionError(f"{kernel}: ptxas reports {lines}")
+        log(1, f"{kernel}: {lines[0]}")
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_ext._nvcc()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        log(1, "cuobjdump not found: SASS not inspected")
+        return
+    sass = subprocess.run(
+        [cuobjdump, "-sass", os.path.join(_ext.build_dir(), _ext.LIB_NAME)],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    hmma, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif "HMMA." in line and fn is not None:
+            hmma.setdefault(fn, []).append(" ".join(line.split()[1:6]))
+    for kernel in MMA_KERNELS:
+        found = [(k, v) for k, v in hmma.items() if kernel in k]
+        if len(found) != 1:
+            raise AssertionError(f"{kernel}: no HMMA in its SASS "
+                                 f"({sorted(hmma)})")
+        log(1, f"{kernel} SASS: {len(found[0][1])} HMMA instructions, the "
+            f"first: {found[0][1][0]}")
 
 
 def phase2(errs: dict):
     from desenet_tpu_torch.ops import (c3_fused, nms_fused, nms_pallas,
                                        seg_head_pallas, seg_pallas,
                                        stem_pallas)
-    from desenet_tpu_torch.testing import (C3_SERVED, check_psp2,
+    from desenet_tpu_torch.testing import (BF16_BAR, C3_SERVED, check_psp2,
                                            greedy_candidates, psp2_inputs,
                                            random_c3_params, random_psp2_head,
                                            stem_inputs, synthetic_decode)
 
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
+    # the shared tensor-core tile alone: one bf16 1x1 stage against matmul.
+    # Both sum exact bf16 products in f32, in another order: the 2^-6 bar
+    # is far above the 1e-5 or so that leaves
+    a = torch.from_numpy(rng.normal(size=(1000, 512)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    w = torch.from_numpy((rng.normal(size=(512, 256)) / 512 ** 0.5).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    before = dict(seg_head_pallas.conv_variants)
+    got = seg_head_pallas.conv1x1_f32(a, w)
+    ref = torch.matmul(a.float(), w.float())
+    torch.cuda.synchronize()
+    if seg_head_pallas.conv_variants["mma"] != before["mma"] + 1:
+        raise AssertionError("the 1x1 stage did not take the tensor-core "
+                             "kernel")
+    err = float((got - ref).abs().max())
+    bound = BF16_BAR * float(ref.abs().max())
+    if not err <= bound:
+        raise AssertionError(f"shared tile (1000 x 512) @ (512 x 256): max "
+                             f"abs err {err} above {bound}")
+    log(2, f"shared tensor-core tile, bf16 (1000, 512) @ (512, 256) as one "
+        f"1x1 stage: max abs err {err:.6g} against torch.matmul in f32 "
+        f"(|ref| max {float(ref.abs().max()):.6g}, bar 2^-6 of it)")
+
     for name, frac in (("sparse", 0.01), ("dense", 0.8)):
         pred = torch.from_numpy(synthetic_decode(rng, 8, 25200, 6, frac)).to(dev)
         planes = nms_fused.nms_planes(pred, 0.25)
@@ -218,7 +292,20 @@ def phase2(errs: dict):
             chans = (2 * c_hid, 2 * c_hid, 4 * c_hid)
             head = random_psp2_head(chans, c_hid).to(dev)
             xs = [x.to(dev, dt) for x in psp2_inputs(b, 80, 80, chans)]
+            before = dict(seg_head_pallas.conv_variants)
             got = seg_head_pallas.fused_psp2_eval(xs, head, 3)
+            took = {k: v - before[k]
+                    for k, v in seg_head_pallas.conv_variants.items()}
+            # of the nine convs the class conv (3 outputs) takes the narrow
+            # kernel, and so does context_red where its c_hid // 6 outputs
+            # are at most 32; seven take the tensor cores in bf16; the
+            # CUDA-core tile takes what is left
+            narrow = 1 + (c_hid // 6 <= 32)
+            mma = 7 if dt == torch.bfloat16 else 0
+            if took != {"mma": mma, "narrow": narrow,
+                        "fma": 9 - mma - narrow}:
+                raise AssertionError(f"K4 c_hid {c_hid} {dt}: conv launches "
+                                     f"by kernel {took}")
             ref = seg_head_pallas.fused_psp2_eval_plain(xs, head, 3)
             torch.cuda.synchronize()
             err, agree = check_psp2(got, ref, dt)
@@ -227,7 +314,8 @@ def phase2(errs: dict):
                    else "within 1e-2 of |plain| max, argmax agreement >= 0.99")
             log(2, f"K4 seg_head_psp2 ({b}, 80, 80) c_hid {c_hid} "
                 f"{str(dt)[6:]}: {bar} (max abs err {err:.6g}, |plain| max "
-                f"{float(ref.abs().max()):.6g}, argmax agreement {agree:.6f})")
+                f"{float(ref.abs().max()):.6g}, argmax agreement {agree:.6f}; "
+                f"conv launches by kernel {took})")
 
         for co in (32, 64):
             x, w6, bias = stem_inputs(4, IMGSZ, IMGSZ, co)
@@ -256,11 +344,18 @@ def phase2(errs: dict):
                 torch.cuda.synchronize()
                 err = check_close(got, ref, f"K6 row {row}", 1e-4)
                 errs["c3_fused"] = max(errs.get("c3_fused", 0.0), err)
+                bf = dt == torch.bfloat16
+                if c3_fused.last_variant != ("mma" if bf else "fma"):
+                    raise AssertionError(
+                        f"K6 row {row} {dt} took the "
+                        f"{c3_fused.last_variant} kernel")
+                tile = (c3_fused.pick_tile(side, side, c, c_, c2, n) if bf
+                        else c3_fused.pick_square_tile(c_, n, 4))
                 log(2, f"K6 c3_fused row {row} (2, {side}, {side}, {c}) -> "
                     f"{c2}, c_ {c_}, n {n}, shortcut {sc}, {str(dt)[6:]}: "
                     f"max abs err {err:.6g} against plain (|plain| max "
-                    f"{float(ref.float().abs().max()):.6g}, tile "
-                    f"{c3_fused.pick_tile(c_, n, xd.element_size())})")
+                    f"{float(ref.float().abs().max()):.6g}, kernel "
+                    f"{c3_fused.last_variant}, tile {tile})")
 
 
 def match_boxes(got, want) -> float:
@@ -395,10 +490,10 @@ def phase4():
                 raise AssertionError("burst request was not served")
         t_burst = time.perf_counter() - t
     finally:
-        # BatchRunner's `_stop` flag shadows threading.Thread._stop, so
-        # join() and is_alive() raise; its loop polls the flag every 0.2 s
         runner.stop()
-        time.sleep(0.5)
+        runner.join(10)
+    if runner.is_alive():
+        raise AssertionError("the runner did not stop")
     for i, p in enumerate([single] + burst):
         if p.error is not None or p.result is None:
             raise AssertionError(f"request {i}: error {p.error!r}")
@@ -523,24 +618,38 @@ def phase5(pred, card: str) -> dict:
     pred_np = synthetic_decode(rng, B_SERVE, 25200, 6, 0.01)
     planes = nms_fused.nms_planes(torch.from_numpy(pred_np).to(dev), 0.25)
     n_cand = float((planes[4] > 0).sum(1).float().mean())
+    picks = float((nms_fused.greedy_select(*planes, 300, 0.45)[..., 4] > 0)
+                  .sum(1).float().mean())
     p, k = in_turns(
         (lambda: nms_fused.greedy_select_plain(*planes, 300, 0.45), 2),
         (lambda: nms_fused.greedy_select(*planes, 300, 0.45), 20))
-    timing["nms_fused"] = (k, p)
+    bound = tm.nms_fused_bound(B_SERVE, 25200, 300, n_cand, picks)
+    timing["nms_fused"] = (k, p, bound, None)
     log(5, f"K1 nms_fused ({B_SERVE}, 25200) planes, {n_cand:.0f} "
-        f"candidates/image, max_det 300: kernel {k:.3f} ms, plain {p:.3f} ms "
-        f"[{card}]")
+        f"candidates and {picks:.0f} picks per image, max_det 300: kernel "
+        f"{k:.3f} ms, plain {p:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
+        f"no single PyTorch call [{card}]")
 
     logits = torch.from_numpy(rng.normal(0, 1, (B_SERVE, 80, 80, 3)).astype(
         np.float32)).to(dev, torch.bfloat16)
     taps = (*seg_pallas.seg_taps(80, 640, True, dev),
             *seg_pallas.seg_taps(80, 640, True, dev))
-    p, k = in_turns(
+    nchw = logits.permute(0, 3, 1, 2)
+
+    def library():
+        return torch.nn.functional.interpolate(
+            nchw, scale_factor=8, mode="bilinear",
+            align_corners=True).argmax(1)
+
+    p, k, lib = in_turns(
         (lambda: seg_pallas.upsample_argmax_plain(logits, *taps), 3),
-        (lambda: seg_pallas.upsample_argmax(logits, 8, True), 20))
-    timing["seg_tail"] = (k, p)
+        (lambda: seg_pallas.upsample_argmax(logits, 8, True), 20),
+        (library, 10))
+    bound = tm.seg_tail_bound(B_SERVE, 80, 80, 3, 8)
+    timing["seg_tail"] = (k, p, bound, lib)
     log(5, f"K2 seg_tail ({B_SERVE}, 80, 80, 3) bf16 -> ({B_SERVE}, 640, 640) "
-        f"uint8: kernel {k:.3f} ms, plain {p:.3f} ms [{card}]")
+        f"uint8: kernel {k:.3f} ms, plain {p:.3f} ms, interpolate + argmax "
+        f"{lib:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}) [{card}]")
     return timing
 
 
@@ -597,12 +706,15 @@ def phase5_val(model, spec, validator, batch, card: str, timing: dict,
     p, k = in_turns(
         (lambda: nms_pallas.greedy_nms_plain(boxes, scores, 0.6, 300), 1),
         (lambda: nms_pallas.greedy_nms_pallas(boxes, scores, 0.6, 300), 10))
-    timing["nms_greedy"] = (k, p)
+    bound = tm.nms_greedy_bound(B_VAL, boxes.shape[1], 300, live, picks)
+    timing["nms_greedy"] = (k, p, bound, None)
     log(5, f"K3 nms_greedy ({B_VAL}, {boxes.shape[1]}) from the val decode, "
         f"{live:.0f} live candidates ({ties} equal to their neighbour in "
         f"the batch) and {picks:.0f} picks per image, max_det 300, IoU 0.6: "
         f"identical to plain (max abs err {err}); kernel {k:.3f} ms, plain "
-        f"{p:.3f} ms [{card}]")
+        f"{p:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}; the picks of an "
+        f"image are a chain of dependent steps), no single PyTorch call "
+        f"[{card}]")
 
     # K4 on the seg head's inputs of that forward (channels_last NCHW)
     nchw = seen[0]
@@ -641,18 +753,22 @@ def phase5_val(model, spec, validator, batch, card: str, timing: dict,
                 (lambda: seg_head_pallas.fused_psp2_eval(xs, head, n), 10))
     finally:
         head.upsample = True
-    timing["seg_head_psp2"] = (k, p)
+    bound = tm.psp2_bound(B_VAL, xs[0].shape[1], xs[0].shape[2],
+                          [x.shape[3] for x in xs], xs[0].shape[3] // 2, n)
+    timing["seg_head_psp2"] = (k, p, bound, cudnn)
     log(5, f"K4 seg_head_psp2 ({B_VAL}, 80, 80) bf16, full-width head: "
         f"kernel {k:.3f} ms, plain {p:.3f} ms; against the cuDNN module head "
-        f"in one call: kernel {k2:.3f} ms, module {cudnn:.3f} ms [{card}]")
-    timing["seg_head_cudnn"] = cudnn
+        f"in one call: kernel {k2:.3f} ms, module {cudnn:.3f} ms; bound "
+        f"{bound[0]:.4f} ms ({bound[1]}) [{card}]")
 
 
 def kernel_entry(name, replaces, launches, errs, timing):
+    ms, plain_ms, (bound, bound_by), library_ms = timing[name]
     return {"name": name, "route": "cuda", "source": f"{CSRC}/{name}.cu",
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": errs[name], "ms": timing[name][0],
-            "plain_ms": timing[name][1]}
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def phase6(pred, card: str, timing: dict, errs: dict) -> dict:
@@ -702,7 +818,9 @@ def phase6(pred, card: str, timing: dict, errs: dict) -> dict:
             tuple(shapes) != C3_SERVED:
         raise AssertionError(f"served C3 rows {shapes} differ from "
                              f"testing.C3_SERVED")
-    total = {"stem_conv": [0.0, 0.0, 0.0], "c3_fused": [0.0, 0.0, 0.0]}
+    # kernel, plain, module, bound: summed over the layers
+    total = {"stem_conv": [0.0] * 4, "c3_fused": [0.0] * 4}
+    bound_by = {}
     for i in rows:
         inp, out = seen[i]
         x = inp.permute(0, 2, 3, 1)  # NHWC view of the channels_last input
@@ -711,6 +829,7 @@ def phase6(pred, card: str, timing: dict, errs: dict) -> dict:
         if i == 0:
             name = "stem_conv"
             w6, bias = fold_focus(m, hw)
+            bound = tm.stem_bound(x.shape[0], *hw, out.shape[1])
             wm = stem_pallas.stem_weight_matrix(w6, x.dtype).to(dev)
             bd = torch.from_numpy(bias).to(dev)
             kern = lambda: stem_pallas.stem_conv(x, wm, bd)  # noqa: E731
@@ -719,11 +838,17 @@ def phase6(pred, card: str, timing: dict, errs: dict) -> dict:
             name = "c3_fused"
             p = c3_fused.c3_params(fold_c3(m, hw), dev, x.dtype)
             n, sc = len(m.m), m.m[0].add
+            bound = tm.c3_bound(x.shape[0], *hw, x.shape[3],
+                                m.cv1.conv.out_channels, out.shape[1], n)
             kern = lambda: c3_fused.c3_fused(x, p, n, sc)  # noqa: E731
             plain = lambda: c3_fused.c3_plain(x, p, n, sc)  # noqa: E731
         with torch.inference_mode():
             got, ref = kern(), plain()
             torch.cuda.synchronize()
+            if i and c3_fused.last_variant != "mma":
+                raise AssertionError(f"served C3 row {i} took the "
+                                     f"{c3_fused.last_variant} kernel, not "
+                                     "the tensor-core one")
             err = check_bf16(got, ref, f"{name} row {i} vs plain")
             mod_err = check_bf16(got, out.permute(0, 2, 3, 1),
                                  f"{name} row {i} vs the module",
@@ -732,21 +857,25 @@ def phase6(pred, card: str, timing: dict, errs: dict) -> dict:
             errs[name] = max(errs.get(name, 0.0), err)
             pms, kms, mms = in_turns((plain, 1), (kern, 5),
                                            (lambda: m(inp), 5))
-        total[name][0] += kms
-        total[name][1] += pms
-        total[name][2] += mms
+        for j, v in enumerate((kms, pms, mms, bound[0])):
+            total[name][j] += v
+        bound_by.setdefault(name, []).append(bound[1])
         log(6, f"row {i} {type(m).__name__} {tuple(x.shape)} -> "
             f"{out.shape[1]} bf16 on the served forward: max abs err "
             f"vs plain {err:.6g}, vs the module {mod_err:.6g} (|module| max "
             f"{float(out.float().abs().max()):.6g}); kernel {kms:.3f} ms, "
-            f"plain {pms:.3f} ms, module (cuDNN) {mms:.3f} ms [{card}]")
-    for name, (k, p, _) in total.items():
-        timing[name] = (k, p)
-    (k5, p5, m5), (k6, p6, m6) = total["stem_conv"], total["c3_fused"]
+            f"plain {pms:.3f} ms, module (cuDNN) {mms:.3f} ms, bound "
+            f"{bound[0]:.4f} ms ({bound[1]}) [{card}]")
+    for name, (k, p, mod, bound) in total.items():
+        # the summed bound is bound by what binds most of its layers
+        by = max(set(bound_by[name]), key=bound_by[name].count)
+        timing[name] = (k, p, (bound, by), mod)
+    (k5, p5, m5, b5), (k6, p6, m6, b6) = total["stem_conv"], total["c3_fused"]
     log(6, f"served forward b{B_SERVE}/{IMGSZ} bf16: at the stem K5 {k5:.3f} "
-        f"ms, plain {p5:.3f} ms, module Focus {m5:.3f} ms; over the "
-        f"{len(rows) - 1} C3 blocks K6 {k6:.3f} ms, plain {p6:.3f} ms, "
-        f"modules {m6:.3f} ms [{card}]")
+        f"ms, plain {p5:.3f} ms, module Focus {m5:.3f} ms, bound {b5:.4f} "
+        f"ms; over the {len(rows) - 1} C3 blocks K6 {k6:.3f} ms, plain "
+        f"{p6:.3f} ms, modules {m6:.3f} ms, bound {b6:.4f} ms (per layer, "
+        f"summed) [{card}]")
     return launches
 
 

@@ -16,8 +16,9 @@ from desenet_tpu_torch.eval.validator import seg_metrics
 def run(data, weights, cfg="yolov5s_seg", batch_size=16, imgsz=640,
         task="val", half=True, workers=8, device="cuda",
         seg_head_fused=False):
-    from desenet_tpu.data import create_mixed_dataloader
-    from desenet_tpu.utils.general import check_dataset, check_img_size
+    from desenet_tpu_torch.data import create_mixed_dataloader
+    from desenet_tpu_torch.utils.general import (check_dataset,
+                                                 check_img_size)
 
     data = check_dataset(data)
     se_nc = int(data["se"]["nc"])
@@ -40,7 +41,7 @@ def run(data, weights, cfg="yolov5s_seg", batch_size=16, imgsz=640,
 
 
 def main(argv=None):
-    from desenet_tpu.utils.general import set_logging
+    from desenet_tpu_torch.utils.general import set_logging
 
     set_logging()
     p = argparse.ArgumentParser("desenet_tpu_torch show_seg_miou")

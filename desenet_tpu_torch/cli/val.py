@@ -7,8 +7,9 @@ Tasks: val/test/train (metrics on that split), speed (device latency at the
 val shape), study (speed over image sizes). ``--weights`` is a torch-named
 state dict saved with ``np.savez`` (``tools/export_torch_sd.py`` writes one
 from a JAX checkpoint); the class counts come from the data yaml. Reading
-the image dataset uses the JAX package's jax-free data pipeline
-(``desenet_tpu.data``), which needs cv2, PIL and PyYAML.
+the image dataset goes through the port's own ``desenet_tpu_torch.data``
+(validation path only), which needs PIL, PyYAML for the data yaml, and cv2
+where an image is resized.
 """
 
 from __future__ import annotations
@@ -85,9 +86,9 @@ def run(
     seg_head_fused=False,
 ):
     _refuse_unported(weights, augment, int8, act_store, coco_anno)
-    from desenet_tpu.data import create_mixed_dataloader
-    from desenet_tpu.utils.general import (check_dataset, check_img_size,
-                                           coco80_to_coco91_class)
+    from desenet_tpu_torch.data import create_mixed_dataloader
+    from desenet_tpu_torch.utils.general import (check_dataset, check_img_size,
+                                                 coco80_to_coco91_class)
 
     is_coco = str(data).endswith("coco.yaml")
     data = check_dataset(data)
@@ -215,8 +216,8 @@ def parse_opt(argv=None):
 def main(argv=None):
     o = parse_opt(argv)
     _refuse_unported(o.weights, o.augment, o.int8, o.act_store, o.coco_anno)
-    from desenet_tpu.utils.general import (check_dataset, increment_path,
-                                           set_logging)
+    from desenet_tpu_torch.utils.general import (check_dataset,
+                                                 increment_path, set_logging)
 
     set_logging()
     if o.task in ("speed", "study"):

@@ -1,0 +1,370 @@
+"""The joint detection+segmentation dataset ("mixed" pipeline), validation
+path.
+
+The port's own copy of what ``desenet_tpu_torch.cli.val`` needs of
+``desenet_tpu/data/dataset.py``: directory/txt listing, sibling
+``DeLabels/`` + ``SeLabels/`` label dirs, per-sample validation, the label
+cache with content hashing (the same pickle, so either package reads the
+other's), letterbox, rect mode with aspect-sorted per-batch shapes, polygon
+rasterizing and COCO-rescaling ``shapes`` metadata. ``augment=True`` (mosaic,
+HSV, perspective, flips, mixup; the decoded-image caches and the scaled JPEG
+decode that serve them) raises ``NotImplementedError``: it belongs to the
+training slice. numpy and the standard library at module level; PIL is
+imported where an image is opened, cv2 where one is resized.
+
+Label formats:
+  DeLabels/<split>/x.txt : lines "cls x y w h" normalized xywh
+  SeLabels/<split>/x.txt : lines "cls x1 y1 x2 y2 ..." normalized polygon
+"""
+
+from __future__ import annotations
+
+import hashlib
+import logging
+import os
+import pickle
+from multiprocessing.pool import ThreadPool
+from pathlib import Path
+from typing import List, Sequence, Tuple
+
+import numpy as np
+
+from desenet_tpu_torch.data.augment import (denorm_boxes, denorm_polys,
+                                            letterbox)
+from desenet_tpu_torch.data.rasterize import rasterize_polygons
+
+LOGGER = logging.getLogger(__name__)
+
+IMG_FORMATS = {"bmp", "jpg", "jpeg", "png", "tif", "tiff", "dng", "webp", "mpo"}
+CACHE_VERSION = 1
+NUM_THREADS = min(8, os.cpu_count() or 1)
+
+
+def _require(ok, msg: str) -> None:
+    """Raise on a corrupt sample (verify_image_label turns it into a skip)."""
+    if not ok:
+        raise ValueError(msg)
+
+
+def img2label_paths(img_paths: Sequence[str]) -> Tuple[List[str], List[str]]:
+    """image path -> (DeLabels, SeLabels) txt paths."""
+    de, se = [], []
+    for x in img_paths:
+        p = Path(x)
+        name = p.with_suffix(".txt").name
+        de.append(str(p.parent.parent.with_name("DeLabels") / p.parent.name / name))
+        se.append(str(p.parent.parent.with_name("SeLabels") / p.parent.name / name))
+    return de, se
+
+
+def get_hash(paths: Sequence[str]) -> str:
+    """Content hash over file sizes + joined names."""
+    size = sum(os.path.getsize(p) for p in paths if os.path.exists(p))
+    h = hashlib.md5(str(size).encode())
+    h.update("".join(paths).encode())
+    return h.hexdigest()
+
+
+def exif_size(img) -> Tuple[int, int]:
+    """(w, h) corrected for EXIF rotation."""
+    s = img.size
+    try:
+        rot = dict(img.getexif()).get(274, None)
+        if rot in (6, 8):
+            s = (s[1], s[0])
+    except Exception:
+        pass
+    return s
+
+
+def verify_image_label(args):
+    """Validate one (image, det txt, seg txt) triple; returns parsed labels
+    or None on corruption."""
+    from PIL import Image
+
+    im_file, dlb, slb = args
+    try:
+        with Image.open(im_file) as im:
+            im.verify()
+            shape = exif_size(im)
+            fmt = (im.format or "").lower()
+            _require(fmt in IMG_FORMATS, f"unsupported format {fmt}")
+            _require(shape[0] > 9 and shape[1] > 9,
+                     f"image too small {shape}")
+
+        det = np.zeros((0, 5), np.float32)
+        nm = nf = ne = 0
+        if os.path.isfile(dlb):
+            nf = 1
+            with open(dlb) as f:
+                rows = [x.split() for x in f.read().strip().splitlines() if x]
+            if rows:
+                det = np.asarray(rows, np.float32)
+                _require(det.shape[1] == 5, "det rows must have 5 values")
+                _require((det >= 0).all(), "negative det values")
+                _require((det[:, 1:] <= 1).all(), "det coords not normalized")
+                _require(np.unique(det, axis=0).shape[0] == det.shape[0],
+                         "duplicate det rows")
+            else:
+                ne = 1
+        else:
+            nm = 1
+
+        seg: List[Tuple[int, np.ndarray]] = []
+        if os.path.isfile(slb):
+            with open(slb) as f:
+                for line in f.read().strip().splitlines():
+                    vals = np.asarray(line.split(), np.float32)
+                    _require((vals >= 0).all(), "negative seg values")
+                    _require((vals[1:] <= 1).all(),
+                             "seg coords not normalized")
+                    seg.append((int(vals[0]), vals[1:].reshape(-1, 2)))
+        return im_file, det, seg, shape, nm, nf, ne, 0, ""
+    except Exception as e:  # noqa: BLE001 — corrupt samples are skipped
+        return None, None, None, None, 0, 0, 0, 1, f"skipping {im_file}: {e}"
+
+
+class MixedDataset:
+    def __init__(
+        self,
+        path,
+        img_size: int = 640,
+        batch_size: int = 16,
+        augment: bool = False,
+        rect: bool = False,
+        stride: int = 32,
+        pad: float = 0.0,
+        single_cls: bool = False,
+        max_targets: int = 128,
+        prefix: str = "",
+    ):
+        if augment:
+            raise NotImplementedError(
+                "augment=True (mosaic, HSV, perspective, flips) belongs to "
+                "the training slice, which is not ported yet (ROADMAP.md, "
+                "Queue 1 item 5); the port loads validation data only")
+        self.img_size = img_size
+        self.batch_size = batch_size
+        self.augment = False
+        self.rect = rect
+        self.stride = stride
+        self.pad = pad
+        self.max_targets = max_targets
+
+        # ---- file listing (dir / txt / list of either) ----
+        files: List[Path] = []
+        for p in path if isinstance(path, (list, tuple)) else [path]:
+            p = Path(p)
+            if p.is_dir():
+                files += list(p.rglob("**/*.*"))
+            elif p.is_file():
+                with p.open() as t:
+                    files += [
+                        p.parent / x.lstrip(os.sep)
+                        for x in t.read().strip().splitlines()
+                    ]
+            else:
+                raise FileNotFoundError(f"{prefix}{p} does not exist")
+        self.img_files = sorted(
+            str(x) for x in files if x.suffix[1:].lower() in IMG_FORMATS
+        )
+        if not self.img_files:
+            raise FileNotFoundError(f"{prefix}no images found in {path}")
+        self.de_label_files, self.se_label_files = img2label_paths(self.img_files)
+
+        # ---- label cache ----
+        cache_path = Path(self.de_label_files[0]).parent.with_suffix(".cache.pkl")
+        cache = None
+        want_hash = get_hash(
+            self.de_label_files + self.se_label_files + self.img_files
+        )
+        if cache_path.is_file():
+            try:
+                with open(cache_path, "rb") as f:
+                    cache = pickle.load(f)
+                if cache.get("hash") != want_hash or cache.get("version") != \
+                        CACHE_VERSION:
+                    cache = None
+            except Exception:
+                cache = None
+        if cache is None:
+            cache = self._build_cache(want_hash)
+            try:
+                cache_path.parent.mkdir(parents=True, exist_ok=True)
+                with open(cache_path, "wb") as f:
+                    pickle.dump(cache, f)
+            except OSError as e:
+                LOGGER.warning("%scache dir not writable: %s", prefix, e)
+
+        items = cache["items"]  # list of (im_file, shape(w,h), det, seg)
+        self.img_files = [it[0] for it in items]
+        self.shapes = np.asarray([it[1] for it in items], np.float32)  # (w, h)
+        self.det_labels = [it[2] for it in items]
+        self.seg_labels = [it[3] for it in items]
+        # collate ships seg masks as uint8 (4x less memcpy/transfer);
+        # validate once that every class id actually fits — a stray
+        # negative/ignore id or a >255-class dataset would otherwise wrap
+        # silently into a valid-looking class
+        bad = {int(c) for s in self.seg_labels for c, _ in s
+               if not 0 <= int(c) <= 255}
+        if bad:
+            raise ValueError(
+                f"{prefix}seg class ids out of uint8 range {sorted(bad)[:10]} "
+                "(the pipeline ships masks as uint8; remap ignore/negative "
+                "ids and keep se_nc <= 256)")
+        self.de_label_files, self.se_label_files = img2label_paths(self.img_files)
+        if single_cls:
+            for d in self.det_labels:
+                if len(d):
+                    d[:, 0] = 0
+            self.seg_labels = [[(0, p) for _, p in s] for s in self.seg_labels]
+        self.n = len(self.img_files)
+        self.indices = np.arange(self.n)
+
+        if self.rect:
+            self._setup_rect()
+
+    # ------------------------------------------------------------------
+    def _build_cache(self, want_hash):
+        items = []
+        stats = dict(found=0, missing=0, empty=0, corrupt=0)
+        msgs = []
+        with ThreadPool(NUM_THREADS) as pool:
+            results = pool.map(
+                verify_image_label,
+                zip(self.img_files, self.de_label_files, self.se_label_files),
+            )
+        for im_file, det, seg, shape, nm, nf, ne, nc, msg in results:
+            stats["missing"] += nm
+            stats["found"] += nf
+            stats["empty"] += ne
+            stats["corrupt"] += nc
+            if msg:
+                msgs.append(msg)
+            if im_file is not None and (len(det) or len(seg)):
+                items.append((im_file, shape, det, seg))
+        for m in msgs:
+            LOGGER.warning(m)
+        LOGGER.info(
+            "scanned %d images: %d det labels found, %d missing, %d empty, "
+            "%d corrupt; %d usable",
+            len(self.img_files), stats["found"], stats["missing"],
+            stats["empty"], stats["corrupt"], len(items),
+        )
+        return {"hash": want_hash, "version": CACHE_VERSION, "items": items,
+                "stats": stats}
+
+    def _setup_rect(self):
+        """Aspect-ratio-sorted per-batch shapes."""
+        ar = self.shapes[:, 1] / self.shapes[:, 0]  # h / w
+        order = ar.argsort()
+        self.indices = order
+        bi = np.floor(np.arange(self.n) / self.batch_size).astype(int)
+        nb = bi[-1] + 1
+        ar_sorted = ar[order]
+        shapes = []
+        for i in range(nb):
+            ari = ar_sorted[bi == i]
+            mini, maxi = ari.min(), ari.max()
+            if maxi < 1:
+                shapes.append([maxi, 1])
+            elif mini > 1:
+                shapes.append([1, 1 / mini])
+            else:
+                shapes.append([1, 1])
+        self.batch_index = bi
+        self.batch_shapes = (
+            np.ceil(np.asarray(shapes) * self.img_size / self.stride + self.pad)
+            .astype(int) * self.stride
+        )
+
+    # ------------------------------------------------------------------
+    def __len__(self):
+        return self.n
+
+    def load_image(self, index: int):
+        """Decode + EXIF-correct + resize long side to img_size. Returns
+        (RGB uint8 array, (h0, w0), (h, w))."""
+        from PIL import Image, ImageOps
+
+        img = Image.open(self.img_files[index])
+        try:  # exif_transpose copies the whole image even when there is no
+            # orientation tag; only pay it when a rotation actually applies
+            rotated = img.getexif().get(0x0112, 1) != 1
+        except Exception:  # noqa: BLE001 - unreadable EXIF: take the safe path
+            rotated = True
+        if rotated:
+            img = ImageOps.exif_transpose(img)
+        w0, h0 = img.size
+        r = self.img_size / max(w0, h0)
+        if r != 1:  # LANCZOS for down- and up-scaling, as the JAX package
+            img = img.resize((int(w0 * r), int(h0 * r)), Image.LANCZOS)
+        arr = np.asarray(img.convert("RGB"))
+        return arr, (h0, w0), arr.shape[:2]
+
+    # ------------------------------------------------------------------
+    def get_sample(self, pos: int):
+        """The letterboxed sample at dataset position `pos`:
+        (img RGB uint8 HWC, det (n,5) [cls,xywhn], seg_mask (H,W) int32,
+        path, shapes)."""
+        index = int(self.indices[pos])
+        img, (h0, w0), (h, w) = self.load_image(index)
+        shape = (self.batch_shapes[self.batch_index[pos]] if self.rect
+                 else self.img_size)
+        img, ratio, pad = letterbox(img, shape, scaleup=False)
+        shapes = (h0, w0), ((h / h0, w / w0), pad)
+        det = self.det_labels[index].copy()
+        seg = [(c, p.copy()) for c, p in self.seg_labels[index]]
+        if len(det):
+            det[:, 1:] = denorm_boxes(det[:, 1:], ratio[0] * w, ratio[1] * h,
+                                      pad[0], pad[1])
+        seg = denorm_polys(seg, ratio[0] * w, ratio[1] * h, pad[0], pad[1])
+
+        # pixel xyxy -> normalized xywh
+        if len(det):
+            xyxy = det[:, 1:5]
+            out = np.empty_like(xyxy)
+            out[:, 0] = (xyxy[:, 0] + xyxy[:, 2]) / 2 / img.shape[1]
+            out[:, 1] = (xyxy[:, 1] + xyxy[:, 3]) / 2 / img.shape[0]
+            out[:, 2] = (xyxy[:, 2] - xyxy[:, 0]) / img.shape[1]
+            out[:, 3] = (xyxy[:, 3] - xyxy[:, 1]) / img.shape[0]
+            det[:, 1:5] = out
+
+        seg_mask = rasterize_polygons(seg, img.shape[:2])
+        return (img, det.astype(np.float32), seg_mask, self.img_files[index],
+                shapes)
+
+
+def pad_det_targets(dets: Sequence[np.ndarray], max_targets: int):
+    """List of per-image (n,5) [cls,xywhn] -> (B, M, 5) + (B, M) mask.
+    Overflow beyond max_targets is dropped with a warning."""
+    b = len(dets)
+    out = np.zeros((b, max_targets, 5), np.float32)
+    mask = np.zeros((b, max_targets), bool)
+    for i, d in enumerate(dets):
+        n = len(d)
+        if n > max_targets:
+            LOGGER.warning("image has %d targets, truncating to %d", n,
+                           max_targets)
+            d = d[:max_targets]
+            n = max_targets
+        out[i, :n] = d
+        mask[i, :n] = True
+    return out, mask
+
+
+def collate(samples, max_targets: int = 128):
+    """Samples -> fixed-shape batch dict for the eval step."""
+    imgs, dets, segs, paths, shapes = zip(*samples)
+    det_t, det_m = pad_det_targets(dets, max_targets)
+    return {
+        "image": np.stack(imgs, 0),
+        "det_targets": det_t,
+        "det_mask": det_m,
+        # uint8: seg class ids are < 256 by construction; the narrow dtype
+        # quarters the collate memcpy and the host->device batch transfer;
+        # consumers widen on the device
+        "seg_labels": np.stack(segs, 0).astype(np.uint8),
+        "paths": list(paths),
+        "shapes": list(shapes),
+    }

@@ -4,8 +4,7 @@ Counterpart of ``desenet_tpu/eval/validator.py``: conf 0.001 / IoU 0.6
 multi-label NMS over the top ``PRE_TOPK_VAL`` candidates (kernel K3 on the
 card), native-space coordinate rescale, 10-threshold TP matching, 101-point
 AP; seg logits -> argmax -> pixAcc/mIoU with class 0 excluded. The metrics
-are the JAX package's own ``desenet_tpu.utils.metrics``, which is numpy
-only.
+are ``desenet_tpu_torch.utils.metrics`` (numpy only).
 
 The device step (uint8 -> ``x / 255`` in the model dtype, forward, decode,
 NMS, seg argmax) runs on the validator's device; only the fixed-shape NMS
@@ -24,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from desenet_tpu.utils.metrics import (
+from desenet_tpu_torch.utils.metrics import (
     ConfusionMatrix,
     SegMetrics,
     ap_per_class,
@@ -171,7 +170,7 @@ class Validator:
 
     def run(self, loader) -> Dict[str, float]:
         """Validate over ``loader``'s batches (dicts with the
-        ``desenet_tpu.data`` collate keys: image, det_targets, det_mask,
+        ``desenet_tpu_torch.data`` collate keys: image, det_targets, det_mask,
         seg_labels, shapes and optionally paths)."""
         stats = []
         seen = 0

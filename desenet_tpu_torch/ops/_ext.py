@@ -42,10 +42,10 @@ _SIGNATURES = {
     "desenet_nms_greedy": [_P, _P, _I, _I, _I, ctypes.c_float, _P, _P, _P,
                            _P, _I],
     # K4 (seg_head_psp2.cu). in1, ld1, c1, in2, ld2, c2, w, bias, rowbias,
-    # add, add_ld, out, out_ld, B, H, W, taps, dil, O, mode, is_bf16,
-    # stream, device
+    # add, add_ld, out, out_ld, B, H, W, taps, dil, O, mode, variant,
+    # is_bf16, stream, device
     "desenet_psp2_conv": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P]
-                         + [_I] * 9 + [_P, _I],
+                         + [_I] * 10 + [_P, _I],
     # in, ld, C, P, weights, KK, B, out, is_bf16, stream, device
     "desenet_psp2_reduce": [_P, _I, _I, _I, _P, _I, _I, _P, _I, _P, _I],
     # in, N, Cin, w, bias, Cout, mode, is_bf16, out, stream, device
@@ -58,8 +58,12 @@ _SIGNATURES = {
     # stream, device
     "desenet_stem_conv": [_P] * 3 + [_I] * 6 + [_P, _P, _I],
     # K6 (c3_fused.cu). x, w12, b12, wb1, bb1, wb2, bb2, w3, b3, B, H, W, C,
-    # c_, C2, n, shortcut, tile, is_bf16, out, stream, device
-    "desenet_c3_fused": [_P] * 9 + [_I] * 10 + [_P, _P, _I],
+    # c_, C2, n, shortcut, th, tw, variant, is_bf16, out, stream, device
+    "desenet_c3_fused": [_P] * 9 + [_I] * 12 + [_P, _P, _I],
+    # K6's phase counters (zero unless built with -DK6_PROF). out, reset
+    "desenet_c3_prof": [_P, _I],
+    # mma_peak.cu. blocks, threads, iters, sink, stream, device
+    "desenet_mma_peak": [_I, _I, _I, _P, _P, _I],
 }
 
 _lock = threading.Lock()

@@ -10,7 +10,13 @@ upsample into two summed planes, and the kron'd pool and upsample matrices
 of pyramid k=2,3,6 from ``ops/resize.py``'s constructors. The head body is
 kernel K4: on a CUDA tensor ``fused_psp2_eval`` launches the kernels of
 ``csrc/seg_head_psp2.cu`` or raises; on a CPU tensor it runs the body in
-PyTorch ops, as ``fused_psp2_eval_plain`` does on any device.
+PyTorch ops, as ``fused_psp2_eval_plain`` does on any device. In bfloat16
+the convs whose widths allow it (``conv_variant``) run on the tensor cores,
+and the two 1x1 convs onto few channels on a kernel of their own;
+the FFM conv's second input ``ctx`` (4 * (c_hid // 6 // 4) channels, 20 at
+c_hid 128) is allocated with its channels padded to a multiple of 16, zeros
+in the pad and zero rows in the weights to match (``pad_ffm_weights``),
+which changes no sum.
 
 The body (both versions) is the JAX kernel's: f32 accumulation, rounding to
 the model dtype where it applies ``act`` or ``.astype(dt)``. Eval only;
@@ -21,6 +27,8 @@ package (the model takes the module path above it).
 from __future__ import annotations
 
 import functools
+import itertools
+import weakref
 
 import numpy as np
 import torch
@@ -32,6 +40,9 @@ from desenet_tpu_torch.ops.resize import (_adaptive_pool_matrix,
 from desenet_tpu_torch.utils.fold import fold_conv
 
 launches = 0  # calls of fused_psp2_eval that launched the kernels
+# conv launches by kernel, all calls
+conv_variants = {"mma": 0, "narrow": 0, "fma": 0}
+_VARIANT_CODE = {"fma": 0, "mma": 1, "narrow": 2}
 MAX_P8 = 8192
 POOL_SIZES = (2, 3, 6)
 _CONV_SILU, _CONV_LINEAR_F32 = 0, 1
@@ -88,14 +99,64 @@ def _kmats(h8: int, w8: int, dtype: torch.dtype, device: torch.device):
     return mats, ones
 
 
+# head -> {(dtype, device): (state, folded weights)}: the fold is some
+# hundred small tensor ops, more host time than the kernels take on the card,
+# so it is kept until a parameter or buffer of the head changes
+_folded = weakref.WeakKeyDictionary()
+
+
+def _head_state(head):
+    """What the folded weights depend on: every parameter's and buffer's
+    storage and version (in-place updates and ``load_state_dict`` bump the
+    version, ``.to()`` moves the storage). None, which never matches, for
+    a head with inference tensors: they keep no version."""
+    tensors = list(itertools.chain(head.parameters(), head.buffers()))
+    if any(t.is_inference() for t in tensors):
+        return None
+    return tuple((t.data_ptr(), t._version) for t in tensors)
+
+
+def _folded_weights(head, dt: torch.dtype, device: torch.device) -> dict:
+    """The head's folded weights for the kernel body: matrices in the model
+    dtype, biases in f32, the raw folds under ``"f"``."""
+    state = _head_state(head)
+    cached = _folded.setdefault(head, {}).get((dt, device))
+    if cached is not None and state is not None and cached[0] == state:
+        return cached[1]
+    f = fold_head(head)
+    c_hid = f["m8"][0].shape[-1]
+    w0a, wred = f["b0a"][0], f["red"][0]
+    c = lambda t: t.to(dt).contiguous()  # noqa: E731
+    w = {
+        "f": f,
+        "m8": c(f["m8"][0]), "bm8": f["m8"][1],
+        "w0a8": c(w0a[:c_hid]), "b0a": f["b0a"][1],
+        "w0b": c(f["b0b"][0]), "b0b": f["b0b"][1],
+        "w1": c(f["b1"][0]), "b1": f["b1"][1],
+        "w2": c(f["b2"][0]), "b2": f["b2"][1],
+        "wg": c(f["g"][0]), "wlin": c(f["lin"][0]), "blin": f["lin"][1],
+        "wred8": c(wred[:c_hid]), "bred": f["red"][1],
+        "wpp1": c(f["pp1"][0]),
+        "pp": [(c(wk), bk) for wk, bk in f["pp"]],
+        "wcb": c(f["cb"][0]), "bcb": f["cb"][1],
+        "wfc1": c(f["fc1"]), "wfc2": c(f["fc2"]),
+        "wout": c(f["out"][0]), "bout": f["out"][1],
+    }
+    nctx = 4 * w["wpp1"].shape[-1]
+    w["wcb_pad"] = pad_ffm_weights(w["wcb"], c_hid, nctx)
+    _folded[head][(dt, device)] = (state, w)
+    return w
+
+
 def _host_part(xs, head):
-    """BN fold, the m16/m32 contributions upsampled after their 1x1 slices
-    (asum into branch0_a, rsum into context_red), and the weights in the
-    model dtype (matrices) or f32 (biases)."""
+    """The folded weights (``_folded_weights``) and the m16/m32
+    contributions upsampled after their 1x1 slices (asum into branch0_a,
+    rsum into context_red)."""
     l16, l19, l22 = xs
     b, h8, w8, _ = l16.shape
     dt = l16.dtype
-    f = fold_head(head)
+    w = _folded_weights(head, dt, l16.device)
+    f = w["f"]
     c_hid = f["m8"][0].shape[-1]
 
     def stem_contrib(x, wb):
@@ -117,21 +178,6 @@ def _host_part(xs, head):
     rsum = (up(_mm(g16, wred[sl16].to(dt)), l19)
             + up(_mm(g32, wred[sl32].to(dt)), l22)).to(dt).contiguous()
 
-    c = lambda t: t.to(dt).contiguous()  # noqa: E731
-    w = {
-        "m8": c(f["m8"][0]), "bm8": f["m8"][1],
-        "w0a8": c(w0a[:c_hid]), "b0a": f["b0a"][1],
-        "w0b": c(f["b0b"][0]), "b0b": f["b0b"][1],
-        "w1": c(f["b1"][0]), "b1": f["b1"][1],
-        "w2": c(f["b2"][0]), "b2": f["b2"][1],
-        "wg": c(f["g"][0]), "wlin": c(f["lin"][0]), "blin": f["lin"][1],
-        "wred8": c(wred[:c_hid]), "bred": f["red"][1],
-        "wpp1": c(f["pp1"][0]),
-        "pp": [(c(wk), bk) for wk, bk in f["pp"]],
-        "wcb": c(f["cb"][0]), "bcb": f["cb"][1],
-        "wfc1": c(f["fc1"]), "wfc2": c(f["fc2"]),
-        "wout": c(f["out"][0]), "bout": f["out"][1],
-    }
     x8 = l16.reshape(b, h8 * w8, -1).contiguous()
     return x8, asum, rsum, w, _kmats(h8, w8, dt, l16.device)
 
@@ -202,6 +248,77 @@ def _body_plain(x8, asum, rsum, w, kmats, h8, w8):
     return _mm(out_feat, w["wout"]) + w["bout"]
 
 
+def conv_variant(dtype: torch.dtype, c1: int, c2: int, o: int, lds=(),
+                 out_ld: int = 0, taps: int = 1) -> str:
+    """The kernel a conv launch takes: ``"mma"`` (tensor cores) in bfloat16
+    with O a multiple of 64, both inputs' channels multiples of 16, input
+    row pitches ``lds`` multiples of 8 elements and an even output pitch;
+    ``"narrow"`` (a thread per pixel) for a 1x1 conv of one input onto at
+    most 32 channels, its channels and pitch multiples of 8; else ``"fma"``
+    (the CUDA-core tile)."""
+    if dtype == torch.bfloat16 and not (
+            o % 64 or c1 % 16 or c2 % 16 or out_ld % 2
+            or any(ld % 8 for ld in lds)):
+        return "mma"
+    if taps == 1 and c2 == 0 and o <= 32 and c1 <= 384 and not (
+            c1 % 8 or any(ld % 8 for ld in lds)):
+        return "narrow"
+    return "fma"
+
+
+def pad_ffm_weights(wcb: torch.Tensor, c_hid: int, nctx: int) -> torch.Tensor:
+    """The FFM conv's (3, 3, c_hid + nctx [+ unused], c_hid) weights as the
+    ((c_hid + nctx_pad) * 9, c_hid) matrix over [spatial | ctx padded with
+    zero channels to a multiple of 16]: zero rows under the pad."""
+    pad = -nctx % 16
+    wcb = wcb[:, :, 0:c_hid + nctx]
+    return F.pad(wcb, (0, 0, 0, pad)).reshape(-1, c_hid).contiguous()
+
+
+def _conv(lib, b, h8, w8, src, wmat, bias, out, taps=1, dil=1, src2=None,
+          rowbias=None, add=None, mode=_CONV_SILU):
+    """One launch of desenet_psp2_conv on (B, P8, C) buffers (channel slices
+    allowed: the row pitch is passed)."""
+    stream, dev = _ext.stream_and_device(src)
+    c2 = src2.shape[2] if src2 is not None else 0
+    lds = (src.stride(1),) + ((src2.stride(1),) if src2 is not None else ())
+    aligned = all(t.data_ptr() % 16 == 0 for t in (src, wmat, out)) and (
+        src2 is None or src2.data_ptr() % 16 == 0)
+    variant = conv_variant(src.dtype, src.shape[2], c2, out.shape[2], lds,
+                           out.stride(1), taps) if aligned else "fma"
+    _ext.check(lib.desenet_psp2_conv(
+        src.data_ptr(), src.stride(1), src.shape[2],
+        src2.data_ptr() if src2 is not None else None,
+        src2.stride(1) if src2 is not None else 0, c2,
+        wmat.data_ptr(), bias.data_ptr(),
+        rowbias.data_ptr() if rowbias is not None else None,
+        add.data_ptr() if add is not None else None,
+        add.stride(1) if add is not None else 0,
+        out.data_ptr(), out.stride(1), b, h8, w8, taps, dil,
+        out.shape[2], mode, _VARIANT_CODE[variant],
+        int(src.dtype == torch.bfloat16), stream, dev),
+        f"seg_head_psp2 conv ({variant})")
+    conv_variants[variant] += 1
+
+
+def conv1x1_f32(a: torch.Tensor, wmat: torch.Tensor) -> torch.Tensor:
+    """(M, K) @ (K, N) -> (M, N) f32 as one 1x1 stage of the conv kernel
+    (zero bias, no SiLU) on CUDA tensors: the shared tensor-core tile alone
+    in bfloat16 with K a multiple of 16 and N of 64, for holding it against
+    ``torch.matmul``."""
+    if a.device.type != "cuda" or a.dim() != 2 or wmat.dim() != 2 or \
+            a.shape[1] != wmat.shape[0] or a.dtype != wmat.dtype:
+        raise ValueError("conv1x1_f32 needs CUDA (M, K) and (K, N) tensors "
+                         "of one dtype")
+    m, n = a.shape[0], wmat.shape[1]
+    a, wmat = a.contiguous(), wmat.contiguous()
+    out = torch.empty((1, m, n), dtype=torch.float32, device=a.device)
+    bias = torch.zeros(n, dtype=torch.float32, device=a.device)
+    _conv(_ext.load(), 1, 1, m, a[None], wmat, bias, out,
+          mode=_CONV_LINEAR_F32)
+    return out[0]
+
+
 def _body_kernel(x8, asum, rsum, w, kmats, h8, w8):
     """The same body as the kernels of csrc/seg_head_psp2.cu, intermediates
     in (B, P8, C) buffers on the card."""
@@ -224,19 +341,8 @@ def _body_kernel(x8, asum, rsum, w, kmats, h8, w8):
     def vec(*shape):
         return torch.empty(shape, dtype=torch.float32, device=x8.device)
 
-    def conv(src, wmat, bias, out, taps=1, dil=1, src2=None, rowbias=None,
-             add=None, mode=_CONV_SILU):
-        _ext.check(lib.desenet_psp2_conv(
-            src.data_ptr(), src.stride(1), src.shape[2],
-            src2.data_ptr() if src2 is not None else None,
-            src2.stride(1) if src2 is not None else 0,
-            src2.shape[2] if src2 is not None else 0,
-            wmat.data_ptr(), bias.data_ptr(),
-            rowbias.data_ptr() if rowbias is not None else None,
-            add.data_ptr() if add is not None else None,
-            add.stride(1) if add is not None else 0,
-            out.data_ptr(), out.stride(1), b, h8, w8, taps, dil,
-            out.shape[2], mode, bf, stream, dev), "seg_head_psp2 conv")
+    def conv(src, wmat, bias, out, **kw):
+        _conv(lib, b, h8, w8, src, wmat, bias, out, **kw)
 
     def reduce(src, out, weights=None, kk=1):
         _ext.check(lib.desenet_psp2_reduce(
@@ -278,7 +384,10 @@ def _body_kernel(x8, asum, rsum, w, kmats, h8, w8):
     # context path
     red = buf(n_red)
     conv(f8, w["wred8"], w["bred"], red, add=rsum)
-    ctx = buf(nctx)
+    # ctx's channels padded to a multiple of 16 for the FFM conv, zeros in
+    # the pad
+    ctx = buf(nctx + -nctx % 16)
+    ctx[..., nctx:].zero_()
     pooled1 = reduce(red, vec(b, n_red))
     c1 = small(pooled1, b, w["wpp1"], vec(b, 1, n4))
     unpool(ones, c1, ctx[..., 0:n4])
@@ -289,8 +398,7 @@ def _body_kernel(x8, asum, rsum, w, kmats, h8, w8):
         unpool(uk, ck, ctx[..., (i + 1) * n4:(i + 2) * n4])
     # FFM
     feat = buf(c_hid)
-    wcb = w["wcb"][:, :, 0:c_hid + nctx].reshape(-1, c_hid)
-    conv(spatial, wcb, w["bcb"], feat, taps=3, dil=1, src2=ctx)
+    conv(spatial, w["wcb_pad"], w["bcb"], feat, taps=3, dil=1, src2=ctx)
     m = reduce(feat, vec(b, c_hid))
     a1 = small(m, b, w["wfc1"], vec(b, c_hid))
     gate = small(a1, b, w["wfc2"], vec(b, c_hid), mode=_SMALL_SIGMOID)

@@ -37,3 +37,115 @@ def in_turns(*runs) -> list:
     first = [cuda_ms(fn, reps) for fn, reps in runs]
     second = [cuda_ms(fn, reps) for fn, reps in reversed(runs)][::-1]
     return [(a + b) / 2 for a, b in zip(first, second)]
+
+
+# ---- bounds: the least time the card could take for a kernel's work -------
+#
+# The larger of the bytes the function must move (each input read once, each
+# output written once) over the card's memory rate and the operations it
+# does on these inputs over the card's peak rate for their type. The rates
+# are NVIDIA's published ones for the H100 SXM at its full power limit.
+# Pure Python, from shapes: the CPU tests hold these against figures worked
+# out by hand.
+
+H100_BYTES_PER_S = 3.35e12       # HBM3
+H100_BF16_FLOPS = 989e12         # dense bf16 on the tensor cores
+H100_F32_FLOPS = 67e12           # float32 outside the tensor cores
+NMS_PAIR_FLOPS = 16              # one IoU test of a pick against a candidate
+
+
+def bound_ms(flops: float, nbytes: float,
+             peak_flops: float = H100_BF16_FLOPS) -> tuple:
+    """(milliseconds, "bytes" or "operations"): the larger of
+    ``nbytes`` over the memory rate and ``flops`` over ``peak_flops``."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def c3_macs(b: int, h: int, w: int, c: int, c_: int, c2: int, n: int) -> int:
+    """Multiply-adds of a C3 block: cv12, n bottlenecks (1x1 and 3x3), cv3."""
+    return b * h * w * (2 * c * c_ + n * 10 * c_ * c_ + 2 * c_ * c2)
+
+
+def c3_bound(b: int, h: int, w: int, c: int, c_: int, c2: int, n: int,
+             itemsize: int = 2) -> tuple:
+    """K6 on (b, h, w, c) -> c2: x, the weights (in ``itemsize``) and the
+    f32 biases read once, the output written once; products at the bf16
+    tensor-core rate."""
+    weights = 2 * c * c_ + n * 10 * c_ * c_ + 2 * c_ * c2
+    biases = 2 * c_ + 2 * n * c_ + c2
+    nbytes = (b * h * w * (c + c2) + weights) * itemsize + 4 * biases
+    return bound_ms(2 * c3_macs(b, h, w, c, c_, c2, n), nbytes)
+
+
+def psp2_macs(h8: int, w8: int, chans, c_hid: int, n_segcls: int) -> int:
+    """Multiply-adds per image of the fused SegMaskPSP2 head as
+    ``fused_psp2_eval`` computes it (the m16/m32 stems at their own
+    resolution with their 1x1 slices applied before the upsample), from the
+    folded weights' shapes."""
+    p8, p16, p32 = h8 * w8, (h8 // 2) * (w8 // 2), (h8 // 4) * (w8 // 4)
+    inner = 3 * c_hid // 6          # ACSP's hidden width
+    n_red = c_hid // 6              # context_red's output
+    n4 = n_red // 4                 # one pyramid branch
+    nctx = 4 * n4
+    stems = (p8 * chans[0] + p16 * chans[1] + p32 * chans[2]) * c_hid
+    slices = (p16 + p32) * c_hid * (inner + n_red)
+    upsample = 2 * 4 * p8 * (inner + n_red)   # two planes, four taps
+    acsp = p8 * (c_hid * inner + 3 * 9 * inner * inner + 3 * inner * c_hid) \
+        + inner * inner + inner * c_hid       # the global branch
+    pools = sum(k * k for k in (2, 3, 6))
+    context = p8 * c_hid * n_red + pools * p8 * n_red \
+        + (1 + pools) * n_red * n4 + pools * p8 * n4
+    ffm = p8 * 9 * (c_hid + nctx) * c_hid + 2 * c_hid * c_hid
+    return stems + slices + upsample + acsp + context + ffm \
+        + p8 * c_hid * n_segcls
+
+
+def psp2_bound(b: int, h8: int, w8: int, chans, c_hid: int, n_segcls: int,
+               itemsize: int = 2) -> tuple:
+    """K4 on [l16, l19, l22] -> (b, h8, w8, n_segcls) f32 logits: the three
+    maps read once, the logits written once (the folded weights, under 1 MB,
+    are left out)."""
+    p8, p16, p32 = h8 * w8, (h8 // 2) * (w8 // 2), (h8 // 4) * (w8 // 4)
+    nbytes = b * ((p8 * chans[0] + p16 * chans[1] + p32 * chans[2]) * itemsize
+                  + p8 * n_segcls * 4)
+    return bound_ms(2 * b * psp2_macs(h8, w8, chans, c_hid, n_segcls), nbytes)
+
+
+def stem_bound(b: int, h: int, w: int, co: int, itemsize: int = 2) -> tuple:
+    """K5 on (b, h, w, 3) -> (b, h/2, w/2, co): 108 taps a pixel and
+    channel."""
+    out_px = b * (h // 2) * (w // 2)
+    nbytes = (b * h * w * 3 + out_px * co + 108 * co) * itemsize + 4 * co
+    return bound_ms(2 * out_px * 108 * co, nbytes)
+
+
+def seg_tail_bound(b: int, h: int, w: int, c: int, scale: int,
+                   itemsize: int = 2) -> tuple:
+    """K2 on (b, h, w, c) logits -> (b, h*scale, w*scale) uint8: two
+    multiply-adds per output pixel and class for the separable bilinear
+    blend and a compare per class, float32 on the CUDA cores."""
+    out_px = b * h * scale * w * scale
+    return bound_ms(out_px * (4 * c + c - 1), b * h * w * c * itemsize + out_px,
+                    H100_F32_FLOPS)
+
+
+def nms_fused_bound(b: int, a: int, max_det: int, candidates: float,
+                    picks: float) -> tuple:
+    """K1 on six (b, a) f32 planes -> (b, max_det, 6): every plane read
+    once; each of an image's ``picks`` is tested against its ``candidates``
+    (this run's means per image)."""
+    nbytes = 4 * (6 * b * a + 6 * b * max_det)
+    return bound_ms(b * picks * candidates * NMS_PAIR_FLOPS, nbytes,
+                    H100_F32_FLOPS)
+
+
+def nms_greedy_bound(b: int, k: int, max_det: int, live: float,
+                     picks: float) -> tuple:
+    """K3 on (b, k, 4) boxes and (b, k) scores -> (b, max_det) indices and
+    scores: each of an image's ``picks`` is tested against its ``live``
+    candidates (this run's means per image). The picks of an image are a
+    chain of dependent steps, so no design comes near this bound."""
+    nbytes = 4 * (5 * b * k + 2 * b * max_det)
+    return bound_ms(b * picks * live * NMS_PAIR_FLOPS, nbytes, H100_F32_FLOPS)

@@ -141,14 +141,18 @@ def test_entry_points_run_on_the_cpu(tool, capsys):
 
 
 def test_pick_tile_fits_every_served_shape():
-    for _, _, _, c_, n, _, _ in C3_SERVED:
-        for itemsize in (2, 4):
-            t = c3_fused.pick_tile(c_, n, itemsize)
+    for _, c, c2, c_, n, _, side in C3_SERVED:
+        for itemsize in (2, 4):  # the CUDA-core kernel's square tile
+            t = c3_fused.pick_square_tile(c_, n, itemsize)
             assert 2 * (t + 2 * n) ** 2 * c_ * itemsize <= \
                 c3_fused.SMEM_BUDGET
-    assert c3_fused.pick_tile(32, 1, 2) == 16
+        th, tw = c3_fused.pick_tile(side, side, c, c_, c2, n)
+        assert c3_fused.mma_smem_bytes(th, tw, c_, n) <= c3_fused.SMEM_BLOCK
+    assert c3_fused.pick_square_tile(32, 1, 2) == 16
     with pytest.raises(ValueError, match="shared memory"):
-        c3_fused.pick_tile(2048, 3, 4)
+        c3_fused.pick_square_tile(2048, 3, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        c3_fused.pick_tile(20, 20, 8192, 4096, 8192, 3)
 
 
 def test_c3_fused_refuses_what_it_does_not_take():

@@ -19,6 +19,14 @@ products a pixel, as tests/test_stem_pallas.py holds the TPU kernel) and
 1e-4 (K6, sums up to 2304 long through a chain of five products); bf16 at
 ``desenet_tpu_torch.testing.check_bf16``'s bar. The inputs come from
 ``desenet_tpu_torch.testing``, as chip_smoke.py's do.
+
+In bfloat16 K6 and K4's convs run on the tensor cores where their widths
+allow (csrc/mma_bf16.cuh): the shared tile is held alone against
+``torch.matmul`` in f32 (both sum exact bf16 products in f32, so rtol/atol
+1e-4 of values of order 1), K6 at ragged maps, at rows 9/23's widths and at
+channel counts that are no multiple of 64, K4 at yolov5s_seg's width on a
+map that is no multiple of the block's 128 pixels; each test also checks
+which kernel the wrapper launched.
 """
 
 import numpy as np
@@ -126,10 +134,16 @@ def test_stem_kernel_matches_plain(cuda, full_f32, dtype, hw, co, silu):
     check_close(got, want, f"K5 CO {co}", 1e-5)
 
 
-# yolov5s_seg's eight C3 rows, then ragged maps (tiles cut by the border)
+# yolov5s_seg's eight C3 rows, then ragged maps (tiles cut by the border):
+# small ones, row 4's widths on a map its 16 x 16 tile does not divide, rows
+# 9/23's widths, channel counts that are no multiple of 64 (a warp pair
+# splits 6 n8 tiles 4 + 2) and a c_ of 8, which the CUDA cores take
 C3_CASES = [(row, c, c2, c_, n, sc, (side, side))
             for row, c, c2, c_, n, sc, side in C3_SERVED] + [
-    (0, 32, 32, 16, 3, True, (12, 20)), (1, 128, 64, 32, 2, False, (7, 9))]
+    (0, 32, 32, 16, 3, True, (12, 20)), (1, 128, 64, 32, 2, False, (7, 9)),
+    (30, 128, 128, 64, 3, True, (45, 37)), (31, 512, 512, 256, 1, False,
+                                            (23, 17)),
+    (32, 96, 48, 48, 2, True, (11, 13)), (33, 16, 16, 8, 1, True, (9, 9))]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -147,4 +161,38 @@ def test_c3_kernel_matches_plain(cuda, full_f32, dtype, row, c, c2, c_, n,
     want = c3_fused.c3_plain(x, params, n, shortcut)
     torch.cuda.synchronize()
     assert got.shape == (2, *hw, c2) and got.dtype == dtype
+    assert c3_fused.last_variant == c3_fused.pick_variant(dtype, c, c_, c2)
+    assert c3_fused.last_variant == (
+        "mma" if dtype == torch.bfloat16 and c_ % 16 == 0 else "fma")
     check_close(got, want, f"K6 row {row}", 1e-4)
+
+
+@pytest.mark.parametrize("m,k,n", [(1000, 512, 256), (128, 16, 64),
+                                   (77, 48, 64), (300, 160, 128)])
+def test_shared_mma_tile_matches_matmul(cuda, m, k, n):
+    rng = np.random.default_rng(m)
+    a = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    w = torch.from_numpy((rng.normal(size=(k, n)) / k ** 0.5).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    before = seg_head_pallas.conv_variants["mma"]
+    got = seg_head_pallas.conv1x1_f32(a, w)
+    assert seg_head_pallas.conv_variants["mma"] == before + 1
+    want = torch.matmul(a.float(), w.float())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("hw", [(80, 80), (36, 28)])
+def test_seg_head_tensor_core_convs(cuda, hw):
+    chans = (256, 256, 512)  # yolov5s_seg, c_hid 128
+    head = random_psp2_head(chans, 128).to(cuda)
+    xs = [x.to(cuda, torch.bfloat16) for x in psp2_inputs(3, *hw, chans)]
+    before = dict(seg_head_pallas.conv_variants)
+    got = seg_head_pallas.fused_psp2_eval(xs, head, 3)
+    took = {k: v - before[k] for k, v in seg_head_pallas.conv_variants.items()}
+    assert took == {"mma": 7, "narrow": 2, "fma": 0}
+    want = seg_head_pallas.fused_psp2_eval_plain(xs, head, 3)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (3, *hw, 3)
+    check_psp2(got, want, torch.bfloat16)

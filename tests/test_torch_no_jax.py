@@ -1,8 +1,12 @@
-"""desenet_tpu_torch imports, serves, validates (on an in-memory loader)
-and runs its kernel probes (K5, K6), its profiler importing, with JAX, flax, optax, orbax, cv2 and
-PyYAML blocked: the port never needs JAX, and the card's machine may lack
-cv2 and PyYAML."""
+"""desenet_tpu_torch imports (every module), serves, validates (on an
+in-memory loader) and runs its kernel probes (K5, K6) with the JAX package
+``desenet_tpu``, JAX, flax, optax, orbax, cv2 and PyYAML blocked: the port
+never needs JAX or the JAX package, and the card's machine may lack cv2 and
+PyYAML. A second test reads the port's sources and ``chip_smoke.py`` with
+``ast`` and fails on any import of those, at module level or inside a
+function."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -16,7 +20,22 @@ BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "orbax.checkpoint",
 for m in BLOCKED:
     sys.modules[m] = None  # any import of these raises ImportError
 
+
+class BlockJaxPackage:
+    # a meta-path finder that refuses the JAX package and its submodules
+
+    def find_spec(self, name, path=None, target=None):
+        if name == "desenet_tpu" or name.startswith("desenet_tpu."):
+            raise ImportError(f"{name} is blocked: the port must not import "
+                              "the JAX package")
+        return None
+
+
+sys.meta_path.insert(0, BlockJaxPackage())
+
+import importlib
 import json
+import pkgutil
 import numpy as np
 import torch
 
@@ -32,6 +51,19 @@ from desenet_tpu_torch.tools import probe_stem_pallas, proto_c3_kernel
 from desenet_tpu_torch.tools import profile_served  # noqa: F401
 from desenet_tpu_torch.utils import fold  # noqa: F401
 
+# every module of the port imports with all of that blocked
+names = sorted(m.name for m in pkgutil.walk_packages(
+    desenet_tpu_torch.__path__, "desenet_tpu_torch."))
+assert len(names) > 30, names
+for name in names:
+    importlib.import_module(name)
+try:
+    import desenet_tpu.serve  # noqa: F401
+except ImportError:
+    pass
+else:
+    raise AssertionError("the JAX package was not blocked")
+
 model, spec = build_model(config_path("yolov5s_seg"))
 assert sum(p.numel() for p in model.parameters()) == 7594268
 
@@ -46,6 +78,21 @@ img = np.random.default_rng(0).integers(0, 256, (64, 64, 3), dtype=np.uint8)
 res = pred(img)
 assert len(res) == 1 and res.masks[0].shape == (64, 64)
 assert res.xyxy[0].shape[1] == 6
+
+# the served program through the port's own micro-batching runner
+from desenet_tpu_torch.serve import _Pending
+runner = BatchRunner(pred, max_batch=4, max_wait_ms=50.0)
+runner.start()
+reqs = [_Pending(img, want_mask=False) for _ in range(3)]
+for r in reqs:
+    assert runner.submit(r)
+for r in reqs:
+    assert r.done.wait(120) and r.error is None, r.error
+runner.stop()
+runner.join(10)
+assert not runner.is_alive()
+assert reqs[0].result["num"] == len(res.to_dicts()[0])
+assert runner.stats["requests"] == 3, runner.stats
 
 # the validation path: multi-label NMS, fused seg head, numpy metrics
 val_model, _ = build_model(cfg, decode_cat=False, seg_head_fused=True)
@@ -72,7 +119,7 @@ for tool in (probe_stem_pallas, proto_c3_kernel):
     assert rc == 0 and "parity" in buf.getvalue(), buf.getvalue()
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in {b.split(".")[0] for b in BLOCKED}
-                and sys.modules[m] is not None)
+                | {"desenet_tpu"} and sys.modules[m] is not None)
 assert not loaded, loaded
 print("OK", len(res.to_dicts()[0]))
 """
@@ -85,3 +132,29 @@ def test_port_runs_without_jax_cv2_yaml():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.startswith("OK"), proc.stdout
+
+
+FORBIDDEN = {"desenet_tpu", "jax", "jaxlib", "flax", "optax", "orbax"}
+
+
+def _imports(path):
+    """Top-level names of every module a source file imports, wherever the
+    import statement stands."""
+    with open(path, encoding="utf-8") as fh:
+        tree = ast.parse(fh.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0], node.lineno
+
+
+def test_port_sources_import_nothing_of_jax_or_the_jax_package():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for base, _, names in os.walk(os.path.join(ROOT, "desenet_tpu_torch")):
+        files += [os.path.join(base, n) for n in names if n.endswith(".py")]
+    assert len(files) > 30
+    bad = [f"{os.path.relpath(f, ROOT)}:{line} imports {mod}"
+           for f in files for mod, line in _imports(f) if mod in FORBIDDEN]
+    assert not bad, bad

@@ -1,11 +1,17 @@
-"""The served program's profiler (``desenet_tpu_torch/tools/profile_served``)
-runs on the CPU at a tiny size: its two tables (the whole program, then the
-Focus stem alone) come out with positive totals, the stem's below the
-program's."""
+"""The port's profilers run on the CPU at a tiny size. The served program's
+(``desenet_tpu_torch/tools/profile_served``): its two tables (the whole
+program, then the Focus stem alone) come out with positive totals, the
+stem's below the program's. The seg head's (``profile_seg_head``): one table
+for ``fused_psp2_eval`` and one for the module head. The two that need a
+card (``profile_c3_phases``, ``mma_peak``) say so and exit."""
 
 import re
 
-from desenet_tpu_torch.tools import profile_served
+import pytest
+import torch
+
+from desenet_tpu_torch.tools import (mma_peak, profile_c3_phases,
+                                     profile_seg_head, profile_served)
 
 
 def test_profile_served_runs_on_the_cpu(capsys):
@@ -16,3 +22,21 @@ def test_profile_served_runs_on_the_cpu(capsys):
     assert len(totals) == 2 and 0 < totals[1] < totals[0], out
     assert "served program b1/64" in out and "Focus stem alone" in out
     assert "aten::" in out
+
+
+def test_profile_seg_head_runs_on_the_cpu(capsys):
+    assert profile_seg_head.main(["--device", "cpu", "--batch", "1",
+                                  "--side", "16"]) == 0
+    out = capsys.readouterr().out
+    totals = [float(t) for t in re.findall(r": ([0-9.]+) ms per run", out)]
+    assert len(totals) == 2 and min(totals) > 0, out
+    assert "fused_psp2_eval (1, 16, 16) c_hid 128" in out
+    assert "the module head (1, 16, 16)" in out and "aten::" in out
+
+
+@pytest.mark.parametrize("tool", [profile_c3_phases, mma_peak])
+def test_card_only_tools_refuse_without_a_card(tool):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        tool.main([])

@@ -214,3 +214,29 @@ def test_ctypes_signatures_match_the_kernel_sources():
             want = (ctypes.c_void_p if "*" in a else
                     ctypes.c_float if a.startswith("float") else ctypes.c_int)
             assert t is want, (fn, a)
+
+
+def test_folded_weights_are_kept_until_the_head_changes():
+    """The BN fold is cached per head; an in-place update of a statistic, a
+    ``load_state_dict`` and a new dtype each give a fresh fold."""
+    from desenet_tpu_torch.testing import psp2_inputs, random_psp2_head
+
+    chans = (32, 64, 96)
+    head = random_psp2_head(chans, 48)
+    xs = psp2_inputs(1, 8, 8, chans)
+    first = seg_head_pallas.fused_psp2_eval(xs, head, 3)
+    w = seg_head_pallas._folded_weights(head, torch.float32, xs[0].device)
+    assert seg_head_pallas._folded_weights(head, torch.float32,
+                                           xs[0].device) is w
+    assert torch.equal(seg_head_pallas.fused_psp2_eval(xs, head, 3), first)
+    with torch.no_grad():
+        head.m8[0].bn.running_var.mul_(4.0)
+    changed = seg_head_pallas.fused_psp2_eval(xs, head, 3)
+    assert not torch.allclose(changed, first)
+    fresh = random_psp2_head(chans, 48)
+    fresh.load_state_dict(head.state_dict())
+    assert torch.equal(seg_head_pallas.fused_psp2_eval(xs, fresh, 3), changed)
+    head.load_state_dict(random_psp2_head(chans, 48).state_dict())
+    assert torch.equal(seg_head_pallas.fused_psp2_eval(xs, head, 3), first)
+    assert seg_head_pallas._folded_weights(
+        head, torch.bfloat16, xs[0].device)["m8"].dtype == torch.bfloat16

@@ -8,16 +8,20 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
 
 0. environment: torch/CUDA versions, the card, its power limit;
 1. build: nvcc builds the kernels from desenet_tpu_torch/csrc, one process
-   per source, all at once (ptxas lines; the two tensor-core kernels must
-   not spill, and their SASS must hold HMMA instructions where cuobjdump is
-   at hand);
+   per source, all at once (ptxas lines; the tensor-core kernels of K4, K5
+   and K6 must not spill, and their SASS must hold HMMA instructions where
+   cuobjdump is at hand);
 2. each kernel against its plain PyTorch version on the card: the shared
    tensor-core tile alone (one bf16 1x1 stage, K 512, N 256) against
-   torch.matmul in f32, K1 and K3 on the shared-memory and the
-   global-scratch path, K4 in f32 and bf16, K5 at (4, 640, 640, 3) with CO
-   32 and 64, K6 at yolov5s_seg's eight C3 shapes at batch 2, both in f32
-   (TF32 off, the CUDA-core kernel) and bf16 (which must take the
-   tensor-core kernel);
+   torch.matmul in f32, K1 on the shared-memory and the global-scratch
+   path, K3 on unsorted sets (its argmax loop) and sorted ones (its ordered
+   walk: ties, duplicates, all dead, fewer live than max_det, L on and off
+   the round boundaries, dense) at both memory sizes with the path each
+   image took checked, K4 in f32 and bf16, K5 at (4, 640, 640, 3) with CO
+   32, 48 and 64 and on a map its tile does not divide, with and without
+   SiLU, K6 at yolov5s_seg's eight C3 shapes at batch 2, K5 and K6 both in
+   f32 (TF32 off, the CUDA-core kernels) and bf16 (which must take the
+   tensor-core kernels);
 3. the tiny model, the whole served program and the validation step (module
    and fused seg head) on the card against the CPU (float32, TF32 off);
 4. the serving path: yolov5s_seg at full width, random weights from seed 0,
@@ -38,7 +42,9 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
    run's shapes and counts), peak device memory. K3 and K4 are first held against their plain versions
    on the validation forward's own tensors (K3 on its top-16384 candidate
    set, where bf16 scores tie often; K4 on its seg head's inputs, and
-   against the module head);
+   against the module head); K3 is timed a second time on a dense sorted
+   set of the same shape (7200 live around 150 clusters), where the whole
+   prefix is walked;
 6. the K5/K6 slice: its two entry points (desenet_tpu_torch.tools
    probe_stem_pallas and proto_c3_kernel: parity in f32 and bf16, timing
    at b128/640 bf16) with K5/K6's
@@ -81,8 +87,8 @@ IMGSZ = 640
 CSRC = "desenet_tpu_torch/csrc"
 
 
-# the tensor-core kernels: the bf16 variants of K6 and of K4's conv
-MMA_KERNELS = ("c3_mma_kernel", "conv_gemm_mma_kernel")
+# the tensor-core kernels: the bf16 variants of K6, of K4's conv and of K5
+MMA_KERNELS = ("c3_mma_kernel", "conv_gemm_mma_kernel", "stem_mma_kernel")
 
 
 def log(phase, msg: str) -> None:
@@ -163,10 +169,10 @@ def phase1():
                 spills[entry] = line.strip()
     for kernel in MMA_KERNELS:
         lines = [v for k, v in spills.items() if kernel in k]
-        if len(lines) != 1 or " 0 bytes spill stores, 0 bytes spill loads" \
-                not in " " + lines[0]:
+        if not lines or any(" 0 bytes spill stores, 0 bytes spill loads"
+                            not in " " + line for line in lines):
             raise AssertionError(f"{kernel}: ptxas reports {lines}")
-        log(1, f"{kernel}: {lines[0]}")
+        log(1, f"{kernel}: {len(lines)} instance(s), each {lines[0]}")
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(_ext._nvcc()), "cuobjdump")
     if not os.path.exists(cuobjdump):
@@ -183,11 +189,12 @@ def phase1():
             hmma.setdefault(fn, []).append(" ".join(line.split()[1:6]))
     for kernel in MMA_KERNELS:
         found = [(k, v) for k, v in hmma.items() if kernel in k]
-        if len(found) != 1:
-            raise AssertionError(f"{kernel}: no HMMA in its SASS "
-                                 f"({sorted(hmma)})")
-        log(1, f"{kernel} SASS: {len(found[0][1])} HMMA instructions, the "
-            f"first: {found[0][1][0]}")
+        n_inst = sum(kernel in k for k in spills)
+        if not found or len(found) != n_inst:
+            raise AssertionError(f"{kernel}: HMMA in {len(found)} of its "
+                                 f"{n_inst} instances ({sorted(hmma)})")
+        log(1, f"{kernel} SASS: {len(found[0][1])} HMMA instructions in "
+            f"each of {len(found)} instance(s), the first: {found[0][1][0]}")
 
 
 def phase2(errs: dict):
@@ -195,9 +202,11 @@ def phase2(errs: dict):
                                        seg_head_pallas, seg_pallas,
                                        stem_pallas)
     from desenet_tpu_torch.testing import (BF16_BAR, C3_SERVED, check_psp2,
+                                           dense_sorted_candidates,
                                            greedy_candidates, psp2_inputs,
                                            random_c3_params, random_psp2_head,
-                                           stem_inputs, synthetic_decode)
+                                           sorted_candidates, stem_inputs,
+                                           synthetic_decode)
 
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
@@ -267,22 +276,65 @@ def phase2(errs: dict):
         log(2, f"K2 seg_tail ({b},80,80,{c}) {str(dt)[6:]}: {agree:.6f} of "
             f"pixels equal to plain, all clear-margin pixels equal")
 
-    for b, k in ((4, 2048), (2, nms_pallas.SMEM_CAP + 5000)):
-        boxes, scores = (t.to(dev) for t in greedy_candidates(rng, b, k))
-        idx, sc = nms_pallas.greedy_nms_pallas(boxes, scores, 0.6, 300)
-        ridx, rsc = nms_pallas.greedy_nms_plain(boxes, scores, 0.6, 300)
+    # K3: unsorted sets take the kernel's argmax loop, sorted ones (the
+    # validation path's order) its ordered walk; each on the shared-memory
+    # and the global-scratch size, identical to plain, the path checked
+    big = nms_pallas.SMEM_CAP + 5000
+    k3_cases = [
+        ("unsorted", greedy_candidates(rng, 4, 2048), 300, 1),
+        ("unsorted", greedy_candidates(rng, 2, big), 300, 1),
+        ("sorted", sorted_candidates(rng, 3, 2048, 1500), 300, 0),
+        ("sorted, ties", sorted_candidates(rng, 3, 2048, 1500, levels=5),
+         300, 0),
+        ("sorted, duplicate boxes",
+         sorted_candidates(rng, 3, 2048, 1500, dup=0.5), 2000, 0),
+        ("sorted, all dead", sorted_candidates(rng, 2, 2048, 0), 300, 0),
+        ("sorted, fewer live than max_det",
+         sorted_candidates(rng, 2, 2048, 100), 300, 0),
+        ("sorted, L on a round boundary",
+         sorted_candidates(rng, 2, 2048, 1024), 2000, 0),
+        ("sorted, L one past a round boundary",
+         sorted_candidates(rng, 2, 2048, 1025), 2000, 0),
+        ("sorted, L on the survivor boundary",
+         sorted_candidates(rng, 2, 2048, 512), 2000, 0),
+        ("sorted, crowded",
+         sorted_candidates(rng, 2, 4096, 3000, spread=500.0), 300, 0),
+        ("sorted, dense clusters",
+         dense_sorted_candidates(rng, 2, 16384, 7200, 150), 300, 0),
+        ("sorted", sorted_candidates(rng, 2, big, 9000, spread=4000.0), 300,
+         0),
+        ("sorted, max_det above the walk's cap",
+         sorted_candidates(rng, 1, 2048, 1500), nms_pallas.KEPT_CAP + 1, 1),
+    ]
+    ran = {0: 0, 1: 0}
+    for name, (boxes, scores), max_det, path in k3_cases:
+        boxes, scores = boxes.to(dev), scores.to(dev)
+        b, k = scores.shape
+        idx, sc = nms_pallas.greedy_nms_pallas(boxes, scores, 0.6, max_det)
+        ridx, rsc = nms_pallas.greedy_nms_plain(boxes, scores, 0.6, max_det)
         torch.cuda.synchronize()
         if not torch.equal(idx, ridx) or not torch.equal(sc, rsc):
             raise AssertionError(
-                f"K3 ({b}, {k}): kernel keep-set differs from plain in "
-                f"{int((idx != ridx).sum())} of {idx.numel()} rows")
+                f"K3 {name} ({b}, {k}): kernel keep-set differs from plain "
+                f"in {int((idx != ridx).sum())} of {idx.numel()} rows")
+        paths = nms_pallas.last_paths.tolist()
+        if paths != [path] * b:
+            raise AssertionError(f"K3 {name} ({b}, {k}): paths {paths}, "
+                                 f"expected {path}")
+        ran[path] += b
         err = float((sc - rsc).abs().max())
         errs["nms_greedy"] = max(errs.get("nms_greedy", 0.0), err)
-        path = ("shared-memory" if k <= nms_pallas.SMEM_CAP
-                else "global-scratch")
-        log(2, f"K3 nms_greedy ({b}, {k}) {path} path, max_det 300, IoU "
-            f"0.6: {int((sc > 0).sum())} picks, identical to plain (max abs "
-            f"err {err})")
+        mem = ("shared-memory" if k <= nms_pallas.SMEM_CAP
+               else "global-scratch")
+        log(2, f"K3 nms_greedy {name} ({b}, {k}), {mem} size, "
+            f"{int((scores > 0).sum(1).max())} live, max_det {max_det}, IoU "
+            f"0.6: {'ordered walk' if path == 0 else 'argmax loop'}, "
+            f"{int((sc > 0).sum())} picks, identical to plain (max abs err "
+            f"{err})")
+    if min(ran.values()) < 1:
+        raise AssertionError(f"K3: images by path {ran}")
+    log(2, f"K3 paths over these sets: {ran[0]} images on the ordered walk, "
+        f"{ran[1]} on the argmax loop")
 
     with no_tf32():
         # yolov5s_seg's widths (inputs 256/256/512, c_hid 128), then l's
@@ -317,20 +369,33 @@ def phase2(errs: dict):
                 f"{float(ref.abs().max()):.6g}, argmax agreement {agree:.6f}; "
                 f"conv launches by kernel {took})")
 
-        for co in (32, 64):
-            x, w6, bias = stem_inputs(4, IMGSZ, IMGSZ, co)
+        # K5: float32 on the CUDA cores, bfloat16 on the tensor cores, at
+        # the three stem widths, on a map the 16 x 32 tile does not divide,
+        # with and without the SiLU
+        for hw, co, silu in (((IMGSZ, IMGSZ), 32, True),
+                             ((IMGSZ, IMGSZ), 48, True),
+                             ((IMGSZ, IMGSZ), 64, True),
+                             ((IMGSZ, IMGSZ), 32, False),
+                             ((200, 328), 32, True),
+                             ((100, 70), 64, False)):  # W no multiple of 8
+            x, w6, bias = stem_inputs(4, *hw, co)
             for dt in (torch.float32, torch.bfloat16):
                 xd = x.to(dev, dt)
                 wm = stem_pallas.stem_weight_matrix(w6, dt).to(dev)
                 bd = torch.from_numpy(bias).to(dev)
-                got = stem_pallas.stem_conv(xd, wm, bd)
-                ref = stem_pallas.stem_conv_plain(xd, wm, bd)
+                got = stem_pallas.stem_conv(xd, wm, bd, silu=silu)
+                ref = stem_pallas.stem_conv_plain(xd, wm, bd, silu)
                 torch.cuda.synchronize()
+                want = "mma" if dt == torch.bfloat16 else "fma"
+                if stem_pallas.last_variant != want:
+                    raise AssertionError(
+                        f"K5 {dt} took the {stem_pallas.last_variant} kernel")
                 err = check_close(got, ref, f"K5 CO {co}", 1e-5)
                 errs["stem_conv"] = max(errs.get("stem_conv", 0.0), err)
-                log(2, f"K5 stem_conv (4, {IMGSZ}, {IMGSZ}, 3) -> CO {co} "
-                    f"{str(dt)[6:]}: max abs err {err:.6g} against plain "
-                    f"(|plain| max {float(ref.float().abs().max()):.6g})")
+                log(2, f"K5 stem_conv (4, {hw[0]}, {hw[1]}, 3) -> CO {co} "
+                    f"{str(dt)[6:]}, SiLU {silu}, kernel {want}: max abs err "
+                    f"{err:.6g} against plain (|plain| max "
+                    f"{float(ref.float().abs().max()):.6g})")
 
         for row, c, c2, c_, n, sc, side in C3_SERVED:
             raw = random_c3_params(np.random.default_rng(row), c, c_, c2, n)
@@ -654,11 +719,11 @@ def phase5(pred, card: str) -> dict:
 
 
 def phase5_val(model, spec, validator, batch, card: str, timing: dict,
-               errs: dict):
+               errs: dict, extras: dict):
     from desenet_tpu_torch.eval.validator import _to_input
     from desenet_tpu_torch.ops import nms_pallas, seg_head_pallas
     from desenet_tpu_torch.ops.nms import MAX_WH, PRE_TOPK_VAL, _prep_candidates
-    from desenet_tpu_torch.testing import check_psp2
+    from desenet_tpu_torch.testing import check_psp2, dense_sorted_candidates
 
     dev = torch.device("cuda")
     img = torch.from_numpy(batch["image"]).to(dev)
@@ -703,6 +768,10 @@ def phase5_val(model, spec, validator, batch, card: str, timing: dict,
     err = float((sc - rsc).abs().max())
     errs["nms_greedy"] = max(errs.get("nms_greedy", 0.0), err)
     picks = float((sc > 0).sum(1).float().mean())
+    paths = nms_pallas.last_paths.tolist()
+    if paths != [nms_pallas.PATH_ORDERED] * B_VAL:
+        raise AssertionError(f"K3 on the val decode: paths {paths}; the "
+                             f"top-k's order should give the ordered walk")
     p, k = in_turns(
         (lambda: nms_pallas.greedy_nms_plain(boxes, scores, 0.6, 300), 1),
         (lambda: nms_pallas.greedy_nms_pallas(boxes, scores, 0.6, 300), 10))
@@ -713,8 +782,33 @@ def phase5_val(model, spec, validator, batch, card: str, timing: dict,
         f"the batch) and {picks:.0f} picks per image, max_det 300, IoU 0.6: "
         f"identical to plain (max abs err {err}); kernel {k:.3f} ms, plain "
         f"{p:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}; the picks of an "
-        f"image are a chain of dependent steps), no single PyTorch call "
-        f"[{card}]")
+        f"image are a chain of dependent steps), no single PyTorch call; "
+        f"every image on the ordered walk [{card}]")
+
+    # random weights make the val decode an easy set (few overlaps: the walk
+    # ends early); a trained model's is dense: the whole prefix is walked
+    k_top = boxes.shape[1]
+    dboxes, dscores = (t.to(dev) for t in dense_sorted_candidates(
+        np.random.default_rng(5), B_VAL, k_top, 7200, 150))
+    idx, sc = nms_pallas.greedy_nms_pallas(dboxes, dscores, 0.6, 300)
+    ridx, rsc = nms_pallas.greedy_nms_plain(dboxes, dscores, 0.6, 300)
+    torch.cuda.synchronize()
+    if not torch.equal(idx, ridx) or not torch.equal(sc, rsc) or \
+            nms_pallas.last_paths.tolist() != [nms_pallas.PATH_ORDERED] * B_VAL:
+        raise AssertionError(f"K3 on the dense sorted set ({B_VAL}, {k_top}) "
+                             f"differs from plain or left the ordered walk")
+    dpicks = float((sc > 0).sum(1).float().mean())
+    dp, dk = in_turns(
+        (lambda: nms_pallas.greedy_nms_plain(dboxes, dscores, 0.6, 300), 1),
+        (lambda: nms_pallas.greedy_nms_pallas(dboxes, dscores, 0.6, 300), 10))
+    dbound = tm.nms_greedy_bound(B_VAL, k_top, 300, 7200, dpicks)
+    extras["nms_greedy"] = {"dense_ms": dk, "dense_plain_ms": dp,
+                            "dense_bound_ms": dbound[0],
+                            "dense_picks": dpicks}
+    log(5, f"K3 nms_greedy ({B_VAL}, {k_top}) dense sorted set, 7200 live "
+        f"around 150 clusters, {dpicks:.0f} picks per image, max_det 300, "
+        f"IoU 0.6: identical to plain; kernel {dk:.3f} ms, plain {dp:.3f} "
+        f"ms, bound {dbound[0]:.4f} ms ({dbound[1]}) [{card}]")
 
     # K4 on the seg head's inputs of that forward (channels_last NCHW)
     nchw = seen[0]
@@ -762,13 +856,13 @@ def phase5_val(model, spec, validator, batch, card: str, timing: dict,
         f"{bound[0]:.4f} ms ({bound[1]}) [{card}]")
 
 
-def kernel_entry(name, replaces, launches, errs, timing):
+def kernel_entry(name, replaces, launches, errs, timing, extras=None):
     ms, plain_ms, (bound, bound_by), library_ms = timing[name]
     return {"name": name, "route": "cuda", "source": f"{CSRC}/{name}.cu",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, **(extras or {}).get(name, {})}
 
 
 def phase6(pred, card: str, timing: dict, errs: dict) -> dict:
@@ -845,10 +939,10 @@ def phase6(pred, card: str, timing: dict, errs: dict) -> dict:
         with torch.inference_mode():
             got, ref = kern(), plain()
             torch.cuda.synchronize()
-            if i and c3_fused.last_variant != "mma":
-                raise AssertionError(f"served C3 row {i} took the "
-                                     f"{c3_fused.last_variant} kernel, not "
-                                     "the tensor-core one")
+            took = c3_fused.last_variant if i else stem_pallas.last_variant
+            if took != "mma":
+                raise AssertionError(f"served row {i} took the {took} "
+                                     "kernel, not the tensor-core one")
             err = check_bf16(got, ref, f"{name} row {i} vs plain")
             mod_err = check_bf16(got, out.permute(0, 2, 3, 1),
                                  f"{name} row {i} vs the module",
@@ -890,7 +984,8 @@ def main() -> None:
     model, spec, validator, batch, val_launches = phase4b(sd)
     launches.update(val_launches)
     timing = phase5(pred, card)
-    phase5_val(model, spec, validator, batch, card, timing, errs)
+    extras = {}
+    phase5_val(model, spec, validator, batch, card, timing, errs, extras)
     del model, validator
     launches.update(phase6(pred, card, timing, errs))
     del pred
@@ -900,7 +995,7 @@ def main() -> None:
         kernel_entry("seg_tail", "desenet_tpu/ops/seg_pallas.py:35",
                      launches, errs, timing),
         kernel_entry("nms_greedy", "desenet_tpu/ops/nms_pallas.py:30",
-                     launches, errs, timing),
+                     launches, errs, timing, extras),
         kernel_entry("seg_head_psp2", "desenet_tpu/ops/seg_head_pallas.py:239",
                      launches, errs, timing),
         kernel_entry("stem_conv", "desenet_tpu/ops/stem_pallas.py:77",

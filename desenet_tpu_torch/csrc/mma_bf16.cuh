@@ -1,5 +1,6 @@
-// The tensor-core tile that K4's conv_gemm and K6's C3 stages share: device
-// functions only, bf16 operands, f32 accumulators.
+// The tensor-core tile that K4's conv_gemm and K6's C3 stages share, and
+// whose mma.sync and cp.async K5's stem conv uses too: device functions only,
+// bf16 operands, f32 accumulators.
 //
 // - mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, one warp per
 //   16 x 8 x 16 product. mma.sync and not wgmma: the A operand of both
@@ -42,6 +43,16 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool pred) {
   const int n = pred ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(__cvta_generic_to_global(src)), "r"(n)
+               : "memory");
+}
+
+// 4 bytes global -> shared, for rows whose start is only 4-byte aligned
+// (K5's NHWC window: a pixel is 6 bytes); zeros where !pred.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool pred) {
+  const int n = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(__cvta_generic_to_global(src)), "r"(n)
                : "memory");
 }

@@ -38,9 +38,9 @@ _SIGNATURES = {
     # x, is_bf16, ys, wy, xs, wx, B, h, w, C, H, W, out, stream, device
     "desenet_seg_tail": [_P, _I, _P, _P, _P, _P] + [_I] * 6 + [_P, _P, _I],
     # boxes, scores, B, K, max_det, iou_thres, scratch, keep_idx, keep_sc,
-    # stream, device
+    # paths, stream, device
     "desenet_nms_greedy": [_P, _P, _I, _I, _I, ctypes.c_float, _P, _P, _P,
-                           _P, _I],
+                           _P, _P, _I],
     # K4 (seg_head_psp2.cu). in1, ld1, c1, in2, ld2, c2, w, bias, rowbias,
     # add, add_ld, out, out_ld, B, H, W, taps, dil, O, mode, variant,
     # is_bf16, stream, device
@@ -54,9 +54,11 @@ _SIGNATURES = {
     "desenet_psp2_unpool": [_P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _I],
     # feat, gate, C, P, B, is_bf16, stream, device
     "desenet_psp2_gate": [_P, _P, _I, _I, _I, _I, _P, _I],
-    # K5 (stem_conv.cu). x, wm, bias, B, H, W, CO, silu_on, is_bf16, out,
-    # stream, device
-    "desenet_stem_conv": [_P] * 3 + [_I] * 6 + [_P, _P, _I],
+    # K5 (stem_conv.cu). x, wm, bias, B, H, W, CO, silu_on, is_bf16, variant,
+    # out, stream, device
+    "desenet_stem_conv": [_P] * 3 + [_I] * 7 + [_P, _P, _I],
+    # which parts of K5's tensor-core kernel run (-DK5_PROF builds). skip
+    "desenet_stem_prof": [_I],
     # K6 (c3_fused.cu). x, w12, b12, wb1, bb1, wb2, bb2, w3, b3, B, H, W, C,
     # c_, C2, n, shortcut, th, tw, variant, is_bf16, out, stream, device
     "desenet_c3_fused": [_P] * 9 + [_I] * 12 + [_P, _P, _I],
@@ -64,6 +66,8 @@ _SIGNATURES = {
     "desenet_c3_prof": [_P, _I],
     # mma_peak.cu. blocks, threads, iters, sink, stream, device
     "desenet_mma_peak": [_I, _I, _I, _P, _P, _I],
+    # mma_peak.cu. blocks, threads, iters, op, sink, stream, device
+    "desenet_sfu_peak": [_I, _I, _I, _I, _P, _P, _I],
 }
 
 _lock = threading.Lock()

@@ -1,14 +1,27 @@
 """The FusedFocus stem: a 6x6/s2 pad-2 conv from 3 channels, + bias + SiLU.
 
 Counterpart of ``desenet_tpu/ops/stem_pallas.py``. On a CUDA tensor
-``stem_conv`` launches the hand-written kernel ``csrc/stem_conv.cu`` (kernel
-K5) or raises; on a CPU tensor it runs ``stem_conv_plain``, the kernel's
-arithmetic in PyTorch ops: inputs and tap matrix in x.dtype, the 108
-products of a pixel summed in f32, f32 bias, SiLU in f32, one cast to
-x.dtype. ``stem_conv_reference`` is the plain conv it is held against.
+``stem_conv`` launches one of the two hand-written kernels of
+``csrc/stem_conv.cu`` (kernel K5) or raises: in bfloat16 the tensor-core one
+(``"mma"``: an implicit GEMM on ``mma.sync``, persistent blocks, the SiLU
+through ``tanh.approx.f32``), in float32 the CUDA-core one (``"fma"``, f32 sums
+in tap order and the exact SiLU, 1e-5 parity); ``last_variant`` says which
+the last call launched. On a CPU tensor it runs ``stem_conv_plain``, the
+kernels' arithmetic in PyTorch ops: inputs and tap matrix in x.dtype, the 108
+products of a pixel summed in f32, f32 bias, the exact SiLU in f32, one cast
+to x.dtype. ``stem_conv_reference`` is the plain conv it is held against.
+
+The public tap matrix keeps the JAX order (``stem_weight_matrix``) and goes
+to the kernels as it is. The tensor-core kernel orders K as (ky, kx * 3 + c),
+so that a pixel's taps on one input row are 18 contiguous values of the NHWC
+row; each of its blocks gathers the matrix once into shared memory, the rows
+in that order and laid out by ``mma.sync`` B fragment, the output channels
+dealt so that a lane's results are neighbours in memory.
+``stem_weight_kernel_order`` and ``stem_weight_fragments`` state those two
+layouts in PyTorch ops, for the tests, which run where the kernel cannot.
 
 Inference only (BN folded into the weights: ``utils/fold.fold_focus``), as
-in the JAX package. The kernel reads the NHWC image directly; the JAX
+in the JAX package. The kernels read the NHWC image directly; the JAX
 package's phase-plane prepass (``_plane_split``), which exists because the
 TPU cannot deinterleave NHWC rows inside a kernel, has no counterpart here.
 """
@@ -22,6 +35,8 @@ import torch.nn.functional as F
 from desenet_tpu_torch.ops import _ext
 
 launches = 0  # kernel launches made by stem_conv
+last_variant = None  # "mma" or "fma": the kernel the last launch took
+K_STEPS = 7   # k16 steps of the tensor-core kernel: 108 -> 112
 K_TAPS = 108  # 3x3 offsets x 12 phase planes
 K_PAD = 112   # the JAX tap matrix's padded depth (rows 108-111 are zero)
 CO_MAX = 64   # widest stem the kernel takes (yolov5l_seg's)
@@ -43,6 +58,78 @@ def stem_weight_matrix(w, dtype=torch.bfloat16) -> torch.Tensor:
                         kk = (dy * 3 + dx) * 12 + sy * 6 + sx * 3 + c
                         wm[kk] = w[2 * dy + sy, 2 * dx + sx, c]
     return torch.from_numpy(wm).to(dtype)
+
+
+def _kernel_order() -> np.ndarray:
+    """perm[k'] = the public row kk of the kernel's row k' = ky*18 + kx*3 + c
+    (k' < 108)."""
+    perm = np.zeros(K_TAPS, np.int64)
+    for ky in range(6):
+        for kx in range(6):
+            for c in range(3):
+                dy, sy, dx, sx = ky // 2, ky % 2, kx // 2, kx % 2
+                perm[ky * 18 + kx * 3 + c] = ((dy * 3 + dx) * 12 + sy * 6
+                                              + sx * 3 + c)
+    return perm
+
+
+
+def stem_weight_kernel_order(wm: torch.Tensor) -> torch.Tensor:
+    """(112, CO) tap matrix in the public order -> (112, CO) in the
+    tensor-core kernel's K order, row k' = ky*18 + kx*3 + c holding tap
+    W[ky, kx, c]; rows 108-111 zero."""
+    idx = torch.from_numpy(_kernel_order()).to(wm.device)
+    return torch.cat([wm.index_select(0, idx),
+                      wm.new_zeros((K_PAD - K_TAPS, wm.shape[1]))])
+
+
+def fragment_channels(co: int) -> np.ndarray:
+    """(CO/8, 8): the output channel behind column g of n8 tile nt in the
+    kernel's B fragments. The kernel takes the n-tiles in passes of 4 (the
+    last may have fewer, nj); a lane's C fragment holds columns 2t, 2t + 1
+    of each n-tile of the pass, and the columns are dealt so that those are
+    the 2 nj neighbouring channels from 32 pass + 2 nj t on, which it
+    stores as one piece."""
+    nts = co // 8
+    cols = np.zeros((nts, 8), np.int64)
+    for nt in range(nts):
+        p, j = divmod(nt, 4)
+        nj = min(4, nts - 4 * p)
+        for g in range(8):
+            cols[nt, g] = 32 * p + 2 * nj * (g // 2) + 2 * j + g % 2
+    return cols
+
+
+def stem_weight_fragments(wm: torch.Tensor) -> torch.Tensor:
+    """(112, CO) tap matrix in the public order -> (7, CO/8, 32, 2, 2): the
+    ``mma.sync`` m16n8k16 B fragments that a block of the tensor-core kernel
+    gathers, the matrix's rows in the kernel's K order and its columns dealt
+    by ``fragment_channels``. For k16
+    step ks and n8 tile nt, lane 4g + t holds registers b0, b1, each two
+    neighbouring k: element [ks, nt, 4g + t, r, h] is row
+    16 ks + 2 t + 8 r + h, channel ``fragment_channels(CO)[nt, g]``."""
+    co = wm.shape[1]
+    cols = torch.from_numpy(fragment_channels(co).reshape(-1)).to(wm.device)
+    wk = stem_weight_kernel_order(wm).index_select(1, cols)
+    return wk.view(K_STEPS, 2, 4, 2, co // 8, 8).permute(
+        0, 4, 5, 2, 1, 3).reshape(K_STEPS, co // 8, 32, 2, 2).contiguous()
+
+
+def stem_patches_kernel_order(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, 3) -> (B, H/2, W/2, 108): each output pixel's 6 x 18 window
+    of the zero-padded image, flat in the kernel's K order."""
+    b, h, w, _ = x.shape
+    ho, wo = h // 2, w // 2
+    xp = F.pad(x, (0, 0, 2, 2, 2, 2)).reshape(b, h + 4, (w + 4) * 3)
+    rows = [xp[:, ky:ky + 2 * ho:2].unfold(2, 18, 6)[:, :, :wo]
+            for ky in range(6)]
+    return torch.cat(rows, -1)
+
+
+def pick_variant(dtype: torch.dtype) -> str:
+    """The kernel ``stem_conv`` launches on a CUDA tensor: ``"mma"`` (tensor
+    cores) in bfloat16, ``"fma"`` (CUDA cores) in float32."""
+    return "mma" if dtype == torch.bfloat16 else "fma"
 
 
 def _silu_f32(y):
@@ -96,7 +183,7 @@ def stem_conv(x: torch.Tensor, wm: torch.Tensor, bias: torch.Tensor, *,
     64. Returns (B, H/2, W/2, CO) in x.dtype. The JAX function's
     ``block_rows`` and ``interpret`` are TPU tiling and interpreter knobs
     and have no counterpart."""
-    global launches
+    global launches, last_variant
     if x.dim() != 4 or x.shape[3] != 3 or x.shape[1] % 2 or x.shape[2] % 2:
         raise ValueError(f"stem_conv needs (B, H, W, 3) with H, W even, got "
                          f"{tuple(x.shape)}")
@@ -117,12 +204,16 @@ def stem_conv(x: torch.Tensor, wm: torch.Tensor, bias: torch.Tensor, *,
         return stem_conv_plain(x, wm, bias, silu)
     if x.device.type != "cuda":
         raise ValueError(f"stem_conv runs on CPU or CUDA, not {x.device}")
+    if x.data_ptr() % 16:  # a view that starts off the kernels' 16-byte copies
+        x = x.clone()
     b, h, w, _ = x.shape
     out = torch.empty((b, h // 2, w // 2, co), dtype=x.dtype, device=x.device)
+    variant = pick_variant(x.dtype)
     stream, dev = _ext.stream_and_device(x)
     _ext.check(_ext.load().desenet_stem_conv(
         x.data_ptr(), wm.data_ptr(), bias.data_ptr(), b, h, w, co, int(silu),
-        int(x.dtype == torch.bfloat16), out.data_ptr(), stream, dev),
-        "stem_conv kernel")
+        int(x.dtype == torch.bfloat16), int(variant == "mma"),
+        out.data_ptr(), stream, dev), f"stem_conv kernel ({variant})")
     launches += 1
+    last_variant = variant
     return out

@@ -54,6 +54,50 @@ def greedy_candidates(rng, b: int, k: int):
             torch.from_numpy(scores.astype(np.float32)))
 
 
+def sorted_candidates(rng, b: int, k: int, live: int, levels: int = 0,
+                      dup: float = 0.0, spread: float = 2000.0):
+    """A (B, K) candidate set in the order the validation path's top-k
+    gives K3: ``live`` scores in (0, 1) in descending order, then -1. With
+    ``levels`` > 0 the scores take that many distinct values, so most
+    neighbours tie; a fraction ``dup`` of the boxes are exact copies of
+    other boxes; box centres are uniform over ``spread`` pixels (a smaller
+    spread makes a denser set)."""
+    centers = rng.uniform(50, 50 + spread, (b, k, 2))
+    wh = rng.uniform(20, 300, (b, k, 2))
+    boxes = np.concatenate([centers - wh / 2, centers + wh / 2], -1)
+    if dup > 0:
+        src = rng.integers(0, k, (b, k))
+        copy = rng.uniform(0, 1, (b, k)) < dup
+        boxes = np.where(copy[..., None],
+                         np.take_along_axis(boxes, src[..., None], 1), boxes)
+    sc = rng.uniform(0.01, 1, (b, k))
+    if levels > 0:
+        sc = np.ceil(sc * levels) / levels
+    sc = -np.sort(-sc, axis=1)
+    sc[:, live:] = -1.0
+    return (torch.from_numpy(boxes.astype(np.float32)),
+            torch.from_numpy(sc.astype(np.float32)))
+
+
+def dense_sorted_candidates(rng, b: int, k: int, live: int, clusters: int):
+    """A dense ordered (B, K) set, as a trained model's decode gives K3:
+    ``live`` candidates in descending score order that crowd around
+    ``clusters`` well-separated objects (100-pixel boxes on a 250-pixel
+    grid, jittered by up to 3 pixels, so two of one cluster overlap with IoU
+    above 0.75), then -1. NMS at IoU 0.6 keeps one box a cluster and walks
+    the whole live prefix."""
+    side = int(np.ceil(np.sqrt(clusters)))
+    which = rng.integers(0, clusters, (b, k))
+    cx = 100.0 + 250.0 * (which % side) + rng.uniform(-3, 3, (b, k))
+    cy = 100.0 + 250.0 * (which // side) + rng.uniform(-3, 3, (b, k))
+    half = 50.0 + rng.uniform(-1, 1, (b, k))
+    boxes = np.stack([cx - half, cy - half, cx + half, cy + half], -1)
+    sc = -np.sort(-rng.uniform(0.01, 1, (b, k)), axis=1)
+    sc[:, live:] = -1.0
+    return (torch.from_numpy(boxes.astype(np.float32)),
+            torch.from_numpy(sc.astype(np.float32)))
+
+
 def random_psp2_head(chans, c_hid: int, n_segcls: int = 3, seed: int = 0):
     """A SegMaskPSP2 module (1/8-resolution output) in eval mode on inputs
     of ``chans`` channels, with seeded random weights and BN statistics."""

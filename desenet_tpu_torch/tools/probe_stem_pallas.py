@@ -18,8 +18,10 @@ non-zero.
 Bars: float32 rtol/atol 1e-5 against all three, as
 ``tests/test_stem_pallas.py`` holds the TPU kernel; bfloat16
 ``testing.BF16_BAR`` against the plain version and the plain conv (the same
-single rounding) and ``testing.BF16_MODULE_BAR`` against the module, which
-rounds after its conv, BN and SiLU.
+single rounding; the tensor-core kernel's SiLU goes through
+``tanh.approx.f32``) and ``testing.BF16_MODULE_BAR`` against the module,
+which rounds after its conv, BN and SiLU. float32 takes the CUDA-core
+kernel, bfloat16 the tensor-core one; the probe checks which ran.
 """
 
 from __future__ import annotations
@@ -57,14 +59,21 @@ def main(argv=None) -> int:
     b = torch.from_numpy(bias).to(dev)
     x = torch.rand((4, args.imgsz, args.imgsz, 3),
                    generator=torch.Generator().manual_seed(2))
+    # made outside inference mode, so that stem_conv can tell they have not
+    # changed and keeps their kernel layout between calls
+    wms = {dt: stem_pallas.stem_weight_matrix(w6, dt).to(dev)
+           for dt in (torch.float32, torch.bfloat16)}
     with torch.inference_mode(), no_tf32():
-        for dt in (torch.float32, torch.bfloat16):
-            wm = stem_pallas.stem_weight_matrix(w6, dt).to(dev)
+        for dt, wm in wms.items():
             mod = copy.deepcopy(focus).to(dev, dt,
                                           memory_format=torch.channels_last)
             for xs in (x[:2, :64, :64], x):
                 xs = xs.to(dev, dt).contiguous()
                 got = stem_pallas.stem_conv(xs, wm, b)
+                if dev.type == "cuda" and stem_pallas.last_variant != \
+                        stem_pallas.pick_variant(dt):
+                    raise AssertionError(f"K5 {dt} took the "
+                                         f"{stem_pallas.last_variant} kernel")
                 plain = stem_pallas.stem_conv_plain(xs, wm, b)
                 wants = {
                     "plain": (plain, BF16_BAR),

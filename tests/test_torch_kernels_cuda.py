@@ -9,13 +9,16 @@ a CUDA device (decided in the fixture, never at import). Run on the card:
 need not have.)
 
 K1-K3 do the plain versions' f32 arithmetic in the same order with no
-fused multiply-adds, so the results must be equal. K4 sums its products in
+fused multiply-adds, so the results must be equal: K3 on sorted sets (its
+ordered walk) and unsorted ones (its argmax loop), on the shared-memory and
+the global-scratch size, with the path each image took checked. K4 sums its products in
 another order than the plain version's matmuls: it is held to
 ``desenet_tpu_torch.testing.check_psp2``'s bars (f32 at rtol/atol 1e-4 with
 TF32 off; bf16 within 1e-2 of the largest plain logit and class decisions
 equal on at least 99% of positions). K5 and K6 also sum in another order
 than their plain versions: f32 (TF32 off) at rtol/atol 1e-5 (K5, 108
-products a pixel, as tests/test_stem_pallas.py holds the TPU kernel) and
+products a pixel, as tests/test_stem_pallas.py holds the TPU kernel; the
+CUDA-core kernel; bf16 takes the tensor-core kernel) and
 1e-4 (K6, sums up to 2304 long through a chain of five products); bf16 at
 ``desenet_tpu_torch.testing.check_bf16``'s bar. The inputs come from
 ``desenet_tpu_torch.testing``, as chip_smoke.py's do.
@@ -36,10 +39,11 @@ import torch
 from desenet_tpu_torch.ops import (c3_fused, nms_fused, nms_pallas,
                                    seg_head_pallas, seg_pallas, stem_pallas)
 from desenet_tpu_torch.testing import (C3_SERVED, check_close, check_psp2,
+                                       dense_sorted_candidates,
                                        greedy_candidates, no_tf32,
                                        psp2_inputs, random_c3_params,
-                                       random_psp2_head, stem_inputs,
-                                       synthetic_decode)
+                                       random_psp2_head, sorted_candidates,
+                                       stem_inputs, synthetic_decode)
 
 pytestmark = pytest.mark.cuda
 
@@ -96,6 +100,85 @@ def test_greedy_nms_kernel_matches_plain(cuda, b, k):
     torch.cuda.synchronize()
     assert int((sc > 0).sum()) > 0
     assert torch.equal(idx, want_idx) and torch.equal(sc, want_sc)
+    # an unsorted set: every image took the argmax loop
+    assert nms_pallas.last_paths.tolist() == [nms_pallas.PATH_ARGMAX] * b
+
+
+def assert_greedy_equal(cuda, boxes, scores, iou, max_det, path):
+    """K3 on the card against greedy_nms_plain, and the path every image
+    took."""
+    boxes, scores = boxes.to(cuda), scores.to(cuda)
+    before = nms_pallas.launches
+    idx, sc = nms_pallas.greedy_nms_pallas(boxes, scores, iou, max_det)
+    assert nms_pallas.launches == before + 1
+    want_idx, want_sc = nms_pallas.greedy_nms_plain(boxes, scores, iou,
+                                                    max_det)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, want_idx) and torch.equal(sc, want_sc)
+    assert nms_pallas.last_paths.tolist() == [path] * scores.shape[0]
+    return sc
+
+
+# sorted sets, as the validation path's top-k hands them over: (K, live,
+# max_det, generator arguments). L on and off the round (1024) and the
+# survivor (512) boundaries, ties, duplicate boxes, all dead, fewer live than
+# max_det, a crowded set (most suppressed), the global-scratch size
+SORTED_CASES = [
+    (2048, 1500, 300, {}),
+    (2048, 1024, 300, {}), (2048, 1025, 300, {}), (2048, 1023, 2000, {}),
+    (2048, 512, 2000, {}), (2048, 513, 2000, {}), (2048, 511, 2000, {}),
+    (4096, 4096, 2048, {}),
+    (2048, 1500, 300, {"levels": 5}), (2048, 1500, 2000, {"levels": 40}),
+    (2048, 1500, 300, {"dup": 0.5}), (2048, 1500, 2000, {"dup": 0.9}),
+    (2048, 0, 300, {}), (2048, 1, 300, {}), (2048, 100, 300, {}),
+    (4096, 3000, 300, {"spread": 500.0}),
+    (4096, 3000, 2000, {"spread": 1200.0, "levels": 9}),
+    (nms_pallas.SMEM_CAP + 5000, 9000, 300, {"spread": 4000.0}),
+]
+
+
+@pytest.mark.parametrize("k,live,max_det,kw", SORTED_CASES)
+def test_greedy_nms_ordered_walk_matches_plain(cuda, k, live, max_det, kw):
+    rng = np.random.default_rng(k + live)
+    boxes, scores = sorted_candidates(rng, 3, k, live, **kw)
+    sc = assert_greedy_equal(cuda, boxes, scores, 0.6, max_det,
+                             nms_pallas.PATH_ORDERED)
+    assert int((sc > 0).sum()) > 0 or live == 0
+
+
+def test_greedy_nms_dense_sorted_set(cuda):
+    boxes, scores = dense_sorted_candidates(np.random.default_rng(1), 4, 16384,
+                                            7200, 150)
+    sc = assert_greedy_equal(cuda, boxes, scores, 0.6, 300,
+                             nms_pallas.PATH_ORDERED)
+    assert (sc > 0).sum(1).tolist() == [150] * 4  # one pick a cluster
+
+
+def test_greedy_nms_paths_chosen_per_image(cuda):
+    """One sorted and one unsorted image in a batch, and a sorted one whose
+    max_det is above the ordered walk's cap."""
+    rng = np.random.default_rng(2)
+    sb, ss = sorted_candidates(rng, 1, 2048, 1500)
+    ub, us = greedy_candidates(rng, 1, 2048)
+    boxes, scores = torch.cat([sb, ub]).to(cuda), torch.cat([ss, us]).to(cuda)
+    idx, sc = nms_pallas.greedy_nms_pallas(boxes, scores, 0.6, 300)
+    want = nms_pallas.greedy_nms_plain(boxes, scores, 0.6, 300)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, want[0]) and torch.equal(sc, want[1])
+    assert nms_pallas.last_paths.tolist() == [nms_pallas.PATH_ORDERED,
+                                              nms_pallas.PATH_ARGMAX]
+    assert_greedy_equal(cuda, sb, ss, 0.6, nms_pallas.KEPT_CAP + 1,
+                        nms_pallas.PATH_ARGMAX)
+
+
+def test_greedy_nms_ordered_plain_on_the_card(cuda):
+    """The plain form of the walk, on CUDA tensors, at the kernel's own
+    round and survivor sizes."""
+    boxes, scores = (t.to(cuda) for t in sorted_candidates(
+        np.random.default_rng(3), 2, 4096, 3000, spread=1200.0))
+    got = nms_pallas.greedy_nms_ordered_plain(boxes, scores, 0.6, 300)
+    want = nms_pallas.greedy_nms_plain(boxes, scores, 0.6, 300)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("c_hid,dtype", [(128, torch.float32),
@@ -118,7 +201,12 @@ def test_seg_head_kernel_matches_plain(cuda, full_f32, c_hid, dtype):
 @pytest.mark.parametrize("hw,co,silu", [((640, 640), 32, True),
                                         ((640, 640), 64, True),
                                         ((640, 640), 24, False),
-                                        ((100, 70), 16, True)])  # ragged
+                                        ((100, 70), 16, True),  # ragged
+                                        ((640, 640), 48, True),
+                                        ((640, 640), 32, False),
+                                        ((200, 328), 32, True),  # ragged
+                                        ((200, 328), 64, False),
+                                        ((2, 2), 8, True)])
 def test_stem_kernel_matches_plain(cuda, full_f32, dtype, hw, co, silu):
     x, w6, bias = stem_inputs(2, *hw, co)
     x = x.to(cuda, dtype)
@@ -131,7 +219,42 @@ def test_stem_kernel_matches_plain(cuda, full_f32, dtype, hw, co, silu):
     torch.cuda.synchronize()
     assert got.shape == (2, hw[0] // 2, hw[1] // 2, co)
     assert got.dtype == dtype
+    assert stem_pallas.last_variant == stem_pallas.pick_variant(dtype) == (
+        "mma" if dtype == torch.bfloat16 else "fma")
     check_close(got, want, f"K5 CO {co}", 1e-5)
+
+
+@pytest.mark.parametrize("scale", [1.0, 8.0])
+def test_stem_kernel_silu_tails(cuda, scale):
+    """The tensor-core kernel's SiLU (tanh.approx) stays inside the bf16 bar
+    on activations of order 1 and on ones that reach far into both tails."""
+    x, w6, bias = stem_inputs(2, 200, 328, 32, seed=5)
+    x = x.to(cuda, torch.bfloat16)
+    wm = stem_pallas.stem_weight_matrix(w6 * scale, torch.bfloat16).to(cuda)
+    bias = torch.from_numpy(bias).to(cuda)
+    got = stem_pallas.stem_conv(x, wm, bias)
+    want = stem_pallas.stem_conv_plain(x, wm, bias)
+    torch.cuda.synchronize()
+    assert stem_pallas.last_variant == "mma"
+    check_close(got, want, f"K5 SiLU x{scale}", 1e-5)
+
+
+def test_stem_kernel_follows_the_tap_matrix(cuda):
+    """The kernel reads the tap matrix it is given on every call: one changed
+    through ``.data``, which no version counter shows, gives the new
+    result, and two stems used in turn give each its own."""
+    x, w6, bias = stem_inputs(2, 64, 96, 32, seed=9)
+    x = x.to(cuda, torch.bfloat16)
+    wm = stem_pallas.stem_weight_matrix(w6, torch.bfloat16).to(cuda)
+    other = stem_pallas.stem_weight_matrix(w6[..., ::-1].copy(),
+                                           torch.bfloat16).to(cuda)
+    bias = torch.from_numpy(bias).to(cuda)
+    for step in range(3):
+        for m in (wm, other):
+            got = stem_pallas.stem_conv(x, m, bias)
+            check_close(got, stem_pallas.stem_conv_plain(x, m, bias),
+                        f"K5 step {step}", 1e-5)
+        wm.data.mul_(-0.5)
 
 
 # yolov5s_seg's eight C3 rows, then ragged maps (tiles cut by the border):

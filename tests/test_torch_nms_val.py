@@ -11,6 +11,14 @@
     adds 1e-9; neither flips a pick on these scenes).
 (c) Tied scores: the top-k set and the picks among equal scores follow
     ascending flat index, as ``jax.lax.top_k`` orders them.
+(d) ``greedy_nms_ordered_plain``, the plain form of the walk the port's K3
+    takes on the card for sorted sets (rounds of candidates against the
+    kept list, the survivors' cover mask, its scan in order), against
+    ``greedy_nms_plain`` and the JAX kernel in interpret mode: identical
+    keep indices and scores on sorted sets with ties, duplicate boxes, no
+    live candidate, fewer live than ``max_det`` and a live count on and off
+    the round and survivor boundaries, and as a ``hypothesis`` property
+    over small sets; ``scores_ordered`` is the kernel's test for that path.
 """
 
 import functools
@@ -24,8 +32,10 @@ import torch
 from desenet_tpu.ops import nms as jax_nms
 from desenet_tpu.ops.nms_pallas import greedy_nms_pallas as jax_greedy
 from desenet_tpu_torch.ops import nms_pallas
-from desenet_tpu_torch.ops.nms import (PRE_TOPK_VAL, batched_nms,
-                                       non_max_suppression)
+from desenet_tpu_torch.ops.nms import (PRE_TOPK_VAL, _prep_candidates,
+                                       batched_nms, non_max_suppression)
+from desenet_tpu_torch.testing import (dense_sorted_candidates,
+                                       greedy_candidates, sorted_candidates)
 
 
 def make_pred(rng, b=2, a=480, nc=6, obj_lo=0.0):
@@ -206,3 +216,127 @@ def test_jax_xla_and_pallas_backends_agree_here():
     np.testing.assert_array_equal(ok, np.asarray(x_ok))
     np.testing.assert_array_equal(np.asarray(p_idx)[ok],
                                   np.asarray(x_idx)[ok])
+
+
+def assert_walk_matches(boxes, scores, iou, max_det, chunk, surv):
+    """The ordered walk == the argmax loop == the JAX kernel (interpret)."""
+    want = nms_pallas.greedy_nms_plain(boxes, scores, iou, max_det)
+    got = nms_pallas.greedy_nms_ordered_plain(boxes, scores, iou, max_det,
+                                              chunk, surv)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    j_idx, j_sc = jax_greedy(jnp.asarray(boxes.numpy()),
+                             jnp.asarray(scores.numpy()), iou, max_det,
+                             interpret=True)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(j_idx))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(j_sc))
+    return got
+
+
+# (live, max_det, generator arguments) at K 256, walked in rounds of 32 with
+# 16 survivors settled a round (the kernel's 1024 and 512, scaled down)
+WALK_CASES = [
+    (200, 64, {}),
+    (200, 300, {"levels": 5}),              # ties
+    (200, 300, {"dup": 0.5}),               # duplicate boxes
+    (200, 300, {"dup": 0.9, "levels": 3}),
+    (0, 64, {}),                            # all dead
+    (1, 64, {}),
+    (20, 64, {}),                           # fewer live than max_det
+    (32, 300, {}), (33, 300, {}), (31, 300, {}),   # L at a round boundary
+    (16, 300, {}), (17, 300, {}),                  # L at the survivor boundary
+    (64, 300, {}), (256, 300, {}),
+    (256, 300, {"spread": 300.0}),          # crowded: most are suppressed
+    (256, 10, {"spread": 300.0}),           # max_det ends the walk
+]
+
+
+@pytest.mark.parametrize("live,max_det,kw", WALK_CASES)
+def test_ordered_walk_matches_plain_and_jax(live, max_det, kw):
+    rng = np.random.default_rng(live + max_det)
+    boxes, scores = sorted_candidates(rng, 3, 256, live, **kw)
+    assert bool(nms_pallas.scores_ordered(scores).all())
+    _, sc = assert_walk_matches(boxes, scores, 0.6, max_det, 32, 16)
+    assert int((sc > 0).sum()) > 0 or live == 0
+
+
+@pytest.mark.parametrize("chunk,surv", [(1024, 512), (64, 64), (8, 3),
+                                        (5, 1)])
+def test_ordered_walk_at_other_round_sizes(chunk, surv):
+    boxes, scores = sorted_candidates(np.random.default_rng(8), 2, 300, 280,
+                                      levels=11, dup=0.3, spread=600.0)
+    assert_walk_matches(boxes, scores, 0.5, 100, chunk, surv)
+
+
+def test_ordered_walk_on_a_dense_set():
+    boxes, scores = dense_sorted_candidates(np.random.default_rng(9), 2, 1024,
+                                            700, 12)
+    _, sc = assert_walk_matches(boxes, scores, 0.6, 300, 64, 16)
+    assert (sc > 0).sum(1).tolist() == [12, 12]  # one pick a cluster
+
+
+def test_ordered_walk_property():
+    """Any small sorted set, any round and survivor size: the walk's picks
+    are the argmax loop's."""
+    hypothesis = pytest.importorskip("hypothesis")
+    st = hypothesis.strategies
+
+    @hypothesis.settings(max_examples=40, deadline=None)
+    @hypothesis.given(st.data())
+    def walk(data):
+        k = data.draw(st.integers(1, 24))
+        live = data.draw(st.integers(0, k))
+        grid = st.integers(0, 6)  # coarse coordinates: overlaps, ties abound
+        xy = data.draw(st.lists(st.tuples(grid, grid, st.integers(1, 4),
+                                          st.integers(1, 4)), min_size=k,
+                                max_size=k))
+        sc = sorted(data.draw(st.lists(st.integers(1, 5), min_size=k,
+                                       max_size=k)), reverse=True)
+        boxes = torch.tensor([[x, y, x + w, y + h] for x, y, w, h in xy],
+                             dtype=torch.float32)[None] * 10
+        scores = torch.tensor(sc, dtype=torch.float32)[None] / 8
+        scores[0, live:] = -1.0
+        iou = data.draw(st.sampled_from([0.0, 0.3, 0.6]))
+        max_det = data.draw(st.integers(1, 30))
+        chunk = data.draw(st.integers(1, 12))
+        surv = data.draw(st.integers(1, chunk))
+        want = nms_pallas.greedy_nms_plain(boxes, scores, iou, max_det)
+        got = nms_pallas.greedy_nms_ordered_plain(boxes, scores, iou, max_det,
+                                                  chunk, surv)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+    walk()
+
+
+def test_scores_ordered_is_the_kernels_path_test():
+    sb, ss = sorted_candidates(np.random.default_rng(10), 2, 64, 40, levels=4)
+    ub, us = greedy_candidates(np.random.default_rng(10), 2, 64)
+    assert nms_pallas.scores_ordered(ss).tolist() == [True, True]
+    assert nms_pallas.scores_ordered(us).tolist() == [False, False]
+    # a live score behind a dead one, and a rise among the live ones
+    gap = ss.clone()
+    gap[0, 50] = 0.001
+    rise = ss.clone()
+    rise[1, 10] = 2.0
+    assert nms_pallas.scores_ordered(gap).tolist() == [False, True]
+    assert nms_pallas.scores_ordered(rise).tolist() == [True, False]
+    assert bool(nms_pallas.scores_ordered(torch.full((1, 8), -1.0)).all())
+    with pytest.raises(ValueError, match="non-increasing"):
+        nms_pallas.greedy_nms_ordered_plain(ub, us, 0.6, 10)
+    # the validation path's top-k hands K3 that order
+    pred = torch.from_numpy(make_pred(np.random.default_rng(11)))
+    _, top_scores, _ = _prep_candidates(pred, 0.001, 512, True)
+    assert bool(nms_pallas.scores_ordered(top_scores).all())
+
+
+@pytest.mark.parametrize("seed", [12, 13])
+def test_unsorted_sets_still_match_jax(seed):
+    """Explicit candidates in any order (the kernel's argmax loop on the
+    card; the plain version here)."""
+    boxes, scores = greedy_candidates(np.random.default_rng(seed), 3, 200)
+    assert not bool(nms_pallas.scores_ordered(scores).any())
+    idx, sc = nms_pallas.greedy_nms_pallas(boxes, scores, 0.6, 80)
+    j_idx, j_sc = jax_greedy(jnp.asarray(boxes.numpy()),
+                             jnp.asarray(scores.numpy()), 0.6, 80,
+                             interpret=True)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(j_idx))
+    np.testing.assert_array_equal(sc.numpy(), np.asarray(j_sc))

@@ -2,8 +2,10 @@
 (``desenet_tpu_torch/tools/profile_served``): its two tables (the whole
 program, then the Focus stem alone) come out with positive totals, the
 stem's below the program's. The seg head's (``profile_seg_head``): one table
-for ``fused_psp2_eval`` and one for the module head. The two that need a
-card (``profile_c3_phases``, ``mma_peak``) say so and exit."""
+for ``fused_psp2_eval`` and one for the module head. The validation step's
+(``profile_val_step``): one table for either seg head. The three that need
+a card (``profile_c3_phases``, ``profile_stem_phases``, ``mma_peak``) say so
+and exit."""
 
 import re
 
@@ -11,7 +13,8 @@ import pytest
 import torch
 
 from desenet_tpu_torch.tools import (mma_peak, profile_c3_phases,
-                                     profile_seg_head, profile_served)
+                                     profile_seg_head, profile_served,
+                                     profile_stem_phases, profile_val_step)
 
 
 def test_profile_served_runs_on_the_cpu(capsys):
@@ -34,7 +37,18 @@ def test_profile_seg_head_runs_on_the_cpu(capsys):
     assert "the module head (1, 16, 16)" in out and "aten::" in out
 
 
-@pytest.mark.parametrize("tool", [profile_c3_phases, mma_peak])
+def test_profile_val_step_runs_on_the_cpu(capsys):
+    assert profile_val_step.main(["--device", "cpu", "--batch", "1",
+                                  "--imgsz", "64"]) == 0
+    out = capsys.readouterr().out
+    totals = [float(t) for t in re.findall(r": ([0-9.]+) ms per run", out)]
+    assert len(totals) == 2 and min(totals) > 0, out
+    assert "val step b1/64 with the module seg head" in out
+    assert "val step b1/64 with the fused seg head (K4)" in out
+
+
+@pytest.mark.parametrize("tool", [profile_c3_phases, profile_stem_phases,
+                                  mma_peak])
 def test_card_only_tools_refuse_without_a_card(tool):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")

@@ -14,6 +14,12 @@ Focus fold (``utils/fold.py``) against the JAX package, on the CPU.
 (d) the JAX tiny model's ``l0`` (its fused 6x6 stem) output against the
     port's ``stem_conv`` on the JAX ``l0`` kernel with ``fold_conv_bn`` of
     the JAX BN arrays, f32 rtol/atol 1e-4;
+(f) the tensor-core kernel's layouts, as the module states them: the tap
+    matrix in the kernel's K order (ky, kx*3 + c) times the patches in that
+    order equals ``stem_conv_plain`` and the JAX ``stem_conv`` in interpret
+    mode at rtol/atol 1e-5 in f32 for CO 32, 48 and 64; the B fragments
+    (``stem_weight_fragments``), multiplied and stored as the kernel's
+    lanes do it, give the same; ``pick_variant`` picks the kernel by dtype;
 (e) the folds' helpers equal the JAX package's, and ``fold_conv`` (shared
     with the seg head's fold) equals ``fold_conv_bn`` on a port conv's
     weights and BN.
@@ -179,3 +185,69 @@ def test_stem_conv_refuses_what_it_does_not_take():
         stem_pallas.stem_conv(x.to("meta"), wm.to("meta"), b.to("meta"))
     with pytest.raises(ValueError, match="6, 6, 3"):
         stem_pallas.stem_weight_matrix(w6[:5])
+
+
+@pytest.mark.parametrize("co", [32, 48, 64])
+def test_kernel_order_matches_plain_and_jax(co):
+    x, w6, bias = stem_inputs(2, 24, 40, co, seed=co)
+    wm = stem_pallas.stem_weight_matrix(w6, torch.float32)
+    b = torch.from_numpy(bias)
+    wk = stem_pallas.stem_weight_kernel_order(wm)
+    assert wk.shape == (stem_pallas.K_PAD, co)
+    assert not wk[stem_pallas.K_TAPS:].any()
+    # row ky*18 + kx*3 + c is tap W[ky, kx, c]
+    np.testing.assert_array_equal(wk[:108].numpy(), w6.reshape(108, co))
+    patches = stem_pallas.stem_patches_kernel_order(x)
+    assert patches.shape == (2, 12, 20, 108)
+    y = torch.matmul(patches, wk[:108]) + b
+    got = y * torch.sigmoid(y)
+    want = stem_pallas.stem_conv_plain(x, wm, b)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    jwant = np.asarray(jax_stem.stem_conv(
+        jnp.asarray(x.numpy()), jax_stem.stem_weight_matrix(w6, jnp.float32),
+        jnp.asarray(bias), block_rows=4, interpret=True), np.float32)
+    np.testing.assert_allclose(got.numpy(), jwant, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("co", [8, 24, 32, 40, 48, 64])
+def test_weight_fragments_as_the_lanes_use_them(co):
+    """Walk the mma.sync m16n8k16 layouts in numpy: lane 4g + t of n-tile nt
+    holds B[k, n = g] for k = 16 ks + 2t + 8r + h, and C columns 2t, 2t + 1;
+    in a pass of nj n-tiles it stores them at channels 32 pass + 2 nj t + 2 j
+    + {0, 1}. The result must be the plain conv before the bias."""
+    x, w6, _ = stem_inputs(1, 8, 12, co, seed=co + 1)
+    wm = stem_pallas.stem_weight_matrix(w6, torch.float32)
+    frag = stem_pallas.stem_weight_fragments(wm).numpy()
+    nts = co // 8
+    assert frag.shape == (7, nts, 32, 2, 2)
+    patches = np.zeros((24, 112), np.float32)
+    patches[:, :108] = stem_pallas.stem_patches_kernel_order(x).reshape(
+        24, 108).numpy()
+    out = np.full((24, co), np.nan, np.float32)
+    for nt in range(nts):
+        bmat = np.zeros((112, 8), np.float32)
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            for ks in range(7):
+                for r in range(2):
+                    for h in range(2):
+                        bmat[16 * ks + 2 * t + 8 * r + h, g] = frag[
+                            ks, nt, lane, r, h]
+        c = patches @ bmat  # (pixels, 8): the n-tile's C
+        p, j = divmod(nt, 4)
+        nj = min(4, nts - 4 * p)
+        for t in range(4):
+            ch0 = 32 * p + 2 * nj * t
+            out[:, ch0 + 2 * j] = c[:, 2 * t]
+            out[:, ch0 + 2 * j + 1] = c[:, 2 * t + 1]
+    want = stem_pallas.stem_conv_plain(x, wm, torch.zeros(co), silu=False)
+    np.testing.assert_allclose(out, want.reshape(24, co).numpy(), rtol=1e-5,
+                               atol=1e-5)
+    # the channels are dealt once each
+    assert sorted(stem_pallas.fragment_channels(co).reshape(-1)) == list(
+        range(co))
+
+
+def test_pick_variant():
+    assert stem_pallas.pick_variant(torch.bfloat16) == "mma"
+    assert stem_pallas.pick_variant(torch.float32) == "fma"

@@ -13,8 +13,13 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
    cuobjdump is at hand);
 2. each kernel against its plain PyTorch version on the card: the shared
    tensor-core tile alone (one bf16 1x1 stage, K 512, N 256) against
-   torch.matmul in f32, K1 on the shared-memory and the global-scratch
-   path, K3 on unsorted sets (its argmax loop) and sorted ones (its ordered
+   torch.matmul in f32, K1 on testing.NMS_FUSED_CASES (a sparse decode, one
+   above the candidate cap, all dead, fewer live than max_det, more kept
+   than max_det, many tied scores, exact duplicate boxes, counts on and one
+   over each cap, a dense decode) with the path each image took checked, K2
+   on testing.SEG_TAIL_CASES (the span kernel and the pixel kernel each
+   equal to plain, the one the wrapper picked checked: W no multiple of 16,
+   other scales, align_corners off, B = 1, C = 19 and 256), K3 on unsorted sets (its argmax loop) and sorted ones (its ordered
    walk: ties, duplicates, all dead, fewer live than max_det, L on and off
    the round boundaries, dense) at both memory sizes with the path each
    image took checked, K4 in f32 and bf16, K5 at (4, 640, 640, 3) with CO
@@ -29,7 +34,7 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
    plus HTTP when cv2 imports), with K1/K2's launch counters reset before
    and read after;
 4b. the validation path: the same model in bf16 through Validator.run over
-   an in-memory loader of 4 batches of 32 images at 640 (made with numpy
+   an in-memory loader of 2 batches of 32 images at 640 (made with numpy
    from a seed), once with the module seg head and once with the fused one,
    with K3/K4's launch counters reset before each run and read after;
 5. numbers: the served program at batch 128 / 640 px, the validation step
@@ -39,7 +44,10 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
    cuDNN module head; K5, K6 in phase 6: the cuDNN modules) and beside its
    bound (desenet_tpu_torch.tools.timing: bytes over 3.35 TB/s or
    operations over the card's peak rate, whichever is larger, from this
-   run's shapes and counts), peak device memory. K3 and K4 are first held against their plain versions
+   run's shapes and counts), peak device memory. K1 is timed a second time
+   on a dense decode (3000 candidates an image around 100 objects), K2's
+   pixel kernel (the first version, kept for the shapes the span kernel does
+   not take) beside the span kernel. K3 and K4 are first held against their plain versions
    on the validation forward's own tensors (K3 on its top-16384 candidate
    set, where bf16 scores tie often; K4 on its seg head's inputs, and
    against the module head); K3 is timed a second time on a dense sorted
@@ -82,7 +90,7 @@ from desenet_tpu_torch.tools.timing import card_line, cuda_ms, in_turns
 
 B_SERVE = 128
 B_VAL = 32
-N_VAL_BATCHES = 4
+N_VAL_BATCHES = 2
 IMGSZ = 640
 CSRC = "desenet_tpu_torch/csrc"
 
@@ -178,8 +186,12 @@ def phase1():
     if not os.path.exists(cuobjdump):
         log(1, "cuobjdump not found: SASS not inspected")
         return
+    # only the tensor-core kernels: the whole library takes several times as
+    # long to disassemble
+    entries = [k for k in spills if any(m in k for m in MMA_KERNELS)]
     sass = subprocess.run(
-        [cuobjdump, "-sass", os.path.join(_ext.build_dir(), _ext.LIB_NAME)],
+        [cuobjdump, "-sass", "-fun", ",".join(entries),
+         os.path.join(_ext.build_dir(), _ext.LIB_NAME)],
         capture_output=True, text=True, check=True, timeout=300).stdout
     hmma, fn = {}, None
     for line in sass.splitlines():
@@ -201,12 +213,16 @@ def phase2(errs: dict):
     from desenet_tpu_torch.ops import (c3_fused, nms_fused, nms_pallas,
                                        seg_head_pallas, seg_pallas,
                                        stem_pallas)
-    from desenet_tpu_torch.testing import (BF16_BAR, C3_SERVED, check_psp2,
+    from desenet_tpu_torch.testing import (BF16_BAR, C3_SERVED,
+                                           NMS_FUSED_CASES, SEG_TAIL_CASES,
+                                           check_psp2,
                                            dense_sorted_candidates,
-                                           greedy_candidates, psp2_inputs,
-                                           random_c3_params, random_psp2_head,
-                                           sorted_candidates, stem_inputs,
-                                           synthetic_decode)
+                                           greedy_candidates, nms_fused_case,
+                                           psp2_inputs, random_c3_params,
+                                           random_psp2_head,
+                                           seg_tail_infinite_input,
+                                           seg_tail_input,
+                                           sorted_candidates, stem_inputs)
 
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
@@ -233,48 +249,79 @@ def phase2(errs: dict):
         f"1x1 stage: max abs err {err:.6g} against torch.matmul in f32 "
         f"(|ref| max {float(ref.abs().max()):.6g}, bar 2^-6 of it)")
 
-    for name, frac in (("sparse", 0.01), ("dense", 0.8)):
-        pred = torch.from_numpy(synthetic_decode(rng, 8, 25200, 6, frac)).to(dev)
-        planes = nms_fused.nms_planes(pred, 0.25)
-        n_cand = int((planes[4] > 0).sum(1).max())
-        got = nms_fused.greedy_select(*planes, 300, 0.45)
-        ref = nms_fused.greedy_select_plain(*planes, 300, 0.45)
+    # K1: rows equal to plain on every case, the path every image took as
+    # the counts say (0 the ordered walk, 1 the argmax loop)
+    ran = {0: 0, 1: 0}
+    for case in NMS_FUSED_CASES:
+        name, _, _, max_det, path = case
+        planes = [p.to(dev) for p in nms_fused_case(case)]
+        b, n_anchor = planes[4].shape
+        n_cand = (planes[4] > 0).sum(1)
+        got = nms_fused.greedy_select(*planes, max_det, 0.45)
+        ref = nms_fused.greedy_select_plain(*planes, max_det, 0.45)
         torch.cuda.synchronize()
-        if not torch.equal(got[..., 4] > 0, ref[..., 4] > 0) or \
-                not torch.equal(got, ref):
+        if not torch.equal(got, ref):
             raise AssertionError(
-                f"K1 {name}: kernel keep-set differs from plain "
-                f"(max abs err {float((got - ref).abs().max())})")
+                f"K1 {name}: kernel rows differ from plain in "
+                f"{int((got != ref).any(-1).sum())} of {b * max_det} (max "
+                f"abs err {float((got - ref).abs().max())})")
+        paths = nms_fused.last_paths.tolist()
+        if paths != [path] * b:
+            raise AssertionError(f"K1 {name}: paths {paths}, expected {path}")
+        ran[path] += b
         err = float((got - ref).abs().max())
         errs["nms_fused"] = max(errs.get("nms_fused", 0.0), err)
-        log(2, f"K1 nms_fused {name}: up to {n_cand} candidates/image, "
-            f"{int((got[..., 4] > 0).sum())} picks, identical to plain "
-            f"(max abs err {err})")
+        log(2, f"K1 nms_fused {name} ({b}, {n_anchor}), {int(n_cand.min())} "
+            f"to {int(n_cand.max())} candidates an image, max_det {max_det}, "
+            f"IoU 0.45: {'ordered walk' if path == 0 else 'argmax loop'}, "
+            f"{int((got[..., 4] > 0).sum())} picks, identical to plain (max "
+            f"abs err {err})")
+    if min(ran.values()) < 1:
+        raise AssertionError(f"K1: images by path {ran}")
+    log(2, f"K1 paths over these cases: {ran[0]} images on the ordered walk, "
+        f"{ran[1]} on the argmax loop")
 
-    for b, c, dt in ((8, 3, torch.float32), (8, 3, torch.bfloat16),
-                     (4, 19, torch.float32)):
-        x = torch.from_numpy(rng.normal(0, 1, (b, 80, 80, c)).astype(
-            np.float32)).to(dev, dt)
-        taps = (*seg_pallas.seg_taps(80, 640, True, dev),
-                *seg_pallas.seg_taps(80, 640, True, dev))
-        got = seg_pallas.upsample_argmax(x, 8, True)
+    # K2: the kernel the wrapper picks from the shape, and both kernels
+    # equal to plain on every case
+    took = {"span": 0, "pixel": 0}
+    for case in SEG_TAIL_CASES:
+        b, h, w, c, dt, scale, align, variant = case
+        x = seg_tail_input(case).to(dev)
+        taps = (*seg_pallas.seg_taps(h, h * scale, align, dev),
+                *seg_pallas.seg_taps(w, w * scale, align, dev))
+        got = seg_pallas.upsample_argmax(x, scale, align)
+        picked = seg_pallas.last_variant
         ref = seg_pallas.upsample_argmax_plain(x, *taps)
+        pixel = seg_pallas.upsample_argmax_with(x, "pixel", scale, align)
         torch.cuda.synchronize()
-        plane = torch.nn.functional.interpolate(
-            x.permute(0, 3, 1, 2).float(), scale_factor=8, mode="bilinear",
-            align_corners=True)
-        top2 = plane.topk(2, dim=1).values
-        clear = (top2[:, 0] - top2[:, 1]) > 1e-4
-        same = got == ref
-        agree = float(same.float().mean())
-        if agree < 0.9999 or not bool(same[clear].all()):
+        if picked != variant:
+            raise AssertionError(f"K2 {case}: took the {picked} kernel")
+        if not torch.equal(got, ref) or not torch.equal(pixel, ref):
             raise AssertionError(
-                f"K2 ({b},80,80,{c}) {dt}: agreement {agree}, "
-                f"{int((~same & clear).sum())} clear-margin mismatches")
+                f"K2 {case}: {int((got != ref).sum())} pixels of the "
+                f"{picked} kernel and {int((pixel != ref).sum())} of the "
+                f"pixel kernel differ from plain")
+        took[picked] += 1
         err = float((got.int() - ref.int()).abs().max())
         errs["seg_tail"] = max(errs.get("seg_tail", 0.0), err)
-        log(2, f"K2 seg_tail ({b},80,80,{c}) {str(dt)[6:]}: {agree:.6f} of "
-            f"pixels equal to plain, all clear-margin pixels equal")
+        log(2, f"K2 seg_tail ({b},{h},{w},{c}) {str(dt)[6:]} x{scale}, "
+            f"align_corners {align}: kernel {picked} (longest run "
+            f"{seg_pallas.tap_runs(w, w * scale, align)[1]} pixels), it and "
+            f"the pixel kernel equal to plain on all {got.numel()} pixels")
+    if min(took.values()) < 1:
+        raise AssertionError(f"K2: cases by kernel {took}")
+    # infinite logits beside the one-tap pixels: neither kernel reads them
+    x = seg_tail_infinite_input().to(dev)
+    ref = seg_pallas.upsample_argmax_plain(
+        x, *seg_pallas.seg_taps(80, 640, True, dev) * 2)
+    for variant in ("span", "pixel"):
+        got = seg_pallas.upsample_argmax_with(x, variant)
+        if not torch.equal(got, ref):
+            raise AssertionError(
+                f"K2 {variant} kernel with infinite neighbours: "
+                f"{int((got != ref).sum())} pixels differ from plain")
+    log(2, "K2 seg_tail (2,80,80,3) f32 with infinite logits beside the "
+        "one-tap pixels: both kernels equal to plain")
 
     # K3: unsorted sets take the kernel's argmax loop, sorted ones (the
     # validation path's order) its ordered walk; each on the shared-memory
@@ -658,9 +705,9 @@ def phase4b(sd):
     return model, spec, validator, batches[0], launches
 
 
-def phase5(pred, card: str) -> dict:
+def phase5(pred, card: str, extras: dict) -> dict:
     from desenet_tpu_torch.ops import nms_fused, seg_pallas
-    from desenet_tpu_torch.testing import synthetic_decode
+    from desenet_tpu_torch.testing import dense_decode, synthetic_decode
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -683,17 +730,48 @@ def phase5(pred, card: str) -> dict:
     pred_np = synthetic_decode(rng, B_SERVE, 25200, 6, 0.01)
     planes = nms_fused.nms_planes(torch.from_numpy(pred_np).to(dev), 0.25)
     n_cand = float((planes[4] > 0).sum(1).float().mean())
-    picks = float((nms_fused.greedy_select(*planes, 300, 0.45)[..., 4] > 0)
-                  .sum(1).float().mean())
+    got = nms_fused.greedy_select(*planes, 300, 0.45)
+    if not torch.equal(got, nms_fused.greedy_select_plain(*planes, 300, 0.45)):
+        raise AssertionError(f"K1 on the sparse decode ({B_SERVE}, 25200) "
+                             f"differs from plain")
+    picks = float((got[..., 4] > 0).sum(1).float().mean())
     p, k = in_turns(
         (lambda: nms_fused.greedy_select_plain(*planes, 300, 0.45), 2),
         (lambda: nms_fused.greedy_select(*planes, 300, 0.45), 20))
     bound = tm.nms_fused_bound(B_SERVE, 25200, 300, n_cand, picks)
     timing["nms_fused"] = (k, p, bound, None)
+    if nms_fused.last_paths.tolist() != [nms_fused.PATH_ORDERED] * B_SERVE:
+        raise AssertionError("K1 on the sparse decode left the ordered walk")
     log(5, f"K1 nms_fused ({B_SERVE}, 25200) planes, {n_cand:.0f} "
         f"candidates and {picks:.0f} picks per image, max_det 300: kernel "
         f"{k:.3f} ms, plain {p:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
-        f"no single PyTorch call [{card}]")
+        f"no single PyTorch call; identical to plain, every image on the "
+        f"ordered walk [{card}]")
+
+    # random weights and the sparse decode give K1 few, scattered
+    # candidates; a trained model's crowd around its objects
+    dplanes = nms_fused.nms_planes(torch.from_numpy(dense_decode(
+        np.random.default_rng(2), B_SERVE, 25200, 6, 3000, 100)).to(dev), 0.25)
+    got = nms_fused.greedy_select(*dplanes, 300, 0.45)
+    ref = nms_fused.greedy_select_plain(*dplanes, 300, 0.45)
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref) or \
+            nms_fused.last_paths.tolist() != [nms_fused.PATH_ORDERED] * B_SERVE:
+        raise AssertionError(f"K1 on the dense decode ({B_SERVE}, 25200) "
+                             f"differs from plain or left the ordered walk")
+    dcand = float((dplanes[4] > 0).sum(1).float().mean())
+    dpicks = float((got[..., 4] > 0).sum(1).float().mean())
+    dp, dk = in_turns(
+        (lambda: nms_fused.greedy_select_plain(*dplanes, 300, 0.45), 1),
+        (lambda: nms_fused.greedy_select(*dplanes, 300, 0.45), 20))
+    dbound = tm.nms_fused_bound(B_SERVE, 25200, 300, dcand, dpicks)
+    extras["nms_fused"] = {"dense_ms": dk, "dense_plain_ms": dp,
+                           "dense_bound_ms": dbound[0],
+                           "dense_candidates": dcand, "dense_picks": dpicks}
+    log(5, f"K1 nms_fused ({B_SERVE}, 25200) dense decode, {dcand:.0f} "
+        f"candidates around 100 objects and {dpicks:.0f} picks per image, "
+        f"max_det 300: identical to plain; kernel {dk:.3f} ms, plain "
+        f"{dp:.3f} ms, bound {dbound[0]:.4f} ms ({dbound[1]}) [{card}]")
 
     logits = torch.from_numpy(rng.normal(0, 1, (B_SERVE, 80, 80, 3)).astype(
         np.float32)).to(dev, torch.bfloat16)
@@ -706,15 +784,26 @@ def phase5(pred, card: str) -> dict:
             nchw, scale_factor=8, mode="bilinear",
             align_corners=True).argmax(1)
 
-    p, k, lib = in_turns(
+    got = seg_pallas.upsample_argmax(logits, 8, True)
+    if seg_pallas.last_variant != "span":
+        raise AssertionError("K2 at the served shape did not take the span "
+                             "kernel")
+    if not torch.equal(got, seg_pallas.upsample_argmax_plain(logits, *taps)):
+        raise AssertionError(f"K2 at the served shape ({B_SERVE}, 80, 80, 3) "
+                             f"bf16 differs from plain")
+    p, k, px, lib = in_turns(
         (lambda: seg_pallas.upsample_argmax_plain(logits, *taps), 3),
         (lambda: seg_pallas.upsample_argmax(logits, 8, True), 20),
+        (lambda: seg_pallas.upsample_argmax_with(logits, "pixel", 8, True), 20),
         (library, 10))
     bound = tm.seg_tail_bound(B_SERVE, 80, 80, 3, 8)
     timing["seg_tail"] = (k, p, bound, lib)
+    extras["seg_tail"] = {"pixel_ms": px}
+    out_bytes = B_SERVE * IMGSZ * IMGSZ
     log(5, f"K2 seg_tail ({B_SERVE}, 80, 80, 3) bf16 -> ({B_SERVE}, 640, 640) "
-        f"uint8: kernel {k:.3f} ms, plain {p:.3f} ms, interpolate + argmax "
-        f"{lib:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}) [{card}]")
+        f"uint8: identical to plain; span kernel {k:.3f} ms ({out_bytes / k / 1e9:.3f} TB/s of "
+        f"stores), pixel kernel {px:.3f} ms, plain {p:.3f} ms, interpolate + "
+        f"argmax {lib:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}) [{card}]")
     return timing
 
 
@@ -974,26 +1063,38 @@ def phase6(pred, card: str, timing: dict, errs: dict) -> dict:
 
 
 def main() -> None:
-    phase0()
+    took = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        took[name] = time.perf_counter() - t
+        return out
+
+    timed("0", phase0)
     card = card_line()
     errs = {}
-    phase1()
-    phase2(errs)
-    phase3()
-    pred, launches, sd = phase4()
-    model, spec, validator, batch, val_launches = phase4b(sd)
+    timed("1", phase1)
+    timed("2", phase2, errs)
+    timed("3", phase3)
+    pred, launches, sd = timed("4", phase4)
+    model, spec, validator, batch, val_launches = timed("4b", phase4b, sd)
     launches.update(val_launches)
-    timing = phase5(pred, card)
     extras = {}
-    phase5_val(model, spec, validator, batch, card, timing, errs, extras)
+    timing = timed("5", phase5, pred, card, extras)
+    timed("5 val", phase5_val, model, spec, validator, batch, card, timing,
+          errs, extras)
     del model, validator
-    launches.update(phase6(pred, card, timing, errs))
+    launches.update(timed("6", phase6, pred, card, timing, errs))
     del pred
+    log("times", "seconds by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in took.items())
+        + f"; {sum(took.values()):.1f} in all")
     record = {"kernels": [
         kernel_entry("nms_fused", "desenet_tpu/ops/nms_fused.py:46",
-                     launches, errs, timing),
+                     launches, errs, timing, extras),
         kernel_entry("seg_tail", "desenet_tpu/ops/seg_pallas.py:35",
-                     launches, errs, timing),
+                     launches, errs, timing, extras),
         kernel_entry("nms_greedy", "desenet_tpu/ops/nms_pallas.py:30",
                      launches, errs, timing, extras),
         kernel_entry("seg_head_psp2", "desenet_tpu/ops/seg_head_pallas.py:239",

@@ -6,44 +6,115 @@
 // (A/128, 128) planes of one image in VMEM and runs argmax -> write row ->
 // IoU suppress over all of them until max_det picks or no score > 0.
 //
-// What bounds it on the H100: not bytes (the six (B, A) f32 planes are 77 MB
-// at B=128, A=25200, about 23 us of HBM time) but the serial pick loop: every
-// pick is a block-wide argmax and a suppression pass, each ending in a
-// barrier, so a pick costs a few microseconds of latency whatever the
-// candidate count. The five planes the loop reads are 504 KB per image, more
-// than the 227 KB of shared memory a block may have, and scanning all A
-// anchors on every pick would cost A/blockDim loads per thread per pick.
+// What bounds it on the H100: latency, not bytes. The six (B, A) f32 planes
+// are 77 MB at B = 128, A = 25200, about 23 us of device-memory time, and the
+// IoU tests of a few hundred candidates are nothing; what costs is every
+// point at which the whole block waits: a barrier per chunk of a block-wide
+// scan, two or three per pick of an argmax loop. One block an image stays
+// (128 images on 132 SMs), so the design removes the waits.
 //
-// What the design does about it: a first pass counts the candidates
-// (score > 0: the prep in torch has already applied conf_thres and the class
-// filter) and a second pass compacts them, in anchor order, into shared
-// memory as seven f32 fields (x1, y1, x2, y2, score, area, class). At the
-// served conf_thres of 0.25 that is a few hundred per image, so each pick
-// scans under one element per thread out of shared memory. If an image has
-// more than kSmemCap candidates, the same loop runs over a global scratch
-// that the wrapper allocates; any score may pass the threshold, so that path
-// is always there. Ties on equal score go to the lowest compacted position,
-// which is the lowest anchor index (jnp.argmax order) because the compaction
-// keeps anchor order. Arithmetic uses the _rn intrinsics so that nvcc fuses
-// no multiply-add: the IoU is bit-for-bit the plain PyTorch version's
-// inter / (barea + area - inter + 1e-9).
+// What the design does about it, per image:
+//
+// 1. Count and compact in one pass with no barrier inside: every warp reads
+//    32 scores, ballots score > 0 (the prep in torch has already applied
+//    conf_thres and the class filter), takes room with one shared-memory
+//    atomic and writes a 64-bit key per candidate, (~score bits, anchor
+//    index). The keys land in no order: the sort restores it. Only the score
+//    plane is read whole; the other five planes are read at the candidates.
+// 2. Order once. Ascending keys are (score descending, anchor ascending),
+//    the order in which an argmax loop would visit the candidates and break
+//    its ties (jnp.argmax: the lowest anchor index). A bitonic sort in shared
+//    memory over the next power of two, up to kCandCap (4096) candidates: 36
+//    barriers at 256 keys, 78 at 4096. (A rank by counting, every thread
+//    counting the keys below its own, was measured beside it up to 1024
+//    candidates and was no faster, so one sort stays.) The boxes and classes
+//    are then gathered into shared memory in that order.
+// 3. nms_walk.cuh's ordered_walk, which kernel K3 shares: the candidates a
+//    round against the kept list, the survivors' cover mask, one warp's
+//    register scan, the picks written as rows. A few hundred candidates are
+//    one round. paths[b] = 0.
+//
+// An image with more than kCandCap candidates (28 bytes each beside the
+// walk's 86 KB: 200,768 B of the block's 227 KB), or a max_det above the
+// walk's kKeptCap (2048), takes nms_walk.cuh's argmax_loop over all A
+// anchors instead: it compacts in anchor order and ends a pick in one
+// barrier (shared memory up to kLoopCap anchors, above that the wrapper's
+// (B, 3, A) scratch). paths[b] = 1. The choice is made here, on the device,
+// by the count alone; any score may pass the threshold, so that path is
+// always there.
+//
+// The IoU is bit for bit the plain PyTorch version's
+// inter / (barea + area - inter + 1e-9), the picked box in the barea place
+// (nms_walk.cuh), so the rows equal greedy_select_plain's on every input.
 
 #include <cuda_runtime.h>
 
-#include <cfloat>
-#include <climits>
+#include <cstdint>
+
+#include "nms_walk.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kFields = 7;  // x1 y1 x2 y2 score area class
-constexpr int kSmemCap = 7168;  // 7 fields * 4 B * 7168 = 200,704 B
-constexpr unsigned kFull = 0xffffffffu;
+using namespace nms;
 
-__device__ __forceinline__ bool better(float s, int i, float s2, int i2) {
-  return s > s2 || (s == s2 && i < i2);
+constexpr int kCandCap = 4096;  // candidates an image the ordered path takes
+
+// the ordered path's shared memory
+struct Ordered {
+  Walk walk;
+  unsigned long long key[kCandCap];
+  float4 box[kCandCap];  // in walk order
+  float cls[kCandCap];
+};
+
+constexpr int kSmemBytes =
+    sizeof(Ordered) > 3 * kLoopCap * sizeof(float)
+        ? static_cast<int>(sizeof(Ordered))
+        : 3 * kLoopCap * static_cast<int>(sizeof(float));
+
+__device__ __forceinline__ float key_score(unsigned long long key) {
+  return __uint_as_float(~static_cast<unsigned>(key >> 32));
 }
+
+struct Planes {
+  const float* __restrict__ x1;
+  const float* __restrict__ y1;
+  const float* __restrict__ x2;
+  const float* __restrict__ y2;
+  __device__ __forceinline__ float4 operator()(int j) const {
+    return make_float4(x1[j], y1[j], x2[j], y2[j]);
+  }
+};
+
+__device__ __forceinline__ void write_row(float* __restrict__ out, int r,
+                                          const float4 q, float s, float c) {
+  float* row = out + r * 6;
+  row[0] = q.x;
+  row[1] = q.y;
+  row[2] = q.z;
+  row[3] = q.w;
+  row[4] = s;
+  row[5] = c;
+}
+
+// A pick of the walk: candidate j of the sorted arrays.
+struct EmitSorted {
+  const Ordered* S;
+  float* __restrict__ out;
+  __device__ __forceinline__ void operator()(int r, int j) const {
+    write_row(out, r, S->box[j], key_score(S->key[j]), S->cls[j]);
+  }
+};
+
+// A pick of the argmax loop: anchor j.
+struct EmitAnchor {
+  Planes box;
+  const float* __restrict__ cls;
+  float* __restrict__ out;
+  __device__ __forceinline__ void operator()(int r, int j, float s) const {
+    write_row(out, r, box(j), s, cls[j]);
+  }
+};
 
 __global__ void __launch_bounds__(kThreads)
     nms_fused_kernel(const float* __restrict__ x1, const float* __restrict__ y1,
@@ -51,173 +122,113 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ score,
                      const float* __restrict__ cls, int A, int max_det,
                      float iou_thres, float* __restrict__ scratch,
-                     float* __restrict__ out) {
-  extern __shared__ float smem[];
-  __shared__ int n_total;
-  __shared__ int warp_cnt[kWarps];
-  __shared__ int warp_off[kWarps];
-  __shared__ int chunk_total;
-  __shared__ float red_s[kWarps];
-  __shared__ int red_i[kWarps];
-  __shared__ float best_s;
-  __shared__ int best_i;
+                     float* __restrict__ out, int* __restrict__ paths) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int wtot[kWarps];
+  __shared__ float red_s[2][kWarps];
+  __shared__ int red_i[2][kWarps];
+  __shared__ int s_next;
+  __shared__ int s_nk;
+  __shared__ int n_cand;
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
   const size_t off = static_cast<size_t>(b) * A;
-  x1 += off;
-  y1 += off;
-  x2 += off;
-  y2 += off;
+  const Planes box{x1 + off, y1 + off, x2 + off, y2 + off};
   score += off;
   cls += off;
   out += static_cast<size_t>(b) * max_det * 6;
+  Ordered& S = *reinterpret_cast<Ordered*>(smem);
 
   for (int j = tid; j < max_det * 6; j += kThreads) out[j] = 0.f;
-  if (tid == 0) n_total = 0;
+  if (tid == 0) n_cand = 0;
   __syncthreads();
 
-  // pass 1: count the candidates
-  int cnt = 0;
-  for (int j = tid; j < A; j += kThreads) cnt += score[j] > 0.f;
-  for (int o = 16; o; o >>= 1) cnt += __shfl_down_sync(kFull, cnt, o);
-  if (lane == 0) atomicAdd(&n_total, cnt);
+  // 1. count and compact: keys in arrival order, no barrier inside
+  for (int base = 0; base < A; base += kThreads) {
+    const int j = base + tid;
+    const float s = j < A ? score[j] : -1.f;
+    const bool keep = s > 0.f;
+    const unsigned bal = __ballot_sync(kFull, keep);
+    if (bal == 0u) continue;  // uniform over the warp
+    int at = 0;
+    if (lane == 0) at = atomicAdd(&n_cand, __popc(bal));
+    at = __shfl_sync(kFull, at, 0) + __popc(bal & ((1u << lane) - 1u));
+    if (keep && at < kCandCap)
+      S.key[at] = (static_cast<unsigned long long>(~__float_as_uint(s)) << 32) |
+                  static_cast<unsigned>(j);
+  }
   __syncthreads();
-  const int n = n_total;
-  const bool in_smem = n <= kSmemCap;
-  const int stride = in_smem ? kSmemCap : A;
-  float* buf = in_smem ? smem : scratch + static_cast<size_t>(b) * kFields * A;
-  float* cx1 = buf;
-  float* cy1 = buf + stride;
-  float* cx2 = buf + 2 * stride;
-  float* cy2 = buf + 3 * stride;
-  float* csc = buf + 4 * stride;
-  float* car = buf + 5 * stride;
-  float* ccl = buf + 6 * stride;
+  const int n = n_cand;
+  const bool ordered = n <= kCandCap && max_det <= kKeptCap;
+  if (tid == 0) paths[b] = ordered ? 0 : 1;
 
-  // pass 2: compact them in anchor order (block-wide exclusive scan per chunk)
-  int filled = 0;
-  for (int start = 0; start < A; start += kThreads) {
-    const int j = start + tid;
-    const bool keep = j < A && score[j] > 0.f;
-    const unsigned ballot = __ballot_sync(kFull, keep);
-    if (lane == 0) warp_cnt[warp] = __popc(ballot);
-    __syncthreads();
-    if (warp == 0) {
-      const int v = lane < kWarps ? warp_cnt[lane] : 0;
-      int incl = v;
-      for (int o = 1; o < 32; o <<= 1) {
-        const int t = __shfl_up_sync(kFull, incl, o);
-        if (lane >= o) incl += t;
-      }
-      if (lane < kWarps) warp_off[lane] = incl - v;
-      if (lane == 31) chunk_total = incl;
-    }
-    __syncthreads();
-    if (keep) {
-      const int p = filled + warp_off[warp] + __popc(ballot & ((1u << lane) - 1u));
-      const float a = x1[j], c = y1[j], e = x2[j], g = y2[j];
-      cx1[p] = a;
-      cy1[p] = c;
-      cx2[p] = e;
-      cy2[p] = g;
-      csc[p] = score[j];
-      car[p] = __fmul_rn(fmaxf(__fsub_rn(e, a), 0.f), fmaxf(__fsub_rn(g, c), 0.f));
-      ccl[p] = cls[j];
-    }
-    filled += chunk_total;
-    __syncthreads();
+  if (!ordered) {
+    float* live = A <= kLoopCap ? reinterpret_cast<float*>(smem)
+                                : scratch + static_cast<size_t>(b) * 3 * A;
+    argmax_loop(live, live + A, reinterpret_cast<int*>(live + 2 * A), wtot,
+                red_s, red_i, box, score, A, max_det, iou_thres,
+                EmitAnchor{box, cls, out});
+    return;
   }
 
-  // greedy selection
-  for (int k = 0; k < max_det; ++k) {
-    float bs = -FLT_MAX;
-    int bi = INT_MAX;
-    for (int j = tid; j < n; j += kThreads) {
-      const float s = csc[j];
-      if (better(s, j, bs, bi)) {
-        bs = s;
-        bi = j;
-      }
-    }
-    for (int o = 16; o; o >>= 1) {
-      const float s2 = __shfl_down_sync(kFull, bs, o);
-      const int i2 = __shfl_down_sync(kFull, bi, o);
-      if (better(s2, i2, bs, bi)) {
-        bs = s2;
-        bi = i2;
-      }
-    }
-    if (lane == 0) {
-      red_s[warp] = bs;
-      red_i[warp] = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bs = lane < kWarps ? red_s[lane] : -FLT_MAX;
-      bi = lane < kWarps ? red_i[lane] : INT_MAX;
-      for (int o = 16; o; o >>= 1) {
-        const float s2 = __shfl_down_sync(kFull, bs, o);
-        const int i2 = __shfl_down_sync(kFull, bi, o);
-        if (better(s2, i2, bs, bi)) {
-          bs = s2;
-          bi = i2;
+  // 2. order once (bitonic, ascending, the tail padded with the largest
+  // key), then gather in that order
+  int N = 32;
+  while (N < n) N <<= 1;
+  for (int i = n + tid; i < N; i += kThreads) S.key[i] = ~0ull;
+  __syncthreads();
+  for (int k = 2; k <= N; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = tid; i < N; i += kThreads) {
+        const int p = i ^ j;
+        if (p > i) {
+          const unsigned long long a = S.key[i], c = S.key[p];
+          if ((a > c) == ((i & k) == 0)) {
+            S.key[i] = c;
+            S.key[p] = a;
+          }
         }
       }
-      if (lane == 0) {
-        best_s = bs;
-        best_i = bi;
-      }
+      __syncthreads();
     }
-    __syncthreads();
-    const float m = best_s;
-    const int jb = best_i;
-    if (!(m > 0.f)) break;  // uniform: every thread read the same best_s
-    const float bx1 = cx1[jb], by1 = cy1[jb], bx2 = cx2[jb], by2 = cy2[jb];
-    const float barea = car[jb];
-    if (tid == 0) {
-      float* row = out + k * 6;
-      row[0] = bx1;
-      row[1] = by1;
-      row[2] = bx2;
-      row[3] = by2;
-      row[4] = m;
-      row[5] = ccl[jb];
-    }
-    for (int j = tid; j < n; j += kThreads) {
-      if (!(csc[j] > 0.f)) continue;  // already suppressed
-      const float iw = fmaxf(__fsub_rn(fminf(bx2, cx2[j]), fmaxf(bx1, cx1[j])), 0.f);
-      const float ih = fmaxf(__fsub_rn(fminf(by2, cy2[j]), fmaxf(by1, cy1[j])), 0.f);
-      const float inter = __fmul_rn(iw, ih);
-      const float den = __fadd_rn(__fsub_rn(__fadd_rn(barea, car[j]), inter), 1e-9f);
-      if (__fdiv_rn(inter, den) > iou_thres || j == jb) csc[j] = -1.f;
-    }
-    __syncthreads();
   }
+  for (int i = tid; i < n; i += kThreads) {
+    const int j = static_cast<int>(static_cast<unsigned>(S.key[i]));
+    S.box[i] = box(j);
+    S.cls[i] = cls[j];
+  }
+  __syncthreads();
+
+  // 3. the walk over the n sorted candidates
+  ordered_walk(S.walk, wtot, &s_next, &s_nk, S.box, n, max_det, iou_thres,
+               EmitSorted{&S, out});
 }
 
 }  // namespace
 
+// scratch: (B, 3, A) floats where A > kLoopCap (16384), else unused. paths:
+// (B,) ints, 0 where the image took the ordered walk, 1 where the argmax loop.
 extern "C" int desenet_nms_fused(const void* x1, const void* y1,
                                  const void* x2, const void* y2,
                                  const void* score, const void* cls, int B,
                                  int A, int max_det, float iou_thres,
-                                 void* scratch, void* out, void* stream,
-                                 int device) {
+                                 void* scratch, void* out, void* paths,
+                                 void* stream, int device) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  const int smem = kFields * kSmemCap * static_cast<int>(sizeof(float));
   e = cudaFuncSetAttribute(nms_fused_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kSmemBytes);
   if (e != cudaSuccess) return e;
   if (B == 0) return cudaSuccess;
-  nms_fused_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  nms_fused_kernel<<<B, kThreads, kSmemBytes,
+                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x1), static_cast<const float*>(y1),
       static_cast<const float*>(x2), static_cast<const float*>(y2),
       static_cast<const float*>(score), static_cast<const float*>(cls), A,
       max_det, iou_thres, static_cast<float*>(scratch),
-      static_cast<float*>(out));
+      static_cast<float*>(out), static_cast<int*>(paths));
   return cudaGetLastError();
 }

@@ -32,11 +32,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # x1, y1, x2, y2, score, cls, B, A, max_det, iou_thres, scratch, out,
-    # stream, device
+    # paths, stream, device
     "desenet_nms_fused": [_P] * 6 + [_I, _I, _I, ctypes.c_float, _P, _P, _P,
-                                     _I],
-    # x, is_bf16, ys, wy, xs, wx, B, h, w, C, H, W, out, stream, device
-    "desenet_seg_tail": [_P, _I, _P, _P, _P, _P] + [_I] * 6 + [_P, _P, _I],
+                                     _P, _I],
+    # x, is_bf16, ys, wy, xs, wx, seg, B, h, w, C, H, W, variant, G, rpt,
+    # out, stream, device
+    "desenet_seg_tail": [_P, _I] + [_P] * 5 + [_I] * 9 + [_P, _P, _I],
     # boxes, scores, B, K, max_det, iou_thres, scratch, keep_idx, keep_sc,
     # paths, stream, device
     "desenet_nms_greedy": [_P, _P, _I, _I, _I, ctypes.c_float, _P, _P, _P,

@@ -14,6 +14,15 @@ drop every candidate with IoU > ``iou_thres`` against it, where
 ``area = max(x2-x1, 0) * max(y2-y1, 0)`` and
 ``iou = inter / (barea + area - inter + 1e-9)``; stop after ``max_det``
 picks or when no score > 0 is left. Rows after the last pick are zero.
+
+The kernel chooses between two paths on the device, per image, by the
+candidate count alone (``last_paths`` holds the path each image of the last
+launch took). Up to ``CAND_CAP`` candidates (and ``max_det`` up to
+``KEPT_CAP``) it compacts them, sorts them once by (score descending, anchor
+ascending) and walks them in that order with the walk kernel K3 uses
+(``PATH_ORDERED``); ``greedy_select_ordered_plain`` is that in PyTorch ops
+and gives ``greedy_select_plain``'s rows on every input. Above either cap it
+runs an argmax loop over the anchors (``PATH_ARGMAX``).
 """
 
 from __future__ import annotations
@@ -21,10 +30,18 @@ from __future__ import annotations
 import torch
 
 from desenet_tpu_torch.ops import _ext
+from desenet_tpu_torch.ops import nms_pallas
 from desenet_tpu_torch.ops.boxes import xywh2xyxy
+from desenet_tpu_torch.ops.nms_pallas import (KEPT_CAP, PATH_ARGMAX,
+                                              PATH_ORDERED)
 
 launches = 0  # kernel launches made by greedy_select
-_FIELDS = 7  # per-candidate floats in the kernel's global scratch
+# (B,) int32 on the card, per image of the last launch: PATH_ORDERED or
+# PATH_ARGMAX (reading it waits for the kernel)
+last_paths = None
+# nms_fused.cu's constants
+CAND_CAP = 4096   # candidates an image the ordered path takes (kCandCap)
+LOOP_CAP = nms_pallas.SMEM_CAP  # anchors the argmax loop keeps in shared memory
 
 
 def greedy_select_plain(x1, y1, x2, y2, score, cls, max_det: int,
@@ -56,11 +73,38 @@ def greedy_select_plain(x1, y1, x2, y2, score, cls, max_det: int,
     return out
 
 
+def greedy_select_ordered_plain(x1, y1, x2, y2, score, cls, max_det: int,
+                                iou_thres: float,
+                                chunk: int = nms_pallas.CHUNK,
+                                surv: int = nms_pallas.SURV) -> torch.Tensor:
+    """The kernel's ordered path in PyTorch ops, image by image: the
+    candidates (score > 0) compacted, sorted once by (score descending,
+    anchor ascending), walked by ``nms_pallas.greedy_nms_ordered_plain`` in
+    rounds of ``chunk`` with ``surv`` survivors settled a round, the picks
+    written as rows. Same arguments and result as ``greedy_select_plain``."""
+    b, _ = score.shape
+    out = score.new_zeros((b, max_det, 6))
+    for im in range(b):
+        cand = torch.nonzero(score[im] > 0).flatten()  # anchor order
+        order = torch.sort(score[im, cand], descending=True, stable=True)[1]
+        j = cand[order]
+        if len(j) == 0:
+            continue
+        boxes = torch.stack([x1[im, j], y1[im, j], x2[im, j], y2[im, j]], -1)
+        idx, sc = nms_pallas.greedy_nms_ordered_plain(
+            boxes[None], score[im, j][None], iou_thres, max_det, chunk, surv)
+        n = int((sc[0] > 0).sum())
+        k = idx[0, :n].long()
+        out[im, :n] = torch.cat(
+            [boxes[k], sc[0, :n, None], cls[im, j[k], None]], -1)
+    return out
+
+
 def greedy_select(x1, y1, x2, y2, score, cls, max_det: int,
                   iou_thres: float) -> torch.Tensor:
     """Greedy NMS selection over six contiguous (B, A) float32 planes on one
     device -> (B, max_det, 6) float32 rows [x1, y1, x2, y2, score, cls]."""
-    global launches
+    global launches, last_paths
     planes = (x1, y1, x2, y2, score, cls)
     for p in planes:
         if p.dim() != 2 or p.shape != score.shape:
@@ -78,13 +122,16 @@ def greedy_select(x1, y1, x2, y2, score, cls, max_det: int,
     b, a = score.shape
     out = torch.empty((b, max_det, 6), dtype=torch.float32,
                       device=score.device)
-    scratch = torch.empty((b, _FIELDS, a), dtype=torch.float32,
-                          device=score.device)
+    scratch = torch.empty((b, 3, a) if a > LOOP_CAP else (0,),
+                          dtype=torch.float32, device=score.device)
+    paths = torch.empty((b,), dtype=torch.int32, device=score.device)
     stream, dev = _ext.stream_and_device(score)
     _ext.check(_ext.load().desenet_nms_fused(
         *(p.data_ptr() for p in planes), b, a, max_det, float(iou_thres),
-        scratch.data_ptr(), out.data_ptr(), stream, dev), "nms_fused kernel")
+        scratch.data_ptr(), out.data_ptr(), paths.data_ptr(), stream, dev),
+        "nms_fused kernel")
     launches += 1
+    last_paths = paths
     return out
 
 

@@ -35,7 +35,7 @@ launches = 0  # kernel launches made by greedy_nms_pallas
 # PATH_ARGMAX (reading it waits for the kernel)
 last_paths = None
 PATH_ORDERED, PATH_ARGMAX = 0, 1
-# nms_greedy.cu's constants
+# csrc/nms_walk.cuh's constants (kLoopCap, kThreads, kSurv, kKeptCap)
 SMEM_CAP = 16384  # candidates per image the argmax loop keeps in shared memory
 CHUNK = 1024      # candidates a round of the ordered walk tests (kThreads)
 SURV = 512        # survivors a round settles (kSurv)

@@ -42,6 +42,151 @@ def synthetic_decode(rng, b: int, a: int, nc: int, frac: float) -> np.ndarray:
     return np.concatenate([cxy, wh, obj, cls], -1).astype(np.float32)
 
 
+def dense_decode(rng, b: int, a: int, nc: int, live: int, objects: int):
+    """(B, A, 5+nc) f32 decode as a trained model gives kernel K1: ``live``
+    anchors, scattered over the anchor axis, pass conf 0.25 (obj and one
+    class in [0.6, 1], so conf is at least 0.36) and crowd around ``objects``
+    well-separated objects of one class each (100-pixel boxes on a 250-pixel
+    grid, jittered by up to 3 pixels: two of one object overlap with IoU
+    above 0.75); every other anchor has obj < 0.05. NMS at IoU 0.45 keeps
+    one box an object and walks the whole candidate set."""
+    side = int(np.ceil(np.sqrt(objects)))
+    which = rng.integers(0, objects, (b, a))
+    cx = 100.0 + 250.0 * (which % side) + rng.uniform(-3, 3, (b, a))
+    cy = 100.0 + 250.0 * (which // side) + rng.uniform(-3, 3, (b, a))
+    wh = 100.0 + rng.uniform(-2, 2, (b, a, 1)).repeat(2, -1)
+    is_live = np.zeros((b, a), bool)
+    for i in range(b):
+        is_live[i, rng.choice(a, live, replace=False)] = True
+    obj = np.where(is_live, rng.uniform(0.6, 1.0, (b, a)),
+                   rng.uniform(0, 0.05, (b, a)))
+    cls = rng.uniform(0, 0.3, (b, a, nc))
+    np.put_along_axis(cls, (which % nc)[..., None],
+                      rng.uniform(0.6, 1.0, (b, a, 1)), -1)
+    return np.concatenate([np.stack([cx, cy], -1), wh, obj[..., None], cls],
+                          -1).astype(np.float32)
+
+
+def select_planes(rng, b: int, a: int, live: int, levels: int = 0,
+                  dup: float = 0.0, spread: float = 2000.0, nc: int = 6):
+    """Kernel K1's six (B, A) f32 planes (x1, y1, x2, y2 class-offset by
+    4096 a class, score, cls) with exactly ``live`` candidates an image at
+    scattered anchors (scores in (0, 1)), the rest at -1. With ``levels`` >
+    0 the scores take that many distinct values, so many tie; a fraction
+    ``dup`` of the boxes (and their classes) are exact copies of other
+    anchors'; box centres are uniform over ``spread`` pixels."""
+    centers = rng.uniform(50, 50 + spread, (b, a, 2))
+    wh = rng.uniform(20, 300, (b, a, 2))
+    boxes = np.concatenate([centers - wh / 2, centers + wh / 2], -1)
+    cls = rng.integers(0, nc, (b, a)).astype(np.float64)
+    if dup > 0:
+        src = rng.integers(0, a, (b, a))
+        copy = rng.uniform(0, 1, (b, a)) < dup
+        boxes = np.where(copy[..., None],
+                         np.take_along_axis(boxes, src[..., None], 1), boxes)
+        cls = np.where(copy, np.take_along_axis(cls, src, 1), cls)
+    sc = rng.uniform(0.01, 1, (b, a))
+    if levels > 0:
+        sc = np.ceil(sc * levels) / levels
+    is_live = np.zeros((b, a), bool)
+    for i in range(b):
+        is_live[i, rng.choice(a, live, replace=False)] = True
+    sc = np.where(is_live, sc, -1.0)
+    boxes = boxes + cls[..., None] * 4096.0
+    return tuple(torch.from_numpy(np.ascontiguousarray(v, np.float32))
+                 for v in (*np.moveaxis(boxes, -1, 0), sc, cls))
+
+
+# Kernel K1's cases: (name, generator, its arguments, max_det, the path every
+# image takes: 0 the ordered walk, 1 the argmax loop). "planes" draws
+# ``select_planes`` (A 25200 unless given), the others a decode that goes
+# through ``nms_planes`` at conf 0.25. The counts sit on and beside the caps
+# of csrc/nms_fused.cu: 4096 candidates on the ordered path (sorted over the
+# next power of two), max_det 2048 in the walk's kept list.
+NMS_FUSED_CASES = (
+    ("sparse decode", "synthetic", dict(b=8, frac=0.01), 300, 0),
+    ("decode above the candidate cap", "synthetic", dict(b=4, frac=0.8), 300,
+     1),
+    ("dense decode", "dense", dict(b=4, live=3000, objects=100), 300, 0),
+    ("all dead", "planes", dict(live=0), 300, 0),
+    ("one candidate", "planes", dict(live=1), 300, 0),
+    ("fewer live than max_det", "planes", dict(live=100), 300, 0),
+    ("more kept than max_det", "planes", dict(live=2000), 100, 0),
+    ("many tied scores", "planes", dict(live=1000, levels=5, spread=800.0),
+     300, 0),
+    ("many tied scores, many candidates", "planes",
+     dict(live=3500, levels=7, spread=800.0), 600, 0),
+    ("exact duplicate boxes", "planes", dict(live=1500, dup=0.5), 600, 0),
+    ("crowded", "planes", dict(live=3000, spread=500.0), 300, 0),
+    ("a power of two", "planes", dict(live=1024), 300, 0),
+    ("one over a power of two", "planes", dict(live=1025), 300, 0),
+    ("at the candidate cap", "planes", dict(live=4096), 300, 0),
+    ("one over the candidate cap", "planes", dict(live=4097), 300, 1),
+    ("max_det at the walk's cap", "planes", dict(live=500), 2048, 0),
+    ("max_det above the walk's cap", "planes", dict(live=500), 2049, 1),
+    ("few anchors", "planes", dict(a=512, live=300, spread=500.0), 64, 0),
+    ("few anchors, above the candidate cap", "planes",
+     dict(a=5000, live=4500, spread=500.0), 64, 1),
+)
+
+
+def nms_fused_case(case, seed: int = 0):
+    """The six (B, A) planes of one of ``NMS_FUSED_CASES``, on the CPU."""
+    from desenet_tpu_torch.ops.nms_fused import nms_planes
+
+    _, gen, kw, _, _ = case
+    kw = dict(kw)
+    rng = np.random.default_rng(seed)
+    if gen == "planes":
+        return select_planes(rng, kw.pop("b", 2), kw.pop("a", 25200), **kw)
+    if gen == "dense":
+        pred = dense_decode(rng, kw["b"], 25200, 6, kw["live"], kw["objects"])
+    else:
+        pred = synthetic_decode(rng, kw["b"], 25200, 6, kw["frac"])
+    return nms_planes(torch.from_numpy(pred), 0.25)
+
+
+# Kernel K2's cases: (B, h, w, C, dtype, scale, align_corners, the kernel the
+# wrapper picks). The span kernel takes an output width that is a multiple
+# of 16 and runs of at most 9 pixels a source column, a one-tap pixel only
+# as the first of its run; the pixel kernel the rest.
+SEG_TAIL_CASES = (
+    (8, 80, 80, 3, torch.float32, 8, True, "span"),
+    (8, 80, 80, 3, torch.bfloat16, 8, True, "span"),
+    (4, 80, 80, 19, torch.float32, 8, True, "span"),
+    (1, 80, 80, 3, torch.bfloat16, 8, True, "span"),     # B = 1
+    (2, 80, 80, 3, torch.bfloat16, 4, True, "span"),     # another scale
+    (2, 50, 72, 256, torch.float32, 2, True, "span"),    # H cuts the last tile
+    (2, 20, 24, 3, torch.float32, 2, False, "span"),     # half-pixel centres
+    (2, 80, 80, 3, torch.float32, 8, False, "pixel"),    # a run of 12
+    (2, 40, 60, 5, torch.bfloat16, 12, True, "pixel"),   # runs of 13
+    (2, 83, 81, 3, torch.float32, 8, True, "pixel"),     # W = 648
+    (2, 80, 80, 3, torch.float32, 16, True, "pixel"),    # runs of 17
+    (2, 20, 20, 3, torch.bfloat16, 16, False, "pixel"),
+)
+
+
+def seg_tail_input(case, seed: int = 0) -> torch.Tensor:
+    """The (B, h, w, C) logits of one of ``SEG_TAIL_CASES``, on the CPU."""
+    b, h, w, c, dtype = case[:5]
+    x = np.random.default_rng(seed).normal(0, 1, (b, h, w, c))
+    return torch.from_numpy(x.astype(np.float32)).to(dtype)
+
+
+def seg_tail_infinite_input(seed: int = 0) -> torch.Tensor:
+    """(2, 80, 80, 3) f32 logits with infinite values in the columns beside
+    the one-tap pixels of the 8x align_corners taps (output columns 0 and
+    639 sit on sources 0 and 79) and in a row beside such a row: a kernel
+    that multiplied them by a weight of 0 would give NaN where the plain
+    version gives a number. The one-tap rows' and columns' own sources
+    stay finite, so the plain version meets no NaN."""
+    x = seg_tail_input((2, 80, 80, 3, torch.float32), seed)
+    x[:, 1:79, 1, 2] = float("inf")
+    x[:, 1:79, 78, 1] = float("-inf")
+    x[:, 1, 5:70, 0] = float("inf")
+    return x
+
+
 def greedy_candidates(rng, b: int, k: int):
     """A (B, K) candidate set as kernel K3 gets it: (B, K, 4) xyxy boxes and
     (B, K) scores in (0, 1), about 30% invalid at -1, as f32 tensors."""

@@ -9,7 +9,9 @@
 card, uint8 images in), then over the model's Focus stem alone on that
 program's stem input. For each, a table of the device kernels (on the CPU:
 the host ops, by self time) with milliseconds and calls per run, most time
-first, and their total, with the card's name and power limit.
+first, and their total, with the card's name and power limit. The port's
+own kernels on that path (K1, K2) are listed below the table where they do
+not reach it.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from desenet_tpu_torch.tools.timing import card_line
 
 RUNS = 5  # profiled calls
 TOP = 30  # table rows printed
+OWN = ("nms_fused_kernel", "seg_tail_")  # the port's kernels, always printed
 
 
 def kernel_table(fn, device: torch.device):
@@ -51,8 +54,10 @@ def show(title: str, rows, tail: str) -> float:
     total = sum(ms for _, ms, _ in rows)
     print(f"{title}: {total:.3f} ms per run in {len(rows)} kernels "
           f"{tail}", flush=True)
-    for name, ms, calls in rows[:TOP]:
-        print(f"  {ms:9.3f} ms {calls:7.1f} calls  {name[:110]}", flush=True)
+    for i, (name, ms, calls) in enumerate(rows):
+        if i < TOP or any(own in name for own in OWN):
+            print(f"  {ms:9.3f} ms {calls:7.1f} calls  {name[:110]}",
+                  flush=True)
     return total
 
 

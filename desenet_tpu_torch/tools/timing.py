@@ -133,10 +133,13 @@ def seg_tail_bound(b: int, h: int, w: int, c: int, scale: int,
 
 def nms_fused_bound(b: int, a: int, max_det: int, candidates: float,
                     picks: float) -> tuple:
-    """K1 on six (b, a) f32 planes -> (b, max_det, 6): every plane read
-    once; each of an image's ``picks`` is tested against its ``candidates``
-    (this run's means per image)."""
-    nbytes = 4 * (6 * b * a + 6 * b * max_det)
+    """K1 on six (b, a) f32 planes -> (b, max_det, 6): the score plane read
+    whole, the other five only at an image's ``candidates`` (4 bytes a
+    field, the least a read could fetch: the card moves 32-byte sectors, so
+    scattered candidates cost it more), the output rows written once; each
+    of an image's ``picks`` is tested against its ``candidates`` (this
+    run's means per image)."""
+    nbytes = 4 * (b * a + 5 * b * candidates + 6 * b * max_det)
     return bound_ms(b * picks * candidates * NMS_PAIR_FLOPS, nbytes,
                     H100_F32_FLOPS)
 

@@ -61,8 +61,16 @@ def test_other_kernels_bounds():
     assert by == "bytes" and ms == pytest.approx(0.35, abs=0.006)  # 1.15 GB
     ms, by = tm.seg_tail_bound(128, 80, 80, 3, 8)
     assert by == "bytes" and ms == pytest.approx(0.017, abs=0.0005)
+    # K1 reads the score plane whole (12.9 MB) and the five other fields at
+    # the candidates only (0.64 MB), and writes 0.92 MB of rows
     ms, by = tm.nms_fused_bound(128, 25200, 300, 250.0, 100.0)
-    assert by == "bytes" and ms == pytest.approx(0.023, abs=0.0005)  # 77 MB
+    assert by == "bytes" and ms == pytest.approx(0.00432, abs=0.00005)
+    assert ms == pytest.approx(
+        4 * 128 * (25200 + 5 * 250 + 6 * 300) / 3.35e12 * 1e3, rel=1e-9)
+    # a dense decode: 100 picks against 3000 candidates an image are 0.61
+    # GFLOP of f32, more time than its 21.5 MB
+    ms, by = tm.nms_fused_bound(128, 25200, 300, 3000.0, 100.0)
+    assert by == "operations" and ms == pytest.approx(0.00917, abs=0.00005)
     # K3: 10 MB move in 0.003 ms, but 300 picks against 7200 live
     # candidates an image are 1.1 GFLOP of f32 on the CUDA cores
     ms, by = tm.nms_greedy_bound(32, 16384, 300, 7200.0, 300.0)

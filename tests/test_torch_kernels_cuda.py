@@ -9,8 +9,12 @@ a CUDA device (decided in the fixture, never at import). Run on the card:
 need not have.)
 
 K1-K3 do the plain versions' f32 arithmetic in the same order with no
-fused multiply-adds, so the results must be equal: K3 on sorted sets (its
-ordered walk) and unsorted ones (its argmax loop), on the shared-memory and
+fused multiply-adds, so the results must be equal: K1 on every case of
+``testing.NMS_FUSED_CASES`` (counts on and beside its caps, ties, duplicates,
+the dense decode) with the path each image took checked, K2 on every case of
+``testing.SEG_TAIL_CASES`` with the kernel the wrapper picked checked and the
+two kernels held side by side, K3 on sorted sets (its ordered walk) and
+unsorted ones (its argmax loop), on the shared-memory and
 the global-scratch size, with the path each image took checked. K4 sums its products in
 another order than the plain version's matmuls: it is held to
 ``desenet_tpu_torch.testing.check_psp2``'s bars (f32 at rtol/atol 1e-4 with
@@ -38,12 +42,17 @@ import torch
 
 from desenet_tpu_torch.ops import (c3_fused, nms_fused, nms_pallas,
                                    seg_head_pallas, seg_pallas, stem_pallas)
-from desenet_tpu_torch.testing import (C3_SERVED, check_close, check_psp2,
+from desenet_tpu_torch.testing import (C3_SERVED, NMS_FUSED_CASES,
+                                       SEG_TAIL_CASES, check_close,
+                                       check_psp2, dense_decode,
                                        dense_sorted_candidates,
-                                       greedy_candidates, no_tf32,
-                                       psp2_inputs, random_c3_params,
-                                       random_psp2_head, sorted_candidates,
-                                       stem_inputs, synthetic_decode)
+                                       greedy_candidates, nms_fused_case,
+                                       no_tf32, psp2_inputs,
+                                       random_c3_params, random_psp2_head,
+                                       seg_tail_infinite_input,
+                                       seg_tail_input, select_planes,
+                                       sorted_candidates, stem_inputs,
+                                       synthetic_decode)
 
 pytestmark = pytest.mark.cuda
 
@@ -87,6 +96,89 @@ def test_seg_tail_kernel_matches_plain(cuda, b, c, dtype):
     want = seg_pallas.upsample_argmax_plain(x, *taps)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", NMS_FUSED_CASES, ids=lambda c: c[0])
+def test_nms_kernel_cases(cuda, case):
+    """K1 on the cases chip_smoke.py runs: rows equal to plain, and the
+    path every image took."""
+    _, _, _, max_det, path = case
+    planes = [p.to(cuda) for p in nms_fused_case(case)]
+    before = nms_fused.launches
+    got = nms_fused.greedy_select(*planes, max_det, 0.45)
+    assert nms_fused.launches == before + 1
+    want = nms_fused.greedy_select_plain(*planes, max_det, 0.45)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert nms_fused.last_paths.tolist() == [path] * planes[4].shape[0]
+
+
+def test_nms_kernel_paths_chosen_per_image(cuda):
+    """Images under and over the candidate cap in one batch."""
+    rng = np.random.default_rng(4)
+    few = select_planes(rng, 1, 25200, 300)
+    many = select_planes(rng, 1, 25200, nms_fused.CAND_CAP + 1)
+    planes = [torch.cat([a, b, a]).to(cuda) for a, b in zip(few, many)]
+    got = nms_fused.greedy_select(*planes, 300, 0.45)
+    want = nms_fused.greedy_select_plain(*planes, 300, 0.45)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert nms_fused.last_paths.tolist() == [
+        nms_fused.PATH_ORDERED, nms_fused.PATH_ARGMAX, nms_fused.PATH_ORDERED]
+
+
+def test_nms_ordered_plain_on_the_card(cuda):
+    """The plain form of K1's ordered path, on CUDA tensors, at the kernel's
+    own round and survivor sizes, on a dense decode."""
+    pred = dense_decode(np.random.default_rng(6), 2, 25200, 6, 3000, 100)
+    planes = nms_fused.nms_planes(torch.from_numpy(pred).to(cuda), 0.25)
+    got = nms_fused.greedy_select_ordered_plain(*planes, 300, 0.45)
+    want = nms_fused.greedy_select(*planes, 300, 0.45)
+    assert torch.equal(got, want)
+    assert (want[..., 4] > 0).sum(1).tolist() == [100, 100]  # one an object
+
+
+@pytest.mark.parametrize(
+    "case", SEG_TAIL_CASES,
+    ids=lambda c: f"{c[0]}x{c[1]}x{c[2]}x{c[3]}-{str(c[4])[6:]}-s{c[5]}-"
+                  f"{'align' if c[6] else 'half'}-{c[7]}")
+def test_seg_tail_kernel_cases(cuda, case):
+    """K2 on the cases chip_smoke.py runs: the kernel the wrapper picks, and
+    both kernels equal to plain."""
+    b, h, w, c, dtype, scale, align, variant = case
+    x = seg_tail_input(case).to(cuda)
+    taps = (*seg_pallas.seg_taps(h, h * scale, align, cuda),
+            *seg_pallas.seg_taps(w, w * scale, align, cuda))
+    before = seg_pallas.launches
+    got = seg_pallas.upsample_argmax(x, scale, align)
+    assert seg_pallas.launches == before + 1
+    assert seg_pallas.last_variant == variant
+    want = seg_pallas.upsample_argmax_plain(x, *taps)
+    pixel = seg_pallas.upsample_argmax_with(x, "pixel", scale, align)
+    torch.cuda.synchronize()
+    assert got.shape == (b, h * scale, w * scale) and got.dtype == torch.uint8
+    assert torch.equal(got, want) and torch.equal(pixel, want)
+    if variant == "pixel":
+        with pytest.raises(ValueError, match="does not take"):
+            seg_pallas.upsample_argmax_with(x, "span", scale, align)
+
+
+def test_seg_tail_kernels_keep_infinite_neighbours_out(cuda):
+    """A one-tap pixel reads its own source only, as plain does: an infinite
+    logit in the next column or row reaches neither kernel's answer there."""
+    x = seg_tail_infinite_input().to(cuda)
+    taps = seg_pallas.seg_taps(80, 640, True, cuda) * 2
+    want = seg_pallas.upsample_argmax_plain(x, *taps)
+    assert torch.equal(seg_pallas.upsample_argmax_with(x, "span"), want)
+    assert torch.equal(seg_pallas.upsample_argmax_with(x, "pixel"), want)
+    assert not bool((want[:, :, 0] == 2).all())    # column 1's +inf kept out
+    assert bool((want[:, 1:8, 1] == 2).all())      # and met one pixel on
+
+
+def test_seg_tail_kernel_ties_go_to_the_first_channel(cuda):
+    x = torch.ones((2, 80, 80, 4), device=cuda)
+    assert int(seg_pallas.upsample_argmax(x).max()) == 0
+    assert seg_pallas.last_variant == "span"
 
 
 @pytest.mark.parametrize("b,k", [(4, 2048), (2, nms_pallas.SMEM_CAP + 5000)])

@@ -60,7 +60,19 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
    served forward, the input and output of the Focus stem and of every C3
    are hooked, K5 (on fold_focus's weights) and K6 (on fold_c3's) are held
    against their plain versions and against the modules' outputs, and the
-   three are timed in turns, one line per layer.
+   three are timed in turns, one line per layer;
+7. the training slice: (a) the tiny model (64 px, batch 2, SGD) takes
+   training steps on the card and on the CPU from one state and batch, with
+   the fused and with the materialized seg loss, two in float64 and one in
+   float32 (TF32 off), held to testing.TRAIN_LOSS_BAR / TRAIN_STATE_BAR; (b)
+   yolov5s_seg at full width and depth, 640 px, batch 64 (the recipe's
+   nominal batch, so every step is an optimizer step), bf16 compute:
+   eight steps on one fixed batch, where the loss must be finite and fall,
+   with the peak device memory of each seg loss, then the step timed by
+   CUDA events over 10 warm steps on distinct batches, fused and
+   materialized seg loss in turns; (c) the EMA weights in the eval model
+   through Validator.run over one in-memory batch of 32, with K3's launch
+   counter reset before and read after.
 
 Inputs of the kernel checks come from desenet_tpu_torch.testing, shared with
 tests/test_torch_kernels_cuda.py.
@@ -74,6 +86,7 @@ card's name and power limit as nvidia-smi gives them, and {"ok": true,
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import shutil
@@ -84,12 +97,16 @@ import time
 import numpy as np
 import torch
 
-from desenet_tpu_torch.testing import check_bf16, check_close, no_tf32
+from desenet_tpu_torch.testing import (check_bf16, check_close, no_tf32,
+                                       tiny_cfg)
 from desenet_tpu_torch.tools import timing as tm
 from desenet_tpu_torch.tools.timing import card_line, cuda_ms, in_turns
 
 B_SERVE = 128
 B_VAL = 32
+B_TRAIN = 64
+TRAIN_FIXED_STEPS = 8
+TRAIN_TIMED_STEPS = 10
 N_VAL_BATCHES = 2
 IMGSZ = 640
 CSRC = "desenet_tpu_torch/csrc"
@@ -128,17 +145,6 @@ def val_batches(seed: int, n: int, b: int, imgsz: int, nc: int, se_nc: int,
             "shapes": [None] * b,
         })
     return out
-
-
-def tiny_cfg():
-    """The tests' tiny_psp2 graph: yolov5s_seg rows at width 0.125 with
-    3 detection and 2 seg classes (JSON, since PyYAML may be absent)."""
-    from desenet_tpu_torch.models import config_path
-
-    with open(config_path("yolov5s_seg")) as fh:
-        cfg = json.load(fh)
-    cfg.update(width_multiple=0.125, de_nc=3, se_nc=2)
-    return cfg
 
 
 def phase0():
@@ -1062,6 +1068,110 @@ def phase6(pred, card: str, timing: dict, errs: dict) -> dict:
     return launches
 
 
+def phase7(card: str) -> int:
+    """The training slice; returns K3's launches in the validation of the
+    EMA weights."""
+    from desenet_tpu_torch.eval import Validator
+    from desenet_tpu_torch.models import build_model, config_path
+    from desenet_tpu_torch.ops import nms_pallas
+    from desenet_tpu_torch.testing import (TRAIN_PARITY_STEPS,
+                                           check_train_parity, train_parity)
+    from desenet_tpu_torch.tools.profile_train_step import (device_batches,
+                                                            trainer)
+    from desenet_tpu_torch.utils.convert import load_state_dict
+
+    dev = torch.device("cuda")
+    # (a) the card against the CPU on the tiny model
+    for dtype in (torch.float64, torch.float32):
+        for fused in (True, False):
+            with no_tf32():
+                res = train_parity(dev, fused, dtype)
+            what = (f"tiny model 64 px b2, {TRAIN_PARITY_STEPS[dtype]} SGD "
+                    f"step(s), {dtype}, "
+                    f"{'fused' if fused else 'materialized'} seg loss")
+            check_train_parity(res, dtype, what)
+            worst = {g: f"{e[0]:.3g} ({e[1]})" for g, e in res[-1].items()
+                     if g != "loss"}
+            loss_errs = ", ".join(f"{r['loss']:.3g}" for r in res)
+            log("7a", f"{what}: CUDA against the CPU, loss rel err by step "
+                f"{loss_errs}; after the last step {worst}")
+
+    # (b) full width and depth, bf16, batch 64 at 640
+    t = time.perf_counter()
+    runs = {f: trainer(f, dev, B_TRAIN, IMGSZ, torch.bfloat16)
+            for f in (True, False)}
+    spec = runs[True][2]
+    batches = device_batches(TRAIN_TIMED_STEPS, B_TRAIN, IMGSZ, spec.de_nc,
+                             dev)
+    log("7b", f"two yolov5s_seg trainers (seed-0 weights) and "
+        f"{TRAIN_TIMED_STEPS} batches of {B_TRAIN} at {IMGSZ} (numpy, "
+        f"uint8) made in {time.perf_counter() - t:.3f} s")
+    peaks = {}
+    for fused, (state, step, _) in runs.items():
+        name = "fused" if fused else "materialized"
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses = []
+        for _ in range(TRAIN_FIXED_STEPS):
+            state, m = step(state, batches[0])
+            losses.append(float(m["loss"]))
+        peaks[fused] = torch.cuda.max_memory_allocated()
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+                and np.mean(losses[-3:]) < np.mean(losses[:3])):
+            raise AssertionError(f"{name} seg loss: the loss did not fall "
+                                 f"over {TRAIN_FIXED_STEPS} steps on one "
+                                 f"batch: {losses}")
+        log("7b", f"yolov5s_seg b{B_TRAIN}/{IMGSZ} bf16, {name} seg loss, "
+            f"{TRAIN_FIXED_STEPS} steps on one batch: loss "
+            f"{[round(v, 4) for v in losses]}; peak allocated "
+            f"{peaks[fused] / 2**30:.3f} GiB ({resident / 2**30:.3f} GiB "
+            f"resident before) [{card}]")
+
+    def stepper(fused):
+        state, step, _ = runs[fused]
+        cycle = itertools.cycle(batches)
+
+        def run():
+            nonlocal state
+            state, _ = step(state, next(cycle))
+        return run
+
+    fused_ms, mat_ms = in_turns((stepper(True), TRAIN_TIMED_STEPS),
+                                (stepper(False), TRAIN_TIMED_STEPS))
+    log("7b", f"train step yolov5s_seg b{B_TRAIN}/{IMGSZ} bf16 (uint8 in; "
+        f"forward, losses, one backward, SGD, EMA), CUDA events over "
+        f"{TRAIN_TIMED_STEPS} warm steps on distinct batches, in turns: "
+        f"fused seg loss {fused_ms:.3f} ms = "
+        f"{B_TRAIN / fused_ms * 1e3:.1f} img/s, peak "
+        f"{peaks[True] / 2**30:.3f} GiB; materialized {mat_ms:.3f} ms = "
+        f"{B_TRAIN / mat_ms * 1e3:.1f} img/s, peak "
+        f"{peaks[False] / 2**30:.3f} GiB [{card}]")
+
+    # (c) the EMA weights through the validator
+    state = runs[True][0]
+    del runs, batches
+    model, _ = build_model(config_path("yolov5s_seg"))
+    load_state_dict(model, state.ema)
+    model = model.to(dev, torch.bfloat16, memory_format=torch.channels_last)
+    nms_pallas.launches = 0
+    t = time.perf_counter()
+    res = Validator(model, nc=spec.de_nc, se_nc=spec.se_nc).run(
+        val_batches(7, 1, B_VAL, IMGSZ, spec.de_nc, spec.se_nc))
+    k3 = nms_pallas.launches
+    summary = {k: v for k, v in res.items() if k != "per_class"}
+    vals = [summary[k] for k in ("mp", "mr", "map50", "map", "miou",
+                                 "pix_acc")]
+    if k3 < 1 or summary["seen"] != B_VAL or not all(
+            np.isfinite(v) and 0 <= v <= 1 for v in vals):
+        raise AssertionError(f"validation of the EMA weights: K3 launched "
+                             f"{k3} times; {summary}")
+    log("7c", f"the EMA after {state.ema_updates} optimizer steps, "
+        f"validated in bf16 at {IMGSZ} over one batch of {B_VAL}: "
+        f"{json.dumps(summary)}; {time.perf_counter() - t:.3f} s wall; "
+        f"K3 launched {k3} times")
+    return k3
+
+
 def main() -> None:
     took = {}
 
@@ -1087,6 +1197,7 @@ def main() -> None:
     del model, validator
     launches.update(timed("6", phase6, pred, card, timing, errs))
     del pred
+    launches["nms_greedy"] += timed("7", phase7, card)
     log("times", "seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in took.items())
         + f"; {sum(took.values()):.1f} in all")

@@ -256,13 +256,16 @@ def _instantiate(ls: LayerSpec, c1, spec: ModelSpec, seg_upsample: bool,
 
 
 class DeSeNet(nn.Module):
-    """The compiled joint detection+segmentation model, inference only.
+    """The compiled joint detection+segmentation model.
 
     ``forward(x)`` takes NCHW images in [0, 1] and returns
     ``((decoded (B, A, 5+nc), det_feats [per-scale (B, na, ny, nx, no)]),
     seg)``, the JAX model's eval-mode outputs, with ``seg`` NCHW:
     full-resolution logits, or 1/8-resolution ones when built with
-    ``seg_upsample=False``. Module ``model.{i}`` is DSL row i.
+    ``seg_upsample=False``. In training mode (``.train()``) it returns
+    ``(det_feats, seg)`` as the JAX model's ``train=True`` does: no decode,
+    BN on batch statistics (``layers.BatchNorm2d``). Module ``model.{i}`` is
+    DSL row i.
 
     ``decode_cat=False``: ``decoded`` is the per-scale list of decodes (the
     NMS front end then selects candidates per scale). ``seg_head_fused``:
@@ -344,12 +347,16 @@ class DeSeNet(nn.Module):
 
 def build_model(cfg, nc: Optional[int] = None, se_nc: Optional[int] = None,
                 seg_upsample: bool = True, decode_cat: bool = True,
-                seg_head_fused: bool = False) -> Tuple[DeSeNet, ModelSpec]:
-    """Parse ``cfg`` and build the model in eval mode (BN uses its running
-    statistics; training is not ported yet)."""
+                seg_head_fused: bool = False,
+                train: bool = False) -> Tuple[DeSeNet, ModelSpec]:
+    """Parse ``cfg`` and build the model in eval mode (BN on its running
+    statistics), or in training mode with ``train=True`` (the training
+    step's model, usually with ``seg_upsample=False`` for the fused seg
+    loss)."""
     spec = parse_config(cfg, nc=nc, se_nc=se_nc)
-    return DeSeNet(spec, seg_upsample=seg_upsample, decode_cat=decode_cat,
-                   seg_head_fused=seg_head_fused).eval(), spec
+    model = DeSeNet(spec, seg_upsample=seg_upsample, decode_cat=decode_cat,
+                    seg_head_fused=seg_head_fused)
+    return model.train(train), spec
 
 
 @torch.no_grad()

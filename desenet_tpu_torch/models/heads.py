@@ -38,12 +38,20 @@ def detect_bias_init(na: int, no: int, stride: float, fan_in: int,
     return b.view(-1)
 
 
+def anchors_grid_units(anchors, strides) -> np.ndarray:
+    """(nl, na, 2) f32 anchors in grid units from the config's (nl, na*2)
+    pixel anchors and the per-scale strides."""
+    a = np.asarray(anchors, np.float32).reshape(len(strides), -1, 2)
+    return a / np.asarray(strides, np.float32)[:, None, None]
+
+
 class Detect(nn.Module):
     """Anchor-based multi-scale detection head with the inference decode.
 
     ``forward(xs)`` takes the per-scale NCHW feature maps and returns
     ``(decoded (B, A, 5+nc), feats [per-scale (B, na, ny, nx, no)])``, the
-    JAX head's eval-mode outputs. ``A`` runs over scale, anchor, y, x in
+    JAX head's eval-mode outputs; in training mode only ``feats``, with no
+    decode, which the detection loss consumes. ``A`` runs over scale, anchor, y, x in
     that order, so NMS picks break ties as in the JAX package. With
     ``decode_cat=False`` ``decoded`` is the per-scale list of
     (B, A_s, 5+nc) decodes, for the scale-local NMS prefilter."""
@@ -64,6 +72,11 @@ class Detect(nn.Module):
             self.nl, self.na, 2)
         self._consts = {}
         self.m = nn.ModuleList(nn.Conv2d(c, self.no * self.na, 1) for c in ch)
+
+    def anchors_grid_units(self) -> np.ndarray:
+        """(nl, na, 2) anchors divided by stride: what the detection loss
+        consumes (yolo.py:316)."""
+        return anchors_grid_units(self._anchors_px, self.strides)
 
     def _grid_and_anchors(self, i: int, ny: int, nx: int,
                           device: torch.device):
@@ -89,12 +102,16 @@ class Detect(nn.Module):
             # channel = anchor * no + field: na is the major factor
             y = y.view(b, self.na, self.no, ny, nx).permute(0, 1, 3, 4, 2)
             feats.append(y)
+            if self.training:
+                continue
             grid, anchor = self._grid_and_anchors(i, ny, nx, y.device)
             s = torch.sigmoid(y.float())
             xy = (s[..., 0:2] * 2.0 - 0.5 + grid) * self.strides[i]
             wh = (s[..., 2:4] * 2.0) ** 2 * anchor
             z = torch.cat([xy, wh, s[..., 4:]], -1)
             decoded.append(z.reshape(b, -1, self.no))
+        if self.training:
+            return feats
         if not self.decode_cat:
             return decoded, feats
         return torch.cat(decoded, 1), feats

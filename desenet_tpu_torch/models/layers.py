@@ -8,7 +8,9 @@ stem, fused ``cv12``, split-conv concats) are not carried over.
 
 Numerics that differ from PyTorch defaults and are kept on purpose:
 
-- BatchNorm eps 1e-3 and momentum 0.03 (torch defaults: 1e-5 / 0.1).
+- BatchNorm eps 1e-3 and momentum 0.03 (torch defaults: 1e-5 / 0.1), and
+  in training the running variance takes the biased batch variance, as
+  flax's BatchNorm does (torch's takes the unbiased one).
 - ``ConvBnAct`` skips its BN when the conv's INPUT map is 1x1 (a reference
   quirk; the JAX package decides it at trace time, here at run time). Those
   BNs still exist in the state dict and keep their init.
@@ -22,6 +24,7 @@ import math
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from desenet_tpu_torch.ops.resize import (
@@ -45,8 +48,32 @@ def make_divisible(x, divisor: int = 8) -> int:
     return int(math.ceil(x / divisor) * divisor)
 
 
-def batch_norm(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training step moves the running variance
+    toward the biased batch variance, as flax's BatchNorm does (the JAX
+    package's ``layers.BatchNorm``, momentum 0.97 there). Normalization,
+    the running mean and eval mode are torch's; ``num_batches_tracked`` is
+    not advanced. With ``momentum=None`` (torch's cumulative average, which
+    flax does not have) the module is torch's own."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.momentum is None:
+            return super().forward(x)
+        # F.batch_norm moves a copy of the variance by m * var * n / (n - 1)
+        # (autograd keeps that copy); the n / (n - 1) is taken back from its
+        # own statistics, with no pass over x
+        rv = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, rv, self.weight, self.bias,
+                         True, self.momentum, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            old = self.running_var
+            old.copy_(rv - (rv - old * (1.0 - self.momentum)) / n)
+        return y
+
+
+def batch_norm(c: int) -> BatchNorm2d:
+    return BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 class ConvBnAct(nn.Module):

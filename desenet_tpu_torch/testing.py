@@ -394,3 +394,129 @@ def psp2_inputs(b: int, h8: int, w8: int, chans, seed: int = 0):
     g = torch.Generator().manual_seed(seed)
     return [torch.randn((b, h8 // s, w8 // s, c), generator=g)
             for s, c in zip((1, 2, 4), chans)]
+
+
+# ---- the training step ------------------------------------------------------
+#
+# Bars of a training step against another run of it (the JAX package's on
+# the CPU, or the port's on the CPU against the card): the loss and its
+# components relative, each state tensor (parameters, BN statistics,
+# optimizer buffers, EMA) against its largest magnitude. In float64 the
+# losses and the seg upsample stay float32 on both sides; their roundings
+# of the loss gradient differ at 1e-7 and the tiny model's train-mode
+# backward (BN over 8 to 32 values a channel) carries that to 3e-6 of the
+# worst tensor after a second step and 2e-5 after a third, hence (first
+# step, later steps). In float32 the network itself is the limit: the JAX
+# package's own f32 step differs from its float64 step by 1e-5 in the loss
+# and 9e-4 in the momentum after one step, 7e-2 after three (the port's
+# f32 step is nearer JAX's float64 one than that), so f32 is held for one
+# step only, at bars above what one f32 step of either package scatters.
+TRAIN_LOSS_BAR = {torch.float64: 1e-5, torch.float32: 1e-4}
+TRAIN_STATE_BAR = {torch.float64: (1e-5, 1e-4), torch.float32: (5e-3, 5e-3)}
+TRAIN_PARITY_STEPS = {torch.float64: 2, torch.float32: 1}
+
+
+def tiny_cfg() -> dict:
+    """The tests' tiny_psp2 graph: yolov5s_seg rows at width 0.125 with
+    3 detection and 2 seg classes (JSON, since PyYAML may be absent)."""
+    import json
+
+    from desenet_tpu_torch.models import config_path
+
+    with open(config_path("yolov5s_seg")) as fh:
+        cfg = json.load(fh)
+    cfg.update(width_multiple=0.125, de_nc=3, se_nc=2)
+    return cfg
+
+
+def train_batch(rng, b: int, imgsz: int, nc: int, max_targets: int = 32
+                ) -> dict:
+    """A training batch (tests/test_train_step.py's kind, at any size):
+    uint8 noise images, 1 to ``max_targets`` boxes an image, each painted
+    one colour, and uint8 seg labels with class 1 under every box."""
+    img = rng.integers(0, 256, (b, imgsz, imgsz, 3), dtype=np.uint8)
+    seg = np.zeros((b, imgsz, imgsz), np.uint8)
+    tg = np.zeros((b, max_targets, 5), np.float32)
+    n = rng.integers(1, max_targets + 1, b)
+    mask = np.arange(max_targets)[None] < n[:, None]
+    tg[..., 0] = rng.integers(0, nc, (b, max_targets))
+    tg[..., 1:3] = rng.uniform(0.15, 0.85, (b, max_targets, 2))
+    tg[..., 3:5] = rng.uniform(0.03, 0.3, (b, max_targets, 2))
+    tg[~mask] = 0
+    for i in range(b):
+        for j in range(n[i]):
+            _, cx, cy, w, h = tg[i, j]
+            y0, y1 = int((cy - h / 2) * imgsz), int((cy + h / 2) * imgsz)
+            x0, x1 = int((cx - w / 2) * imgsz), int((cx + w / 2) * imgsz)
+            seg[i, y0:y1, x0:x1] = 1
+            img[i, y0:y1, x0:x1] = (200, 30, 30)
+    return {"image": img, "det_targets": tg, "det_mask": mask,
+            "seg_labels": seg}
+
+
+def train_steps(device, fused: bool, dtype: torch.dtype, steps: int,
+                seed: int = 0) -> list:
+    """The tiny model (``tiny_cfg``, 64 px, batch 2, SGD, a batch that always
+    steps) takes ``steps`` training steps on ``device`` from a seeded state
+    and batch. Returns per step ``(loss, {group: {key: tensor}})``, the
+    groups ``params``, ``stats``, ``mu`` and ``ema`` copied to the CPU in
+    float64 after the step."""
+    from desenet_tpu_torch.models import build_model, init_weights
+    from desenet_tpu_torch.train import create_train_state, make_train_step
+    from desenet_tpu_torch.train.engine import load_hyp, loss_and_schedule
+    from desenet_tpu_torch.train.state import bn_stats
+
+    dev = torch.device(device)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in train_batch(
+        np.random.default_rng(seed), 2, 64, 3, 8).items()}
+    model, spec = build_model(tiny_cfg(), seg_upsample=not fused, train=True)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    model.to(dev, dtype)
+    det_loss, opt_cfg, lf = loss_and_schedule(load_hyp(), spec, 64, 10)
+    state = create_train_state(model, opt_cfg)
+    step = make_train_step(model, det_loss, opt_cfg, lf, nb=4,
+                           warmup_iters=2, nominal_bs=2, batch_size=2,
+                           fused_seg=fused, dtype=dtype)
+    out = []
+    for _ in range(steps):
+        state, m = step(state, batch)
+        snap = {"params": state.params, "stats": bn_stats(model),
+                "mu": state.opt_state["mu"], "ema": state.ema}
+        # copies: a CPU float64 tensor's ``.double().cpu()`` is itself,
+        # which the next step updates in place
+        out.append((float(m["loss"]), {
+            g: {k: v.detach().to("cpu", torch.float64, copy=True)
+                for k, v in d.items()}
+            for g, d in snap.items()}))
+    return out
+
+
+def train_parity(device, fused: bool, dtype: torch.dtype, seed: int = 0
+                 ) -> list:
+    """``train_steps`` for ``TRAIN_PARITY_STEPS[dtype]`` steps on ``device``
+    and on the CPU. Returns per step the loss's relative error and each
+    state group's worst (error, tensor) against its tensor's largest
+    magnitude, the CPU run the reference. Run f32 on a card under
+    ``no_tf32``."""
+    runs = [train_steps(dev, fused, dtype, TRAIN_PARITY_STEPS[dtype], seed)
+            for dev in (device, "cpu")]
+    res = []
+    for (loss, got), (ref_loss, want) in zip(*runs):
+        errs = {"loss": abs(loss - ref_loss) / abs(ref_loss)}
+        for g in want:
+            errs[g] = max((float((got[g][k] - w).abs().max())
+                           / max(float(w.abs().max()), 1e-30), k)
+                          for k, w in want[g].items())
+        res.append(errs)
+    return res
+
+
+def check_train_parity(res: list, dtype: torch.dtype, what: str) -> None:
+    """Raise unless ``train_parity``'s errors are within the bars."""
+    for i, errs in enumerate(res):
+        bar = TRAIN_STATE_BAR[dtype][min(i, 1)]
+        bad = {g: e for g, e in errs.items()
+               if (e > TRAIN_LOSS_BAR[dtype] if g == "loss" else e[0] > bar)}
+        if bad:
+            raise AssertionError(f"{what}, step {i}: {bad} over the bars "
+                                 f"(loss {TRAIN_LOSS_BAR[dtype]}, state {bar})")

@@ -1,4 +1,4 @@
-"""Weights from the JAX package into the port's state dict.
+"""Weights and training state from the JAX package into the port.
 
 A flax-free port of ``desenet_tpu/utils/torch_convert.py``
 (``flax_path_to_torch_key`` with the SegMaskPSP2 name table,
@@ -11,6 +11,7 @@ over the slice-concat, and the fused C3 ``cv12``/``bn12`` split back into
 
 from __future__ import annotations
 
+import functools
 import re
 from typing import Dict, List, Mapping, Tuple
 
@@ -18,6 +19,8 @@ import numpy as np
 import torch
 
 from desenet_tpu_torch.models.build import DeSeNet, ModelSpec
+from desenet_tpu_torch.train.optim import OptimConfig
+from desenet_tpu_torch.train.state import TrainState, create_train_state
 
 # flax sub-path prefix -> torch sub-path prefix inside the SegMaskPSP2 row
 _PSP2_TABLE = {
@@ -130,24 +133,22 @@ def to_torch_tensor(x: np.ndarray, leaf: str) -> np.ndarray:
     return x
 
 
-def state_dict_from_jax(flat: Mapping[str, np.ndarray], spec: ModelSpec
-                        ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
-    """JAX variables -> the port's state dict.
+def tree_from_jax(flat: Mapping[str, np.ndarray], spec: ModelSpec
+                  ) -> Dict[str, torch.Tensor]:
+    """One flattened JAX tree shaped like ``params`` or ``batch_stats``
+    (``"l4/m_0/cv1/conv/conv2d/kernel"``-style paths, no collection) ->
+    tensors under the port's state-dict keys (f64 stays f64, the rest
+    becomes f32).
 
-    ``flat`` maps ``"params/l4/m_0/cv1/conv/conv2d/kernel"``-style paths
-    (``flax.traverse_util.flatten_dict(variables, sep="/")``, done by the
-    caller) to arrays; fused and unfused JAX layouts are both accepted.
-    Returns ``(state_dict, unfilled)``: ``unfilled`` lists the port model's
-    keys that the JAX variables do not cover, which for a valid checkpoint
-    are exactly ``DeSeNet.quirk_bn_keys()`` (BNs that never run keep their
-    init)."""
+    The same map serves every tree of that shape: variables, gradients,
+    momentum buffers, EMA copies. Fused C3 leaves split into ``cv1``/``cv2``
+    and the fused stem kernel becomes the Focus conv's, each element to one
+    element, so a gradient or buffer crosses as its parameter does."""
     out: Dict[str, np.ndarray] = {}
     for key, val in flat.items():
-        col, *path = key.split("/")
-        if col not in ("params", "batch_stats"):
-            continue
-        path = tuple(path)
-        val = np.asarray(val, np.float32)
+        path = tuple(key.split("/"))
+        val = np.asarray(val)
+        val = val if val.dtype == np.float64 else val.astype(np.float32)
         fs = fused_csp_sources(path)
         if fs is not None:  # split fused C3 cv12/bn12 back into cv1+cv2
             p1, p2, ax = fs
@@ -159,22 +160,85 @@ def state_dict_from_jax(flat: Mapping[str, np.ndarray], spec: ModelSpec
         else:
             out[flax_path_to_torch_key(path, spec)] = to_torch_tensor(
                 val, path[-1])
+    expected = _expected_shapes(spec)
+    for k, v in out.items():
+        if k not in expected:
+            raise KeyError(f"JAX variable maps to {k!r}, which the port "
+                           "model does not have")
+        if tuple(v.shape) != expected[k]:
+            raise ValueError(f"shape mismatch for {k}: {tuple(v.shape)} vs "
+                             f"{expected[k]}")
+    return {k: torch.tensor(v) for k, v in out.items()}
 
-    sd = {k: torch.tensor(v) for k, v in out.items()}
+
+@functools.lru_cache(maxsize=8)
+def _expected_shapes(spec: ModelSpec) -> Dict[str, Tuple[int, ...]]:
+    """The port model's state-dict keys and shapes (built on no device)."""
+    with torch.device("meta"):
+        return {k: tuple(v.shape) for k, v in DeSeNet(spec).state_dict().items()}
+
+
+def state_dict_from_jax(flat: Mapping[str, np.ndarray], spec: ModelSpec
+                        ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """JAX variables -> the port's state dict.
+
+    ``flat`` maps ``"params/l4/m_0/cv1/conv/conv2d/kernel"``-style paths
+    (``flax.traverse_util.flatten_dict(variables, sep="/")``, done by the
+    caller) to arrays; fused and unfused JAX layouts are both accepted.
+    Returns ``(state_dict, unfilled)``: ``unfilled`` lists the port model's
+    keys that the JAX variables do not cover, which for a valid checkpoint
+    are exactly ``DeSeNet.quirk_bn_keys()`` (BNs that never run keep their
+    init)."""
+    sd = {}
+    for col in ("params", "batch_stats"):
+        sd.update(tree_from_jax({k[len(col) + 1:]: v for k, v in flat.items()
+                                 if k.startswith(col + "/")}, spec))
     for k in list(sd):
         if k.endswith(".running_var"):
             sd[k[:-len("running_var")] + "num_batches_tracked"] = \
                 torch.tensor(0, dtype=torch.long)
-    with torch.device("meta"):
-        expected = DeSeNet(spec).state_dict()
-    for k, v in sd.items():
-        if k not in expected:
-            raise KeyError(f"JAX variable maps to {k!r}, which the port "
-                           "model does not have")
-        if tuple(v.shape) != tuple(expected[k].shape):
-            raise ValueError(f"shape mismatch for {k}: {tuple(v.shape)} vs "
-                             f"{tuple(expected[k].shape)}")
-    return sd, sorted(k for k in expected if k not in sd)
+    return sd, sorted(k for k in _expected_shapes(spec) if k not in sd)
+
+
+def train_state_from_jax(jstate: Mapping, model: DeSeNet,
+                         opt_cfg: OptimConfig) -> TrainState:
+    """A JAX ``TrainState`` as numpy -> the port's, on ``model``'s device.
+
+    ``jstate`` holds the JAX state's trees flattened with ``sep="/"``
+    (``params``, ``batch_stats``, ``mu`` and for Adam ``nu``,
+    ``ema_params``, ``ema_batch_stats``, optionally ``accum_grads``) and
+    its counters as integers (``step``, ``last_opt_step``, ``ema_updates``,
+    for Adam ``count``). The weights load into ``model``; the buffers, the
+    EMA and the accumulated gradients (as ``.grad``) are filled in the
+    state made by ``create_train_state``."""
+    spec = model.spec
+    load_state_dict(model, {**tree_from_jax(jstate["params"], spec),
+                            **tree_from_jax(jstate["batch_stats"], spec)})
+    state = create_train_state(model, opt_cfg)
+
+    def fill(dst: Dict[str, torch.Tensor], *flats):
+        src = {}
+        for flat in flats:
+            src.update(tree_from_jax(flat, spec))
+        if set(src) != set(dst):
+            raise KeyError(f"JAX tree keys differ from the port's: "
+                           f"{sorted(set(src) ^ set(dst))[:5]}")
+        for k, v in src.items():
+            dst[k].copy_(v)
+
+    with torch.no_grad():
+        fill(state.opt_state["mu"], jstate["mu"])
+        if opt_cfg.optimizer == "adam":
+            fill(state.opt_state["nu"], jstate["nu"])
+            state.opt_state["count"] = int(jstate["count"])
+        fill(state.ema, jstate["ema_params"], jstate["ema_batch_stats"])
+        if jstate.get("accum_grads") is not None:
+            for k, v in tree_from_jax(jstate["accum_grads"], spec).items():
+                state.params[k].grad = v.to(state.params[k].device)
+    state.step = int(jstate["step"])
+    state.last_opt_step = int(jstate["last_opt_step"])
+    state.ema_updates = int(jstate["ema_updates"])
+    return state
 
 
 def load_npz_state_dict(path) -> Dict[str, torch.Tensor]:

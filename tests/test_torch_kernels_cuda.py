@@ -34,6 +34,12 @@ allow (csrc/mma_bf16.cuh): the shared tile is held alone against
 channel counts that are no multiple of 64, K4 at yolov5s_seg's width on a
 map that is no multiple of the block's 128 pixels; each test also checks
 which kernel the wrapper launched.
+
+The training step (no kernel of its own) is held against itself on the
+CPU, as chip_smoke.py's phase 7(a) holds it: the tiny model's SGD steps on
+the card and on the CPU (``testing.TRAIN_PARITY_STEPS``: two in float64, one
+in float32 with TF32 off), fused and materialized seg loss, at
+``testing.TRAIN_LOSS_BAR`` / ``TRAIN_STATE_BAR``.
 """
 
 import numpy as np
@@ -52,7 +58,8 @@ from desenet_tpu_torch.testing import (C3_SERVED, NMS_FUSED_CASES,
                                        seg_tail_infinite_input,
                                        seg_tail_input, select_planes,
                                        sorted_candidates, stem_inputs,
-                                       synthetic_decode)
+                                       synthetic_decode, train_parity,
+                                       check_train_parity)
 
 pytestmark = pytest.mark.cuda
 
@@ -411,3 +418,11 @@ def test_seg_head_tensor_core_convs(cuda, hw):
     torch.cuda.synchronize()
     assert got.shape == want.shape == (3, *hw, 3)
     check_psp2(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("fused", [True, False])
+def test_train_step_matches_cpu(cuda, dtype, fused):
+    with no_tf32():
+        res = train_parity(torch.device("cuda"), fused, dtype)
+    check_train_parity(res, dtype, f"fused {fused}, {dtype}")

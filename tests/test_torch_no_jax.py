@@ -1,5 +1,6 @@
 """desenet_tpu_torch imports (every module), serves, validates (on an
-in-memory loader) and runs its kernel probes (K5, K6) with the JAX package
+in-memory loader), takes two training steps and runs its kernel probes
+(K5, K6) with the JAX package
 ``desenet_tpu``, JAX, flax, optax, orbax, cv2 and PyYAML blocked: the port
 never needs JAX or the JAX package, and the card's machine may lack cv2 and
 PyYAML. A second test reads the port's sources and ``chip_smoke.py`` with
@@ -109,6 +110,22 @@ batches = [{
 } for _ in range(2)]
 metrics = Validator(val_model, nc=3, se_nc=2).run(batches)
 assert metrics["seen"] == 4 and 0 <= metrics["miou"] <= 1, metrics
+
+# the training slice: two steps of the tiny model, the fused seg loss
+from desenet_tpu_torch.train import create_train_state, make_train_step
+from desenet_tpu_torch.train.engine import load_hyp, loss_and_schedule
+train_model, tspec = build_model(cfg, seg_upsample=False, train=True)
+train_model.load_state_dict(sd)
+det_loss, opt_cfg, lf = loss_and_schedule(load_hyp(), tspec, 64, 10)
+state = create_train_state(train_model, opt_cfg)
+step = make_train_step(train_model, det_loss, opt_cfg, lf, nb=4,
+                       warmup_iters=2, nominal_bs=2, batch_size=2,
+                       fused_seg=True)
+for _ in range(2):
+    state, m = step(state, {k: batches[0][k] for k in (
+        "image", "det_targets", "det_mask", "seg_labels")})
+    assert np.isfinite(float(m["loss"])) and m["stepped"] == 1, m
+assert (state.step, state.ema_updates) == (2, 2)
 
 # the K5/K6 slice's entry points
 import contextlib, io

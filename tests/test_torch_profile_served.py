@@ -3,9 +3,10 @@
 program, then the Focus stem alone) come out with positive totals, the
 stem's below the program's. The seg head's (``profile_seg_head``): one table
 for ``fused_psp2_eval`` and one for the module head. The validation step's
-(``profile_val_step``): one table for either seg head. The three that need
-a card (``profile_c3_phases``, ``profile_stem_phases``, ``mma_peak``) say so
-and exit."""
+(``profile_val_step``): one table for either seg head. The training
+step's (``profile_train_step``): one table for either seg loss. The three
+that need a card (``profile_c3_phases``, ``profile_stem_phases``,
+``mma_peak``) say so and exit."""
 
 import re
 
@@ -14,7 +15,8 @@ import torch
 
 from desenet_tpu_torch.tools import (mma_peak, profile_c3_phases,
                                      profile_seg_head, profile_served,
-                                     profile_stem_phases, profile_val_step)
+                                     profile_stem_phases, profile_train_step,
+                                     profile_val_step)
 
 
 def test_profile_served_runs_on_the_cpu(capsys):
@@ -45,6 +47,17 @@ def test_profile_val_step_runs_on_the_cpu(capsys):
     assert len(totals) == 2 and min(totals) > 0, out
     assert "val step b1/64 with the module seg head" in out
     assert "val step b1/64 with the fused seg head (K4)" in out
+
+
+def test_profile_train_step_runs_on_the_cpu(capsys):
+    assert profile_train_step.main(["--device", "cpu", "--batch", "1",
+                                    "--imgsz", "64"]) == 0
+    out = capsys.readouterr().out
+    totals = [float(t) for t in re.findall(r": ([0-9.]+) ms per run", out)]
+    assert len(totals) == 2 and min(totals) > 0, out
+    assert "train step b1/64, fused seg loss" in out
+    assert "train step b1/64, materialized seg loss" in out
+    assert "convolution_backward" in out
 
 
 @pytest.mark.parametrize("tool", [profile_c3_phases, profile_stem_phases,

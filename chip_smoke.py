@@ -72,7 +72,24 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
    CUDA events over 10 warm steps on distinct batches, fused and
    materialized seg loss in turns; (c) the EMA weights in the eval model
    through Validator.run over one in-memory batch of 32, with K3's launch
-   counter reset before and read after.
+   counter reset before and read after;
+8. the training entry point, yolov5s_seg at full width, 640 px, bf16
+   compute: (a) always: train.engine.fit on the card over numpy-made uint8
+   batches already on the card (4 batches of 64 an epoch, 2 epochs) with
+   the EMA validated on one in-memory batch of 32 at every epoch end, the
+   checkpoints written and ``last`` reloaded bitwise equal to the live
+   state (weights, BN statistics, EMA, optimizer buffers, counters), then a
+   third epoch resumed from it with the counters going on, results.csv
+   holding 3 rows of finite, falling losses and metrics in [0, 1], and
+   K3's launch counter at least one a validation; per epoch the training
+   loop's wall time and img/s, the device-idle share of the resumed epoch's
+   steps (torch.profiler), peak allocated memory; (b) when PIL and cv2
+   import: cli.train.main end to end on a fake dataset (32 train and 8 val
+   images at 640, desenet_tpu_torch.tools.make_fake_dataset) at batch 16
+   for 1 epoch with mosaic and autoanchor on, and the host's data time per
+   batch (the loader alone, one thread a batch; and the samples with every
+   worker thread busy) beside the device's step time at b16; without them
+   one line says that (b) did not run and why.
 
 Inputs of the kernel checks come from desenet_tpu_torch.testing, shared with
 tests/test_torch_kernels_cuda.py.
@@ -86,6 +103,8 @@ card's name and power limit as nvidia-smi gives them, and {"ok": true,
 
 from __future__ import annotations
 
+import csv
+import dataclasses
 import itertools
 import json
 import os
@@ -152,7 +171,7 @@ def phase0():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this smoke runs only on a CUDA card")
     mods = []
-    for m in ("cv2", "yaml"):
+    for m in ("cv2", "PIL", "yaml"):
         try:
             __import__(m)
             mods.append(f"{m}=yes")
@@ -1172,6 +1191,271 @@ def phase7(card: str) -> int:
     return k3
 
 
+B_FIT_VAL = 32
+FIT_BATCHES = 4
+B_CLI = 16
+
+
+def _state_equal(state, payload) -> list:
+    """The groups where a reloaded checkpoint's payload differs bitwise from
+    the live training state."""
+    from desenet_tpu_torch.train.state import bn_stats
+
+    live = {"params": state.params, "batch_stats": bn_stats(state.model),
+            "ema": state.ema, "mu": state.opt_state["mu"],
+            "accum_grads": {k: p.grad for k, p in state.params.items()
+                            if p.grad is not None}}
+    saved = {**payload, "mu": payload["opt_state"]["mu"]}
+    bad = [g for g, d in live.items()
+           if set(d) != set(saved[g]) or not all(
+               torch.equal(v.detach().cpu(), saved[g][k])
+               for k, v in d.items())]
+    counters = {"ema_updates": state.ema_updates, "step": state.step,
+                "last_opt_step": state.last_opt_step}
+    if any(payload["counters"][k] != v for k, v in counters.items()):
+        bad.append("counters")
+    return bad
+
+
+class EpochClock:
+    """Callbacks that time each epoch's training loop (the card
+    synchronized at both ends), its validation and its checkpoint saves,
+    and can profile one training loop."""
+
+    def __init__(self):
+        self.loops = []  # seconds of each epoch's training loop
+        self.vals = []  # seconds of each validation of the EMA
+        self.saves = []  # seconds of each epoch's checkpoint writes
+        self.profile_next = False
+        self.busy_ms = None  # device kernel time of the profiled loop
+        self._prof = None
+
+    def on_val_start(self):
+        self._v = time.perf_counter()
+
+    def on_val_end(self):
+        self.vals.append(time.perf_counter() - self._v)
+
+    def on_fit_epoch_end(self, row):
+        self._s = time.perf_counter()
+
+    def on_model_save(self):
+        self.saves.append(time.perf_counter() - self._s)
+
+    def on_train_epoch_start(self):
+        torch.cuda.synchronize()
+        if self.profile_next:
+            from torch.profiler import ProfilerActivity, profile
+
+            self._prof = profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA])
+            self._prof.start()
+        self._t = time.perf_counter()
+
+    def on_train_epoch_end(self):
+        torch.cuda.synchronize()
+        self.loops.append(time.perf_counter() - self._t)
+        if self._prof is not None:
+            from torch.autograd import DeviceType
+
+            self._prof.stop()
+            self.busy_ms = sum(
+                e.self_device_time_total for e in
+                self._prof.key_averages()
+                if e.device_type == DeviceType.CUDA) / 1e3
+            self._prof = self.profile_next = None
+
+
+def phase8(card: str) -> int:
+    """The training entry point; returns K3's launches in it."""
+    import tempfile
+
+    from desenet_tpu_torch.ops import nms_pallas
+    from desenet_tpu_torch.tools.profile_train_step import device_batches
+    from desenet_tpu_torch.train import engine
+    from desenet_tpu_torch.utils import checkpoint as ckpt
+    from desenet_tpu_torch.utils.callbacks import Callbacks
+    from desenet_tpu_torch.utils.loggers import Loggers
+
+    dev = torch.device("cuda")
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        # (a) fit over batches on the card; the recipe's hyperparameters
+        # and nominal batch (every step an optimizer step at b64), warmup
+        # floor 0: max(round(3 epochs x 4 batches), 0) = 12 steps
+        cfg = engine.TrainConfig(
+            data="(in-memory batches)", epochs=2, batch_size=B_TRAIN,
+            nbs=B_TRAIN, imgsz=IMGSZ, project=tmp, name="fit", use_tb=False,
+            noautoanchor=True, warmup_floor=0, device="cuda")
+        hyp = engine.load_hyp()
+        save_dir = engine.make_run_dir(cfg, hyp)
+        de_nc, se_nc = 6, 3  # yolov5s_seg.json's
+        meta = {"cfg": cfg.cfg, "imgsz": IMGSZ, "de_nc": de_nc,
+                "se_nc": se_nc, "de_names": [str(i) for i in range(de_nc)],
+                "se_names": [str(i) for i in range(se_nc)], "hyp": hyp}
+        batches = device_batches(FIT_BATCHES, B_TRAIN, IMGSZ, de_nc, dev)
+        val = val_batches(11, 1, B_FIT_VAL, IMGSZ, de_nc, se_nc)
+        clock = EpochClock()
+        callbacks = Callbacks()
+        callbacks.auto_register(Loggers(save_dir, use_tb=False))
+        callbacks.auto_register(clock)
+
+        def run(cfg, resumed=None):
+            loop = engine.build_loop(cfg, hyp, de_nc, se_nc, FIT_BATCHES,
+                                     IMGSZ, dev, meta, save_dir,
+                                     resumed=resumed)
+            res = engine.fit(cfg, loop, batches, val, save_dir, callbacks)
+            return loop.state, res
+
+        nms_pallas.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        state, _ = run(cfg)
+        peak = torch.cuda.max_memory_allocated()
+        payload = ckpt.load_checkpoint(os.path.join(save_dir, "last"))
+        bad = _state_equal(state, payload)
+        if bad or payload["counters"]["epoch"] != 1:
+            raise AssertionError(f"checkpoint 'last' reloads unequal to the "
+                                 f"live state in {bad}")
+        for name in ("best", "best_stripped"):
+            if not os.path.isfile(os.path.join(save_dir, name, ckpt.WEIGHTS)):
+                raise AssertionError(f"no '{name}' checkpoint")
+        counters = (state.step, state.ema_updates)
+        del state
+        clock.profile_next = True
+        state, res = run(dataclasses.replace(cfg, epochs=3), payload)
+        k3 = nms_pallas.launches
+        with open(os.path.join(save_dir, "results.csv")) as fh:
+            rows = list(csv.DictReader(fh))
+        losses = [sum(float(r[f"train/{k}_loss"]) for k in
+                      ("box", "obj", "cls", "seg")) for r in rows]
+        metrics = [float(r[k]) for r in rows for k in r
+                   if k.startswith("metrics/")]
+        want = 3 * FIT_BATCHES
+        if (len(rows) != 3 or [int(r["epoch"]) for r in rows] != [0, 1, 2]
+                or counters != (2 * FIT_BATCHES, 2 * FIT_BATCHES)
+                or (state.step, state.ema_updates) != (want, want)
+                or not np.isfinite(losses).all() or not losses[2] < losses[0]
+                or not all(0 <= v <= 1 for v in metrics) or k3 < 3):
+            raise AssertionError(
+                f"fit: rows {rows}, counters after 2 epochs {counters}, "
+                f"after the resumed one {(state.step, state.ema_updates)}, "
+                f"K3 launched {k3} times")
+        imgs = FIT_BATCHES * B_TRAIN
+        loops = ", ".join(f"{s_:.3f} s = {imgs / s_:.1f} img/s"
+                          for s_ in clock.loops)
+        idle = 1 - clock.busy_ms / 1e3 / clock.loops[-1]
+        spans = "; ".join(f"{what} {', '.join(f'{v:.3f}' for v in vs)} s"
+                          for what, vs in (("validations", clock.vals),
+                                           ("checkpoint writes",
+                                            clock.saves)))
+        log("8a", f"engine.fit yolov5s_seg b{B_TRAIN}/{IMGSZ} bf16, "
+            f"{FIT_BATCHES} batches an epoch on the card, 2 epochs, then "
+            f"'last' reloaded bitwise equal and a third epoch resumed "
+            f"(step and EMA updates {counters} -> "
+            f"{(state.step, state.ema_updates)}): summed train losses by "
+            f"epoch {[round(v, 4) for v in losses]}, fitness "
+            f"{[round(float(r['val/fitness']), 4) for r in rows]}; the "
+            f"training loop by epoch {loops} (epoch 2 under torch.profiler: "
+            f"kernels {clock.busy_ms:.3f} ms of {clock.loops[-1] * 1e3:.3f}"
+            f" ms, device idle {idle:.1%}); peak allocated "
+            f"{peak / 2**30:.3f} GiB over the first two epochs; K3 launched "
+            f"{k3} times in 3 validations of b{B_FIT_VAL}; by epoch "
+            f"{spans}; {time.perf_counter() - t:.3f} s wall [{card}]")
+        del state, batches
+
+        # (b) the CLI end to end on a fake dataset, where PIL and cv2 are
+        missing = []
+        for mod in ("PIL", "cv2"):
+            try:
+                __import__(mod)
+            except ImportError:
+                missing.append(mod)
+        if missing:
+            log("8b", f"not run: {' and '.join(missing)} do not import on "
+                "this machine (the fake dataset is written with cv2, "
+                "decoded with PIL); 8(a) ran the device path")
+            return k3
+        k3 += phase8b(card, tmp)
+    return k3
+
+
+def phase8b(card: str, tmp: str) -> int:
+    from desenet_tpu_torch.cli import train as cli_train
+    from desenet_tpu_torch.data import create_mixed_dataloader, to_device
+    from desenet_tpu_torch.ops import nms_pallas
+    from desenet_tpu_torch.tools.make_fake_dataset import generate
+    from desenet_tpu_torch.tools.profile_train_step import (device_batches,
+                                                            trainer)
+    from desenet_tpu_torch.train.engine import DEFAULT_HYP
+    from desenet_tpu_torch.utils.callbacks import Callbacks
+
+    dev = torch.device("cuda")
+    t = time.perf_counter()
+    root = os.path.join(tmp, "fakeds")
+    data = generate(root, n_train=32, n_val=8, size=IMGSZ, seed=0)
+    made = time.perf_counter() - t
+    clock = EpochClock()
+    callbacks = Callbacks()
+    callbacks.auto_register(clock)
+    nms_pallas.launches = 0
+    t = time.perf_counter()
+    res = cli_train.main(
+        ["--data", data, "--cfg", "yolov5s_seg", "--epochs", "1",
+         "--batch-size", str(B_CLI), "--img-size", str(IMGSZ), "--project",
+         os.path.join(tmp, "cli"), "--no-tb", "--device", "cuda"],
+        callbacks)
+    wall = time.perf_counter() - t
+    k3 = nms_pallas.launches
+    sd = res["save_dir"]
+    with open(os.path.join(sd, "results.csv")) as fh:
+        lines = fh.read().strip().splitlines()
+    if (len(lines) != 2 or k3 < 1 or not os.path.isfile(
+            os.path.join(sd, "best_stripped", "state.pt"))):
+        raise AssertionError(f"cli.train: results.csv {lines}, K3 launched "
+                             f"{k3} times")
+    nb = 32 // B_CLI
+    # the host's data time: the same training loader alone, staging to the
+    # card; the device's step time: CUDA events over warm steps at B_CLI
+    loader, _ = create_mixed_dataloader(
+        os.path.join(root, "Images", "train"), img_size=IMGSZ,
+        batch_size=B_CLI, augment=True, hyp=DEFAULT_HYP,
+        stage=to_device(dev))
+    t = time.perf_counter()
+    for _ in loader:
+        pass
+    torch.cuda.synchronize()
+    data_ms = (time.perf_counter() - t) / nb * 1e3
+    # the loader makes each batch on one thread; the host's rate with
+    # every worker busy: the epoch's samples on as many threads
+    from concurrent.futures import ThreadPoolExecutor
+
+    ds, workers = loader.dataset, loader.workers
+    t = time.perf_counter()
+    with ThreadPoolExecutor(workers) as pool:
+        list(pool.map(ds.get_sample, range(len(ds))))
+    rate_ms = (time.perf_counter() - t) / len(ds) * B_CLI * 1e3
+    state, step, spec = trainer(True, dev, B_CLI, IMGSZ, torch.bfloat16)
+    cycle = itertools.cycle(device_batches(2, B_CLI, IMGSZ, spec.de_nc, dev))
+
+    def one():
+        nonlocal state
+        state, _ = step(state, next(cycle))
+
+    step_ms = cuda_ms(one, 5)
+    log("8b", f"cli.train.main yolov5s_seg b{B_CLI}/{IMGSZ} bf16 on a fake "
+        f"dataset (32 train, 8 val at {IMGSZ}, written in {made:.3f} s), "
+        f"mosaic and autoanchor on, 1 epoch: {wall:.3f} s wall in all, the "
+        f"training loop {clock.loops[0]:.3f} s for {nb} batches; last line "
+        f"of results.csv {lines[-1]}; K3 launched {k3} times. Host data "
+        f"{data_ms:.3f} ms a batch of {B_CLI} (the training loader alone, "
+        f"staged to the card, one thread a batch), {rate_ms:.3f} ms per "
+        f"{B_CLI} samples with all {workers} worker threads busy, against "
+        f"the device step {step_ms:.3f} ms (CUDA events, 5 warm steps) "
+        f"[{card}]")
+    return k3
+
+
+
 def main() -> None:
     took = {}
 
@@ -1198,6 +1482,7 @@ def main() -> None:
     launches.update(timed("6", phase6, pred, card, timing, errs))
     del pred
     launches["nms_greedy"] += timed("7", phase7, card)
+    launches["nms_greedy"] += timed("8", phase8, card)
     log("times", "seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in took.items())
         + f"; {sum(took.values()):.1f} in all")

@@ -1,0 +1,172 @@
+"""Training CLI on the port, single process on one device.
+
+    python -m desenet_tpu_torch.cli.train --data data.yaml --cfg yolov5s_seg \\
+        --epochs 100 --batch-size 16 --img-size 640
+
+The flags and defaults of ``desenet_tpu.cli.train``, plus ``--device``
+(``cuda`` by default; ``--device cpu`` trains on the CPU, and nothing falls
+back to it). A bare ``--resume`` finds the most recent ``last`` checkpoint
+under the working directory and restores the run's ``opt.yaml``. Flags
+whose work is not ported raise NotImplementedError naming ROADMAP.md
+(``train.engine.refuse_unported``): ``--fast-decode``, ``--cache-images``,
+``--n-devices``/``--spatial`` above 1 and a multi-process launch
+(``DESENET_COORDINATOR``), the W&B flags and ``--remat``. ``--sync-bn`` is
+accepted and does nothing, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+
+from desenet_tpu_torch.train.engine import TrainConfig, train
+from desenet_tpu_torch.utils.general import set_logging
+
+
+def _coerce_opt(v):
+    """Parse stringified opt.yaml values back to python types (older runs
+    saved every field through str(); new runs save real types)."""
+    if isinstance(v, str):
+        if v == "None":
+            return None
+        if v in ("True", "False"):
+            return v == "True"
+        for cast in (int, float):
+            try:
+                return cast(v)
+            except ValueError:
+                pass
+    return v
+
+
+def parse_opt(argv=None):
+    p = argparse.ArgumentParser("desenet_tpu_torch train")
+    p.add_argument("--data", type=str, required=True, help="dataset yaml")
+    p.add_argument("--cfg", type=str, default="yolov5s_seg",
+                   help="model config name or path")
+    p.add_argument("--hyp", type=str, default=None, help="hyp yaml")
+    p.add_argument("--weights", type=str, default="",
+                   help="pretrain checkpoint dir")
+    p.add_argument("--resume", type=str, nargs="?", const=True, default="",
+                   help="checkpoint dir to resume; bare --resume finds the "
+                        "most recent run and restores its opt.yaml")
+    p.add_argument("--epochs", type=int, default=300)
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--img-size", "--imgsz", type=int, default=640)
+    p.add_argument("--workers", type=int, default=8)
+    p.add_argument("--project", type=str, default="runs/train")
+    p.add_argument("--name", type=str, default="exp")
+    p.add_argument("--exist-ok", action="store_true")
+    p.add_argument("--single-cls", action="store_true")
+    p.add_argument("--adam", action="store_true")
+    p.add_argument("--linear-lr", action="store_true")
+    p.add_argument("--label-smoothing", type=float, default=0.0)
+    p.add_argument("--patience", type=int, default=30)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--max-targets", type=int, default=128)
+    p.add_argument("--noval", action="store_true")
+    p.add_argument("--nosave", action="store_true")
+    p.add_argument("--save-period", "--save_period", type=int, default=-1)
+    p.add_argument("--det-gain", type=float, default=0.14,
+                   help="detection loss gain")
+    p.add_argument("--seg-gain", type=float, default=1.0)
+    p.add_argument("--dtype", type=str, default="bfloat16",
+                   choices=["bfloat16", "float32"],
+                   help="compute dtype (autocast); parameters stay float32")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default) or cpu")
+    p.add_argument("--n-devices", type=int, default=None, help="not ported")
+    p.add_argument("--spatial", type=int, default=1, help="not ported")
+    p.add_argument("--no-tb", action="store_true")
+    p.add_argument("--noautoanchor", action="store_true")
+    p.add_argument("--multi-scale", action="store_true")
+    p.add_argument("--image-weights", action="store_true")
+    p.add_argument("--nbs", type=int, default=64,
+                   help="nominal batch size for grad accumulation")
+    p.add_argument("--warmup-floor", type=int, default=1000,
+                   help="minimum warmup iterations")
+    p.add_argument("--remat", action="store_true", help="not ported")
+    p.add_argument("--wandb", action="store_true", help="not ported")
+    p.add_argument("--upload-dataset", "--upload_dataset",
+                   action="store_true", help="not ported")
+    p.add_argument("--entity", type=str, default=None, help="not ported")
+    p.add_argument("--bbox-interval", "--bbox_interval", type=int, default=-1,
+                   help="not ported")
+    p.add_argument("--artifact-alias", "--artifact_alias", type=str,
+                   default="latest", help="not ported")
+    p.add_argument("--sync-bn", action="store_true",
+                   help="accepted for compatibility; one process, so BN "
+                        "statistics are the whole batch's")
+    p.add_argument("--fast-decode", action="store_true", help="not ported")
+    p.add_argument("--rect", action="store_true",
+                   help="rectangular training (aspect-sorted batch shapes)")
+    p.add_argument("--quad", action="store_true",
+                   help="quad collate (4 images -> 2x2 super-image or "
+                        "2x upscale)")
+    p.add_argument("--freeze", type=int, default=0,
+                   help="freeze first N layers")
+    p.add_argument("--no-fused-seg-loss", action="store_true",
+                   help="materialize full-res seg logits for the CE loss "
+                        "instead of the tiled upsample+CE")
+    p.add_argument("--cache-images", choices=("ram", "disk"), default=None,
+                   help="not ported")
+    return p.parse_args(argv)
+
+
+def main(argv=None, callbacks=None):
+    """Parse ``argv`` and train; ``callbacks`` (``utils.callbacks``) gets
+    the engine's hooks beside the loggers."""
+    set_logging()
+    if os.environ.get("DESENET_COORDINATOR"):
+        raise NotImplementedError(
+            "a multi-process launch (DESENET_COORDINATOR) is not ported to "
+            "desenet_tpu_torch yet (ROADMAP.md, Queue 1 item 7)")
+    o = parse_opt(argv)
+    overrides = None
+    if o.resume is True:
+        # bare --resume: the most recent run, with its own options; an
+        # explicit --resume PATH keeps this invocation's flags
+        from desenet_tpu_torch.utils.general import get_latest_run, load_yaml
+
+        o.resume = get_latest_run()
+        if not o.resume:
+            raise FileNotFoundError("--resume: no previous run found under ./")
+        print(f"resuming most recent run: {o.resume}")
+        opt_yaml = os.path.join(os.path.dirname(os.path.abspath(o.resume)),
+                                "opt.yaml")
+        if os.path.isfile(opt_yaml):
+            saved = load_yaml(opt_yaml) or {}
+            fields = {f.name for f in dataclasses.fields(TrainConfig)}
+            overrides = {k: _coerce_opt(v) for k, v in saved.items()
+                         if k in fields}
+            overrides.update(resume=o.resume, exist_ok=True)
+    cfg = TrainConfig(
+        data=o.data, cfg=o.cfg, hyp=o.hyp, weights=o.weights, resume=o.resume,
+        epochs=o.epochs, batch_size=o.batch_size, imgsz=o.img_size,
+        workers=o.workers, project=o.project, name=o.name,
+        exist_ok=o.exist_ok, single_cls=o.single_cls, adam=o.adam,
+        linear_lr=o.linear_lr, label_smoothing=o.label_smoothing,
+        patience=o.patience, seed=o.seed, max_targets=o.max_targets,
+        noval=o.noval, nosave=o.nosave, save_period=o.save_period,
+        det_gain=o.det_gain, seg_gain=o.seg_gain, dtype=o.dtype,
+        n_devices=o.n_devices, spatial=o.spatial, use_tb=not o.no_tb,
+        noautoanchor=o.noautoanchor, multi_scale=o.multi_scale,
+        image_weights=o.image_weights, nbs=o.nbs,
+        warmup_floor=o.warmup_floor, remat=o.remat, wandb=o.wandb,
+        upload_dataset=o.upload_dataset, fast_decode=o.fast_decode,
+        cache_images=o.cache_images, rect=o.rect, quad=o.quad,
+        freeze=o.freeze, entity=o.entity, bbox_interval=o.bbox_interval,
+        artifact_alias=o.artifact_alias,
+        fused_seg_loss=not o.no_fused_seg_loss, device=o.device,
+    )
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    results = train(cfg, callbacks)
+    print(f"done: save_dir={results['save_dir']} "
+          f"best_fitness={results['best_fitness']:.4f}")
+    return results
+
+
+if __name__ == "__main__":
+    main()

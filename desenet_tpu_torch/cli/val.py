@@ -4,9 +4,12 @@
         --weights sd.npz
 
 Tasks: val/test/train (metrics on that split), speed (device latency at the
-val shape), study (speed over image sizes). ``--weights`` is a torch-named
-state dict saved with ``np.savez`` (``tools/export_torch_sd.py`` writes one
-from a JAX checkpoint); the class counts come from the data yaml. Reading
+val shape), study (speed over image sizes). ``--weights`` is a checkpoint
+directory of the port's training (``best_stripped``, or ``last``/``best``
+through their EMA), whose meta.json names the config and the class counts,
+or a torch-named state dict saved with ``np.savez``
+(``tools/export_torch_sd.py`` writes one from a JAX checkpoint), with the
+class counts from the data yaml. Reading
 the image dataset goes through the port's own ``desenet_tpu_torch.data``
 (validation path only), which needs PIL, PyYAML for the data yaml, and cv2
 where an image is resized.
@@ -29,13 +32,32 @@ from desenet_tpu_torch.utils.convert import load_npz_state_dict, load_state_dict
 _ROADMAP = "is not ported to desenet_tpu_torch yet (ROADMAP.md, Queue 1)"
 
 
+def load_weights(weights, cfg, nc: int, se_nc: int):
+    """(state dict, cfg, nc, se_nc, anchors) for ``weights``: a port
+    checkpoint directory (its EMA where it has one; its meta.json's
+    ``cfg``, ``de_nc``, ``se_nc`` and autoanchor's ``anchors`` take the
+    place of the arguments) or an npz state dict (the arguments stand)."""
+    if not os.path.isdir(weights):
+        return load_npz_state_dict(weights), cfg, nc, se_nc, None
+    from desenet_tpu_torch.utils.checkpoint import (inference_state_dict,
+                                                    load_checkpoint)
+
+    payload = load_checkpoint(weights)
+    meta = payload["meta"] or {}
+    return (inference_state_dict(payload), meta.get("cfg", cfg),
+            int(meta.get("de_nc", nc)), int(meta.get("se_nc", se_nc)),
+            meta.get("anchors"))
+
+
 def load_model(cfg, weights, nc: int, se_nc: int, half: bool = True,
                device="cuda", seg_head_fused: bool = False):
-    """Build ``cfg`` with full-resolution seg logits, load the npz state
-    dict, and place it on ``device`` in bf16 (``half``) or f32."""
+    """Build ``cfg`` with full-resolution seg logits, load ``weights`` (a
+    port checkpoint directory or an npz state dict, ``load_weights``), and
+    place it on ``device`` in bf16 (``half``) or f32."""
+    sd, cfg, nc, se_nc, anchors = load_weights(weights, cfg, nc, se_nc)
     model, spec = build_model(config_path(cfg), nc=nc, se_nc=se_nc,
-                              seg_head_fused=seg_head_fused)
-    load_state_dict(model, load_npz_state_dict(weights))
+                              seg_head_fused=seg_head_fused, anchors=anchors)
+    load_state_dict(model, sd)
     device = torch.device(device)
     mf = (torch.channels_last if device.type == "cuda"
           else torch.contiguous_format)
@@ -179,7 +201,8 @@ def parse_opt(argv=None):
     p.add_argument("--cfg", type=str, default="yolov5s_seg",
                    help="bundled config name or .json/.yaml path")
     p.add_argument("--weights", type=str, nargs="+", required=True,
-                   help="torch-named state dict (.npz)")
+                   help="checkpoint dir of the port's training, or a "
+                        "torch-named state dict (.npz)")
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--img-size", "--imgsz", type=int, default=640)
     p.add_argument("--conf-thres", type=float, default=0.001)

@@ -1,16 +1,17 @@
-"""The joint detection+segmentation dataset ("mixed" pipeline), validation
-path.
+"""The joint detection+segmentation dataset ("mixed" pipeline).
 
-The port's own copy of what ``desenet_tpu_torch.cli.val`` needs of
-``desenet_tpu/data/dataset.py``: directory/txt listing, sibling
-``DeLabels/`` + ``SeLabels/`` label dirs, per-sample validation, the label
-cache with content hashing (the same pickle, so either package reads the
-other's), letterbox, rect mode with aspect-sorted per-batch shapes, polygon
-rasterizing and COCO-rescaling ``shapes`` metadata. ``augment=True`` (mosaic,
-HSV, perspective, flips, mixup; the decoded-image caches and the scaled JPEG
-decode that serve them) raises ``NotImplementedError``: it belongs to the
-training slice. numpy and the standard library at module level; PIL is
-imported where an image is opened, cv2 where one is resized.
+The port's own copy of ``desenet_tpu/data/dataset.py``: directory/txt
+listing, sibling ``DeLabels/`` + ``SeLabels/`` label dirs, per-sample
+validation, the label cache with content hashing (the same pickle, so either
+package reads the other's), letterbox, rect mode with aspect-sorted
+per-batch shapes, polygon rasterizing and COCO-rescaling ``shapes``
+metadata, and for training (``augment=True``) mosaic (4 and 9 images),
+mixup, the random perspective warp, HSV jitter and flips. Each sample's
+augmentation draws from its own generator, seeded by (seed, epoch, index),
+so a sample is the same bytes in either package and in any order. The
+decoded-image caches and the scaled JPEG decode of the JAX package are not
+ported (ROADMAP.md). numpy and the standard library at module level; PIL is
+imported where an image is opened, cv2 where one is resized or warped.
 
 Label formats:
   DeLabels/<split>/x.txt : lines "cls x y w h" normalized xywh
@@ -25,12 +26,14 @@ import os
 import pickle
 from multiprocessing.pool import ThreadPool
 from pathlib import Path
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from desenet_tpu_torch.data.augment import (denorm_boxes, denorm_polys,
-                                            letterbox)
+from desenet_tpu_torch.data.augment import (PAD_VALUE, augment_hsv,
+                                            denorm_boxes, denorm_polys,
+                                            flip_lr, flip_ud, letterbox,
+                                            mixup, random_perspective)
 from desenet_tpu_torch.data.rasterize import rasterize_polygons
 
 LOGGER = logging.getLogger(__name__)
@@ -131,25 +134,30 @@ class MixedDataset:
         img_size: int = 640,
         batch_size: int = 16,
         augment: bool = False,
+        hyp: Optional[Dict] = None,
         rect: bool = False,
         stride: int = 32,
         pad: float = 0.0,
         single_cls: bool = False,
         max_targets: int = 128,
+        seed: int = 0,
         prefix: str = "",
+        fast_decode: bool = False,
+        cache_images: Optional[str] = None,
     ):
-        if augment:
-            raise NotImplementedError(
-                "augment=True (mosaic, HSV, perspective, flips) belongs to "
-                "the training slice, which is not ported yet (ROADMAP.md, "
-                "Queue 1 item 5); the port loads validation data only")
+        refuse_unported_decode(fast_decode, cache_images)
         self.img_size = img_size
         self.batch_size = batch_size
-        self.augment = False
+        self.augment = augment
+        self.hyp = dict(hyp or {})
         self.rect = rect
+        self.mosaic = augment and not rect and self.hyp.get("mosaic", 0) > 0
+        self.mosaic_border = (-img_size // 2, -img_size // 2)
         self.stride = stride
         self.pad = pad
         self.max_targets = max_targets
+        self.seed = seed
+        self.epoch = 0
 
         # ---- file listing (dir / txt / list of either) ----
         files: List[Path] = []
@@ -197,6 +205,8 @@ class MixedDataset:
                 LOGGER.warning("%scache dir not writable: %s", prefix, e)
 
         items = cache["items"]  # list of (im_file, shape(w,h), det, seg)
+        if augment and not items:
+            raise ValueError(f"{prefix}no labels in {path}, cannot train")
         self.img_files = [it[0] for it in items]
         self.shapes = np.asarray([it[1] for it in items], np.float32)  # (w, h)
         self.det_labels = [it[2] for it in items]
@@ -282,6 +292,20 @@ class MixedDataset:
     def __len__(self):
         return self.n
 
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+
+    def resample(self, image_weights: np.ndarray, rng: np.random.Generator):
+        """Class-weighted image resampling for the next epoch."""
+        w = np.asarray(image_weights, np.float64)
+        w = w / w.sum()
+        self.indices = rng.choice(self.n, size=self.n, p=w)
+
+    def sample_rng(self, index: int) -> np.random.Generator:
+        return np.random.default_rng(
+            np.random.SeedSequence([self.seed, self.epoch, int(index)])
+        )
+
     def load_image(self, index: int):
         """Decode + EXIF-correct + resize long side to img_size. Returns
         (RGB uint8 array, (h0, w0), (h, w))."""
@@ -304,21 +328,48 @@ class MixedDataset:
 
     # ------------------------------------------------------------------
     def get_sample(self, pos: int):
-        """The letterboxed sample at dataset position `pos`:
-        (img RGB uint8 HWC, det (n,5) [cls,xywhn], seg_mask (H,W) int32,
+        """The sample at dataset position `pos`, augmented when the dataset
+        is: (img RGB uint8 HWC, det (n,5) [cls,xywhn], seg_mask (H,W) int32,
         path, shapes)."""
         index = int(self.indices[pos])
-        img, (h0, w0), (h, w) = self.load_image(index)
-        shape = (self.batch_shapes[self.batch_index[pos]] if self.rect
-                 else self.img_size)
-        img, ratio, pad = letterbox(img, shape, scaleup=False)
-        shapes = (h0, w0), ((h / h0, w / w0), pad)
-        det = self.det_labels[index].copy()
-        seg = [(c, p.copy()) for c, p in self.seg_labels[index]]
-        if len(det):
-            det[:, 1:] = denorm_boxes(det[:, 1:], ratio[0] * w, ratio[1] * h,
-                                      pad[0], pad[1])
-        seg = denorm_polys(seg, ratio[0] * w, ratio[1] * h, pad[0], pad[1])
+        rng = self.sample_rng(index)
+        hyp = self.hyp
+
+        if self.mosaic and rng.random() < hyp.get("mosaic", 0.0):
+            if rng.random() < hyp.get("mosaic9", 0.0):
+                img, det, seg = self._load_mosaic9(index, rng)
+            else:
+                img, det, seg = self._load_mosaic(index, rng)
+            shapes = None
+            do_persp = False  # the mosaic already took random_perspective
+            if rng.random() < hyp.get("mixup", 0.0):
+                img2, det2, seg2 = self._load_mosaic(
+                    int(rng.integers(self.n)), rng)
+                img, det, seg = mixup(img, det, seg, img2, det2, seg2, rng)
+        else:
+            img, (h0, w0), (h, w) = self.load_image(index)
+            shape = (self.batch_shapes[self.batch_index[pos]] if self.rect
+                     else self.img_size)
+            img, ratio, pad = letterbox(img, shape, auto=False,
+                                        scaleup=self.augment)
+            shapes = (h0, w0), ((h / h0, w / w0), pad)
+            det = self.det_labels[index].copy()
+            seg = [(c, p.copy()) for c, p in self.seg_labels[index]]
+            if len(det):
+                det[:, 1:] = denorm_boxes(det[:, 1:], ratio[0] * w,
+                                          ratio[1] * h, pad[0], pad[1])
+            seg = denorm_polys(seg, ratio[0] * w, ratio[1] * h, pad[0], pad[1])
+            do_persp = self.augment
+
+        if do_persp:
+            img, det, seg = random_perspective(img, det, seg, rng,
+                                               **self._warp())
+        if self.augment:
+            img = np.ascontiguousarray(img)
+            if not img.flags.writeable:  # a decoded image passed through
+                img = img.copy()  # the letterbox untouched; HSV is in place
+            augment_hsv(img, rng, hyp.get("hsv_h", 0), hyp.get("hsv_s", 0),
+                        hyp.get("hsv_v", 0))
 
         # pixel xyxy -> normalized xywh
         if len(det):
@@ -330,9 +381,196 @@ class MixedDataset:
             out[:, 3] = (xyxy[:, 3] - xyxy[:, 1]) / img.shape[0]
             det[:, 1:5] = out
 
+        if self.augment:
+            if rng.random() < hyp.get("flipud", 0.0):
+                img, det, seg = flip_ud(img, det, seg)
+            if rng.random() < hyp.get("fliplr", 0.0):
+                img, det, seg = flip_lr(img, det, seg)
+
         seg_mask = rasterize_polygons(seg, img.shape[:2])
         return (img, det.astype(np.float32), seg_mask, self.img_files[index],
                 shapes)
+
+    def _warp(self) -> dict:
+        """random_perspective's arguments from the hyperparameters."""
+        return {k: self.hyp.get(k, 0.0) for k in
+                ("degrees", "translate", "scale", "shear", "perspective")}
+
+    def _load_mosaic(self, index: int, rng: np.random.Generator):
+        """4-image mosaic on a 2s x 2s canvas, then the perspective warp."""
+        s = self.img_size
+        yc = int(rng.uniform(-self.mosaic_border[0], 2 * s + self.mosaic_border[0]))
+        xc = int(rng.uniform(-self.mosaic_border[1], 2 * s + self.mosaic_border[1]))
+        idxs = [index] + list(rng.choice(self.n, 3))
+        rng.shuffle(idxs)
+        canvas = np.full((s * 2, s * 2, 3), PAD_VALUE, np.uint8)
+        det4, seg4 = [], []
+        for i, idx in enumerate(idxs):
+            img, _, (h, w) = self.load_image(int(idx))
+            if i == 0:  # top-left
+                x1a, y1a, x2a, y2a = max(xc - w, 0), max(yc - h, 0), xc, yc
+                x1b, y1b = w - (x2a - x1a), h - (y2a - y1a)
+                x2b, y2b = w, h
+            elif i == 1:  # top-right
+                x1a, y1a, x2a, y2a = xc, max(yc - h, 0), min(xc + w, s * 2), yc
+                x1b, y1b = 0, h - (y2a - y1a)
+                x2b, y2b = min(w, x2a - x1a), h
+            elif i == 2:  # bottom-left
+                x1a, y1a, x2a, y2a = max(xc - w, 0), yc, xc, min(s * 2, yc + h)
+                x1b, y1b = w - (x2a - x1a), 0
+                x2b, y2b = w, min(y2a - y1a, h)
+            else:  # bottom-right
+                x1a, y1a = xc, yc
+                x2a, y2a = min(xc + w, s * 2), min(s * 2, yc + h)
+                x1b, y1b = 0, 0
+                x2b, y2b = min(w, x2a - x1a), min(y2a - y1a, h)
+            canvas[y1a:y2a, x1a:x2a] = img[y1b:y2b, x1b:x2b]
+            padw, padh = x1a - x1b, y1a - y1b
+
+            det = self.det_labels[int(idx)].copy()
+            if len(det):
+                det[:, 1:] = denorm_boxes(det[:, 1:], w, h, padw, padh)
+            det4.append(det)
+            seg4.append(denorm_polys(
+                [(c, p.copy()) for c, p in self.seg_labels[int(idx)]],
+                w, h, padw, padh,
+            ))
+
+        det4 = np.concatenate(det4, 0) if det4 else np.zeros((0, 5), np.float32)
+        if len(det4):
+            det4[:, 1:] = det4[:, 1:].clip(0, 2 * s)
+        seg_all = [(c, p.clip(0, 2 * s)) for part in seg4 for c, p in part]
+        return random_perspective(canvas, det4, seg_all, rng,
+                                  border=self.mosaic_border, **self._warp())
+
+    def _load_mosaic9(self, index: int, rng: np.random.Generator):
+        """9-image 3x3 mosaic with seg polygons, then the perspective warp."""
+        s = self.img_size
+        idxs = [index] + list(rng.choice(self.n, 8))
+        canvas = np.full((s * 3, s * 3, 3), PAD_VALUE, np.uint8)
+        det9, seg9 = [], []
+        hp = wp = h0 = w0 = -1
+        for i, idx in enumerate(idxs):
+            img, _, (h, w) = self.load_image(int(idx))
+            if i == 0:
+                h0, w0 = h, w
+            c = _mosaic9_position(i, s, w, h, w0, h0, wp, hp)
+            padw, padh = c[0], c[1]
+            x1, y1, x2, y2 = (max(v, 0) for v in c)
+            canvas[y1:y2, x1:x2] = img[y1 - padh:, x1 - padw:][
+                : y2 - y1, : x2 - x1
+            ]
+            hp, wp = h, w
+
+            det = self.det_labels[int(idx)].copy()
+            if len(det):
+                det[:, 1:] = denorm_boxes(det[:, 1:], w, h, padw, padh)
+            det9.append(det)
+            seg9.append(denorm_polys(
+                [(cc, p.copy()) for cc, p in self.seg_labels[int(idx)]],
+                w, h, padw, padh,
+            ))
+
+        yc = int(rng.uniform(0, s))
+        xc = int(rng.uniform(0, s))
+        canvas = canvas[yc:yc + 2 * s, xc:xc + 2 * s]
+        det9 = np.concatenate(det9, 0) if det9 else np.zeros((0, 5), np.float32)
+        if len(det9):
+            det9[:, [1, 3]] -= xc
+            det9[:, [2, 4]] -= yc
+            det9[:, 1:] = det9[:, 1:].clip(0, 2 * s)
+        seg_all = []
+        for part in seg9:
+            for cc, p in part:
+                q = p - np.asarray([xc, yc], np.float32)
+                seg_all.append((cc, q.clip(0, 2 * s)))
+        return random_perspective(canvas, det9, seg_all, rng,
+                                  border=self.mosaic_border, **self._warp())
+
+
+def refuse_unported_decode(fast_decode: bool, cache_images) -> None:
+    """The JAX package's scaled JPEG decode (native libjpeg) and decoded-
+    image caches are not ported."""
+    if fast_decode:
+        raise NotImplementedError(
+            "--fast-decode (native libjpeg decode) is not ported to "
+            "desenet_tpu_torch yet (ROADMAP.md, Queue 1)")
+    if cache_images:
+        raise NotImplementedError(
+            "--cache-images is not ported to desenet_tpu_torch yet "
+            "(ROADMAP.md, Queue 1)")
+
+
+def _mosaic9_position(i, s, w, h, w0, h0, wp, hp):
+    """Placement rectangle for the i-th tile of a 3x3 mosaic."""
+    return [
+        (s, s, s + w, s + h),
+        (s, s - h, s + w, s),
+        (s + wp, s - h, s + wp + w, s),
+        (s + w0, s, s + w0 + w, s + h),
+        (s + w0, s + hp, s + w0 + w, s + hp + h),
+        (s + w0 - w, s + h0, s + w0, s + h0 + h),
+        (s + w0 - wp - w, s + h0, s + w0 - wp, s + h0 + h),
+        (s - w, s + h0 - h, s, s + h0),
+        (s - w, s + h0 - hp - h, s, s + h0 - hp),
+    ][i]
+
+
+def collate_quad(samples, max_targets: int = 128, rng=None):
+    """Quad collate: groups of 4 samples become either one 2x2 super-image
+    (labels offset and scaled, seg masks tiled) or a 2x-upscaled single
+    (seg by nearest). ``rng``: an epoch/batch-derived generator (the loader
+    passes one); a fresh OS-seeded one when None."""
+    if len(samples) < 4 or len(samples) % 4:
+        raise ValueError(f"quad collate needs a multiple of 4 samples, "
+                         f"got {len(samples)}")
+    if rng is None:
+        rng = np.random.default_rng()
+    out_imgs, out_dets, out_segs, out_paths, out_shapes = [], [], [], [], []
+    for g in range(len(samples) // 4):
+        quad = samples[g * 4:(g + 1) * 4]
+        imgs, dets, segs, paths, shapes = zip(*quad)
+        h, w = imgs[0].shape[:2]
+        if rng.random() < 0.5:  # 2x upscale of the first sample
+            import cv2
+
+            im = cv2.resize(imgs[0], (w * 2, h * 2),
+                            interpolation=cv2.INTER_LINEAR)
+            dl = dets[0].copy()
+            sl = cv2.resize(segs[0].astype(np.uint8), (w * 2, h * 2),
+                            interpolation=cv2.INTER_NEAREST)
+        else:  # 2x2 tiling
+            top = np.concatenate([imgs[0], imgs[1]], axis=1)
+            bot = np.concatenate([imgs[2], imgs[3]], axis=1)
+            im = np.concatenate([top, bot], axis=0)
+            offs = [(0, 0), (0.5, 0), (0, 0.5), (0.5, 0.5)]  # (dx, dy)
+            dls = []
+            for d, (dx, dy) in zip(dets, offs):
+                if not len(d):
+                    continue
+                d = d.copy()
+                d[:, 1] = d[:, 1] * 0.5 + dx
+                d[:, 2] = d[:, 2] * 0.5 + dy
+                d[:, 3:5] *= 0.5
+                dls.append(d)
+            dl = np.concatenate(dls, 0) if dls else np.zeros((0, 5), np.float32)
+            st = np.concatenate([segs[0], segs[1]], axis=1)
+            sb = np.concatenate([segs[2], segs[3]], axis=1)
+            sl = np.concatenate([st, sb], axis=0)
+        out_imgs.append(im)
+        out_dets.append(dl)
+        out_segs.append(sl)
+        out_paths.append(paths[0])
+        out_shapes.append(shapes[0])
+    det_t, det_m = pad_det_targets(out_dets, max_targets)
+    return {
+        "image": np.stack(out_imgs, 0),
+        "det_targets": det_t,
+        "det_mask": det_m,
+        "seg_labels": np.stack(out_segs, 0).astype(np.uint8),
+        "paths": out_paths,
+        "shapes": out_shapes,
+    }
 
 
 def pad_det_targets(dets: Sequence[np.ndarray], max_targets: int):
@@ -354,7 +592,7 @@ def pad_det_targets(dets: Sequence[np.ndarray], max_targets: int):
 
 
 def collate(samples, max_targets: int = 128):
-    """Samples -> fixed-shape batch dict for the eval step."""
+    """Samples -> fixed-shape batch dict for the train and eval steps."""
     imgs, dets, segs, paths, shapes = zip(*samples)
     det_t, det_m = pad_det_targets(dets, max_targets)
     return {

@@ -1,11 +1,13 @@
 """Prefetching batch loader.
 
-The port's own copy of ``desenet_tpu/data/loader.py`` for the validation
-path: worker threads decode and letterbox (numpy/PIL/cv2 release the GIL),
-batches are assembled into fixed-shape arrays, and an optional ``stage``
-callback runs one batch ahead, so the device does not wait on the host.
-``rank``/``world_size`` read a strided shard of the epoch's order. The quad
-collate is a training option and is not here.
+The port's own copy of ``desenet_tpu/data/loader.py``: worker threads
+decode and augment (numpy/PIL/cv2 release the GIL), batches are assembled
+into fixed-shape arrays, and an optional ``stage`` callback (``to_device``:
+pinned memory, then a non-blocking copy to the card) runs in the worker
+thread, batches ahead of the step, so the device does not wait on the host.
+Training shuffles with a per-epoch permutation seeded by (seed, epoch) and
+may quad-collate; ``rank``/``world_size`` read a strided shard of the
+epoch's order.
 """
 
 from __future__ import annotations
@@ -16,8 +18,11 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, Optional
 
 import numpy as np
+import torch
 
-from desenet_tpu_torch.data.dataset import MixedDataset, collate
+from desenet_tpu_torch.data.dataset import MixedDataset, collate, collate_quad
+
+ARRAY_KEYS = ("image", "det_targets", "det_mask", "seg_labels")
 
 
 def available_cores() -> int:
@@ -52,6 +57,7 @@ class DataLoader:
         stage: Optional[Callable] = None,
         prefetch: int = 2,
         seed: int = 0,
+        quad: bool = False,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -65,9 +71,15 @@ class DataLoader:
         self.prefetch = max(1, prefetch)
         self.seed = seed
         self.epoch = 0
+        # quad collate: groups of 4 samples become one 2x-size image; the
+        # batch is (batch_size // 4, 2s, 2s)
+        self.quad = quad
+        if quad and batch_size % 4:
+            raise ValueError("--quad needs batch_size % 4 == 0")
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
+        self.dataset.set_epoch(epoch)
 
     def _epoch_positions(self) -> np.ndarray:
         n = len(self.dataset)
@@ -94,9 +106,14 @@ class DataLoader:
 
         _single_threaded_cv2()
 
-        def make_batch(pos_list):
+        def make_batch(bidx, pos_list):
             samples = [self.dataset.get_sample(int(p)) for p in pos_list]
-            batch = collate(samples, self.max_targets)
+            if self.quad:
+                rng = np.random.default_rng(np.random.SeedSequence(
+                    [self.seed, self.epoch, int(bidx)]))
+                batch = collate_quad(samples, self.max_targets, rng=rng)
+            else:
+                batch = collate(samples, self.max_targets)
             if self.stage is not None:
                 batch = self.stage(batch)
             return batch
@@ -104,15 +121,34 @@ class DataLoader:
         with ThreadPoolExecutor(max_workers=self.workers) as pool:
             futures = queue.Queue()
             depth = min(self.prefetch * max(1, self.workers // 2), nb)
-            it = iter(batches)
-            for bp in (next(it) for _ in range(depth)):
-                futures.put(pool.submit(make_batch, bp))
+            it = enumerate(batches)
+            for bi, bp in (next(it) for _ in range(depth)):
+                futures.put(pool.submit(make_batch, bi, bp))
             for _ in range(nb):
                 fut = futures.get()
-                bp = next(it, None)
-                if bp is not None:
-                    futures.put(pool.submit(make_batch, bp))
+                nxt = next(it, None)
+                if nxt is not None:
+                    futures.put(pool.submit(make_batch, *nxt))
                 yield fut.result()
+
+
+def to_device(device) -> Callable[[dict], dict]:
+    """A ``stage`` callback: the batch's arrays to ``device`` as tensors,
+    through pinned host memory and a non-blocking copy on a card (the
+    copy is ordered before the step's kernels on the default stream);
+    ``paths`` and ``shapes`` stay on the host."""
+    dev = torch.device(device)
+    pin = dev.type == "cuda"
+
+    def stage(batch: dict) -> dict:
+        out = dict(batch)
+        for k in ARRAY_KEYS:
+            t = torch.from_numpy(np.ascontiguousarray(batch[k]))
+            out[k] = (t.pin_memory().to(dev, non_blocking=True) if pin
+                      else t.to(dev))
+        return out
+
+    return stage
 
 
 def create_mixed_dataloader(
@@ -131,14 +167,20 @@ def create_mixed_dataloader(
     shuffle: Optional[bool] = None,
     stage=None,
     seed: int = 0,
+    fast_decode: bool = False,
+    cache_images=None,
+    quad: bool = False,
+    hyp=None,
 ):
     """(loader, dataset) over ``path`` (an image dir, a txt listing or a
-    list of either). ``augment=True`` raises NotImplementedError
-    (``MixedDataset``)."""
+    list of either); ``augment=True`` is the training loader (shuffled,
+    drop_last, augmented with ``hyp``). ``fast_decode`` and
+    ``cache_images`` raise NotImplementedError (``MixedDataset``)."""
     dataset = MixedDataset(
         path, img_size=img_size, batch_size=batch_size, augment=augment,
-        rect=rect, stride=stride, pad=pad, single_cls=single_cls,
-        max_targets=max_targets,
+        hyp=hyp, rect=rect, stride=stride, pad=pad, single_cls=single_cls,
+        max_targets=max_targets, seed=seed, fast_decode=fast_decode,
+        cache_images=cache_images,
     )
     # cap at 2x the cores actually schedulable: decode threads release the
     # GIL but oversubscribing a small host regresses throughput
@@ -153,5 +195,6 @@ def create_mixed_dataloader(
         drop_last=augment,
         stage=stage,
         seed=seed,
+        quad=quad,
     )
     return loader, dataset

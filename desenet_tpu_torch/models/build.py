@@ -17,8 +17,9 @@ import dataclasses
 import json
 import math
 import os
-from typing import Mapping, Optional, Tuple
+from typing import Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -80,10 +81,13 @@ def _load_config(path) -> dict:
 
 
 def parse_config(cfg, nc: Optional[int] = None,
-                 se_nc: Optional[int] = None) -> ModelSpec:
+                 se_nc: Optional[int] = None,
+                 anchors: Optional[Sequence] = None) -> ModelSpec:
     """Compile a model dict / .json / .yaml path into a ModelSpec.
 
-    nc / se_nc override the config's class counts."""
+    nc / se_nc override the config's class counts, ``anchors`` (pixels,
+    any shape that reshapes to (scales, na, 2); autoanchor's output) its
+    anchors."""
     if isinstance(cfg, (str, os.PathLike)):
         cfg = _load_config(cfg)
     if not isinstance(cfg, Mapping):
@@ -105,6 +109,10 @@ def parse_config(cfg, nc: Optional[int] = None,
     cfg = dict(cfg)
     cfg["de_nc"] = de_nc
     cfg["se_nc"] = se_nc
+    if anchors is not None:
+        cfg["anchors"] = [list(np.asarray(a).reshape(-1)) for a in
+                          np.asarray(anchors).reshape(len(cfg["anchors"]),
+                                                      -1, 2)]
     gd = float(cfg["depth_multiple"])
     gw = float(cfg["width_multiple"])
     anchors = cfg["anchors"]
@@ -347,13 +355,14 @@ class DeSeNet(nn.Module):
 
 def build_model(cfg, nc: Optional[int] = None, se_nc: Optional[int] = None,
                 seg_upsample: bool = True, decode_cat: bool = True,
-                seg_head_fused: bool = False,
-                train: bool = False) -> Tuple[DeSeNet, ModelSpec]:
+                seg_head_fused: bool = False, train: bool = False,
+                anchors: Optional[Sequence] = None
+                ) -> Tuple[DeSeNet, ModelSpec]:
     """Parse ``cfg`` and build the model in eval mode (BN on its running
     statistics), or in training mode with ``train=True`` (the training
     step's model, usually with ``seg_upsample=False`` for the fused seg
-    loss)."""
-    spec = parse_config(cfg, nc=nc, se_nc=se_nc)
+    loss); ``anchors`` as ``parse_config``."""
+    spec = parse_config(cfg, nc=nc, se_nc=se_nc, anchors=anchors)
     model = DeSeNet(spec, seg_upsample=seg_upsample, decode_cat=decode_cat,
                     seg_head_fused=seg_head_fused)
     return model.train(train), spec

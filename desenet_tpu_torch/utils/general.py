@@ -1,20 +1,27 @@
-"""General host utilities of the validation entry points: dataset yaml
-checks, image-size rounding, run-dir increment, logging, the COCO class map.
+"""General host utilities of the entry points: dataset yaml checks,
+image-size rounding, run-dir increment, logging, the COCO class map, and for
+training the seeds, the latest run, class and image weights and early
+stopping.
 
-The port's own copy of those five functions of
-``desenet_tpu/utils/general.py`` (and ``make_divisible``, which they call);
-the standard library at module level, PyYAML imported where a yaml file is
-read.
+The port's own copy of those functions of ``desenet_tpu/utils/general.py``
+(and ``make_divisible``, which they call); numpy and the standard library at
+module level, PyYAML imported where a yaml file that is not JSON is read.
 """
 
 from __future__ import annotations
 
 import glob
+import json
 import logging
 import math
+import os
+import random
 import re
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence
+
+import numpy as np
+import torch
 
 LOGGER = logging.getLogger("desenet_tpu_torch")
 
@@ -26,14 +33,33 @@ def set_logging(verbose: bool = True):
     )
 
 
+def init_seeds(seed: int = 0) -> torch.Generator:
+    """Seed ``random`` and numpy's global RNG, and return a CPU
+    ``torch.Generator`` seeded with ``seed`` for the weights' init; torch's
+    global seed is left alone."""
+    random.seed(seed)
+    np.random.seed(seed)
+    return torch.Generator().manual_seed(seed)
+
+
+def load_yaml(path) -> Dict:
+    """A yaml file as a dict: JSON text (a subset of YAML) without PyYAML,
+    anything else through PyYAML."""
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    try:
+        return json.loads(text)
+    except ValueError:
+        import yaml
+
+        return yaml.safe_load(text)
+
+
 def check_dataset(data) -> Dict:
     """Load and validate a dataset yaml with de/se class blocks. Returns
     the dict."""
     if isinstance(data, (str, Path)):
-        import yaml
-
-        with open(data, encoding="utf-8") as f:
-            data = yaml.safe_load(f)
+        data = load_yaml(data)
 
     def require(ok, msg):
         if not ok:
@@ -67,6 +93,14 @@ def make_divisible(x, divisor=8):
     return int(math.ceil(x / divisor) * divisor)
 
 
+def get_latest_run(search_dir: str = ".") -> str:
+    """Most recent 'last' checkpoint dir under ``search_dir``, the bare
+    ``--resume`` target (checkpoints are directories marked by meta.json)."""
+    metas = glob.glob(os.path.join(search_dir, "**", "last", "meta.json"),
+                      recursive=True)
+    return os.path.dirname(max(metas, key=os.path.getmtime)) if metas else ""
+
+
 def increment_path(path, exist_ok: bool = False, sep: str = "", mkdir: bool = False):
     """runs/exp -> runs/exp2, exp3...."""
     path = Path(path)
@@ -82,6 +116,50 @@ def increment_path(path, exist_ok: bool = False, sep: str = "", mkdir: bool = Fa
     if mkdir:
         path.mkdir(parents=True, exist_ok=True)
     return path
+
+
+def labels_to_class_weights(labels: Sequence[np.ndarray], nc: int) -> np.ndarray:
+    """Inverse-frequency class weights. labels: list of (n, 5) [cls, xywh]."""
+    if not len(labels):
+        return np.ones(nc) / nc
+    classes = np.concatenate(
+        [l[:, 0] for l in labels if len(l)] or [np.zeros(0)], 0
+    ).astype(int)
+    weights = np.bincount(classes, minlength=nc).astype(np.float64)
+    weights[weights == 0] = 1
+    weights = 1 / weights
+    weights /= weights.sum()
+    return weights
+
+
+def labels_to_image_weights(labels, nc: int, class_weights: np.ndarray):
+    """Per-image sampling weights from class weights."""
+    counts = np.array(
+        [np.bincount(l[:, 0].astype(int), minlength=nc) if len(l)
+         else np.zeros(nc) for l in labels]
+    )
+    return (class_weights.reshape(1, nc) * counts).sum(1)
+
+
+class EarlyStopping:
+    """Stop when the fitness has not improved for ``patience`` epochs."""
+
+    def __init__(self, patience: int = 30):
+        self.best_fitness = 0.0
+        self.best_epoch = 0
+        self.patience = patience or float("inf")
+
+    def __call__(self, epoch: int, fitness: float) -> bool:
+        if fitness >= self.best_fitness:
+            self.best_epoch = epoch
+            self.best_fitness = fitness
+        stop = (epoch - self.best_epoch) >= self.patience
+        if stop:
+            LOGGER.info(
+                "EarlyStopping: no improvement in last %d epochs "
+                "(best epoch %d). Stopping.", self.patience, self.best_epoch,
+            )
+        return stop
 
 
 def coco80_to_coco91_class() -> List[int]:

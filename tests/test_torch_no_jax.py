@@ -1,6 +1,8 @@
 """desenet_tpu_torch imports (every module), serves, validates (on an
-in-memory loader), takes two training steps and runs its kernel probes
-(K5, K6) with the JAX package
+in-memory loader), takes two training steps, runs the training engine's
+epoch loop (``train.engine.fit``: one epoch on in-memory batches, the EMA
+validated, checkpoints written, reloaded and stripped) and runs its kernel
+probes (K5, K6) with the JAX package
 ``desenet_tpu``, JAX, flax, optax, orbax, cv2 and PyYAML blocked: the port
 never needs JAX or the JAX package, and the card's machine may lack cv2 and
 PyYAML. A second test reads the port's sources and ``chip_smoke.py`` with
@@ -44,6 +46,10 @@ import desenet_tpu_torch
 from desenet_tpu_torch.api import Predictor
 from desenet_tpu_torch.cli import serve as cli_serve  # noqa: F401
 from desenet_tpu_torch.cli import show_seg_miou, val as cli_val  # noqa: F401
+from desenet_tpu_torch.cli import train as cli_train  # noqa: F401
+from desenet_tpu_torch.train import engine
+from desenet_tpu_torch.utils import autoanchor, callbacks  # noqa: F401
+from desenet_tpu_torch.utils import checkpoint, loggers  # noqa: F401
 from desenet_tpu_torch.eval import Validator
 from desenet_tpu_torch.models import build_model, config_path, init_weights
 from desenet_tpu_torch.ops import c3_fused, stem_pallas  # noqa: F401
@@ -126,6 +132,29 @@ for _ in range(2):
         "image", "det_targets", "det_mask", "seg_labels")})
     assert np.isfinite(float(m["loss"])) and m["stepped"] == 1, m
 assert (state.step, state.ema_updates) == (2, 2)
+
+# the training engine's epoch loop on in-memory batches, checkpoints and all
+import tempfile
+with tempfile.TemporaryDirectory() as tmp:
+    with open(tmp + "/tiny.json", "w") as fh:
+        json.dump(cfg, fh)
+    tcfg = engine.TrainConfig(cfg=tmp + "/tiny.json", epochs=1, batch_size=2, nbs=2,
+                              imgsz=64, project=tmp, use_tb=False,
+                              dtype="float32", warmup_floor=0, device="cpu")
+    hyp = engine.load_hyp()
+    save_dir = engine.make_run_dir(tcfg, hyp)
+    loop = engine.build_loop(tcfg, hyp, 3, 2, 2, 64, "cpu", {"cfg": "tiny"},
+                             save_dir)
+    cbs = callbacks.Callbacks()
+    cbs.auto_register(loggers.Loggers(save_dir, use_tb=False))
+    fitted = engine.fit(tcfg, loop, [batches[0], batches[1]], batches[:1],
+                        save_dir, cbs)
+    assert fitted["seen"] == 2 and loop.state.step == 2, fitted
+    last = checkpoint.load_checkpoint(save_dir + "/last")
+    assert last["counters"]["step"] == 2 and last["meta"]["format"] == "torch"
+    assert checkpoint.load_checkpoint(save_dir + "/best_stripped")["params"]
+    with open(save_dir + "/opt.yaml") as fh:
+        assert json.load(fh)["device"] == "cpu"
 
 # the K5/K6 slice's entry points
 import contextlib, io

@@ -29,6 +29,8 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
    tensor-core kernels);
 3. the tiny model, the whole served program and the validation step (module
    and fused seg head) on the card against the CPU (float32, TF32 off);
+   K4 in phase 2 also at m's and l's widths (c_hid 192 and 256, f32 and
+   bf16), with the conv kernel each of its nine convs took;
 4. the serving path: yolov5s_seg at full width, random weights from seed 0,
    served at 640 through BatchRunner (a single request, then a burst of 5;
    plus HTTP when cv2 imports), with K1/K2's launch counters reset before
@@ -57,10 +59,10 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
    probe_stem_pallas and proto_c3_kernel: parity in f32 and bf16, timing
    at b128/640 bf16) with K5/K6's
    launch counters reset before and read after; then, on the b128/640 bf16
-   served forward, the input and output of the Focus stem and of every C3
-   are hooked, K5 (on fold_focus's weights) and K6 (on fold_c3's) are held
-   against their plain versions and against the modules' outputs, and the
-   three are timed in turns, one line per layer;
+   served forward, the input and output of the FusedFocus stem and of every
+   C3 are hooked, K5 (on fold_focus's weights) and K6 (on fold_c3's) are
+   held against their plain versions and against the modules' outputs, and
+   the three are timed in turns, one line per layer;
 7. the training slice: (a) the tiny model (64 px, batch 2, SGD) takes
    training steps on the card and on the CPU from one state and batch, with
    the fused and with the materialized seg loss, two in float64 and one in
@@ -89,7 +91,22 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
    for 1 epoch with mosaic and autoanchor on, and the host's data time per
    batch (the loader alone, one thread a batch; and the samples with every
    worker thread busy) beside the device's step time at b16; without them
-   one line says that (b) did not run and why.
+   one line says that (b) did not run and why;
+9. the model family: (a) yolov5m_seg and yolov5l_seg at full width and
+   depth, random weights from seed 0, served at b128/640 bf16 through
+   Predictor (FusedFocus stem) with K1/K2's launch counters reset before
+   and read after, img/s and peak memory, and the f32 served program (TF32
+   off) on two images at 320 on the card against the CPU; (b) each one's
+   validation step through Validator.run on an in-memory batch of 32 at
+   640, with the module and the fused seg head, K3/K4's launch counters
+   reset before each run and read after, the step timed with either head,
+   and K4 on that forward's seg-head inputs held against its plain version
+   and the cuDNN module head and timed beside both and its bound; (c) the
+   SegMaskPSP, Lab, Base and BiSe heads on the tiny graph, yolov5s (no seg
+   head) and testing.EXOTIC_CFG (every other DSL row) at 64 px on the card
+   against the CPU (f32, TF32 off), K2 on each head's 1/8 logits equal to
+   plain; (d) the yolov5s_seg served program with the FusedFocus and with
+   the Focus stem in turns at b128/640 bf16, and the two stems alone.
 
 Inputs of the kernel checks come from desenet_tpu_torch.testing, shared with
 tests/test_torch_kernels_cuda.py.
@@ -116,8 +133,8 @@ import time
 import numpy as np
 import torch
 
-from desenet_tpu_torch.testing import (check_bf16, check_close, no_tf32,
-                                       tiny_cfg)
+from desenet_tpu_torch.testing import (BF16_MODULE_BAR, check_bf16,
+                                       check_close, no_tf32, tiny_cfg)
 from desenet_tpu_torch.tools import timing as tm
 from desenet_tpu_torch.tools.timing import card_line, cuda_ms, in_turns
 
@@ -409,10 +426,14 @@ def phase2(errs: dict):
         f"{ran[1]} on the argmax loop")
 
     with no_tf32():
-        # yolov5s_seg's widths (inputs 256/256/512, c_hid 128), then l's
+        # yolov5s_seg's widths (inputs 256/256/512, c_hid 128), then m's
+        # (c_hid 192) and l's (c_hid 256)
         for c_hid, dt, b in ((128, torch.float32, 4),
                              (128, torch.bfloat16, 4),
-                             (256, torch.float32, 2)):
+                             (192, torch.float32, 2),
+                             (192, torch.bfloat16, 2),
+                             (256, torch.float32, 2),
+                             (256, torch.bfloat16, 2)):
             chans = (2 * c_hid, 2 * c_hid, 4 * c_hid)
             head = random_psp2_head(chans, c_hid).to(dev)
             xs = [x.to(dev, dt) for x in psp2_inputs(b, 80, 80, chans)]
@@ -422,10 +443,13 @@ def phase2(errs: dict):
                     for k, v in seg_head_pallas.conv_variants.items()}
             # of the nine convs the class conv (3 outputs) takes the narrow
             # kernel, and so does context_red where its c_hid // 6 outputs
-            # are at most 32; seven take the tensor cores in bf16; the
-            # CUDA-core tile takes what is left
+            # are at most 32; in bf16 the stem, ConvLinear and FFM convs
+            # take the tensor cores, and the four ACSP convs too where
+            # their c_hid // 2 outputs are a multiple of 64 (not at m's
+            # 96); the CUDA-core tile takes what is left
             narrow = 1 + (c_hid // 6 <= 32)
-            mma = 7 if dt == torch.bfloat16 else 0
+            mma = (3 + 4 * ((c_hid // 2) % 64 == 0)
+                   if dt == torch.bfloat16 else 0)
             if took != {"mma": mma, "narrow": narrow,
                         "fma": 9 - mma - narrow}:
                 raise AssertionError(f"K4 c_hid {c_hid} {dt}: conv launches "
@@ -835,9 +859,9 @@ def phase5(pred, card: str, extras: dict) -> dict:
 def phase5_val(model, spec, validator, batch, card: str, timing: dict,
                errs: dict, extras: dict):
     from desenet_tpu_torch.eval.validator import _to_input
-    from desenet_tpu_torch.ops import nms_pallas, seg_head_pallas
+    from desenet_tpu_torch.ops import nms_pallas
     from desenet_tpu_torch.ops.nms import MAX_WH, PRE_TOPK_VAL, _prep_candidates
-    from desenet_tpu_torch.testing import check_psp2, dense_sorted_candidates
+    from desenet_tpu_torch.testing import dense_sorted_candidates
 
     dev = torch.device("cuda")
     img = torch.from_numpy(batch["image"]).to(dev)
@@ -925,9 +949,21 @@ def phase5_val(model, spec, validator, batch, card: str, timing: dict,
         f"ms, bound {dbound[0]:.4f} ms ({dbound[1]}) [{card}]")
 
     # K4 on the seg head's inputs of that forward (channels_last NCHW)
-    nchw = seen[0]
+    timing["seg_head_psp2"] = k4_on_inputs(head, seen[0], spec.se_nc, card,
+                                           errs, 5, "yolov5s_seg")
+
+
+def k4_on_inputs(head, nchw, n: int, card: str, errs: dict, phase,
+                 what: str) -> tuple:
+    """K4 on a SegMaskPSP2 head's inputs ``nchw`` (a bf16 forward's),
+    held against its plain version (``check_psp2``) and the cuDNN module
+    head (the JAX package's bf16 bar, tests/test_seg_head_pallas.py), then
+    timed beside both; returns (ms, plain ms, bound, module ms)."""
+    from desenet_tpu_torch.ops import seg_head_pallas
+    from desenet_tpu_torch.testing import check_psp2
+
     xs = [x.permute(0, 2, 3, 1).contiguous() for x in nchw]
-    n = spec.se_nc
+    b, h8, w8, _ = xs[0].shape
     head.upsample = False
     try:
         with torch.inference_mode(), no_tf32():
@@ -937,16 +973,14 @@ def phase5_val(model, spec, validator, batch, card: str, timing: dict,
         torch.cuda.synchronize()
         err, agree = check_psp2(got, ref, torch.bfloat16)
         errs["seg_head_psp2"] = max(errs.get("seg_head_psp2", 0.0), err)
-        # the JAX package's bar between the fused and the module head in
-        # bf16 (tests/test_seg_head_pallas.py)
         torch.testing.assert_close(got, mod, rtol=0.1, atol=0.15)
         mod_err = float((got - mod).abs().max())
         mod_agree = float((got.argmax(-1) == mod.argmax(-1)).float().mean())
         if mod_agree <= 0.99:
-            raise AssertionError(f"K4 vs the module head: argmax agreement "
-                                 f"{mod_agree}")
-        log(5, f"K4 seg_head_psp2 ({B_VAL}, 80, 80) bf16 on the val "
-            f"forward's features: against plain max abs err {err:.6g} "
+            raise AssertionError(f"K4 vs the module head ({what}): argmax "
+                                 f"agreement {mod_agree}")
+        log(phase, f"K4 seg_head_psp2 {what} ({b}, {h8}, {w8}) bf16 on the "
+            f"val forward's features: against plain max abs err {err:.6g} "
             f"(|plain| max {float(ref.abs().max()):.6g}, bound 1e-2 of it), "
             f"argmax agreement {agree:.6f}; against the cuDNN module head "
             f"max abs err {mod_err:.6g} (rtol 0.1, atol 0.15), argmax "
@@ -961,13 +995,14 @@ def phase5_val(model, spec, validator, batch, card: str, timing: dict,
                 (lambda: seg_head_pallas.fused_psp2_eval(xs, head, n), 10))
     finally:
         head.upsample = True
-    bound = tm.psp2_bound(B_VAL, xs[0].shape[1], xs[0].shape[2],
-                          [x.shape[3] for x in xs], xs[0].shape[3] // 2, n)
-    timing["seg_head_psp2"] = (k, p, bound, cudnn)
-    log(5, f"K4 seg_head_psp2 ({B_VAL}, 80, 80) bf16, full-width head: "
-        f"kernel {k:.3f} ms, plain {p:.3f} ms; against the cuDNN module head "
-        f"in one call: kernel {k2:.3f} ms, module {cudnn:.3f} ms; bound "
-        f"{bound[0]:.4f} ms ({bound[1]}) [{card}]")
+    c_hid = xs[0].shape[3] // 2
+    bound = tm.psp2_bound(b, h8, w8, [x.shape[3] for x in xs], c_hid, n)
+    log(phase, f"K4 seg_head_psp2 {what} ({b}, {h8}, {w8}) bf16, inputs "
+        f"{[x.shape[3] for x in xs]}, c_hid {c_hid}: kernel {k:.3f} ms, "
+        f"plain {p:.3f} ms; against the cuDNN module head in one call: "
+        f"kernel {k2:.3f} ms, module {cudnn:.3f} ms; bound {bound[0]:.4f} "
+        f"ms ({bound[1]}) [{card}]")
+    return k, p, bound, cudnn
 
 
 def kernel_entry(name, replaces, launches, errs, timing, extras=None):
@@ -980,7 +1015,7 @@ def kernel_entry(name, replaces, launches, errs, timing, extras=None):
 
 
 def phase6(pred, card: str, timing: dict, errs: dict) -> dict:
-    from desenet_tpu_torch.models.layers import C3, Focus
+    from desenet_tpu_torch.models.layers import C3, FusedFocus
     from desenet_tpu_torch.ops import c3_fused, stem_pallas
     from desenet_tpu_torch.testing import BF16_MODULE_BAR, C3_SERVED
     from desenet_tpu_torch.tools import probe_stem_pallas, proto_c3_kernel
@@ -1007,7 +1042,7 @@ def phase6(pred, card: str, timing: dict, errs: dict) -> dict:
 
     # K5 and K6 on the served forward's own tensors, beside the modules
     net = pred.model.model
-    rows = [i for i, m in enumerate(net) if isinstance(m, (Focus, C3))]
+    rows = [i for i, m in enumerate(net) if isinstance(m, (FusedFocus, C3))]
     seen = {}
     hooks = [net[i].register_forward_hook(
         lambda m, args, out, i=i: seen.__setitem__(i, (args[0], out)))
@@ -1022,7 +1057,7 @@ def phase6(pred, card: str, timing: dict, errs: dict) -> dict:
     shapes = [(i, m.cv1.conv.in_channels, m.cv3.conv.out_channels,
                m.cv1.conv.out_channels, len(m.m), m.m[0].add,
                seen[i][0].shape[2]) for i, m in enumerate(net) if i in rows[1:]]
-    if rows[0] != 0 or not isinstance(net[0], Focus) or \
+    if rows[0] != 0 or not isinstance(net[0], FusedFocus) or \
             tuple(shapes) != C3_SERVED:
         raise AssertionError(f"served C3 rows {shapes} differ from "
                              f"testing.C3_SERVED")
@@ -1080,7 +1115,7 @@ def phase6(pred, card: str, timing: dict, errs: dict) -> dict:
         timing[name] = (k, p, (bound, by), mod)
     (k5, p5, m5, b5), (k6, p6, m6, b6) = total["stem_conv"], total["c3_fused"]
     log(6, f"served forward b{B_SERVE}/{IMGSZ} bf16: at the stem K5 {k5:.3f} "
-        f"ms, plain {p5:.3f} ms, module Focus {m5:.3f} ms, bound {b5:.4f} "
+        f"ms, plain {p5:.3f} ms, module FusedFocus {m5:.3f} ms, bound {b5:.4f} "
         f"ms; over the {len(rows) - 1} C3 blocks K6 {k6:.3f} ms, plain "
         f"{p6:.3f} ms, modules {m6:.3f} ms, bound {b6:.4f} ms (per layer, "
         f"summed) [{card}]")
@@ -1456,6 +1491,216 @@ def phase8b(card: str, tmp: str) -> int:
 
 
 
+def phase9(card: str, errs: dict, extras: dict) -> dict:
+    """The model family: m and l served and validated at full width, every
+    other head, yolov5s and the exotic rows against the CPU, and the two
+    stems of the s served program; returns the kernels' launches on the m
+    and l main paths."""
+    from desenet_tpu_torch.api import Predictor
+    from desenet_tpu_torch.eval import Validator
+    from desenet_tpu_torch.models import build_model, config_path, init_weights
+    from desenet_tpu_torch.ops import (nms_fused, nms_pallas, seg_head_pallas,
+                                       seg_pallas)
+    from desenet_tpu_torch.utils.convert import load_state_dict
+
+    dev = torch.device("cuda")
+    launches = {"nms_fused": 0, "seg_tail": 0, "nms_greedy": 0,
+                "seg_head_psp2": 0}
+    for name in ("yolov5m_seg", "yolov5l_seg"):
+        model, spec = build_model(config_path(name))
+        n_params = sum(p.numel() for p in model.parameters())
+        sd = init_weights(model, torch.Generator().manual_seed(0)).state_dict()
+        del model
+        # (a) served at b128/640 bf16, the FusedFocus stem
+        pred = Predictor(name, sd, imgsz=IMGSZ, half=True, device="cuda")
+        g = torch.Generator(device=dev).manual_seed(9)
+        warm, x = (torch.randint(0, 256, (B_SERVE, IMGSZ, IMGSZ, 3),
+                                 dtype=torch.uint8, device=dev, generator=g)
+                   for _ in range(2))
+        torch.cuda.reset_peak_memory_stats()
+        nms_fused.launches = 0
+        seg_pallas.launches = 0
+        for _ in range(2):
+            pred.infer(warm)
+        nms, seg = pred.infer(x)
+        torch.cuda.synchronize()
+        k1, k2 = nms_fused.launches, seg_pallas.launches
+        if min(k1, k2) < 1:
+            raise AssertionError(f"{name} served: K1 launched {k1}, K2 {k2} "
+                                 "times")
+        launches["nms_fused"] += k1
+        launches["seg_tail"] += k2
+        if seg.shape != (B_SERVE, IMGSZ, IMGSZ) or seg.dtype != torch.uint8 \
+                or int(seg.max()) >= spec.se_nc or \
+                not torch.isfinite(nms.boxes).all():
+            raise AssertionError(f"{name} served: seg {seg.shape} "
+                                 f"{seg.dtype} max {int(seg.max())}")
+        ms = cuda_ms(lambda: pred.infer(x), 5)
+        peak = torch.cuda.max_memory_allocated()
+        log(9, f"{name} ({n_params} params) served b{B_SERVE}/{IMGSZ} bf16 "
+            f"(uint8 in, FusedFocus stem, forward + K1 + K2): {ms:.3f} "
+            f"ms/batch = {B_SERVE / ms * 1e3:.1f} img/s; peak allocated "
+            f"{peak / 2**30:.3f} GiB; launches K1 {k1}, K2 {k2} [{card}]")
+        # the served program in f32 (TF32 off) on the card against the CPU,
+        # two images at 320 (the CPU's time), full width and depth
+        small = torch.from_numpy(np.random.default_rng(9).integers(
+            0, 256, (2, 320, 320, 3), dtype=np.uint8))
+        outs = {}
+        with no_tf32():
+            for d in ("cpu", "cuda"):
+                p32 = Predictor(name, sd, imgsz=320, conf_thres=1e-3,
+                                half=False, device=d)
+                n32, s32 = p32.infer(small.to(d))
+                outs[d] = (n32.num.cpu(), n32.boxes.cpu(), s32.cpu())
+                del p32
+        (nc, bc, sc), (ng, bg, sg) = outs["cpu"], outs["cuda"]
+        box_err = max([match_boxes(bg[i, :n], bc[i, :n])
+                       for i, n in enumerate(nc.tolist())] + [0.0])
+        seg_eq = float((sc == sg).float().mean())
+        if not torch.equal(nc, ng) or box_err > 1e-3 or seg_eq < 0.999:
+            raise AssertionError(f"{name} f32 served CUDA vs CPU: num "
+                                 f"{nc} vs {ng}, box err {box_err}, seg "
+                                 f"agreement {seg_eq}")
+        log(9, f"{name} f32 served program at 320 CUDA vs CPU: num "
+            f"{ng.tolist()} equal, boxes within {box_err:.3g} (atol 1e-3), "
+            f"seg maps {seg_eq:.6f} equal (>= 0.999)")
+        del pred
+        torch.cuda.empty_cache()
+
+        # (b) the validation step at b32/640 bf16, module and fused head
+        vmodel, _ = build_model(config_path(name), fuse_focus=True)
+        load_state_dict(vmodel, sd)
+        vmodel = vmodel.to(dev, torch.bfloat16,
+                           memory_format=torch.channels_last)
+        batches = val_batches(9, 1, B_VAL, IMGSZ, spec.de_nc, spec.se_nc)
+        validator = Validator(vmodel, nc=spec.de_nc, se_nc=spec.se_nc)
+        res = {}
+        for fused in (False, True):
+            vmodel.seg_head_fused = fused
+            nms_pallas.launches = 0
+            seg_head_pallas.launches = 0
+            t = time.perf_counter()
+            out = validator.run(batches)
+            wall = time.perf_counter() - t
+            k3, k4 = nms_pallas.launches, seg_head_pallas.launches
+            if k3 < 1 or (k4 < 1 if fused else k4 != 0):
+                raise AssertionError(f"{name} val (fused head {fused}): K3 "
+                                     f"launched {k3}, K4 {k4} times")
+            launches["nms_greedy"] += k3
+            launches["seg_head_psp2"] += k4
+            summary = {k: v for k, v in out.items() if k != "per_class"}
+            vals = [summary[k] for k in ("mp", "mr", "map50", "map", "miou",
+                                         "pix_acc")]
+            if summary["seen"] != B_VAL or not all(
+                    np.isfinite(v) and 0 <= v <= 1 for v in vals):
+                raise AssertionError(f"{name} val (fused {fused}): {summary}")
+            res[fused] = summary
+            log(9, f"{name} bf16 val at {IMGSZ}, fused seg head {fused}: "
+                f"{json.dumps(summary)}; {wall:.3f} s wall; launches K3 "
+                f"{k3}, K4 {k4}")
+        d = abs(res[True]["miou"] - res[False]["miou"])
+        if d > 0.05:
+            raise AssertionError(f"{name}: fused and module heads disagree, "
+                                 f"mIoU {res[True]['miou']} vs "
+                                 f"{res[False]['miou']}")
+        img = torch.from_numpy(batches[0]["image"]).to(dev)
+        tgts = torch.from_numpy(batches[0]["det_targets"]).to(dev)
+        tmask = torch.from_numpy(batches[0]["det_mask"]).to(dev)
+
+        def step(fused: bool):
+            vmodel.seg_head_fused = fused
+            return validator.eval_step(img, tgts, tmask)
+
+        off, on = in_turns((lambda: step(False), 5), (lambda: step(True), 5))
+        vmodel.seg_head_fused = False
+        log(9, f"{name} val device step b{B_VAL}/{IMGSZ} bf16: module seg "
+            f"head {off:.3f} ms/batch, fused head (K4) {on:.3f} ms/batch "
+            f"[{card}]")
+        head = vmodel.model[spec.seg_layer]
+        seen = []
+        hook = head.register_forward_pre_hook(
+            lambda m, args: seen.append(args[0]))
+        try:
+            with torch.inference_mode():
+                vmodel(img.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+                    memory_format=torch.channels_last) / 255)
+        finally:
+            hook.remove()
+        k, p, bound, cudnn = k4_on_inputs(head, seen[0], spec.se_nc, card,
+                                          errs, 9, name)
+        extras.setdefault("seg_head_psp2", {}).update(
+            {f"{name}_ms": k, f"{name}_module_ms": cudnn,
+             f"{name}_bound_ms": bound[0]})
+        del vmodel, validator, head, seen
+        torch.cuda.empty_cache()
+
+    # (c) every other seg head, yolov5s and the exotic rows at tiny size on
+    # the card against the CPU (f32, TF32 off); K2 on each head's 1/8 logits
+    from desenet_tpu_torch.testing import (EXOTIC_CFG, TINY_HEAD_ROWS,
+                                           tiny_head_cfg)
+    cases = [(h, tiny_head_cfg(h)) for h in TINY_HEAD_ROWS]
+    cases += [("yolov5s", config_path("yolov5s")), ("exotic", EXOTIC_CFG)]
+    x = torch.from_numpy(np.random.default_rng(10).uniform(
+        0, 1, (2, 3, 64, 64)).astype(np.float32))
+    with no_tf32(), torch.no_grad():
+        for what, cfg in cases:
+            outs = {}
+            for d in ("cpu", "cuda"):
+                m, spec = build_model(cfg, seg_upsample=False, fuse_focus=True)
+                init_weights(m, torch.Generator().manual_seed(11))
+                (dec, feats), seg8 = m.to(d)(x.to(d))
+                outs[d] = [dec, *feats] + ([seg8] if seg8 is not None else [])
+            err = max(float((a.cpu() - b).abs().max())
+                      for a, b in zip(outs["cuda"], outs["cpu"]))
+            if err > 1e-4:
+                raise AssertionError(f"{what} f32 forward CUDA vs CPU: max "
+                                     f"abs err {err}")
+            msg = f"{what} f32 forward CUDA vs CPU: max abs err {err:.3g}"
+            if spec.seg_layer >= 0:
+                logits = outs["cuda"][-1].permute(0, 2, 3, 1).contiguous()
+                h8, w8 = logits.shape[1:3]
+                got = seg_pallas.upsample_argmax(logits, 8, True)
+                ref = seg_pallas.upsample_argmax_plain(
+                    logits, *seg_pallas.seg_taps(h8, h8 * 8, True, dev),
+                    *seg_pallas.seg_taps(w8, w8 * 8, True, dev))
+                torch.cuda.synchronize()
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"K2 on {what}'s 1/8 logits: "
+                                         f"{int((got != ref).sum())} pixels "
+                                         "differ from plain")
+                msg += (f"; K2 ({seg_pallas.last_variant} kernel) on its "
+                        f"(2, {h8}, {w8}, {logits.shape[3]}) 1/8 logits "
+                        f"equal to plain")
+            log(9, msg + " (atol 1e-4)")
+
+    # (d) the s served program with either stem, in turns, and the stems
+    model, _ = build_model(config_path("yolov5s_seg"))
+    sd = init_weights(model, torch.Generator().manual_seed(0)).state_dict()
+    preds = [Predictor("yolov5s_seg", sd, imgsz=IMGSZ, half=True,
+                       device="cuda", fuse_focus=f) for f in (True, False)]
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randint(0, 256, (B_SERVE, IMGSZ, IMGSZ, 3), dtype=torch.uint8,
+                      device=dev, generator=g)
+    fused_ms, focus_ms = in_turns((lambda: preds[0].infer(x), 10),
+                                  (lambda: preds[1].infer(x), 10))
+    xin = x.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last) / 255
+    stems = [p.model.model[0] for p in preds]
+    with torch.inference_mode():
+        a, b = stems[0](xin), stems[1](xin)
+        check_bf16(a.float(), b.float(), "FusedFocus vs Focus stem",
+                   BF16_MODULE_BAR)
+        sf, sn = in_turns((lambda: stems[0](xin), 10),
+                          (lambda: stems[1](xin), 10))
+    log(9, f"yolov5s_seg served b{B_SERVE}/{IMGSZ} bf16 in turns: FusedFocus "
+        f"stem {fused_ms:.3f} ms/batch ({B_SERVE / fused_ms * 1e3:.1f} "
+        f"img/s), Focus stem {focus_ms:.3f} ms/batch "
+        f"({B_SERVE / focus_ms * 1e3:.1f} img/s); the stems alone on that "
+        f"batch: FusedFocus (one 6x6/s2 conv, BN, SiLU) {sf:.3f} ms, Focus "
+        f"(four slices, concat, 3x3 conv, BN, SiLU) {sn:.3f} ms [{card}]")
+    return launches
+
+
 def main() -> None:
     took = {}
 
@@ -1483,6 +1728,8 @@ def main() -> None:
     del pred
     launches["nms_greedy"] += timed("7", phase7, card)
     launches["nms_greedy"] += timed("8", phase8, card)
+    for k, v in timed("9", phase9, card, errs, extras).items():
+        launches[k] += v
     log("times", "seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in took.items())
         + f"; {sum(took.values()):.1f} in all")
@@ -1494,7 +1741,7 @@ def main() -> None:
         kernel_entry("nms_greedy", "desenet_tpu/ops/nms_pallas.py:30",
                      launches, errs, timing, extras),
         kernel_entry("seg_head_psp2", "desenet_tpu/ops/seg_head_pallas.py:239",
-                     launches, errs, timing),
+                     launches, errs, timing, extras),
         kernel_entry("stem_conv", "desenet_tpu/ops/stem_pallas.py:77",
                      launches, errs, timing),
         kernel_entry("c3_fused", "tools/proto_c3_kernel.py:35",

@@ -12,8 +12,10 @@ space-to-depth stem:
     res.to_dicts()
 
 The device program is the JAX package's: uint8 images widened in the
-compute dtype (``x / 255``), the model with 1/8-resolution seg logits,
-single-label NMS (kernel K1 on the card) and the seg tail (kernel K2).
+compute dtype (``x / 255``), the model with the one-conv FusedFocus stem
+and 1/8-resolution seg logits, single-label NMS (kernel K1 on the card) and
+the seg tail (kernel K2). Like the JAX package's, it needs a model with a
+seg head.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ import numpy as np
 import torch
 
 from desenet_tpu_torch.data.augment import letterbox
-from desenet_tpu_torch.models import build_model, config_path
+from desenet_tpu_torch.models import (build_model, config_path,
+                                     require_seg_head)
 from desenet_tpu_torch.ops import non_max_suppression, np_scale_coords
 from desenet_tpu_torch.ops.seg_pallas import upsample_argmax
 from desenet_tpu_torch.utils.convert import load_state_dict
@@ -63,20 +66,26 @@ class Predictor:
     cfg: a bundled config name (``"yolov5s_seg"``), a .json/.yaml path or a
     config dict. state_dict: torch-named weights, from
     ``models.init_weights``, ``utils.convert.state_dict_from_jax`` or
-    ``utils.convert.load_npz_state_dict``. ``half=True`` runs bf16 weights
-    and activations (NMS and decode stay f32)."""
+    ``utils.convert.load_npz_state_dict``; Focus-layout stem weights are
+    rearranged for the FusedFocus stem at load. ``half=True`` runs bf16
+    weights and activations (NMS and decode stay f32). ``fuse_focus=False``
+    serves the reference's slice-concat Focus stem instead (the same
+    function; for A/B). Raises ValueError for a config with no seg head."""
 
     def __init__(self, cfg, state_dict: Mapping[str, torch.Tensor],
                  imgsz: int = 640, conf_thres: float = 0.25,
                  iou_thres: float = 0.45, max_det: int = 300,
                  half: bool = True, device="cuda",
                  names: Optional[Sequence[str]] = None,
-                 se_names: Optional[Sequence[str]] = None):
+                 se_names: Optional[Sequence[str]] = None,
+                 fuse_focus: bool = True):
         if isinstance(cfg, str):
             cfg = config_path(cfg)
         self.device = torch.device(device)
         self.dtype = torch.bfloat16 if half else torch.float32
-        model, self.spec = build_model(cfg, seg_upsample=False)
+        model, self.spec = build_model(cfg, seg_upsample=False,
+                                       fuse_focus=fuse_focus)
+        require_seg_head(self.spec, "Predictor")
         load_state_dict(model, state_dict)
         # NCHW in the channels_last memory format on the card (cuDNN's NHWC
         # kernels); the default layout on the CPU

@@ -51,12 +51,15 @@ def load_weights(weights, cfg, nc: int, se_nc: int):
 
 def load_model(cfg, weights, nc: int, se_nc: int, half: bool = True,
                device="cuda", seg_head_fused: bool = False):
-    """Build ``cfg`` with full-resolution seg logits, load ``weights`` (a
-    port checkpoint directory or an npz state dict, ``load_weights``), and
+    """Build ``cfg`` with full-resolution seg logits and, as the JAX
+    package's validation does, the one-conv FusedFocus stem, load
+    ``weights`` (a port checkpoint directory or an npz state dict,
+    ``load_weights``; a Focus stem's weights are rearranged at load), and
     place it on ``device`` in bf16 (``half``) or f32."""
     sd, cfg, nc, se_nc, anchors = load_weights(weights, cfg, nc, se_nc)
     model, spec = build_model(config_path(cfg), nc=nc, se_nc=se_nc,
-                              seg_head_fused=seg_head_fused, anchors=anchors)
+                              seg_head_fused=seg_head_fused, anchors=anchors,
+                              fuse_focus=True)
     load_state_dict(model, sd)
     device = torch.device(device)
     mf = (torch.channels_last if device.type == "cuda"

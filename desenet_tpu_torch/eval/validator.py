@@ -29,6 +29,7 @@ from desenet_tpu_torch.utils.metrics import (
     ap_per_class,
     match_predictions,
 )
+from desenet_tpu_torch.models.build import require_seg_head
 from desenet_tpu_torch.ops import PRE_TOPK_VAL, non_max_suppression
 from desenet_tpu_torch.ops.boxes import np_scale_coords
 
@@ -58,8 +59,9 @@ def _to_input(img_u8: torch.Tensor, dtype, device) -> torch.Tensor:
 
 class Validator:
     """``model``: a port ``DeSeNet`` in eval mode with full-resolution seg
-    logits (``seg_upsample=True``), already on ``device`` (default: where
-    its parameters are) in its compute dtype."""
+    logits (``seg_upsample=True``) and a seg head (ValueError otherwise),
+    already on ``device`` (default: where its parameters are) in its
+    compute dtype."""
 
     def __init__(
         self,
@@ -86,6 +88,8 @@ class Validator:
             raise NotImplementedError(
                 "test-time augmentation is not ported to desenet_tpu_torch "
                 "yet (ROADMAP.md, Queue 1 item 9)")
+        if hasattr(model, "spec"):
+            require_seg_head(model.spec, "Validator")
         self.model = model
         self.device, self.dtype = _model_device_dtype(model, device)
         self.nc = nc

@@ -1,7 +1,8 @@
 import os
 
 from desenet_tpu_torch.models.build import (DeSeNet, ModelSpec, build_model,
-                                            init_weights, parse_config)
+                                            init_weights, parse_config,
+                                            require_seg_head)
 
 CONFIG_DIR = os.path.join(os.path.dirname(__file__), "configs")
 
@@ -26,4 +27,5 @@ __all__ = [
     "init_weights",
     "parse_config",
     "config_path",
+    "require_seg_head",
 ]

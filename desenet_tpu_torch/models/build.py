@@ -3,12 +3,12 @@
 Counterpart of ``desenet_tpu/models/build.py``: the same row DSL
 (``[from, number, module, args]`` with depth/width multiples) compiled ahead
 of time into a static ``ModelSpec``, and a ``DeSeNet`` module that walks it.
-Only the modules the served ``yolov5s_seg`` graph uses are ported; every
-other row raises ``NotImplementedError`` (see ROADMAP.md, Queue 1).
+Every row the JAX package's DSL knows builds here.
 
-The Focus stem is built as the reference's slice-concat plus 3x3 conv, not
-the JAX package's fused 6x6 conv, so ``LayerSpec.name`` of row 0 is
-``"Focus"`` here.
+A Focus row is built as the reference's slice-concat plus kxk conv by
+default (``LayerSpec.name`` ``"Focus"``), so that state dicts keep the
+reference's names; ``fuse_focus=True`` builds it as the JAX package does by
+default, one (2k)x(2k)/s2 conv on the raw image (``"FusedFocus"``).
 """
 
 from __future__ import annotations
@@ -28,17 +28,28 @@ from desenet_tpu_torch.models import layers as L
 from desenet_tpu_torch.ops.resize import resize_bilinear, upsample_nearest
 from desenet_tpu_torch.ops.seg_head_pallas import MAX_P8, fused_psp2_eval
 
-# rows the port builds; width-scaled blocks take their output width first
-_BLOCKS_WITH_WIDTH = {"Focus", "Conv", "C3", "SPP"}
-_PORTED = _BLOCKS_WITH_WIDTH | {"nn.Upsample", "Concat", "SegMaskPSP2",
-                                "Detect"}
-_MIN_ARGS = {"nn.Upsample": 2, "Detect": 2, "SegMaskPSP2": 1}
-# rows the JAX package's DSL knows and the port does not build yet
-_UNPORTED = {
-    "GhostConv", "Bottleneck", "GhostBottleneck", "SPPF", "DWConv",
-    "MixConv2d", "CrossConv", "BottleneckCSP", "C3TR", "C3SPP", "C3Ghost",
-    "nn.BatchNorm2d", "Contract", "Expand", "SegMaskLab", "SegMaskBase",
-    "SegMaskPSP", "SegMaskBiSe",
+# width-scaled blocks take their output width first; the C3-like ones
+# repeat their inner stack n times, the others repeat as a whole
+_BLOCKS_WITH_WIDTH = {
+    "Conv", "GhostConv", "Bottleneck", "GhostBottleneck", "SPP", "SPPF",
+    "DWConv", "MixConv2d", "Focus", "CrossConv", "BottleneckCSP", "C3",
+    "C3TR", "C3SPP", "C3Ghost",
+}
+_REPEAT_INNER = {"BottleneckCSP", "C3", "C3TR", "C3Ghost"}
+# blocks whose stride is their args[2] (args[0] being the output width)
+_STRIDED = {"Conv", "DWConv", "GhostConv", "CrossConv", "MixConv2d",
+            "GhostBottleneck"}
+SEG_HEADS = {"SegMaskLab", "SegMaskBase", "SegMaskPSP", "SegMaskPSP2",
+             "SegMaskBiSe"}
+_MIN_ARGS = {"nn.Upsample": 2, "Detect": 2, "Contract": 1, "Expand": 1,
+             **{h: 1 for h in SEG_HEADS}}
+_BLOCKS = {
+    "Conv": L.ConvBnAct, "GhostConv": L.GhostConv,
+    "Bottleneck": L.Bottleneck, "GhostBottleneck": L.GhostBottleneck,
+    "SPP": L.SPP, "SPPF": L.SPPF, "DWConv": L.DWConv,
+    "MixConv2d": L.MixConv2d, "Focus": L.Focus, "FusedFocus": L.FusedFocus,
+    "CrossConv": L.CrossConv, "BottleneckCSP": L.BottleneckCSP, "C3": L.C3,
+    "C3TR": L.C3TR, "C3SPP": L.C3SPP, "C3Ghost": L.C3Ghost,
 }
 
 
@@ -82,12 +93,14 @@ def _load_config(path) -> dict:
 
 def parse_config(cfg, nc: Optional[int] = None,
                  se_nc: Optional[int] = None,
-                 anchors: Optional[Sequence] = None) -> ModelSpec:
+                 anchors: Optional[Sequence] = None,
+                 fuse_focus: bool = False) -> ModelSpec:
     """Compile a model dict / .json / .yaml path into a ModelSpec.
 
     nc / se_nc override the config's class counts, ``anchors`` (pixels,
     any shape that reshapes to (scales, na, 2); autoanchor's output) its
-    anchors."""
+    anchors. ``fuse_focus``: a Focus row becomes ``FusedFocus``, one
+    (2k)x(2k)/s2 conv with pad k-1 (the JAX package's default)."""
     if isinstance(cfg, (str, os.PathLike)):
         cfg = _load_config(cfg)
     if not isinstance(cfg, Mapping):
@@ -132,11 +145,9 @@ def parse_config(cfg, nc: Optional[int] = None,
             raise ValueError(
                 f"model config row {i} must be [from, number, module, args], "
                 f"got {row!r}") from None
-        if mname in _UNPORTED:
-            raise NotImplementedError(
-                f"row {i}: module {mname!r} is not ported to desenet_tpu_torch "
-                "yet (ROADMAP.md, Queue 1 item 9); build it with desenet_tpu")
-        if mname not in _PORTED:
+        if mname not in _BLOCKS_WITH_WIDTH | SEG_HEADS | {
+                "nn.Upsample", "Concat", "nn.BatchNorm2d", "Contract",
+                "Expand", "Detect"}:
             raise ValueError(f"unknown module {mname!r} in model config row {i}")
         fs = tuple(
             (x if x >= 0 else i + x) for x in (f if isinstance(f, list) else [f])
@@ -173,14 +184,17 @@ def parse_config(cfg, nc: Optional[int] = None,
         if mname in _BLOCKS_WITH_WIDTH:
             c2 = L.make_divisible(args[0] * gw, 8)
             margs = [c2, *args[1:]]
-            if mname == "C3":
+            if mname in _REPEAT_INNER:
                 margs.insert(1, n_out)  # inner repeat count
                 n_rep = 1
             else:
                 n_rep = n_out
             if mname == "Focus":
                 stride = in_stride * 2
-            elif mname == "Conv":
+                if fuse_focus:
+                    k = margs[1] if len(margs) > 1 else 1
+                    mname, margs = "FusedFocus", [c2, 2 * k, 2, k - 1]
+            elif mname in _STRIDED:
                 stride = in_stride * int(margs[2] if len(margs) > 2 else 1)
             spec = LayerSpec(i, fs, mname, tuple(
                 tuple(a) if isinstance(a, list) else a for a in margs
@@ -199,16 +213,36 @@ def parse_config(cfg, nc: Optional[int] = None,
         elif mname == "Concat":
             spec = LayerSpec(i, fs, "Concat", (),
                              sum(chs[x + 1] for x in fs), in_stride)
+        elif mname == "nn.BatchNorm2d":
+            spec = LayerSpec(i, fs, "BatchNorm", (), chs[fs[0] + 1],
+                             in_stride)
+        elif mname in ("Contract", "Expand"):
+            g = int(args[0])
+            if g < 1:
+                raise ValueError(
+                    f"row {i} ({mname}): gain must be >= 1, got {g}")
+            c_in = chs[fs[0] + 1]
+            spec = (LayerSpec(i, fs, mname, (g,), c_in * g * g,
+                              in_stride * g) if mname == "Contract" else
+                    LayerSpec(i, fs, mname, (g,), c_in // (g * g),
+                              in_stride // g))
         elif mname == "Detect":
             det_layer = i
             det_strides = tuple(strides[x + 1] for x in fs)
-            anchors = args[1]
+            anc = args[1]
+            if isinstance(anc, int):  # 'anchors: N' shorthand
+                if not 0 < anc <= 64:
+                    raise ValueError(
+                        f"row {i} (Detect): 'anchors: N' shorthand must have "
+                        f"0 < N <= 64 anchors per scale, got {anc}")
+                anc = [list(range(anc * 2))] * len(fs)
+            anchors = anc
             spec = LayerSpec(
                 i, fs, "Detect",
                 (int(args[0]),
-                 tuple(tuple(float(v) for v in r) for r in anchors)),
+                 tuple(tuple(float(v) for v in r) for r in anc)),
                 0, 0)
-        else:  # SegMaskPSP2
+        else:  # a seg head
             seg_layer = i
             n_seg = _round_depth(int(args[1]), gd) if len(args) > 1 else 1
             c_hid = L.make_divisible(args[2] * gw, 8) if len(args) > 2 else 256
@@ -247,20 +281,24 @@ def _instantiate(ls: LayerSpec, c1, spec: ModelSpec, seg_upsample: bool,
         return H.Detect(a[0], a[1], c1, spec.det_strides,
                         decode_cat=decode_cat)
     if ls.name == "SegMaskPSP2":
+        # n is ignored, as in the JAX package and the reference
         n_segcls, _, c_hid, _ = a
         return H.SegMaskPSP2(c1, n_segcls=n_segcls, c_hid=c_hid,
                              upsample=seg_upsample)
-    make = {
-        "Focus": lambda c: L.Focus(c, *a),
-        "Conv": lambda c: L.ConvBnAct(c, *a),
-        "C3": lambda c: L.C3(c, *a),
-        "SPP": lambda c: L.SPP(c, *a),
-    }[ls.name]
+    if ls.name in SEG_HEADS:
+        n_segcls, n, c_hid, shortcut = a
+        return getattr(H, ls.name)(c1, n_segcls=n_segcls, n=n, c_hid=c_hid,
+                                   shortcut=shortcut, upsample=seg_upsample)
+    if ls.name == "BatchNorm":
+        return L.batch_norm(c1)
+    if ls.name in ("Contract", "Expand"):
+        return getattr(L, ls.name)(a[0])
+    block = _BLOCKS[ls.name]
     if ls.n > 1:
         # outer repeats mirror the reference's nn.Sequential wrapping
-        return nn.Sequential(*(make(c1 if j == 0 else ls.c2)
+        return nn.Sequential(*(block(c1 if j == 0 else ls.c2, *a)
                                for j in range(ls.n)))
-    return make(c1)
+    return block(c1, *a)
 
 
 class DeSeNet(nn.Module):
@@ -279,7 +317,8 @@ class DeSeNet(nn.Module):
     NMS front end then selects candidates per scale). ``seg_head_fused``:
     in eval mode a SegMaskPSP2 head with at most ``MAX_P8`` positions at
     1/8 resolution runs as kernel K4 (``ops/seg_head_pallas.py``; its plain
-    version on a CPU tensor) instead of the module graph."""
+    version on a CPU tensor) instead of the module graph. A SegMaskBiSe
+    head in training mode returns ``[out, aux16, aux32]`` as ``seg``."""
 
     def __init__(self, spec: ModelSpec, seg_upsample: bool = True,
                  decode_cat: bool = True, seg_head_fused: bool = False):
@@ -290,7 +329,7 @@ class DeSeNet(nn.Module):
         chs = [spec.ch_in]
         mods = []
         for ls in spec.layers:
-            if ls.name in ("Detect", "SegMaskPSP2"):
+            if ls.name == "Detect" or ls.name in SEG_HEADS:
                 c1 = [chs[x + 1] for x in ls.f]
             elif ls.name == "Concat":
                 c1 = sum(chs[x + 1] for x in ls.f)
@@ -316,7 +355,7 @@ class DeSeNet(nn.Module):
                 out = torch.cat(inp, 1)
             elif ls.name == "Detect":
                 out = det_out = m(inp if isinstance(inp, list) else [inp])
-            elif ls.name == "SegMaskPSP2":
+            elif ls.name in SEG_HEADS:
                 out = seg_out = self._seg_head(
                     ls, m, inp if isinstance(inp, list) else [inp])
             else:
@@ -330,6 +369,7 @@ class DeSeNet(nn.Module):
         """The seg head: kernel K4 under the conditions of the JAX
         package (eval, SegMaskPSP2, P8 <= MAX_P8), else the module."""
         if not (self.seg_head_fused and not self.training
+                and ls.name == "SegMaskPSP2"
                 and xs[0].shape[2] * xs[0].shape[3] <= MAX_P8):
             return m(xs)
         nhwc = [x.permute(0, 2, 3, 1).contiguous() for x in xs]
@@ -352,17 +392,39 @@ class DeSeNet(nn.Module):
                           "num_batches_tracked")]
         return sorted(keys)
 
+    def train_only_keys(self) -> list:
+        """State-dict keys of the modules that run only in training
+        (SegMaskBiSe's aux heads). The JAX package initializes its models
+        in eval mode, so its variables lack them; they keep their init."""
+        return sorted(f"{name}.{k}" for name, mod in self.named_modules()
+                      for p in getattr(mod, "train_only_prefixes",
+                                       lambda: [])()
+                      for k in mod.state_dict() if k.startswith(p))
+
+
+def require_seg_head(spec: ModelSpec, what: str) -> None:
+    """Raise ValueError where ``spec`` has no seg head: the JAX package's
+    served, validation and training programs all take the seg output
+    (detection-only configs such as ``yolov5s`` fail there deep inside)."""
+    if spec.seg_layer < 0:
+        raise ValueError(
+            f"{what} needs a model with a seg head (a SegMask* row); this "
+            f"config has none (se_nc {spec.se_nc}), like the bundled "
+            "detection-only yolov5s, which the JAX package cannot serve, "
+            "validate or train either")
+
 
 def build_model(cfg, nc: Optional[int] = None, se_nc: Optional[int] = None,
                 seg_upsample: bool = True, decode_cat: bool = True,
                 seg_head_fused: bool = False, train: bool = False,
-                anchors: Optional[Sequence] = None
-                ) -> Tuple[DeSeNet, ModelSpec]:
+                anchors: Optional[Sequence] = None,
+                fuse_focus: bool = False) -> Tuple[DeSeNet, ModelSpec]:
     """Parse ``cfg`` and build the model in eval mode (BN on its running
     statistics), or in training mode with ``train=True`` (the training
     step's model, usually with ``seg_upsample=False`` for the fused seg
-    loss); ``anchors`` as ``parse_config``."""
-    spec = parse_config(cfg, nc=nc, se_nc=se_nc, anchors=anchors)
+    loss); ``anchors`` and ``fuse_focus`` as ``parse_config``."""
+    spec = parse_config(cfg, nc=nc, se_nc=se_nc, anchors=anchors,
+                        fuse_focus=fuse_focus)
     model = DeSeNet(spec, seg_upsample=seg_upsample, decode_cat=decode_cat,
                     seg_head_fused=seg_head_fused)
     return model.train(train), spec
@@ -371,9 +433,11 @@ def build_model(cfg, nc: Optional[int] = None, se_nc: Optional[int] = None,
 @torch.no_grad()
 def init_weights(model: DeSeNet, generator: torch.Generator) -> DeSeNet:
     """Seeded init, the JAX package's distribution: torch-default uniform
-    U(+-1/sqrt(fan_in)) conv weights and biases, BN at identity, and the
-    Detect bias prior. Draws on the CPU from ``generator`` in module order,
-    then copies to wherever the parameters live."""
+    U(+-1/sqrt(fan_in)) conv and linear weights and conv biases, zero
+    linear biases, BN at identity, and the Detect bias prior; attention
+    projections normal with std 1/sqrt(fan_in) (flax's lecun_normal, not
+    truncated) and zero biases. Draws on the CPU from ``generator`` in
+    module order, then copies to wherever the parameters live."""
 
     def uniform(t: torch.Tensor, bound: float):
         t.copy_(torch.empty(t.shape).uniform_(-bound, bound,
@@ -397,4 +461,15 @@ def init_weights(model: DeSeNet, generator: torch.Generator) -> DeSeNet:
                 uniform(mod.bias, bound)
         elif isinstance(mod, nn.BatchNorm2d):
             mod.reset_parameters()
+        elif isinstance(mod, nn.MultiheadAttention):
+            for w, b in ((mod.in_proj_weight, mod.in_proj_bias),
+                         (mod.out_proj.weight, mod.out_proj.bias)):
+                w.copy_(torch.empty(w.shape).normal_(
+                    0.0, 1.0 / math.sqrt(w.shape[1]), generator=generator))
+                b.zero_()
+        elif isinstance(mod, nn.Linear) and not isinstance(
+                mod, nn.modules.linear.NonDynamicallyQuantizableLinear):
+            uniform(mod.weight, 1.0 / math.sqrt(mod.weight.shape[1]))
+            if mod.bias is not None:
+                mod.bias.zero_()
     return model

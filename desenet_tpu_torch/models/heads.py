@@ -1,9 +1,18 @@
 """Detection and segmentation heads (torch.nn, NCHW inputs).
 
-Counterpart of ``desenet_tpu/models/heads.py``: ``Detect`` and the shipped
-``SegMaskPSP2`` head. State-dict names are the reference's (``m.{i}`` for
-the Detect convs; ``m8.0``/``m16.0``/``m32.0``, ``spatial_path``,
-``context_path``, ``ffm``, ``out.0`` for the seg head).
+Counterpart of ``desenet_tpu/models/heads.py``: ``Detect``, the shipped
+``SegMaskPSP2`` head and the four other seg heads (``SegMaskPSP``,
+``SegMaskBiSe``, ``SegMaskLab``, ``SegMaskBase``). State-dict names are the
+reference's (``m.{i}`` for the Detect convs; for SegMaskPSP2 ``m8.0``/
+``m16.0``/``m32.0``, ``spatial_path``, ``context_path``, ``ffm``, ``out.0``;
+the others' in their docstrings).
+
+Every seg head takes ``upsample``: False returns the 1/8-resolution logits
+that the served program feeds to the seg-tail kernel
+(``ops/seg_pallas.py``), True their 8x align_corners bilinear upsample.
+SegMaskBiSe in training always upsamples and returns ``[out, aux16,
+aux32]``; SegMaskBiSe and SegMaskBase apply ``layers.Dropout(0.1)`` before
+their class conv in training.
 """
 
 from __future__ import annotations
@@ -17,8 +26,13 @@ from torch import nn
 
 from desenet_tpu_torch.models.layers import (
     ACSP,
+    ASPP,
+    C3,
+    C3SPP,
     FFM,
+    RFB2,
     ConvBnAct,
+    Dropout,
     PyramidPooling,
 )
 from desenet_tpu_torch.ops.resize import resize_bilinear
@@ -117,7 +131,13 @@ class Detect(nn.Module):
         return torch.cat(decoded, 1), feats
 
 
-def _seg_stem(head: "SegMaskPSP2", xs: Sequence[torch.Tensor]) -> torch.Tensor:
+def _up(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """``scale``x bilinear upsample, align_corners=True."""
+    h, w = x.shape[2:]
+    return resize_bilinear(x, (h * scale, w * scale), align_corners=True)
+
+
+def _seg_stem(head: nn.Module, xs: Sequence[torch.Tensor]) -> torch.Tensor:
     """The m8/m16/m32 stem: 1x1 ConvBnAct to c_hid per level, 2x/4x
     align_corners bilinear upsample of the deeper levels, channel concat
     (the JAX package's ``_SegStem``)."""
@@ -157,7 +177,115 @@ class SegMaskPSP2(nn.Module):
         feat = _seg_stem(self, xs)
         out = self.out(self.ffm([self.spatial_path(feat),
                                  self.context_path(feat)]))
-        if not self.upsample:
+        return _up(out, 8) if self.upsample else out
+
+
+class SegMaskPSP(nn.Module):
+    """PSP head (yolo.py:156-197): the m8/m16/m32 stem -> RFB2(map_reduce
+    6) -> PyramidPooling(short_cut) -> FFM(k=3) -> 1x1 class conv, as
+    ``out.0`` to ``out.3``."""
+
+    def __init__(self, ch: Sequence[int], n_segcls: int = 19, n: int = 1,
+                 c_hid: int = 256, shortcut: bool = False,
+                 upsample: bool = True):
+        super().__init__()
+        self.upsample = upsample
+        self.m8 = nn.Sequential(ConvBnAct(ch[0], c_hid, 1))
+        self.m16 = nn.Sequential(ConvBnAct(ch[1], c_hid, 1))
+        self.m32 = nn.Sequential(ConvBnAct(ch[2], c_hid, 1))
+        self.out = nn.Sequential(
+            RFB2(3 * c_hid, c_hid, map_reduce=6, d=(2, 3)),
+            PyramidPooling(c_hid, k=(1, 2, 3, 6), short_cut=True),
+            FFM(c_hid + 4 * (c_hid // 4), c_hid, k=3),
+            nn.Conv2d(c_hid, n_segcls, 1))
+
+    def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        out = self.out(_seg_stem(self, xs))
+        return _up(out, 8) if self.upsample else out
+
+
+class SegMaskBiSe(nn.Module):
+    """BiSeNet-style head (yolo.py:35-91), 128 channels wide at any width:
+    ``m8.0`` a 1x1 ConvBnAct, ``m16.0``/``m32.0`` RFB2 (the deeper one with
+    a global branch), ``up32.0``/``up16.0`` 3x3 refines each followed by a
+    2x upsample, ``out`` = FFM, Dropout, 1x1 class conv; in training also
+    the aux heads ``aux16``/``aux32`` (3x3 ConvBnAct, 1x1 class conv) on the
+    refined 1/8 and 1/16 maps, upsampled to full resolution."""
+
+    def __init__(self, ch: Sequence[int], n_segcls: int = 19, n: int = 1,
+                 c_hid: int = 256, shortcut: bool = False,
+                 upsample: bool = True):
+        super().__init__()
+        self.upsample = upsample
+        self.m8 = nn.Sequential(ConvBnAct(ch[0], 128, 1))
+        self.m16 = nn.Sequential(RFB2(ch[1], 128, map_reduce=4, d=(2, 3)))
+        self.m32 = nn.Sequential(RFB2(ch[2], 128, map_reduce=8, d=(2, 3),
+                                      has_global=True))
+        self.up32 = nn.Sequential(ConvBnAct(128, 128, 3))
+        self.up16 = nn.Sequential(ConvBnAct(128, 128, 3))
+        self.out = nn.Sequential(FFM(256, 256, k=3), Dropout(0.1),
+                                 nn.Conv2d(256, n_segcls, 1))
+        self.aux16 = nn.Sequential(ConvBnAct(128, 128, 3),
+                                   nn.Conv2d(128, n_segcls, 1))
+        self.aux32 = nn.Sequential(ConvBnAct(128, 128, 3),
+                                   nn.Conv2d(128, n_segcls, 1))
+
+    def forward(self, xs: Sequence[torch.Tensor]):
+        f8 = self.m8(xs[0])
+        feat3 = _up(self.up32(self.m32(xs[2])), 2)
+        feat2 = _up(self.up16(self.m16(xs[1]) + feat3), 2)
+        out = self.out([f8, feat2])
+        if not self.training and not self.upsample:
             return out
-        h, w = out.shape[2:]
-        return resize_bilinear(out, (h * 8, w * 8), align_corners=True)
+        out = _up(out, 8)
+        if not self.training:
+            return out
+        return [out, _up(self.aux16(feat2), 8), _up(self.aux32(feat3), 16)]
+
+    def train_only_prefixes(self):
+        return ["aux16.", "aux32."]
+
+
+class SegMaskLab(nn.Module):
+    """DeepLabV3+-style head (yolo.py:98-129): ``detail`` (1x1 and 3x3
+    ConvBnAct to 48 at 1/8), ``encoder`` (1x1 ConvBnAct to 2 c_hid, then
+    ASPP to 256 with map_reduce 5 - n, at 1/16, upsampled 2x), ``decoder``
+    (FFM(k=1) over both, 3x3 ConvBnAct to c_hid, 1x1 class conv)."""
+
+    def __init__(self, ch: Sequence[int], n_segcls: int = 19, n: int = 1,
+                 c_hid: int = 256, shortcut: bool = False,
+                 upsample: bool = True):
+        super().__init__()
+        self.upsample = upsample
+        self.detail = nn.Sequential(ConvBnAct(ch[0], 48, 1),
+                                    ConvBnAct(48, 48, 3))
+        self.encoder = nn.Sequential(
+            ConvBnAct(ch[1], c_hid * 2, 1),
+            ASPP(c_hid * 2, 256, d=(3, 6, 9), has_global=False,
+                 map_reduce=5 - n))
+        self.decoder = nn.Sequential(FFM(48 + 256, 256, k=1),
+                                     ConvBnAct(256, c_hid, 3),
+                                     nn.Conv2d(c_hid, n_segcls, 1))
+
+    def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        out = self.decoder([self.detail(xs[0]), _up(self.encoder(xs[1]), 2)])
+        return _up(out, 8) if self.upsample else out
+
+
+class SegMaskBase(nn.Module):
+    """Single-input head (yolo.py:134-153) as ``m``: C3(c_hid, n), C3SPP to
+    1.5 c_hid, Dropout, a bias-free 3x3 class conv."""
+
+    def __init__(self, ch: Sequence[int], n_segcls: int = 19, n: int = 1,
+                 c_hid: int = 256, shortcut: bool = False,
+                 upsample: bool = True):
+        super().__init__()
+        self.upsample = upsample
+        c_spp = int(c_hid * 1.5)
+        self.m = nn.Sequential(
+            C3(ch[0], c_hid, n, shortcut), C3SPP(c_hid, c_spp, (5, 9, 13)),
+            Dropout(0.1), nn.Conv2d(c_spp, n_segcls, 3, 1, 1, bias=False))
+
+    def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        out = self.m(xs[0])
+        return _up(out, 8) if self.upsample else out

@@ -1,10 +1,13 @@
-"""NN building blocks (torch.nn, NCHW) for the served ``yolov5s_seg`` graph.
+"""NN building blocks (torch.nn, NCHW).
 
-Counterpart of ``desenet_tpu/models/layers.py``, limited to the blocks the
-serving slice runs. Blocks use the reference layout and the reference's
-torch state-dict names (a Focus slice-concat plus a kxk conv; C3 with
-separate ``cv1``/``cv2``); the JAX package's TPU layout workarounds (fused
-stem, fused ``cv12``, split-conv concats) are not carried over.
+Counterpart of ``desenet_tpu/models/layers.py``: every block the model DSL
+can name, and the blocks of the seg heads. Blocks use the reference layout
+and the reference's torch state-dict names (a Focus slice-concat plus a kxk
+conv; C3 with separate ``cv1``/``cv2``); ``FusedFocus`` is the JAX
+package's one-conv stem, which equals Focus on rearranged weights. The JAX
+package's TPU layout workarounds (fused ``cv12``, split-conv concats, the
+phase-layout stem) are not carried over, nor are the blocks the DSL cannot
+name (ARM, RFB1, DAPPM, ASPPs, Sum, Classify, ConvBNReLU).
 
 Numerics that differ from PyTorch defaults and are kept on purpose:
 
@@ -21,8 +24,9 @@ Every ``forward`` takes and returns NCHW tensors; the JAX modules take NHWC.
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -38,9 +42,11 @@ BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
 
 
-def autopad(k: int, p=None) -> int:
-    """'same' padding = k//2."""
-    return k // 2 if p is None else p
+def autopad(k, p=None):
+    """'same' padding = k//2 (per dimension for a kernel-size tuple)."""
+    if p is not None:
+        return p
+    return k // 2 if isinstance(k, int) else tuple(v // 2 for v in k)
 
 
 def make_divisible(x, divisor: int = 8) -> int:
@@ -80,8 +86,8 @@ class ConvBnAct(nn.Module):
     """Conv2d(bias=False) + BN + SiLU: the reference ``Conv`` block, with the
     BN skipped on a 1x1 input map."""
 
-    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p=None,
-                 g: int = 1, d: int = 1, act: bool = True):
+    def __init__(self, c1: int, c2: int, k=1, s=1, p=None, g: int = 1,
+                 d: int = 1, act: bool = True):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p), dilation=d,
                               groups=g, bias=False)
@@ -93,6 +99,57 @@ class ConvBnAct(nn.Module):
         if x.shape[2] * x.shape[3] > 1:
             y = self.bn(y)
         return self.act(y)
+
+
+class ConvBnSiLU(ConvBnAct):
+    """ConvBnAct whose BN runs on any map, as the JAX package's bare
+    conv + BatchNorm pairs do (CrossConv)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.act(self.bn(self.conv(x)))
+
+
+class FusedFocus(ConvBnAct):
+    """The JAX package's one-conv stem (``parse_config(fuse_focus=True)``):
+    Focus's slice-concat plus kxk conv as one 2k x 2k / s2 conv, pad k-1, on
+    the raw image. Focus weights cross by ``utils/convert.focus_to_fused``.
+    The BN-skip quirk looks at the raw image here, at the slice-concat in
+    Focus: the two differ only for a 2x2 image, as in the JAX package."""
+
+    def __init__(self, c1: int, c2: int, k: int = 6, s: int = 2, p: int = 2,
+                 act: bool = True):
+        super().__init__(c1, c2, k, s, p, act=act)
+
+
+class DWConv(ConvBnAct):
+    """Depthwise-ish conv: ConvBnAct with groups gcd(c1, c2)
+    (common.py:59-62)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1,
+                 act: bool = True):
+        super().__init__(c1, c2, k, s, g=math.gcd(c1, c2), act=act)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout with its mask drawn from ``generator``: in training
+    each element is zeroed with probability ``p`` and the rest are scaled
+    by 1/(1-p), as flax's ``nn.Dropout`` does; identity in eval. The JAX
+    heads draw from flax's ``dropout`` rng, whose bits torch cannot
+    reproduce; ``generator`` (a torch.Generator on the input's device, set
+    by the training step; None takes the device's default one) makes the
+    port's draws repeatable."""
+
+    def __init__(self, p: float = 0.1):
+        super().__init__()
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 
 
 class Bottleneck(nn.Module):
@@ -111,17 +168,42 @@ class Bottleneck(nn.Module):
         return y + x if self.add else y
 
 
-class C3(nn.Module):
-    """CSP bottleneck with 3 convs (reference layout: separate cv1/cv2)."""
+class BottleneckCSP(nn.Module):
+    """Legacy CSP bottleneck (common.py:114-130): bare 1x1 convs cv2/cv3,
+    a BN over their concat and LeakyReLU(0.1) before cv4."""
 
     def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True,
                  g: int = 1, e: float = 0.5):
         super().__init__()
         c_ = int(c2 * e)
         self.cv1 = ConvBnAct(c1, c_, 1, 1)
+        self.cv2 = nn.Conv2d(c1, c_, 1, 1, bias=False)
+        self.cv3 = nn.Conv2d(c_, c_, 1, 1, bias=False)
+        self.cv4 = ConvBnAct(2 * c_, c2, 1, 1)
+        self.bn = batch_norm(2 * c_)
+        self.act = nn.LeakyReLU(0.1)
+        self.m = nn.Sequential(
+            *(Bottleneck(c_, c_, shortcut, g, e=1.0) for _ in range(n)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.cat([self.cv3(self.m(self.cv1(x))), self.cv2(x)], 1)
+        return self.cv4(self.act(self.bn(y)))
+
+
+class C3(nn.Module):
+    """CSP bottleneck with 3 convs (reference layout: separate cv1/cv2).
+    ``inner(c_)`` builds the stack ``m`` in place of the n Bottlenecks (the
+    C3SPP, C3Ghost and C3TR variants)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True,
+                 g: int = 1, e: float = 0.5,
+                 inner: Optional[Callable[[int], nn.Module]] = None):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBnAct(c1, c_, 1, 1)
         self.cv2 = ConvBnAct(c1, c_, 1, 1)
         self.cv3 = ConvBnAct(2 * c_, c2, 1, 1)
-        self.m = nn.Sequential(
+        self.m = inner(c_) if inner is not None else nn.Sequential(
             *(Bottleneck(c_, c_, shortcut, g, e=1.0) for _ in range(n)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -142,6 +224,198 @@ class SPP(nn.Module):
         y = self.cv1(x)
         return self.cv2(torch.cat([y] + [max_pool_same(y, k) for k in self.k],
                                   1))
+
+
+class SPPF(nn.Module):
+    """Serial-pool SPP (common.py:188-203): three chained k x k max pools."""
+
+    def __init__(self, c1: int, c2: int, k: int = 5):
+        super().__init__()
+        c_ = c1 // 2
+        self.k = k
+        self.cv1 = ConvBnAct(c1, c_, 1, 1)
+        self.cv2 = ConvBnAct(c_ * 4, c2, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ys = [self.cv1(x)]
+        for _ in range(3):
+            ys.append(max_pool_same(ys[-1], self.k))
+        return self.cv2(torch.cat(ys, 1))
+
+
+class C3SPP(C3):
+    """C3 with an SPP as its inner stack (common.py:156-161)."""
+
+    def __init__(self, c1: int, c2: int, k: Sequence[int] = (5, 9, 13),
+                 g: int = 1, e: float = 0.5):
+        super().__init__(c1, c2, 1, True, g, e,
+                         inner=lambda c_: SPP(c_, c_, k))
+
+
+class GhostConv(nn.Module):
+    """GhostNet conv (common.py:630-639): a primary conv to c2/2 and a
+    cheap 5x5 depthwise conv of it, concatenated."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, g: int = 1,
+                 act: bool = True):
+        super().__init__()
+        c_ = c2 // 2
+        self.cv1 = ConvBnAct(c1, c_, k, s, None, g, act=act)
+        self.cv2 = ConvBnAct(c_, c_, 5, 1, None, c_, act=act)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv1(x)
+        return torch.cat([y, self.cv2(y)], 1)
+
+
+class GhostBottleneck(nn.Module):
+    """Ghost bottleneck (common.py:642-655): GhostConv, a stride-2 DWConv
+    when s is 2, GhostConv; the shortcut is a DWConv + 1x1 conv at s 2, the
+    input where the widths agree, else none."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1):
+        super().__init__()
+        c_ = c2 // 2
+        self.conv = nn.Sequential(
+            GhostConv(c1, c_, 1, 1),
+            DWConv(c_, c_, k, s, act=False) if s == 2 else nn.Identity(),
+            GhostConv(c_, c2, 1, 1, act=False))
+        self.shortcut = (nn.Sequential(DWConv(c1, c1, k, s, act=False),
+                                       ConvBnAct(c1, c2, 1, 1, act=False))
+                         if s == 2 else nn.Identity())
+        self.add = s == 2 or c1 == c2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv(x)
+        return y + self.shortcut(x) if self.add else y
+
+
+class C3Ghost(C3):
+    """C3 with GhostBottlenecks as its inner stack (common.py:164-169)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True,
+                 g: int = 1, e: float = 0.5):
+        super().__init__(c1, c2, n, shortcut, g, e, inner=lambda c_: (
+            nn.Sequential(*(GhostBottleneck(c_, c_) for _ in range(n)))))
+
+
+class TransformerLayer(nn.Module):
+    """ViT-style layer without LayerNorm (common.py:65-79) over (L, B, C)
+    tokens: multi-head attention of the q/k/v projections plus the input,
+    then two bias-free linears plus their input."""
+
+    def __init__(self, c: int, num_heads: int):
+        super().__init__()
+        self.q = nn.Linear(c, c, bias=False)
+        self.k = nn.Linear(c, c, bias=False)
+        self.v = nn.Linear(c, c, bias=False)
+        self.ma = nn.MultiheadAttention(c, num_heads)
+        self.fc1 = nn.Linear(c, c, bias=False)
+        self.fc2 = nn.Linear(c, c, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.ma(self.q(x), self.k(x), self.v(x), need_weights=False)[0] + x
+        return self.fc2(self.fc1(x)) + x
+
+
+class TransformerBlock(nn.Module):
+    """A 1x1 ConvBnAct where the widths differ, then TransformerLayers over
+    the map's pixels as tokens, row-major, with a learned linear embedding
+    added (common.py:82-98)."""
+
+    def __init__(self, c1: int, c2: int, num_heads: int, num_layers: int):
+        super().__init__()
+        self.conv = ConvBnAct(c1, c2) if c1 != c2 else None
+        self.linear = nn.Linear(c2, c2)
+        self.tr = nn.Sequential(
+            *(TransformerLayer(c2, num_heads) for _ in range(num_layers)))
+        self.c2 = c2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.conv is not None:
+            x = self.conv(x)
+        b, _, h, w = x.shape
+        p = x.flatten(2).permute(2, 0, 1)  # (H*W, B, C)
+        p = self.tr(p + self.linear(p))
+        return p.permute(1, 2, 0).reshape(b, self.c2, h, w)
+
+
+class C3TR(C3):
+    """C3 with a 4-head TransformerBlock of n layers as its inner stack
+    (common.py:148-153)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True,
+                 g: int = 1, e: float = 0.5):
+        super().__init__(c1, c2, n, shortcut, g, e,
+                         inner=lambda c_: TransformerBlock(c_, c_, 4, n))
+
+
+class CrossConv(nn.Module):
+    """1xk then kx1 conv, each with BN and SiLU, with an optional residual
+    (experimental.py:11-22). Its BNs run on any map, as in the JAX
+    package."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, g: int = 1,
+                 e: float = 1.0, shortcut: bool = False):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBnSiLU(c1, c_, (1, k), (1, s))
+        self.cv2 = ConvBnSiLU(c_, c2, (k, 1), (s, 1), g=g)
+        self.add = shortcut and c1 == c2 and s == 1
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class MixConv2d(nn.Module):
+    """Mixed-kernel conv (experimental.py:39-55, equal channel split):
+    bias-free convs of sizes ``k`` side by side, BN, SiLU (the JAX
+    package's activation; no residual)."""
+
+    def __init__(self, c1: int, c2: int, k: Sequence[int] = (1, 3),
+                 s: int = 1):
+        super().__init__()
+        n = len(k)
+        idx = np.floor(np.linspace(0, n - 1e-6, c2)).astype(int)
+        ch = [int((idx == g).sum()) for g in range(n)]
+        self.m = nn.ModuleList(
+            nn.Conv2d(c1, ch[g], k[g], s, k[g] // 2, bias=False)
+            for g in range(n))
+        self.bn = batch_norm(c2)
+        self.act = nn.SiLU()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.act(self.bn(torch.cat([m(x) for m in self.m], 1)))
+
+
+class Contract(nn.Module):
+    """Pixel-unshuffle (common.py:658-668): (B, C, H, W) -> (B, C*g*g, H/g,
+    W/g), channels ordered (row phase, column phase, C)."""
+
+    def __init__(self, gain: int = 2):
+        super().__init__()
+        self.gain = gain
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        g = self.gain
+        x = x.view(b, c, h // g, g, w // g, g).permute(0, 3, 5, 1, 2, 4)
+        return x.reshape(b, c * g * g, h // g, w // g)
+
+
+class Expand(nn.Module):
+    """Pixel-shuffle, the inverse of Contract (common.py:671-683)."""
+
+    def __init__(self, gain: int = 2):
+        super().__init__()
+        self.gain = gain
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        g = self.gain
+        x = x.view(b, g, g, c // g ** 2, h, w).permute(0, 3, 4, 1, 5, 2)
+        return x.reshape(b, c // g ** 2, h * g, w * g)
 
 
 class Focus(nn.Module):
@@ -180,8 +454,10 @@ class FFM(nn.Module):
             nn.Sigmoid(),
         )
 
-    def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
-        feat = self.convblk(torch.cat(list(xs), 1))
+    def forward(self, xs) -> torch.Tensor:
+        """``xs``: one map, or a list of maps to concatenate first."""
+        x = torch.cat(list(xs), 1) if isinstance(xs, (list, tuple)) else xs
+        feat = self.convblk(x)
         return feat * self.channel_attention(feat) + feat
 
 
@@ -209,6 +485,59 @@ class GlobalBranch(nn.Sequential):
 
     def quirk_bn_prefixes(self):
         return ["1.bn."]
+
+
+class ASPP(nn.Module):
+    """Parallel branches on the input (common.py:268-310): a 1x1 ConvBnAct
+    and three dilated 3x3s to c1 // map_reduce each, plus the global branch
+    if ``has_global``, concatenated into a 1x1 ConvBnAct."""
+
+    def __init__(self, c1: int, c2: int, d: Sequence[int] = (3, 6, 9),
+                 has_global: bool = True, map_reduce: int = 4):
+        super().__init__()
+        hid = c1 // map_reduce
+        self.branch0 = nn.Sequential(ConvBnAct(c1, hid, 1, 1))
+        self.branch1 = DilatedConvBnSiLU(c1, hid, d[0])
+        self.branch2 = DilatedConvBnSiLU(c1, hid, d[1])
+        self.branch3 = DilatedConvBnSiLU(c1, hid, d[2])
+        self.branch4 = GlobalBranch(c1, hid) if has_global else None
+        self.ConvLinear = ConvBnAct(hid * (5 if has_global else 4), c2, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        feats = [self.branch0(x), self.branch1(x), self.branch2(x),
+                 self.branch3(x)]
+        if self.branch4 is not None:
+            feats.append(self.branch4(x, x.shape[2:]))
+        return self.ConvLinear(torch.cat(feats, 1))
+
+
+class RFB2(nn.Module):
+    """Cascaded-dilation block of the PSP and BiSe heads
+    (common.py:504-545): branch0 = 1x1 + 3x3, branch1 = dilated d0 on
+    branch0, branch2 = dilated d1 on branch1, branch3 = a 1x1 on the input,
+    and if ``has_global`` a global branch fed from branch2."""
+
+    def __init__(self, c1: int, c2: int, map_reduce: int = 4,
+                 d: Sequence[int] = (2, 3), has_global: bool = False):
+        super().__init__()
+        inter = c1 // map_reduce
+        self.branch0 = nn.Sequential(ConvBnAct(c1, inter, 1, 1),
+                                     ConvBnAct(inter, inter, 3, 1))
+        self.branch1 = DilatedConvBnSiLU(inter, inter, d[0])
+        self.branch2 = DilatedConvBnSiLU(inter, inter, d[1])
+        self.branch3 = nn.Sequential(ConvBnAct(c1, inter, 1, 1))
+        self.branch4 = GlobalBranch(inter, inter) if has_global else None
+        self.ConvLinear = ConvBnAct(inter * (5 if has_global else 4), c2, 1,
+                                    1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x0 = self.branch0(x)
+        x1 = self.branch1(x0)
+        x2 = self.branch2(x1)
+        feats = [x0, x1, x2, self.branch3(x)]
+        if self.branch4 is not None:
+            feats.append(self.branch4(x2, x.shape[2:]))
+        return self.ConvLinear(torch.cat(feats, 1))
 
 
 class ACSP(nn.Module):

@@ -429,6 +429,55 @@ def tiny_cfg() -> dict:
     return cfg
 
 
+# the seg-head rows of tests/configs/tiny_{psp,lab,base}.yaml, and BiSe's,
+# which the reference cannot name in a config
+TINY_HEAD_ROWS = {
+    "SegMaskPSP": [[16, 19, 22], 1, "SegMaskPSP", ["se_nc", 3, 256, False]],
+    "SegMaskLab": [[4, 19], 1, "SegMaskLab", ["se_nc", 1, 256, False]],
+    "SegMaskBase": [[16], 1, "SegMaskBase", ["se_nc", 1, 256, False]],
+    "SegMaskBiSe": [[16, 19, 22], 1, "SegMaskBiSe", ["se_nc", 1, 256]],
+}
+
+
+def tiny_head_cfg(head: str) -> dict:
+    """``tiny_cfg`` with the seg head ``head`` (a key of TINY_HEAD_ROWS)."""
+    cfg = tiny_cfg()
+    cfg["head"][-2] = TINY_HEAD_ROWS[head]
+    return cfg
+
+
+# a copy of tests/test_exotic_blocks.py's EXOTIC_CFG, which routes through
+# every DSL row no bundled config uses (that test module imports JAX);
+# tests/test_torch_model_family.py holds the two equal
+EXOTIC_CFG = {
+    "de_nc": 2,
+    "depth_multiple": 1.0,
+    "width_multiple": 1.0,
+    "anchors": [[10, 13, 16, 30, 33, 23]],
+    "backbone": [
+        [-1, 1, "Focus", [16, 3]],
+        [-1, 1, "Conv", [32, 3, 2]],
+        [-1, 1, "BottleneckCSP", [32]],
+        [-1, 1, "GhostConv", [32, 1, 1]],
+        [-1, 1, "GhostBottleneck", [32, 3, 2]],
+        [-1, 2, "C3Ghost", [32]],
+        [-1, 1, "CrossConv", [32, 3, 1]],
+        [-1, 1, "MixConv2d", [32]],
+        [-1, 1, "DWConv", [48, 3, 1]],
+        [-1, 1, "SPPF", [32, 5]],
+        [-1, 1, "C3TR", [32]],
+        [-1, 1, "C3SPP", [32]],
+        [-1, 1, "Contract", [2]],
+        [-1, 1, "Bottleneck", [128]],
+        [-1, 1, "Expand", [2]],
+        [-1, 1, "nn.BatchNorm2d", []],
+    ],
+    "head": [
+        [[-1], 1, "Detect", ["de_nc", "anchors"]],
+    ],
+}
+
+
 def train_batch(rng, b: int, imgsz: int, nc: int, max_targets: int = 32
                 ) -> dict:
     """A training batch (tests/test_train_step.py's kind, at any size):

@@ -2,11 +2,13 @@
 module seg head and with the fused one (kernel K4).
 
     python -m desenet_tpu_torch.tools.profile_val_step      # card, b32/640
+    python -m desenet_tpu_torch.tools.profile_val_step --cfg yolov5m_seg
     python -m desenet_tpu_torch.tools.profile_val_step --device cpu \\
         --batch 1 --imgsz 64
 
-``torch.profiler`` over warm calls of ``Validator.eval_step`` (yolov5s_seg,
-random weights from seed 0, bf16 on a card, uint8 images in: forward,
+``torch.profiler`` over warm calls of ``Validator.eval_step`` (yolov5s_seg
+or ``--cfg`` with the FusedFocus stem, as ``cli.val`` builds it, random
+weights from seed 0, bf16 on a card, uint8 images in: forward,
 multi-label top-16384 candidates, kernel K3, full-resolution seg argmax).
 For either head, a table of the device kernels (on the CPU: the host ops)
 with milliseconds and calls per step, most time first, their total, and on
@@ -35,6 +37,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--imgsz", type=int, default=640)
+    ap.add_argument("--cfg", default="yolov5s_seg",
+                    help="bundled config name or .json/.yaml path")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
     cuda = dev.type == "cuda"
@@ -42,7 +46,7 @@ def main(argv=None) -> int:
         raise SystemExit("profile_val_step: no CUDA device")
     tail = f"[{card_line()}]" if cuda else "(host ops, CPU)"
 
-    model, spec = build_model(config_path("yolov5s_seg"))
+    model, spec = build_model(config_path(args.cfg), fuse_focus=True)
     init_weights(model, torch.Generator().manual_seed(0))
     model = model.to(dev, torch.bfloat16 if cuda else torch.float32,
                      memory_format=torch.channels_last)
@@ -69,7 +73,7 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) / WALL_REPS * 1e3
             note = f"; {wall:.3f} ms a step by the host's clock {tail}"
-        show(f"val step b{args.batch}/{args.imgsz} with {head}",
+        show(f"{args.cfg} val step b{args.batch}/{args.imgsz} with {head}",
              kernel_table(step, dev), note)
     model.seg_head_fused = False
     return 0

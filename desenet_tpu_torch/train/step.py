@@ -24,6 +24,8 @@ import numpy as np
 import torch
 
 from desenet_tpu_torch.losses import DetectionLoss, segmentation_loss
+from desenet_tpu_torch.models.build import require_seg_head
+from desenet_tpu_torch.models.layers import Dropout
 from desenet_tpu_torch.ops.seg_ce import upsampled_ce
 from desenet_tpu_torch.train import optim as O
 from desenet_tpu_torch.train.ema import ema_update
@@ -76,10 +78,13 @@ def make_train_step(
     ``freeze`` sets requires_grad False on the first ``freeze`` rows'
     parameters; they take no gradient and keep their values, while their
     optimizer buffers and EMA still move as in the JAX step. ``generator``
-    is the JAX step's dropout key; no ported module draws from it.
+    takes the place of the JAX step's dropout key: the model's
+    ``layers.Dropout`` modules (the BiSe and Base seg heads) draw their
+    masks from it, or from the device's default generator when it is None.
 
     ``metrics``: ``loss, lbox, lobj, lcls, lseg`` (0-d tensors on the
     device), ``lr`` (float) and ``stepped`` (0 or 1)."""
+    require_seg_head(model.spec, "make_train_step")
     if fused_seg == bool(model.seg_upsample):
         raise ValueError(
             f"fused_seg={fused_seg} needs a model built with "
@@ -90,6 +95,7 @@ def make_train_step(
     for name in frozen:
         model.get_parameter(name).requires_grad_(False)
     compute_cast = dtype in (torch.bfloat16, torch.float16)
+    dropouts = [m for m in model.modules() if isinstance(m, Dropout)]
 
     def train_step(state: TrainState, batch: Dict,
                    generator: Optional[torch.Generator] = None):
@@ -102,6 +108,8 @@ def make_train_step(
         if imgs.dtype == torch.uint8:
             x = x / 255.0
         x = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC batch
+        for m in dropouts:
+            m.generator = generator
         with torch.autocast(dev.type, dtype=dtype, enabled=compute_cast):
             det_feats, seg_out = model(x)
         det_total, comps = det_loss_fn(

@@ -1,12 +1,15 @@
 """Weights and training state from the JAX package into the port.
 
 A flax-free port of ``desenet_tpu/utils/torch_convert.py``
-(``flax_path_to_torch_key`` with the SegMaskPSP2 name table,
+(``flax_path_to_torch_key`` with the name tables of every seg head,
 ``fused_csp_sources``, ``_conv_kernel_to_focus``) and of the layout
-transposes of ``tools/export_torch_sd.py``. The JAX package's TPU layouts
-are undone on the way: the fused 6x6 stem conv becomes the Focus 3x3 conv
-over the slice-concat, and the fused C3 ``cv12``/``bn12`` split back into
-``cv1``/``cv2``.
+transposes of ``tools/export_torch_sd.py``, with the renames of the DSL
+blocks whose JAX names are not the reference's (DWConv, CrossConv, the
+Ghost blocks, C3TR's attention, the BatchNorm row). The JAX package's TPU
+layouts are undone on the way: the fused C3 ``cv12``/``bn12`` split back
+into ``cv1``/``cv2``, and the fused 6x6 stem conv becomes the Focus 3x3
+conv over the slice-concat where the port model has a Focus row (a
+FusedFocus row takes it as it is).
 """
 
 from __future__ import annotations
@@ -18,30 +21,130 @@ from typing import Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 
-from desenet_tpu_torch.models.build import DeSeNet, ModelSpec
+from desenet_tpu_torch.models.build import SEG_HEADS, DeSeNet, ModelSpec
 from desenet_tpu_torch.train.optim import OptimConfig
 from desenet_tpu_torch.train.state import TrainState, create_train_state
 
-# flax sub-path prefix -> torch sub-path prefix inside the SegMaskPSP2 row
-_PSP2_TABLE = {
-    "stem/m8/": "m8.0/",
-    "stem/m16/": "m16.0/",
-    "stem/m32/": "m32.0/",
-    "spatial_path/branch0_a/": "spatial_path.branch0.0/",
-    "spatial_path/branch0_b/": "spatial_path.branch0.1/",
-    "spatial_path/branch1/conv/conv2d/": "spatial_path.branch1.0/",
-    "spatial_path/branch1/bn/bn/": "spatial_path.branch1.1/",
-    "spatial_path/branch2/conv/conv2d/": "spatial_path.branch2.0/",
-    "spatial_path/branch2/bn/bn/": "spatial_path.branch2.1/",
-    "spatial_path/branch_global/conv/": "spatial_path.branch_global.1/",
-    "spatial_path/conv_linear/": "spatial_path.ConvLinear/",
-    "context_red/": "context_path.0/",
-    "context_pp/": "context_path.1/",
-    "out/conv2d/": "out.0/",
-    "ffm/convblk/": "ffm.convblk/",
-    "ffm/att_fc1/conv2d/": "ffm.channel_attention.1/",
-    "ffm/att_fc2/conv2d/": "ffm.channel_attention.3/",
+
+def _rfb2_table(fpfx: str, tpfx: str, has_global: bool) -> Dict[str, str]:
+    t = {
+        f"{fpfx}/branch0_a/": f"{tpfx}.branch0.0/",
+        f"{fpfx}/branch0_b/": f"{tpfx}.branch0.1/",
+        f"{fpfx}/branch1/conv/conv2d/": f"{tpfx}.branch1.0/",
+        f"{fpfx}/branch1/bn/bn/": f"{tpfx}.branch1.1/",
+        f"{fpfx}/branch2/conv/conv2d/": f"{tpfx}.branch2.0/",
+        f"{fpfx}/branch2/bn/bn/": f"{tpfx}.branch2.1/",
+        f"{fpfx}/branch3/": f"{tpfx}.branch3.0/",
+        f"{fpfx}/conv_linear/": f"{tpfx}.ConvLinear/",
+    }
+    if has_global:
+        t[f"{fpfx}/branch4/conv/"] = f"{tpfx}.branch4.1/"
+    return t
+
+
+def _ffm_table(fpfx: str, tpfx: str) -> Dict[str, str]:
+    return {
+        f"{fpfx}/convblk/": f"{tpfx}.convblk/",
+        f"{fpfx}/att_fc1/conv2d/": f"{tpfx}.channel_attention.1/",
+        f"{fpfx}/att_fc2/conv2d/": f"{tpfx}.channel_attention.3/",
+    }
+
+
+def _head_table(head: str) -> Dict[str, str]:
+    """flax sub-path prefix -> torch sub-path prefix inside a seg head row."""
+    if head == "SegMaskPSP2":  # yolo.py:200-235
+        t = {
+            "stem/m8/": "m8.0/",
+            "stem/m16/": "m16.0/",
+            "stem/m32/": "m32.0/",
+            "spatial_path/branch0_a/": "spatial_path.branch0.0/",
+            "spatial_path/branch0_b/": "spatial_path.branch0.1/",
+            "spatial_path/branch1/conv/conv2d/": "spatial_path.branch1.0/",
+            "spatial_path/branch1/bn/bn/": "spatial_path.branch1.1/",
+            "spatial_path/branch2/conv/conv2d/": "spatial_path.branch2.0/",
+            "spatial_path/branch2/bn/bn/": "spatial_path.branch2.1/",
+            "spatial_path/branch_global/conv/":
+                "spatial_path.branch_global.1/",
+            "spatial_path/conv_linear/": "spatial_path.ConvLinear/",
+            "context_red/": "context_path.0/",
+            "context_pp/": "context_path.1/",
+            "out/conv2d/": "out.0/",
+        }
+        t.update(_ffm_table("ffm", "ffm"))
+        return t
+    if head == "SegMaskPSP":  # yolo.py:156-197
+        t = {
+            "stem/m8/": "m8.0/",
+            "stem/m16/": "m16.0/",
+            "stem/m32/": "m32.0/",
+            "pp/": "out.1/",
+            "out/conv2d/": "out.3/",
+        }
+        t.update(_rfb2_table("rfb", "out.0", has_global=False))
+        t.update(_ffm_table("ffm", "out.2"))
+        return t
+    if head == "SegMaskBiSe":  # yolo.py:35-91
+        t = {
+            "m8/": "m8.0/",
+            "up16_conv/": "up16.0/",
+            "up32_conv/": "up32.0/",
+            "out/conv2d/": "out.2/",
+            "aux16_conv/": "aux16.0/",
+            "aux16_out/conv2d/": "aux16.1/",
+            "aux32_conv/": "aux32.0/",
+            "aux32_out/conv2d/": "aux32.1/",
+        }
+        t.update(_rfb2_table("m16", "m16.0", has_global=False))
+        t.update(_rfb2_table("m32", "m32.0", has_global=True))
+        t.update(_ffm_table("ffm", "out.0"))
+        return t
+    if head == "SegMaskLab":  # yolo.py:98-129
+        t = {
+            "detail1/": "detail.0/",
+            "detail2/": "detail.1/",
+            "enc_red/": "encoder.0/",
+            "aspp/branch0/": "encoder.1.branch0.0/",
+            "aspp/branch4/conv/": "encoder.1.branch4.1/",
+            "aspp/conv_linear/": "encoder.1.ConvLinear/",
+            "dec_conv/": "decoder.1/",
+            "out/conv2d/": "decoder.2/",
+        }
+        for b in (1, 2, 3):
+            t[f"aspp/branch{b}/conv/conv2d/"] = f"encoder.1.branch{b}.0/"
+            t[f"aspp/branch{b}/bn/bn/"] = f"encoder.1.branch{b}.1/"
+        t.update(_ffm_table("ffm", "decoder.0"))
+        return t
+    if head == "SegMaskBase":  # yolo.py:134-153
+        return {
+            "c3/": "m.0/",
+            "c3spp/": "m.1/",
+            "out/conv2d/": "m.3/",
+        }
+    raise ValueError(head)
+
+
+_HEAD_TABLES = {h: _head_table(h) for h in SEG_HEADS}
+
+# regex rewrites of the flax sub-path inside rows whose JAX blocks are
+# named otherwise than the reference's torch modules, applied in order
+_GHOST_RULES = (
+    (r"(^|/)sc_dw/conv/", r"\1shortcut/0/"),
+    (r"(^|/)sc_pw/", r"\1shortcut/1/"),
+    (r"(^|/)gc1/", r"\1conv/0/"),
+    (r"(^|/)dw/conv/", r"\1conv/1/"),
+    (r"(^|/)gc2/", r"\1conv/2/"),
+)
+_ROW_RULES = {
+    "DWConv": ((r"^conv/", ""),),
+    "BatchNorm": ((r"^bn/", ""),),
+    "CrossConv": ((r"(^|/)(cv[12])_(conv|bn)/", r"\1\2/\3/"),),
+    "GhostBottleneck": _GHOST_RULES,
+    "C3Ghost": _GHOST_RULES,
+    "C3TR": ((r"(^|/)tr_(\d+)/", r"\1tr/\2/"),),
 }
+# flax MultiHeadDotProductAttention leaves, merged into torch's
+# nn.MultiheadAttention in_proj / out_proj
+_MHA = re.compile(r"^(.*/ma)/(query|key|value|out)/(kernel|bias)$")
 
 _LEAF = {
     "kernel": "weight",
@@ -54,8 +157,9 @@ _LEAF = {
 
 def _is_fused_focus(path: Tuple[str, ...], spec: ModelSpec) -> bool:
     """A Focus row whose JAX variables are the fused 6x6 conv (one
-    ConvBnAct at ``l{i}/conv`` + ``l{i}/bn``) rather than Focus's inner
-    ConvBnAct (``l{i}/conv/conv`` + ``l{i}/conv/bn``)."""
+    ConvBnAct at ``l{i}/conv`` + ``l{i}/bn``, the JAX package's default)
+    rather than Focus's inner ConvBnAct (``l{i}/conv/conv`` +
+    ``l{i}/conv/bn``). A FusedFocus row takes the fused ones as they are."""
     m = re.match(r"^l(\d+)$", path[0])
     return (m is not None and spec.layers[int(m.group(1))].name == "Focus"
             and path[1:3] not in (("conv", "conv"), ("conv", "bn")))
@@ -73,15 +177,18 @@ def flax_path_to_torch_key(path: Tuple[str, ...], spec: ModelSpec) -> str:
     inner = m.group(3)
     ls = spec.layers[li]
 
-    if ls.name == "SegMaskPSP2":
-        for fp, tp in _PSP2_TABLE.items():
+    if ls.name in SEG_HEADS:
+        for fp, tp in _HEAD_TABLES[ls.name].items():
             if inner.startswith(fp):
                 inner = tp + inner[len(fp):]
                 break
     elif ls.name == "Detect":
         inner = re.sub(r"^m(\d+)/", r"m.\1/", inner)
-    elif _is_fused_focus(path, spec):
-        inner = "conv/" + inner
+    else:
+        if _is_fused_focus(path, spec):
+            inner = "conv/" + inner
+        for pat, rep in _ROW_RULES.get(ls.name, ()):
+            inner = re.sub(pat, rep, inner)
 
     leaf_src = inner.rsplit("/", 1)[-1]
     body = inner[: -(len(leaf_src) + 1)] if "/" in inner else ""
@@ -141,16 +248,22 @@ def tree_from_jax(flat: Mapping[str, np.ndarray], spec: ModelSpec
     becomes f32).
 
     The same map serves every tree of that shape: variables, gradients,
-    momentum buffers, EMA copies. Fused C3 leaves split into ``cv1``/``cv2``
-    and the fused stem kernel becomes the Focus conv's, each element to one
-    element, so a gradient or buffer crosses as its parameter does."""
+    momentum buffers, EMA copies. Fused C3 leaves split into ``cv1``/``cv2``,
+    the fused stem kernel becomes the Focus conv's, and the
+    attention's query/key/value/out leaves merge into torch's in_proj and
+    out_proj, each element to one element, so a gradient or buffer crosses
+    as its parameter does."""
     out: Dict[str, np.ndarray] = {}
+    mha: Dict[str, Dict[Tuple[str, str], np.ndarray]] = {}
     for key, val in flat.items():
         path = tuple(key.split("/"))
         val = np.asarray(val)
         val = val if val.dtype == np.float64 else val.astype(np.float32)
         fs = fused_csp_sources(path)
-        if fs is not None:  # split fused C3 cv12/bn12 back into cv1+cv2
+        m = _MHA.match(key)
+        if m is not None:  # merged below, once the four parts are in
+            mha.setdefault(m.group(1), {})[m.group(2, 3)] = val
+        elif fs is not None:  # split fused C3 cv12/bn12 back into cv1+cv2
             p1, p2, ax = fs
             v1, v2 = np.split(val, [val.shape[ax] // 2], axis=ax)
             out[flax_path_to_torch_key(p1, spec)] = to_torch_tensor(v1, path[-1])
@@ -160,6 +273,21 @@ def tree_from_jax(flat: Mapping[str, np.ndarray], spec: ModelSpec
         else:
             out[flax_path_to_torch_key(path, spec)] = to_torch_tensor(
                 val, path[-1])
+    for prefix, parts in mha.items():
+        # flax: query/key/value kernels (E, heads, head_dim), biases (heads,
+        # head_dim); out kernel (heads, head_dim, E). torch: in_proj_weight
+        # (3E, E) = [Wq; Wk; Wv] with y = x W^T, heads major in each
+        # E-sized block, as flax's (heads, head_dim) flattens
+        tkey = flax_path_to_torch_key(tuple(f"{prefix}/kernel".split("/")),
+                                      spec)[:-len("weight")]
+        e = parts["query", "kernel"].shape[0]
+        qkv = ("query", "key", "value")
+        out[tkey + "in_proj_weight"] = np.concatenate(
+            [parts[n, "kernel"].reshape(e, -1).T for n in qkv])
+        out[tkey + "in_proj_bias"] = np.concatenate(
+            [parts[n, "bias"].reshape(-1) for n in qkv])
+        out[tkey + "out_proj.weight"] = parts["out", "kernel"].reshape(-1, e).T
+        out[tkey + "out_proj.bias"] = parts["out", "bias"]
     expected = _expected_shapes(spec)
     for k, v in out.items():
         if k not in expected:
@@ -188,7 +316,8 @@ def state_dict_from_jax(flat: Mapping[str, np.ndarray], spec: ModelSpec
     Returns ``(state_dict, unfilled)``: ``unfilled`` lists the port model's
     keys that the JAX variables do not cover, which for a valid checkpoint
     are exactly ``DeSeNet.quirk_bn_keys()`` (BNs that never run keep their
-    init)."""
+    init), and for variables from an eval-mode init also
+    ``DeSeNet.train_only_keys()``."""
     sd = {}
     for col in ("params", "batch_stats"):
         sd.update(tree_from_jax({k[len(col) + 1:]: v for k, v in flat.items()
@@ -248,14 +377,45 @@ def load_npz_state_dict(path) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(z[k]) for k in z.files}
 
 
+def focus_to_fused(sd: Mapping[str, torch.Tensor], spec: ModelSpec
+                   ) -> Dict[str, torch.Tensor]:
+    """``sd`` with the Focus-layout weights of ``spec``'s FusedFocus rows
+    (``model.{i}.conv.conv.weight``, ``model.{i}.conv.bn.*``) in the fused
+    layout (``model.{i}.conv.weight``, ``model.{i}.bn.*``): the kxk kernel
+    over the slice-concat becomes the (2k)x(2k) one over the image, tap
+    (2*di + oy, 2*dj + ox) taking slice oy + 2*ox's tap (di, dj)
+    (``utils/fold._focus_kernel_to_conv``). Other keys pass through."""
+    out = dict(sd)
+    for ls in spec.layers:
+        pre = f"model.{ls.i}.conv."
+        if ls.name != "FusedFocus" or pre + "conv.weight" not in out:
+            continue
+        for k in [k for k in out if k.startswith(pre)]:
+            v, rest = out.pop(k), k[len(pre):]
+            if rest != "conv.weight":  # the BN's leaves
+                out[f"model.{ls.i}.{rest}"] = v
+                continue
+            o, c4, kk, _ = v.shape
+            c = c4 // 4
+            w = v.new_zeros(o, c, 2 * kk, 2 * kk)
+            for oy in range(2):
+                for ox in range(2):
+                    s = oy + 2 * ox
+                    w[:, :, oy::2, ox::2] = v[:, c * s:c * (s + 1)]
+            out[f"model.{ls.i}.conv.weight"] = w
+    return out
+
+
 def load_state_dict(model: DeSeNet, sd: Mapping[str, torch.Tensor]) -> None:
-    """Load ``sd`` into ``model``, allowing only the never-run BNs and BN
-    step counters to be absent and only reference Detect anchor buffers to
-    be extra. Raises on anything else."""
-    sd = {k: v for k, v in sd.items()
+    """Load ``sd`` into ``model``, allowing only the never-run BNs, the
+    training-only modules (``DeSeNet.train_only_keys``) and BN step counters
+    to be absent and only reference Detect anchor buffers to be extra.
+    Raises on anything else. Focus-layout weights load into a FusedFocus
+    row (``focus_to_fused``)."""
+    sd = {k: v for k, v in focus_to_fused(sd, model.spec).items()
           if not k.endswith((".anchors", ".anchor_grid"))}
     res = model.load_state_dict(sd, strict=False)
-    allowed = set(model.quirk_bn_keys())
+    allowed = set(model.quirk_bn_keys() + model.train_only_keys())
     missing = [k for k in res.missing_keys
                if k not in allowed and not k.endswith("num_batches_tracked")]
     if missing or res.unexpected_keys:

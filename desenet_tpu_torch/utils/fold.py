@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 if TYPE_CHECKING:
-    from desenet_tpu_torch.models.layers import C3, ConvBnAct, Focus
+    from desenet_tpu_torch.models.layers import (C3, ConvBnAct, Focus,
+                                                 FusedFocus)
 
 
 def fold_conv_bn(kernel: np.ndarray, bias, gamma, beta, mean, var,
@@ -75,11 +76,19 @@ def _fold_cba(m: ConvBnAct, bn_runs: bool) -> Tuple[np.ndarray, np.ndarray]:
     return w.cpu().numpy(), b.cpu().numpy()
 
 
-def fold_focus(focus: Focus, hw: Tuple[int, int]
+def fold_focus(focus: Focus | FusedFocus, hw: Tuple[int, int]
                ) -> Tuple[np.ndarray, np.ndarray]:
-    """The port's Focus on (H, W) images -> (W6 (6, 6, 3, CO) HWIO, bias
-    (CO,)), both f32, for ``stem_weight_matrix`` and ``stem_conv``. Its conv
-    sees the (H/2, W/2) slice-concat, so its BN is skipped for a 2x2 image."""
+    """The port's Focus or FusedFocus on (H, W) images -> (W6 (6, 6, 3, CO)
+    HWIO, bias (CO,)), both f32, for ``stem_weight_matrix`` and
+    ``stem_conv``. Focus's conv sees the (H/2, W/2) slice-concat, so its BN
+    is skipped for a 2x2 image; FusedFocus's sees the image."""
+    if isinstance(focus.conv, torch.nn.Conv2d):  # FusedFocus: one 6x6 conv
+        c = focus.conv
+        if c.kernel_size != (6, 6) or c.stride != (2, 2) or \
+                c.padding != (2, 2) or c.in_channels != 3:
+            raise ValueError("fold_focus takes FusedFocus(3, CO): a 6x6/s2 "
+                             "pad-2 conv over the image")
+        return _fold_cba(focus, hw[0] * hw[1] > 1)
     cba = focus.conv
     if cba.conv.kernel_size != (3, 3) or cba.conv.stride != (1, 1) or \
             cba.conv.padding != (1, 1) or cba.conv.in_channels != 12:

@@ -119,10 +119,12 @@ def test_npz_state_dict_roundtrip(tmp_path):
                                  for k, v in list(sd.items())[1:]})
 
 
-def test_bundled_json_equals_yaml():
-    with open(config_path("yolov5s_seg")) as fh:
+@pytest.mark.parametrize("name", ["yolov5s_seg", "yolov5m_seg",
+                                  "yolov5l_seg", "yolov5s"])
+def test_bundled_json_equals_yaml(name):
+    with open(config_path(name)) as fh:
         bundled = json.load(fh)
-    with open(jax_config_path("yolov5s_seg")) as fh:
+    with open(jax_config_path(name)) as fh:
         assert bundled == yaml.safe_load(fh)
 
 
@@ -139,14 +141,28 @@ def test_init_weights_is_seeded():
 
 
 @pytest.mark.parametrize("row,exc", [
-    ([-1, 1, "DWConv", [64, 3]], NotImplementedError),
-    ([-1, 1, "C3TR", [64]], NotImplementedError),
+    # the JAX package runs nearest upsampling only
+    ([-1, 1, "nn.Upsample", [None, 2, "bilinear"]], NotImplementedError),
+    # the blocks the DSL cannot name are unknown rows in both packages
+    ([-1, 1, "ARM", [64]], ValueError),
     ([-1, 1, "NoSuchBlock", [64]], ValueError),
 ])
 def test_unported_rows_raise(row, exc):
     with open(config_path("yolov5s_seg")) as fh:
         cfg = json.load(fh)
     cfg["backbone"] = cfg["backbone"][:1] + [row] + cfg["backbone"][2:]
-    with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError
+    with pytest.raises(exc, match="not ported" if exc is NotImplementedError
                        else "unknown"):
         parse_config(cfg)
+
+
+@pytest.mark.parametrize("row", [[-1, 1, "DWConv", [64, 3]],
+                                 [-1, 1, "C3TR", [64]]])
+def test_formerly_unported_rows_build(row):
+    """The rows test_unported_rows_raise listed before every DSL row was
+    ported."""
+    with open(config_path("yolov5s_seg")) as fh:
+        cfg = json.load(fh)
+    cfg["backbone"] = cfg["backbone"][:1] + [row] + cfg["backbone"][2:]
+    spec = parse_config(cfg)
+    assert spec.layers[1].name == row[2]

@@ -282,9 +282,13 @@ def test_greedy_nms_ordered_plain_on_the_card(cuda):
 
 @pytest.mark.parametrize("c_hid,dtype", [(128, torch.float32),
                                          (128, torch.bfloat16),
-                                         (256, torch.float32)])
+                                         (256, torch.float32),
+                                         (192, torch.float32),
+                                         (192, torch.bfloat16),
+                                         (256, torch.bfloat16)])
 def test_seg_head_kernel_matches_plain(cuda, full_f32, c_hid, dtype):
-    chans = (2 * c_hid, 2 * c_hid, 4 * c_hid)  # the model family's
+    # the model family's: s (c_hid 128), m (192) and l (256)
+    chans = (2 * c_hid, 2 * c_hid, 4 * c_hid)
     head = random_psp2_head(chans, c_hid).to(cuda)
     xs = [x.to(cuda, dtype) for x in psp2_inputs(2, 80, 80, chans)]
     before = seg_head_pallas.launches

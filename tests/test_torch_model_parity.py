@@ -2,11 +2,16 @@
 
 (a) The tiny_psp2 golden's torch state dict loads straight into the port,
     whose forward must match the reference outputs at atol 2e-5 (the bar
-    tests/test_model_parity.py holds the JAX model to).
-(b, c) JAX variables from ``init_model`` pass through
-    ``state_dict_from_jax``; the port and the JAX model then see the same
-    input, f32 on the CPU, atol 1e-4 (different conv/reduction orders on
-    the CPU; outputs are pixel coordinates up to 640).
+    tests/test_model_parity.py holds the JAX model to); the other heads'
+    goldens are in test_torch_model_family.py.
+(b) JAX variables from ``init_model`` pass through ``state_dict_from_jax``;
+    the port and the JAX model then see the same input, f32 on the CPU,
+    atol 1e-4 (different conv/reduction orders on the CPU; outputs are
+    pixel coordinates up to 640): every seg head (the tiny configs, and
+    SegMaskBiSe on tiny_psp2's graph), every DSL row (tests/
+    test_exotic_blocks.py's EXOTIC_CFG) and the four bundled configs, with
+    the port's stem as Focus (the JAX fused stem's kernel inverted) and as
+    FusedFocus (taken as it is).
 """
 
 import os
@@ -28,6 +33,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def load_cfg(name):
+    if name == "exotic":
+        from test_exotic_blocks import EXOTIC_CFG
+
+        return dict(EXOTIC_CFG)
+    if name == "tiny_bise":  # the reference cannot name BiSe in a config
+        cfg = load_cfg("tiny_psp2")
+        cfg["head"][-2] = [[16, 19, 22], 1, "SegMaskBiSe", ["se_nc", 1, 256]]
+        return cfg
     path = (os.path.join(HERE, "configs", f"{name}.yaml") if name.startswith(
         "tiny") else jax_config_path(name))
     with open(path) as fh:
@@ -54,29 +67,54 @@ def test_golden_tiny_psp2():
     np.testing.assert_allclose(seg.numpy(), ref["seg"], atol=2e-5)
 
 
-@pytest.mark.parametrize("name,seg_upsample", [("tiny_psp2", True),
-                                               ("yolov5s_seg", False)])
-def test_jax_weights_match_jax_forward(name, seg_upsample):
+@pytest.mark.parametrize("name,seg_upsample,fuse_focus", [
+    ("tiny_psp2", True, False),
+    ("yolov5s_seg", False, False),
+    ("tiny_psp2", False, True),
+    ("tiny_psp", True, False),
+    ("tiny_psp", False, True),
+    ("tiny_lab", True, True),
+    ("tiny_lab", False, False),
+    ("tiny_base", True, False),
+    ("tiny_base", False, True),
+    ("tiny_bise", True, True),
+    ("tiny_bise", False, False),
+    ("exotic", True, False),
+    ("exotic", True, True),
+    ("yolov5s_seg", False, True),
+    ("yolov5m_seg", False, True),
+    ("yolov5l_seg", False, True),
+    ("yolov5s", True, True),
+])
+def test_jax_weights_match_jax_forward(name, seg_upsample, fuse_focus):
     cfg = load_cfg(name)
     jmodel, _ = jax_build_model(cfg, seg_upsample=seg_upsample)
     variables = jax.device_get(
         init_model(jmodel, jax.random.PRNGKey(0), img_size=64, batch=1))
     flat = traverse_util.flatten_dict(variables, sep="/")
 
-    model, spec = build_model(cfg, seg_upsample=seg_upsample)
+    model, spec = build_model(cfg, seg_upsample=seg_upsample,
+                              fuse_focus=fuse_focus)
+    assert spec.layers[0].name == ("FusedFocus" if fuse_focus else "Focus")
     sd, unfilled = state_dict_from_jax(flat, spec)
-    assert unfilled == model.quirk_bn_keys()
+    # JAX's eval init makes no variables for BiSe's training-only aux heads
+    assert unfilled == sorted(model.quirk_bn_keys()
+                              + model.train_only_keys())
+    assert all(".aux" in k for k in model.train_only_keys())
     load_state_dict(model, sd)
 
-    b = 2 if name.startswith("tiny") else 1
+    b = 2 if name.startswith("tiny") or name == "exotic" else 1
     x = np.random.default_rng(0).uniform(0, 1, (b, 64, 64, 3)).astype(
         np.float32)
     (jdec, jfeats), jseg = jmodel.apply(variables, x, train=False)
     with torch.no_grad():
         (dec, feats), seg = model(nchw(x))
-    assert seg.shape[2:] == ((64, 64) if seg_upsample else (8, 8))
     np.testing.assert_allclose(dec.numpy(), np.asarray(jdec), atol=1e-4)
     for f, jf in zip(feats, jfeats):
         np.testing.assert_allclose(f.numpy(), np.asarray(jf), atol=1e-4)
+    if spec.seg_layer < 0:
+        assert seg is None and jseg is None
+        return
+    assert seg.shape[2:] == ((64, 64) if seg_upsample else (8, 8))
     np.testing.assert_allclose(seg.permute(0, 2, 3, 1).numpy(),
                                np.asarray(jseg), atol=1e-4)

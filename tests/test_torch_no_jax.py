@@ -1,5 +1,6 @@
-"""desenet_tpu_torch imports (every module), serves, validates (on an
-in-memory loader), takes two training steps, runs the training engine's
+"""desenet_tpu_torch imports (every module), serves (a PSP2 and a BiSe
+tiny model, and yolov5m_seg at full width), validates (on an in-memory
+loader), takes two training steps, runs the training engine's
 epoch loop (``train.engine.fit``: one epoch on in-memory batches, the EMA
 validated, checkpoints written, reloaded and stripped) and runs its kernel
 probes (K5, K6) with the JAX package
@@ -85,6 +86,24 @@ img = np.random.default_rng(0).integers(0, 256, (64, 64, 3), dtype=np.uint8)
 res = pred(img)
 assert len(res) == 1 and res.masks[0].shape == (64, 64)
 assert res.xyxy[0].shape[1] == 6
+
+# another seg head (SegMaskBiSe) and the m config at full width, served
+from desenet_tpu_torch.models.heads import (SegMaskBase, SegMaskBiSe,  # noqa
+                                            SegMaskLab, SegMaskPSP)
+from desenet_tpu_torch.models.layers import C3TR, FusedFocus  # noqa: F401
+hcfg = json.loads(json.dumps(cfg))
+hcfg["head"][-2] = [[16, 19, 22], 1, "SegMaskBiSe", ["se_nc", 1, 256]]
+hsd = init_weights(build_model(hcfg)[0],
+                   torch.Generator().manual_seed(0)).state_dict()
+hres = Predictor(hcfg, hsd, imgsz=64, conf_thres=1e-3, half=False,
+                 device="cpu")(img)
+assert hres.masks[0].shape == (64, 64)
+msd = init_weights(build_model(config_path("yolov5m_seg"))[0],
+                   torch.Generator().manual_seed(0)).state_dict()
+mpred = Predictor("yolov5m_seg", msd, imgsz=64, conf_thres=1e-3, half=False,
+                  device="cpu")
+assert mpred.spec.layers[0].name == "FusedFocus"
+assert mpred(img).masks[0].shape == (64, 64)
 
 # the served program through the port's own micro-batching runner
 from desenet_tpu_torch.serve import _Pending

@@ -29,6 +29,15 @@ def test_profile_served_runs_on_the_cpu(capsys):
     assert "aten::" in out
 
 
+@pytest.mark.parametrize("tool", [profile_served, profile_val_step])
+def test_profilers_take_a_config(capsys, tool):
+    assert tool.main(["--device", "cpu", "--batch", "1", "--imgsz", "64",
+                      "--cfg", "yolov5m_seg"]) == 0
+    out = capsys.readouterr().out
+    assert "yolov5m_seg served program b1/64" in out or \
+        "yolov5m_seg val step b1/64" in out, out
+
+
 def test_profile_seg_head_runs_on_the_cpu(capsys):
     assert profile_seg_head.main(["--device", "cpu", "--batch", "1",
                                   "--side", "16"]) == 0

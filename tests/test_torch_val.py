@@ -100,7 +100,8 @@ def test_cli_val_on_exported_npz(dataset, tmp_path):
     data_yaml, batches = dataset
     npz = str(tmp_path / "sd.npz")
     np.savez(npz, **served_weights())
-    want = Validator(port_model(), nc=3, se_nc=2).run(batches)
+    # the CLI builds the one-conv FusedFocus stem, as the JAX package does
+    want = Validator(port_model(fuse_focus=True), nc=3, se_nc=2).run(batches)
     save_dir = str(tmp_path / "run")
     got = cli_val.run(data_yaml, npz, cfg=os.path.join(HERE, "configs",
                                                        "tiny_psp2.yaml"),

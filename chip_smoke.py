@@ -16,7 +16,9 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
    torch.matmul in f32, K1 on testing.NMS_FUSED_CASES (a sparse decode, one
    above the candidate cap, all dead, fewer live than max_det, more kept
    than max_det, many tied scores, exact duplicate boxes, counts on and one
-   over each cap, a dense decode) with the path each image took checked, K2
+   over each cap, a dense decode, the TTA and ensemble decodes at max_det
+   1000 with a class filter and agnostic) with the path each image took
+   checked, K2
    on testing.SEG_TAIL_CASES (the span kernel and the pixel kernel each
    equal to plain, the one the wrapper picked checked: W no multiple of 16,
    other scales, align_corners off, B = 1, C = 19 and 256), K3 on unsorted sets (its argmax loop) and sorted ones (its ordered
@@ -106,7 +108,25 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
    head) and testing.EXOTIC_CFG (every other DSL row) at 64 px on the card
    against the CPU (f32, TF32 off), K2 on each head's 1/8 logits equal to
    plain; (d) the yolov5s_seg served program with the FusedFocus and with
-   the Focus stem in turns at b128/640 bf16, and the two stems alone.
+   the Focus stem in turns at b128/640 bf16, and the two stems alone;
+10. inference and validation, the rest, yolov5s_seg at full width, seed-0
+   weights (seed 1 for an ensemble's second member), bf16, 640 px, every
+   launch counter reset before each path and read after: (a) port
+   checkpoint directories of those weights served through
+   api.load_predictor (4 frames), the detect program of cli.detect at b16
+   plain (equal to Predictor.infer's at max_det 1000), with TTA (55,755
+   anchors; the seg map the plain forward's) and on the two-member
+   ensemble (50,400 anchors), each timed per image; K1 at (16, 55755) and
+   (16, 50400), max_det 1000, classes (0, 2, 4), on a sparse and a dense
+   decode (the TTA dense one above 4096 candidates: the argmax loop) equal
+   to plain with last_paths printed; K2 on the ensemble's f32 seg mean
+   equal to plain; (b) where cv2 imports, cli.detect.main on 16 JPEGs at
+   640 with --save-txt --save-conf --save-crop, then with --augment, the
+   files written counted; then the TTA val step at b32/640 (timed,
+   Validator.run once), K3 on its own top-16384 set with keep-sets
+   identical to plain, and with the fused seg head K4 launched once a
+   variant and held on the 544 and 448 px variants' neck maps against
+   plain (check_psp2).
 
 Inputs of the kernel checks come from desenet_tpu_torch.testing, shared with
 tests/test_torch_kernels_cuda.py.
@@ -1701,6 +1721,318 @@ def phase9(card: str, errs: dict, extras: dict) -> dict:
     return launches
 
 
+B_DET = 16
+DET_MAX = 1000
+
+
+def phase10(card: str, sd: dict, errs: dict, extras: dict) -> dict:
+    """Inference and validation, the rest: checkpoints served through
+    load_predictor, the detect program plain, with TTA and on a two-member
+    ensemble, K1 at the TTA and ensemble anchor counts with max_det 1000
+    and a class filter, K2 on the ensemble's f32 seg mean, the TTA val
+    step with K3 on its own top set and K4 at the 544 and 448 px variants,
+    then cli.detect end to end where cv2 imports; returns the kernels'
+    launches on these paths."""
+    import tempfile
+
+    from desenet_tpu_torch.api import load_predictor
+    from desenet_tpu_torch.cli.detect import detect_program, load_detector
+    from desenet_tpu_torch.eval import Validator
+    from desenet_tpu_torch.eval.tta import forward_augment, forward_augment_joint
+    from desenet_tpu_torch.eval.validator import _to_input
+    from desenet_tpu_torch.models import build_model, config_path, init_weights
+    from desenet_tpu_torch.ops import (nms_fused, nms_pallas, seg_head_pallas,
+                                       seg_pallas)
+    from desenet_tpu_torch.ops.nms import MAX_WH, PRE_TOPK_VAL, _prep_candidates
+    from desenet_tpu_torch.testing import (check_psp2, dense_decode,
+                                           synthetic_decode)
+    from desenet_tpu_torch.utils import checkpoint as ckpt
+    from desenet_tpu_torch.utils.convert import load_state_dict
+
+    dev = torch.device("cuda")
+    counters = (nms_fused, seg_pallas, nms_pallas, seg_head_pallas)
+    names = ("nms_fused", "seg_tail", "nms_greedy", "seg_head_psp2")
+    launches = dict.fromkeys(names, 0)
+
+    def drive(fn, *args):
+        """Run ``fn`` as a main path: every launch counter at 0 before,
+        read into ``launches`` after."""
+        for c in counters:
+            c.launches = 0
+        out = fn(*args)
+        torch.cuda.synchronize()
+        for n, c in zip(names, counters):
+            launches[n] += c.launches
+        return out, {n: c.launches for n, c in zip(names, counters)}
+
+    model, spec = build_model(config_path("yolov5s_seg"))
+    sd1 = init_weights(model, torch.Generator().manual_seed(1)).state_dict()
+    del model
+    meta = {"cfg": "yolov5s_seg", "imgsz": IMGSZ, "de_nc": spec.de_nc,
+            "se_nc": spec.se_nc,
+            "de_names": [f"d{i}" for i in range(spec.de_nc)],
+            "se_names": [f"s{i}" for i in range(spec.se_nc)]}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_detect_") as tmp:
+        dirs = []
+        for k, w in enumerate((sd, sd1)):
+            params, stats = ckpt.split_stats(w)
+            dirs.append(os.path.join(tmp, f"s{k}"))
+            ckpt._write(dirs[-1], {"params": params, "batch_stats": stats},
+                        meta)
+
+        # (a) a checkpoint served through load_predictor
+        rng = np.random.default_rng(10)
+        frames = [rng.integers(0, 256, (IMGSZ, IMGSZ, 3), dtype=np.uint8)
+                  for _ in range(4)]
+        pred = load_predictor(dirs[0], imgsz=IMGSZ, max_det=DET_MAX,
+                              device="cuda")
+        res, k = drive(pred, frames)
+        if (len(res) != 4 or k["nms_fused"] < 1 or k["seg_tail"] < 1
+                or pred.names != meta["de_names"]
+                or any(m.shape != (IMGSZ, IMGSZ) or int(m.max()) >= spec.se_nc
+                       for m in res.masks)
+                or any(d.shape[1] != 6 or not np.isfinite(d).all()
+                       for d in res.xyxy)):
+            raise AssertionError(f"load_predictor served {res!r}, launches {k}")
+        log(10, f"load_predictor on a checkpoint directory of the seed-0 "
+            f"weights: 4 frames at {IMGSZ}, dets per frame "
+            f"{[len(d) for d in res.xyxy]}, launches {k}")
+
+        # the detect program at b16: plain, TTA, a two-member ensemble
+        det, _, _ = load_detector(dirs[:1], True, "cuda")
+        ens, _, _ = load_detector(dirs, True, "cuda")
+        g = torch.Generator(device=dev).manual_seed(10)
+        u8 = torch.randint(0, 256, (B_DET, IMGSZ, IMGSZ, 3), dtype=torch.uint8,
+                           device=dev, generator=g)
+        x = _to_input(u8, torch.bfloat16, dev)
+        with torch.inference_mode():
+            anchors = (forward_augment(det, x).shape[1],
+                       ens(x)[0][0].shape[1])
+        if anchors != (55755, 50400):
+            raise AssertionError(f"TTA / ensemble decodes of {anchors} "
+                                 "anchors, expected 55755 / 50400")
+        runs = {"plain": (det, False), "TTA": (det, True),
+                "ensemble": (ens, False)}
+        outs = {}
+        for what, (m, aug) in runs.items():
+            (nms, seg), k = drive(detect_program, m, u8, 0.25, 0.45, DET_MAX,
+                                  None, False, aug)
+            if (k["nms_fused"] != 1 or k["seg_tail"] != 1
+                    or tuple(nms.boxes.shape) != (B_DET, DET_MAX, 4)
+                    or tuple(seg.shape) != (B_DET, IMGSZ, IMGSZ)
+                    or int(seg.max()) >= spec.se_nc
+                    or not bool(torch.isfinite(nms.boxes).all())):
+                raise AssertionError(f"detect program ({what}): launches {k}")
+            outs[what] = (nms, seg)
+        # the plain program is Predictor.infer's at max_det 1000; with TTA
+        # the seg map stays the plain forward's
+        want = pred.infer(u8)
+        if not (torch.equal(outs["plain"][1], want[1])
+                and torch.equal(outs["TTA"][1], want[1])
+                and torch.equal(outs["plain"][0].num, want[0].num)):
+            raise AssertionError("the detect program differs from "
+                                 "Predictor.infer")
+        ms = {what: cuda_ms(lambda m=m, aug=aug: detect_program(
+            m, u8, 0.25, 0.45, DET_MAX, None, False, aug), 5)
+            for what, (m, aug) in runs.items()}
+        log(10, f"detect program b{B_DET}/{IMGSZ} bf16 (uint8 in, forward, "
+            f"K1 at max_det {DET_MAX}, K2): plain {ms['plain'] / B_DET:.4f} "
+            f"ms an image, TTA {ms['TTA'] / B_DET:.4f} (55755 anchors), "
+            f"ensemble of two {ms['ensemble'] / B_DET:.4f} (50400 anchors); "
+            f"the plain program equal to Predictor.infer's, TTA's seg map "
+            f"the plain forward's [{card}]")
+
+        # K1 at the TTA and ensemble anchor counts, max_det 1000, a class
+        # filter; the dense decodes cross 4096 candidates with the TTA count
+        for what, a, gen, kw in (
+                ("TTA sparse", 55755, "synthetic", dict(frac=0.01)),
+                ("TTA dense", 55755, "dense", dict(live=9000, objects=100)),
+                ("ensemble sparse", 50400, "synthetic", dict(frac=0.01)),
+                ("ensemble dense", 50400, "dense",
+                 dict(live=6000, objects=100))):
+            r = np.random.default_rng(11)
+            dec = (synthetic_decode(r, B_DET, a, 6, kw["frac"])
+                   if gen == "synthetic" else
+                   dense_decode(r, B_DET, a, 6, kw["live"], kw["objects"]))
+            planes = nms_fused.nms_planes(torch.from_numpy(dec).to(dev), 0.25,
+                                          classes=(0, 2, 4))
+            got = nms_fused.greedy_select(*planes, DET_MAX, 0.45)
+            paths = nms_fused.last_paths.tolist()
+            ref = nms_fused.greedy_select_plain(*planes, DET_MAX, 0.45)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"K1 {what} ({B_DET}, {a}) differs from "
+                                     "plain")
+            n_cand = float((planes[4] > 0).sum(1).float().mean())
+            picks = float((got[..., 4] > 0).sum(1).float().mean())
+            p, kk = in_turns(
+                (lambda: nms_fused.greedy_select_plain(*planes, DET_MAX, 0.45),
+                 1),
+                (lambda: nms_fused.greedy_select(*planes, DET_MAX, 0.45), 10))
+            bound = tm.nms_fused_bound(B_DET, a, DET_MAX, n_cand, picks)
+            on = ("argmax loop" if set(paths) == {nms_fused.PATH_ARGMAX}
+                  else "ordered walk" if set(paths) == {nms_fused.PATH_ORDERED}
+                  else f"paths {paths}")
+            extras.setdefault("nms_fused", {})[
+                f"{what.replace(' ', '_')}_ms"] = kk
+            log(10, f"K1 nms_fused {what} ({B_DET}, {a}), classes (0, 2, 4), "
+                f"{n_cand:.0f} candidates and {picks:.0f} picks an image, "
+                f"max_det {DET_MAX}: identical to plain, {on} "
+                f"(last_paths {paths}); kernel {kk:.3f} ms, plain {p:.3f} ms, "
+                f"bound {bound[0]:.4f} ms ({bound[1]}) [{card}]")
+
+        # K2 on the ensemble's f32 mean of 1/8 logits
+        with torch.inference_mode():
+            mean = ens(x)[1].permute(0, 2, 3, 1).contiguous()
+        if mean.dtype != torch.float32:
+            raise AssertionError(f"ensemble seg mean in {mean.dtype}")
+        h8, w8 = mean.shape[1:3]
+        taps = (*seg_pallas.seg_taps(h8, h8 * 8, True, dev),
+                *seg_pallas.seg_taps(w8, w8 * 8, True, dev))
+        got = seg_pallas.upsample_argmax(mean, 8, True)
+        variant = seg_pallas.last_variant
+        if not torch.equal(got, seg_pallas.upsample_argmax_plain(mean, *taps)):
+            raise AssertionError("K2 on the ensemble's f32 seg mean differs "
+                                 "from plain")
+        nchw = mean.permute(0, 3, 1, 2)
+        p, kk, lib = in_turns(
+            (lambda: seg_pallas.upsample_argmax_plain(mean, *taps), 3),
+            (lambda: seg_pallas.upsample_argmax(mean, 8, True), 20),
+            (lambda: torch.nn.functional.interpolate(
+                nchw, scale_factor=8, mode="bilinear",
+                align_corners=True).argmax(1), 10))
+        bound = tm.seg_tail_bound(B_DET, h8, w8, spec.se_nc, 8, itemsize=4)
+        extras.setdefault("seg_tail", {})["ensemble_f32_ms"] = kk
+        log(10, f"K2 seg_tail on the ensemble's f32 mean ({B_DET}, {h8}, "
+            f"{w8}, {spec.se_nc}): identical to plain, {variant} kernel "
+            f"{kk:.3f} ms, plain {p:.3f} ms, interpolate + argmax {lib:.3f} "
+            f"ms, bound {bound[0]:.4f} ms ({bound[1]}) [{card}]")
+
+        # (b) the CLI end to end, where cv2 imports
+        try:
+            import cv2
+        except ImportError:
+            cv2 = None
+        if cv2 is None:
+            log(10, "(b) cv2 not importable: cli.detect not run")
+        else:
+            from desenet_tpu_torch.cli import detect as cli_detect
+
+            src = os.path.join(tmp, "src")
+            os.makedirs(src)
+            for i in range(16):
+                cv2.imwrite(os.path.join(src, f"f{i:02d}.jpg"),
+                            rng.integers(0, 256, (IMGSZ, IMGSZ, 3), np.uint8))
+            for extra in ([], ["--augment"]):
+                t = time.perf_counter()
+                out, k = drive(cli_detect.main, [
+                    "--weights", dirs[0], "--source", src, "--img-size",
+                    str(IMGSZ), "--conf-thres", "0.001", "--max-det", "30",
+                    "--save-txt", "--save-conf", "--save-crop", "--project",
+                    os.path.join(tmp, "det"), "--device", "cuda"] + extra)
+                wall = time.perf_counter() - t
+                files = sum(len(fs) for _, _, fs in os.walk(out))
+                labels = len(os.listdir(os.path.join(out, "labels")))
+                if (k["nms_fused"] != 16 or k["seg_tail"] != 16
+                        or files < 32 + labels):
+                    raise AssertionError(f"cli.detect {extra}: {files} files,"
+                                         f" launches {k}")
+                log(10, f"(b) cli.detect {' '.join(extra) or 'plain'} on 16 "
+                    f"JPEGs at {IMGSZ}: {files} files written ({labels} "
+                    f"label files), {wall:.3f} s wall, launches {k}")
+
+    # the TTA validation step at b32/640, K3 on its own top set, K4 at the
+    # 544 and 448 px variants
+    model, _ = build_model(config_path("yolov5s_seg"))
+    load_state_dict(model, sd)
+    model = model.to(dev, torch.bfloat16, memory_format=torch.channels_last)
+    batch = val_batches(12, 1, B_VAL, IMGSZ, spec.de_nc, spec.se_nc)[0]
+    img, tg, tmask = (torch.from_numpy(np.asarray(batch[k])).to(dev) for k in (
+        "image", "det_targets", "det_mask"))
+    validator = Validator(model, nc=spec.de_nc, se_nc=spec.se_nc,
+                          augment=True)
+    (nms, seg), k = drive(validator.eval_step, img, tg, tmask)
+    if k["nms_greedy"] != 1 or tuple(seg.shape) != (B_VAL, IMGSZ, IMGSZ):
+        raise AssertionError(f"TTA val step: launches {k}")
+    step_ms = cuda_ms(lambda: validator.eval_step(img, tg, tmask), 3)
+    res, k = drive(validator.run, [batch])
+    vals = [res[n] for n in ("mp", "mr", "map50", "map", "miou", "pix_acc")]
+    if res["seen"] != B_VAL or not all(0 <= v <= 1 for v in vals):
+        raise AssertionError(f"TTA Validator.run: {res}")
+    log(10, f"TTA val step b{B_VAL}/{IMGSZ} bf16 (forward at 640, 544 and "
+        f"448, 55755 anchors x {spec.de_nc} classes into the top "
+        f"{PRE_TOPK_VAL}, K3, the f32 seg mean): {step_ms:.3f} ms a batch = "
+        f"{step_ms / B_VAL:.4f} ms an image; Validator.run mIoU "
+        f"{res['miou']:.4f}, launches {k} [{card}]")
+
+    head = model.model[spec.seg_layer]
+    seen = []
+    hook = head.register_forward_pre_hook(lambda m, a: seen.append(a[0]))
+    try:
+        with torch.inference_mode():
+            x = _to_input(img, torch.bfloat16, dev)
+            dec, _ = forward_augment_joint(model, x)
+            boxes, scores, cls = _prep_candidates(dec.float(), 0.001,
+                                                  PRE_TOPK_VAL, True)
+    finally:
+        hook.remove()
+    boxes = (boxes + cls[..., None] * float(MAX_WH)).contiguous()
+    scores = scores.contiguous()
+    idx, sc = nms_pallas.greedy_nms_pallas(boxes, scores, 0.6, 300)
+    paths = nms_pallas.last_paths.tolist()
+    ridx, rsc = nms_pallas.greedy_nms_plain(boxes, scores, 0.6, 300)
+    torch.cuda.synchronize()
+    if not torch.equal(idx, ridx) or not torch.equal(sc, rsc):
+        raise AssertionError("K3 on the TTA top set: keep-sets differ from "
+                             "plain")
+    live = float((scores > 0).sum(1).float().mean())
+    picks = float((sc > 0).sum(1).float().mean())
+    p, kk = in_turns(
+        (lambda: nms_pallas.greedy_nms_plain(boxes, scores, 0.6, 300), 1),
+        (lambda: nms_pallas.greedy_nms_pallas(boxes, scores, 0.6, 300), 10))
+    bound = tm.nms_greedy_bound(B_VAL, boxes.shape[1], 300, live, picks)
+    extras.setdefault("nms_greedy", {})["tta_ms"] = kk
+    log(10, f"K3 nms_greedy on the TTA step's top set ({B_VAL}, "
+        f"{boxes.shape[1]}) of {dec.shape[1]} anchors x {spec.de_nc} classes,"
+        f" {live:.0f} live and {picks:.0f} picks an image: keep-sets "
+        f"identical to plain, paths {sorted(set(paths))}; kernel {kk:.3f} "
+        f"ms, plain {p:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}) [{card}]")
+
+    # K4: opted in with TTA, one launch a variant; each scaled variant's own
+    # neck maps against plain
+    model.seg_head_fused = True
+    _, k = drive(validator.eval_step, img, tg, tmask)
+    model.seg_head_fused = False
+    if k["seg_head_psp2"] != 3:
+        raise AssertionError(f"TTA val step with the fused head: K4 launched "
+                             f"{k['seg_head_psp2']} times, expected 3")
+    for xs in seen[1:]:
+        nhwc = [t.permute(0, 2, 3, 1).contiguous() for t in xs]
+        b, h8, w8, _ = nhwc[0].shape
+        with torch.inference_mode(), no_tf32():
+            got = seg_head_pallas.fused_psp2_eval(nhwc, head, spec.se_nc)
+            ref = seg_head_pallas.fused_psp2_eval_plain(nhwc, head,
+                                                        spec.se_nc)
+        err, agree = check_psp2(got, ref, torch.bfloat16)
+        errs["seg_head_psp2"] = max(errs.get("seg_head_psp2", 0.0), err)
+        with torch.inference_mode():
+            p, kk = in_turns(
+                (lambda: seg_head_pallas.fused_psp2_eval_plain(
+                    nhwc, head, spec.se_nc), 2),
+                (lambda: seg_head_pallas.fused_psp2_eval(
+                    nhwc, head, spec.se_nc), 5))
+        c_hid = nhwc[0].shape[3] // 2
+        bound = tm.psp2_bound(b, h8, w8, [t.shape[3] for t in nhwc], c_hid,
+                              spec.se_nc)
+        extras.setdefault("seg_head_psp2", {})[f"tta_{h8 * 8}_ms"] = kk
+        log(10, f"K4 seg_head_psp2 on the TTA variant's neck maps ({b}, {h8},"
+            f" {w8}) bf16: within check_psp2's bars (max abs err {err:.6g}, "
+            f"argmax agreement {agree:.6f}); kernel {kk:.3f} ms, plain "
+            f"{p:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}) [{card}]")
+    log(10, f"launches on this phase's paths: {launches}")
+    return launches
+
+
 def main() -> None:
     took = {}
 
@@ -1729,6 +2061,8 @@ def main() -> None:
     launches["nms_greedy"] += timed("7", phase7, card)
     launches["nms_greedy"] += timed("8", phase8, card)
     for k, v in timed("9", phase9, card, errs, extras).items():
+        launches[k] += v
+    for k, v in timed("10", phase10, card, sd, errs, extras).items():
         launches[k] += v
     log("times", "seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in took.items())

@@ -10,7 +10,9 @@ utilities) it keeps as its own copies.
 
 Covered so far: the serving path of ``yolov5s_seg`` (model forward, Detect
 decode, single-label NMS, seg tail), its validation path (multi-label
-NMS, the fused eval seg head, ``eval.Validator``, ``cli.val``) and the two
+NMS, the fused eval seg head, ``eval.Validator``, ``cli.val`` with TTA,
+ensembles and COCO scoring), ``cli.detect`` and ``api.load_predictor``,
+the training path and the two
 probe kernels (the stem conv and the fused C3 block), with the JAX
 package's six Pallas kernels rewritten as CUDA C++ kernels for ``sm_90a``
 (``csrc/``), built with nvcc at first use.

@@ -3,13 +3,14 @@
 Counterpart of ``desenet_tpu/api.py`` without int8, multi-device or the
 space-to-depth stem:
 
-    from desenet_tpu_torch.api import Predictor
+    from desenet_tpu_torch.api import Predictor, load_predictor
     from desenet_tpu_torch.utils.convert import load_npz_state_dict
     pred = Predictor("yolov5s_seg", load_npz_state_dict("sd.npz"))
+    pred = load_predictor("runs/train/exp/best")   # a checkpoint directory
     res = pred([bgr_array, "img.jpg"])
     res.xyxy[0]      # (n, 6) [x1, y1, x2, y2, conf, cls] at native pixels
     res.masks[0]     # (H0, W0) uint8 seg class ids at native resolution
-    res.to_dicts()
+    res.to_dicts(), res.pandas(), res.save("out/"), res.crop("out/crops")
 
 The device program is the JAX package's: uint8 images widened in the
 compute dtype (``x / 255``), the model with the one-conv FusedFocus stem
@@ -32,18 +33,75 @@ from desenet_tpu_torch.models import (build_model, config_path,
 from desenet_tpu_torch.ops import non_max_suppression, np_scale_coords
 from desenet_tpu_torch.ops.seg_pallas import upsample_argmax
 from desenet_tpu_torch.utils.convert import load_state_dict
+from desenet_tpu_torch.utils.general import save_one_box
+from desenet_tpu_torch.utils.plots import Annotator, SegAnnotator, colors
 
 
 class Detections:
     """Result container: per-image boxes and seg masks, numpy."""
 
-    def __init__(self, imgs_bgr, xyxy, masks, names, se_names):
+    def __init__(self, imgs_bgr, xyxy, masks, names, se_names, times=None):
         self.imgs = imgs_bgr  # native BGR images
         self.xyxy = xyxy  # list of (n, 6) [x1,y1,x2,y2,conf,cls]
         self.masks = masks  # list of (H0, W0) class-id masks
         self.names = names
         self.se_names = se_names
         self.n = len(imgs_bgr)
+        self.times = times or {}
+
+    @property
+    def xywh(self) -> List[np.ndarray]:
+        out = []
+        for d in self.xyxy:
+            o = d.copy()
+            o[:, 0] = (d[:, 0] + d[:, 2]) / 2
+            o[:, 1] = (d[:, 1] + d[:, 3]) / 2
+            o[:, 2] = d[:, 2] - d[:, 0]
+            o[:, 3] = d[:, 3] - d[:, 1]
+            out.append(o)
+        return out
+
+    @staticmethod
+    def _normalized(imgs, dets) -> List[np.ndarray]:
+        out = []
+        for im, d in zip(imgs, dets):
+            h, w = im.shape[:2]
+            o = d.copy()
+            o[:, [0, 2]] /= w
+            o[:, [1, 3]] /= h
+            out.append(o)
+        return out
+
+    @property
+    def xyxyn(self) -> List[np.ndarray]:
+        """Boxes normalized by the native image size."""
+        return self._normalized(self.imgs, self.xyxy)
+
+    @property
+    def xywhn(self) -> List[np.ndarray]:
+        return self._normalized(self.imgs, self.xywh)
+
+    def pandas(self, kind: str = "xyxy"):
+        """Per-image DataFrames; ``kind`` in {xyxy, xyxyn, xywh, xywhn}.
+        Needs pandas."""
+        import pandas as pd
+
+        cols = {
+            "xyxy": ["xmin", "ymin", "xmax", "ymax"],
+            "xyxyn": ["xmin", "ymin", "xmax", "ymax"],
+            "xywh": ["xcenter", "ycenter", "width", "height"],
+            "xywhn": ["xcenter", "ycenter", "width", "height"],
+        }[kind]
+        return [pd.DataFrame(
+            [[*r[:4], r[4], int(r[5]), self.names[int(r[5])]] for r in d],
+            columns=cols + ["confidence", "class", "name"])
+            for d in getattr(self, kind)]
+
+    def tolist(self) -> List["Detections"]:
+        """One Detections an image."""
+        return [Detections([self.imgs[i]], [self.xyxy[i]], [self.masks[i]],
+                           self.names, self.se_names, self.times)
+                for i in range(self.n)]
 
     def to_dicts(self) -> List[List[dict]]:
         return [[dict(xmin=float(r[0]), ymin=float(r[1]), xmax=float(r[2]),
@@ -51,6 +109,39 @@ class Detections:
                       cls=int(r[5]), name=self.names[int(r[5])])
                  for r in d]
                 for d in self.xyxy]
+
+    def render(self) -> List[np.ndarray]:
+        """Annotated BGR images: boxes and the seg overlay (cv2)."""
+        seg_ann = SegAnnotator()
+        out = []
+        for im, d, m in zip(self.imgs, self.xyxy, self.masks):
+            ann = Annotator(np.ascontiguousarray(im))
+            for *xyxy, conf, c in d:
+                ann.box_label(xyxy, f"{self.names[int(c)]} {conf:.2f}",
+                              colors(int(c), True))
+            out.append(seg_ann.overlay(ann.result(), m))
+        return out
+
+    def save(self, save_dir: str = "runs/predict"):
+        """``render``'s images as ``image{i}.jpg`` in ``save_dir``."""
+        import cv2
+
+        os.makedirs(save_dir, exist_ok=True)
+        for i, im in enumerate(self.render()):
+            cv2.imwrite(os.path.join(save_dir, f"image{i}.jpg"), im)
+        return save_dir
+
+    def crop(self, save_dir: str = "runs/predict/crops"):
+        """Every box cut out (``utils.general.save_one_box``) as
+        ``{name}_{k}.jpg`` in ``save_dir``."""
+        os.makedirs(save_dir, exist_ok=True)
+        k = 0
+        for im, d in zip(self.imgs, self.xyxy):
+            for *xyxy, conf, c in d:
+                save_one_box(xyxy, im, file=os.path.join(
+                    save_dir, f"{self.names[int(c)]}_{k}.jpg"))
+                k += 1
+        return save_dir
 
     def __len__(self):
         return self.n
@@ -70,7 +161,8 @@ class Predictor:
     rearranged for the FusedFocus stem at load. ``half=True`` runs bf16
     weights and activations (NMS and decode stay f32). ``fuse_focus=False``
     serves the reference's slice-concat Focus stem instead (the same
-    function; for A/B). Raises ValueError for a config with no seg head."""
+    function; for A/B). ``nc``, ``se_nc`` and ``anchors`` override the
+    config's. Raises ValueError for a config with no seg head."""
 
     def __init__(self, cfg, state_dict: Mapping[str, torch.Tensor],
                  imgsz: int = 640, conf_thres: float = 0.25,
@@ -78,12 +170,15 @@ class Predictor:
                  half: bool = True, device="cuda",
                  names: Optional[Sequence[str]] = None,
                  se_names: Optional[Sequence[str]] = None,
-                 fuse_focus: bool = True):
+                 fuse_focus: bool = True, nc: Optional[int] = None,
+                 se_nc: Optional[int] = None,
+                 anchors: Optional[Sequence] = None):
         if isinstance(cfg, str):
             cfg = config_path(cfg)
         self.device = torch.device(device)
         self.dtype = torch.bfloat16 if half else torch.float32
-        model, self.spec = build_model(cfg, seg_upsample=False,
+        model, self.spec = build_model(cfg, nc=nc, se_nc=se_nc,
+                                       seg_upsample=False, anchors=anchors,
                                        fuse_focus=fuse_focus)
         require_seg_head(self.spec, "Predictor")
         load_state_dict(model, state_dict)
@@ -172,3 +267,19 @@ class Predictor:
             masks.append(m)
         return Detections(imgs0, xyxy, masks, names=self.names,
                           se_names=self.se_names)
+
+
+def load_predictor(weights: str, **kw) -> Predictor:
+    """A ``Predictor`` of the port's checkpoint directory ``weights`` (its
+    EMA where it has one): meta.json supplies the config, the class counts
+    and names and autoanchor's anchors where training wrote them; ``kw``
+    goes to ``Predictor``."""
+    from desenet_tpu_torch.utils.checkpoint import load_inference_variables
+
+    sd, meta = load_inference_variables(weights)
+    if meta is None:
+        raise ValueError(f"{weights}: checkpoint has no meta.json")
+    kw = {"names": meta.get("de_names"), "se_names": meta.get("se_names"),
+          "anchors": meta.get("anchors"), **kw}
+    return Predictor(meta["cfg"], sd, nc=meta["de_nc"], se_nc=meta["se_nc"],
+                     **kw)

@@ -9,7 +9,10 @@ directory of the port's training (``best_stripped``, or ``last``/``best``
 through their EMA), whose meta.json names the config and the class counts,
 or a torch-named state dict saved with ``np.savez``
 (``tools/export_torch_sd.py`` writes one from a JAX checkpoint), with the
-class counts from the data yaml. Reading
+class counts from the data yaml; several ``--weights`` run an ensemble
+(``eval/ensemble.py``). ``--augment`` runs test-time augmentation
+(``eval/tta.py``); ``--save-json`` with ``--coco-anno`` re-scores the
+exported predictions by the COCO protocol (``eval/coco.py``). Reading
 the image dataset goes through the port's own ``desenet_tpu_torch.data``
 (validation path only), which needs PIL, PyYAML for the data yaml, and cv2
 where an image is resized.
@@ -39,27 +42,26 @@ def load_weights(weights, cfg, nc: int, se_nc: int):
     place of the arguments) or an npz state dict (the arguments stand)."""
     if not os.path.isdir(weights):
         return load_npz_state_dict(weights), cfg, nc, se_nc, None
-    from desenet_tpu_torch.utils.checkpoint import (inference_state_dict,
-                                                    load_checkpoint)
+    from desenet_tpu_torch.utils.checkpoint import load_inference_variables
 
-    payload = load_checkpoint(weights)
-    meta = payload["meta"] or {}
-    return (inference_state_dict(payload), meta.get("cfg", cfg),
-            int(meta.get("de_nc", nc)), int(meta.get("se_nc", se_nc)),
-            meta.get("anchors"))
+    sd, meta = load_inference_variables(weights)
+    meta = meta or {}
+    return (sd, meta.get("cfg", cfg), int(meta.get("de_nc", nc)),
+            int(meta.get("se_nc", se_nc)), meta.get("anchors"))
 
 
 def load_model(cfg, weights, nc: int, se_nc: int, half: bool = True,
-               device="cuda", seg_head_fused: bool = False):
-    """Build ``cfg`` with full-resolution seg logits and, as the JAX
-    package's validation does, the one-conv FusedFocus stem, load
-    ``weights`` (a port checkpoint directory or an npz state dict,
-    ``load_weights``; a Focus stem's weights are rearranged at load), and
-    place it on ``device`` in bf16 (``half``) or f32."""
+               device="cuda", seg_head_fused: bool = False, **build_kw):
+    """Build ``cfg`` with full-resolution seg logits (unless ``build_kw``
+    says ``seg_upsample=False``) and, as the JAX package's validation does,
+    the one-conv FusedFocus stem, load ``weights`` (a port checkpoint
+    directory or an npz state dict, ``load_weights``; a Focus stem's
+    weights are rearranged at load), and place it on ``device`` in bf16
+    (``half``) or f32."""
     sd, cfg, nc, se_nc, anchors = load_weights(weights, cfg, nc, se_nc)
     model, spec = build_model(config_path(cfg), nc=nc, se_nc=se_nc,
                               seg_head_fused=seg_head_fused, anchors=anchors,
-                              fuse_focus=True)
+                              fuse_focus=True, **build_kw)
     load_state_dict(model, sd)
     device = torch.device(device)
     mf = (torch.channels_last if device.type == "cuda"
@@ -68,20 +70,28 @@ def load_model(cfg, weights, nc: int, se_nc: int, half: bool = True,
     return model.to(device, dtype, memory_format=mf), spec
 
 
-def _refuse_unported(weights, augment=False, int8=False, act_store=None,
-                     coco_anno=""):
-    if not isinstance(weights, (str, os.PathLike)) and len(weights) > 1:
-        raise NotImplementedError(f"ensembles of several --weights {_ROADMAP}")
-    if augment:
-        raise NotImplementedError(f"--augment (test-time augmentation) "
-                                  f"{_ROADMAP}")
+def load_any(cfg, weights, nc: int, se_nc: int, half: bool = True,
+             device="cuda", seg_head_fused: bool = False, **build_kw):
+    """``load_model`` for one of ``weights`` (a path or a list of them);
+    for several, their ``EnsembleModel`` (the members must agree on the
+    class counts). Returns (model, spec)."""
+    if isinstance(weights, (str, os.PathLike)) or len(weights) == 1:
+        w = weights if isinstance(weights, (str, os.PathLike)) else weights[0]
+        return load_model(cfg, w, nc, se_nc, half, device, seg_head_fused,
+                          **build_kw)
+    from desenet_tpu_torch.eval.ensemble import EnsembleModel, load_ensemble
+
+    members = load_ensemble(weights, cfg, nc, se_nc, half, device,
+                            seg_head_fused=seg_head_fused, **build_kw)
+    model = EnsembleModel([m for m, _ in members])
+    return model, model.spec
+
+
+def _refuse_unported(int8=False, act_store=None):
     if int8:
         raise NotImplementedError(f"--int8 inference {_ROADMAP}")
     if act_store is not None:
         raise NotImplementedError(f"--act-store {_ROADMAP}")
-    if coco_anno:
-        raise NotImplementedError(f"COCO-protocol re-scoring (--coco-anno) "
-                                  f"{_ROADMAP}")
 
 
 def run(
@@ -110,18 +120,17 @@ def run(
     device="cuda",
     seg_head_fused=False,
 ):
-    _refuse_unported(weights, augment, int8, act_store, coco_anno)
+    _refuse_unported(int8, act_store)
     from desenet_tpu_torch.data import create_mixed_dataloader
     from desenet_tpu_torch.utils.general import (check_dataset, check_img_size,
                                                  coco80_to_coco91_class)
 
+    # COCO's exports take its 91-id category space
     is_coco = str(data).endswith("coco.yaml")
     data = check_dataset(data)
-    weights = weights if isinstance(weights, (str, os.PathLike)) \
-        else weights[0]
-    model, spec = load_model(cfg, weights, int(data["de"]["nc"]),
-                             int(data["se"]["nc"]), half, device,
-                             seg_head_fused)
+    model, spec = load_any(cfg, weights, int(data["de"]["nc"]),
+                           int(data["se"]["nc"]), half, device,
+                           seg_head_fused)
     imgsz = check_img_size(imgsz, s=max(spec.det_strides))
     nc = 1 if single_cls else int(data["de"]["nc"])
     se_nc = int(data["se"]["nc"])
@@ -135,7 +144,7 @@ def run(
     validator = Validator(
         model, nc=nc, se_nc=se_nc, conf_thres=conf_thres,
         iou_thres=iou_thres, single_cls=single_cls, plots=plots,
-        save_dir=save_dir, names=names, save_txt=save_txt,
+        save_dir=save_dir, names=names, augment=augment, save_txt=save_txt,
         save_conf=save_conf, save_json=save_json, save_hybrid=save_hybrid,
         class_map=coco80_to_coco91_class() if is_coco else None)
     if save_hybrid:
@@ -157,8 +166,20 @@ def run(
     print(f"Speed: {sp[0]:.1f}ms host-stage, {sp[1]:.1f}ms device "
           f"(fwd+decode+NMS), {sp[2]:.1f}ms metrics per image on "
           f"{_device_name(model)}")
+    # COCO-protocol mAP over the exported predictions
     if save_json and save_dir:
-        print("predictions.json written; COCO-protocol re-scoring " + _ROADMAP)
+        anno = coco_anno or os.path.join(data.get("path", "../coco"),
+                                         "annotations",
+                                         "instances_val2017.json")
+        pred_json = os.path.join(save_dir, "predictions.json")
+        if os.path.isfile(anno) and os.path.isfile(pred_json):
+            from desenet_tpu_torch.eval.coco import evaluate_coco
+
+            print(f"\nEvaluating COCO mAP on {pred_json}...")
+            stats = evaluate_coco(anno, pred_json)
+            results["map"], results["map50"] = float(stats[0]), float(stats[1])
+        elif coco_anno:
+            print(f"COCO eval skipped: {anno} or {pred_json} not found")
     return results
 
 
@@ -205,7 +226,8 @@ def parse_opt(argv=None):
                    help="bundled config name or .json/.yaml path")
     p.add_argument("--weights", type=str, nargs="+", required=True,
                    help="checkpoint dir of the port's training, or a "
-                        "torch-named state dict (.npz)")
+                        "torch-named state dict (.npz); more than one runs "
+                        "an ensemble with one joint NMS pass")
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--img-size", "--imgsz", type=int, default=640)
     p.add_argument("--conf-thres", type=float, default=0.001)
@@ -225,14 +247,18 @@ def parse_opt(argv=None):
     p.add_argument("--name", type=str, default="exp")
     p.add_argument("--exist-ok", action="store_true")
     p.add_argument("--workers", type=int, default=8)
-    p.add_argument("--augment", action="store_true", help="not ported")
+    p.add_argument("--augment", action="store_true",
+                   help="test-time augmentation")
     p.add_argument("--save-txt", action="store_true")
     p.add_argument("--save-conf", action="store_true")
     p.add_argument("--save-json", action="store_true")
     p.add_argument("--save-hybrid", action="store_true",
                    help="inject GT labels pre-NMS and save hybrid "
                         "label+prediction txt (auto-labelling)")
-    p.add_argument("--coco-anno", type=str, default="", help="not ported")
+    p.add_argument("--coco-anno", type=str, default="",
+                   help="COCO instances json to re-score --save-json's "
+                        "predictions with (default: <data path>/annotations/"
+                        "instances_val2017.json)")
     p.add_argument("--int8", action="store_true", help="not ported")
     p.add_argument("--act-store", choices=["fp8", "fp8_e5m2"], default=None,
                    help="not ported")
@@ -241,7 +267,7 @@ def parse_opt(argv=None):
 
 def main(argv=None):
     o = parse_opt(argv)
-    _refuse_unported(o.weights, o.augment, o.int8, o.act_store, o.coco_anno)
+    _refuse_unported(o.int8, o.act_store)
     from desenet_tpu_torch.utils.general import (check_dataset,
                                                  increment_path, set_logging)
 
@@ -262,9 +288,9 @@ def main(argv=None):
     return run(
         o.data, o.weights, o.cfg, o.batch_size, o.img_size, o.conf_thres,
         o.iou_thres, o.task, o.single_cls, o.verbose, not o.no_half,
-        o.plots, o.save_dir, o.workers, save_txt=o.save_txt,
-        save_conf=o.save_conf, save_json=o.save_json,
-        save_hybrid=o.save_hybrid, device=o.device,
+        o.plots, o.save_dir, o.workers, augment=o.augment,
+        save_txt=o.save_txt, save_conf=o.save_conf, save_json=o.save_json,
+        save_hybrid=o.save_hybrid, coco_anno=o.coco_anno, device=o.device,
         seg_head_fused=o.seg_head_fused)
 
 

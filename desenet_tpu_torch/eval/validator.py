@@ -23,6 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from desenet_tpu_torch.eval.tta import forward_augment_joint
 from desenet_tpu_torch.utils.metrics import (
     ConfusionMatrix,
     SegMetrics,
@@ -58,10 +59,12 @@ def _to_input(img_u8: torch.Tensor, dtype, device) -> torch.Tensor:
 
 
 class Validator:
-    """``model``: a port ``DeSeNet`` in eval mode with full-resolution seg
-    logits (``seg_upsample=True``) and a seg head (ValueError otherwise),
-    already on ``device`` (default: where its parameters are) in its
-    compute dtype."""
+    """``model``: a port ``DeSeNet`` (or an ``eval.ensemble.EnsembleModel``
+    of them) in eval mode with full-resolution seg logits
+    (``seg_upsample=True``) and a seg head (ValueError otherwise), already
+    on ``device`` (default: where its parameters are) in its compute dtype.
+    ``augment``: test-time augmentation (``eval.tta.forward_augment_joint``)
+    in the device step."""
 
     def __init__(
         self,
@@ -84,10 +87,6 @@ class Validator:
         class_map: Optional[Sequence[int]] = None,
         device=None,
     ):
-        if augment:
-            raise NotImplementedError(
-                "test-time augmentation is not ported to desenet_tpu_torch "
-                "yet (ROADMAP.md, Queue 1 item 9)")
         if hasattr(model, "spec"):
             require_seg_head(model.spec, "Validator")
         self.model = model
@@ -102,6 +101,7 @@ class Validator:
         self.plots = plots
         self.save_dir = save_dir
         self.names = names or {i: str(i) for i in range(nc)}
+        self.augment = augment
         self.save_txt = save_txt
         self.save_conf = save_conf
         self.save_json = save_json
@@ -119,7 +119,12 @@ class Validator:
         [cls, xywhn] and (B, M) mask on the device -> (NMSOutput,
         (B, H, W) uint8 seg class map)."""
         x = _to_input(img_u8, self.dtype, self.device)
-        (dec, _), seg = self.model(x)
+        if self.augment:
+            # the det variants concatenated before NMS, their seg logits
+            # averaged (eval/tta.py)
+            dec, seg = forward_augment_joint(self.model, x)
+        else:
+            (dec, _), seg = self.model(x)
         if self.save_hybrid:
             h, w = x.shape[2:]
             box = tgts[..., 1:5] * torch.tensor([w, h, w, h],

@@ -127,6 +127,18 @@ NMS_FUSED_CASES = (
     ("few anchors", "planes", dict(a=512, live=300, spread=500.0), 64, 0),
     ("few anchors, above the candidate cap", "planes",
      dict(a=5000, live=4500, spread=500.0), 64, 1),
+    # the TTA decode at 640 (25200 + 18207 + 12348 anchors) and a
+    # two-member ensemble's (2 x 25200), at the detect CLI's max_det 1000,
+    # with its class filter and agnostic NMS
+    ("TTA decode", "synthetic", dict(b=4, a=55755, frac=0.01), 1000, 0),
+    ("TTA decode, class filter, agnostic", "synthetic",
+     dict(b=4, a=55755, frac=0.02, classes=(0, 2, 4), agnostic=True), 1000,
+     0),
+    ("TTA dense decode", "dense", dict(b=4, a=55755, live=9000, objects=100),
+     1000, 1),
+    ("ensemble decode", "synthetic", dict(b=4, a=50400, frac=0.01), 1000, 0),
+    ("ensemble dense decode, class filter", "dense",
+     dict(b=4, a=50400, live=6000, objects=100, classes=(1, 3, 5)), 1000, 0),
 )
 
 
@@ -137,13 +149,16 @@ def nms_fused_case(case, seed: int = 0):
     _, gen, kw, _, _ = case
     kw = dict(kw)
     rng = np.random.default_rng(seed)
+    a = kw.pop("a", 25200)
     if gen == "planes":
-        return select_planes(rng, kw.pop("b", 2), kw.pop("a", 25200), **kw)
+        return select_planes(rng, kw.pop("b", 2), a, **kw)
     if gen == "dense":
-        pred = dense_decode(rng, kw["b"], 25200, 6, kw["live"], kw["objects"])
+        pred = dense_decode(rng, kw["b"], a, 6, kw["live"], kw["objects"])
     else:
-        pred = synthetic_decode(rng, kw["b"], 25200, 6, kw["frac"])
-    return nms_planes(torch.from_numpy(pred), 0.25)
+        pred = synthetic_decode(rng, kw["b"], a, 6, kw["frac"])
+    return nms_planes(torch.from_numpy(pred), 0.25,
+                      agnostic=kw.get("agnostic", False),
+                      classes=kw.get("classes"))
 
 
 # Kernel K2's cases: (B, h, w, C, dtype, scale, align_corners, the kernel the
@@ -431,6 +446,28 @@ def tiny_cfg() -> dict:
 
 # the seg-head rows of tests/configs/tiny_{psp,lab,base}.yaml, and BiSe's,
 # which the reference cannot name in a config
+def calibrated_tiny(seed: int = 0, **build_kw):
+    """The tiny graph in eval mode with seeded weights, its BN statistics
+    taken from one batch of noise images and its Detect convs scaled by
+    0.2: spread, unsaturated scores that rarely tie (a random net with
+    identity BNs gives spatially constant features and tied scores).
+    ``build_kw`` goes to ``build_model``."""
+    from desenet_tpu_torch.models import build_model, init_weights
+
+    model, spec = build_model(tiny_cfg(), **build_kw)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.momentum = None  # cumulative average: one batch sets the stats
+    x = torch.rand((4, 3, 64, 64),
+                   generator=torch.Generator().manual_seed(seed + 1))
+    with torch.no_grad():
+        model.train()(x)
+        for conv in model.model[spec.det_layer].m:
+            conv.weight.mul_(0.2)
+    return model.eval()
+
+
 TINY_HEAD_ROWS = {
     "SegMaskPSP": [[16, 19, 22], 1, "SegMaskPSP", ["se_nc", 3, 256, False]],
     "SegMaskLab": [[4, 19], 1, "SegMaskLab", ["se_nc", 1, 256, False]],

@@ -137,6 +137,17 @@ def inference_state_dict(payload: Mapping) -> Dict[str, torch.Tensor]:
     return {**payload["params"], **payload.get("batch_stats", {})}
 
 
+def load_inference_variables(path: str
+                             ) -> Tuple[Dict[str, torch.Tensor],
+                                        Optional[Dict[str, Any]]]:
+    """(state dict, meta) of the checkpoint directory ``path`` for
+    inference: its EMA where it has one (``inference_state_dict``), and its
+    meta.json (None where it has none). A JAX (orbax) checkpoint raises, as
+    ``load_checkpoint`` does."""
+    payload = load_checkpoint(path)
+    return inference_state_dict(payload), payload["meta"]
+
+
 @torch.no_grad()
 def restore_train_state(state: TrainState, payload: Mapping) -> TrainState:
     """Fill ``state`` (made by ``create_train_state`` for the checkpoint's

@@ -1,11 +1,12 @@
 """General host utilities of the entry points: dataset yaml checks,
 image-size rounding, run-dir increment, logging, the COCO class map, and for
 training the seeds, the latest run, class and image weights and early
-stopping.
+stopping; for detection the coloured console string and the box crop.
 
 The port's own copy of those functions of ``desenet_tpu/utils/general.py``
 (and ``make_divisible``, which they call); numpy and the standard library at
-module level, PyYAML imported where a yaml file that is not JSON is read.
+module level, PyYAML imported where a yaml file that is not JSON is read,
+cv2 where a crop is written.
 """
 
 from __future__ import annotations
@@ -40,6 +41,19 @@ def init_seeds(seed: int = 0) -> torch.Generator:
     random.seed(seed)
     np.random.seed(seed)
     return torch.Generator().manual_seed(seed)
+
+
+def colorstr(*input):
+    """colorstr('blue', 'hello world') -> the string in ANSI colours."""
+    *args, string = input if len(input) > 1 else ("blue", "bold", input[0])
+    colors = {
+        "black": "\033[30m", "red": "\033[31m", "green": "\033[32m",
+        "yellow": "\033[33m", "blue": "\033[34m", "magenta": "\033[35m",
+        "cyan": "\033[36m", "white": "\033[37m", "bright_red": "\033[91m",
+        "bright_green": "\033[92m", "bright_yellow": "\033[93m",
+        "bold": "\033[1m", "underline": "\033[4m", "end": "\033[0m",
+    }
+    return "".join(colors[x] for x in args) + f"{string}" + colors["end"]
 
 
 def load_yaml(path) -> Dict:
@@ -171,3 +185,27 @@ def coco80_to_coco91_class() -> List[int]:
         59, 60, 61, 62, 63, 64, 65, 67, 70, 72, 73, 74, 75, 76, 77, 78, 79,
         80, 81, 82, 84, 85, 86, 87, 88, 89, 90,
     ]
+
+
+def save_one_box(xyxy, im, file="crop.jpg", gain=1.02, pad=10, square=False,
+                 BGR=True, save=True):
+    """Crop a box, grown by ``gain`` and ``pad`` pixels (squared with
+    ``square``) and clipped to the image, from ``im``; write it to ``file``
+    with cv2 where ``save``. Returns the crop."""
+    b = np.asarray(xyxy, np.float32).reshape(4)
+    cx, cy = (b[0] + b[2]) / 2, (b[1] + b[3]) / 2
+    bw, bh = (b[2] - b[0]), (b[3] - b[1])
+    if square:
+        bw = bh = max(bw, bh)
+    bw, bh = bw * gain + pad, bh * gain + pad
+    x1 = int(max(cx - bw / 2, 0))
+    y1 = int(max(cy - bh / 2, 0))
+    x2 = int(min(cx + bw / 2, im.shape[1]))
+    y2 = int(min(cy + bh / 2, im.shape[0]))
+    crop = im[y1:y2, x1:x2, :: (1 if BGR else -1)]
+    if save:
+        import cv2
+
+        Path(file).parent.mkdir(parents=True, exist_ok=True)
+        cv2.imwrite(str(file), crop)
+    return crop

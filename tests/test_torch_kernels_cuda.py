@@ -430,3 +430,37 @@ def test_train_step_matches_cpu(cuda, dtype, fused):
     with no_tf32():
         res = train_parity(torch.device("cuda"), fused, dtype)
     check_train_parity(res, dtype, f"fused {fused}, {dtype}")
+
+
+@pytest.mark.parametrize("members,augment", [(1, False), (1, True),
+                                             (2, True)])
+def test_detect_program_matches_cpu(cuda, full_f32, members, augment):
+    """cli.detect's device program (forward, K1 at max_det 1000 with a
+    class filter, K2 on the 1/8 logits: f32 means of the members where
+    there are two) on the card against the CPU, tiny model at 64 px in
+    f32: the same detection counts and classes, boxes within 1e-4 of the
+    largest coordinate (random weights give boxes of some 800 px) and
+    scores within 1e-4 (TTA's resizes and its division by 0.83 and 0.67
+    carry the two devices' f32 sums to 1.2e-5 of the largest coordinate
+    and 2.3e-5 in a score), seg maps equal on 99.9% of pixels."""
+    from desenet_tpu_torch.cli.detect import detect_program
+    from desenet_tpu_torch.eval.ensemble import EnsembleModel
+    from desenet_tpu_torch.testing import calibrated_tiny
+
+    models = [calibrated_tiny(s, seg_upsample=False, fuse_focus=True)
+              for s in range(members)]
+    cpu = EnsembleModel(models) if members > 1 else models[0]
+    img = torch.randint(0, 256, (3, 64, 64, 3), dtype=torch.uint8,
+                        generator=torch.Generator().manual_seed(1))
+    want = detect_program(cpu, img, 0.005, classes=(0, 2), augment=augment)
+    k1, k2 = nms_fused.launches, seg_pallas.launches
+    got = detect_program(cpu.to(cuda), img.to(cuda), 0.005, classes=(0, 2),
+                         augment=augment)
+    assert (nms_fused.launches - k1, seg_pallas.launches - k2) == (1, 1)
+    (gn, gseg), (wn, wseg) = got, want
+    assert torch.equal(gn.num.cpu(), wn.num) and int(wn.num.sum()) > 0
+    assert torch.equal(gn.classes.cpu(), wn.classes)
+    assert (gn.boxes.cpu() - wn.boxes).abs().max() <= \
+        1e-4 * wn.boxes.abs().max()
+    assert (gn.scores.cpu() - wn.scores).abs().max() <= 1e-4
+    assert (gseg.cpu() == wseg).float().mean() >= 0.999

@@ -2,11 +2,13 @@
 tiny model, and yolov5m_seg at full width), validates (on an in-memory
 loader), takes two training steps, runs the training engine's
 epoch loop (``train.engine.fit``: one epoch on in-memory batches, the EMA
-validated, checkpoints written, reloaded and stripped) and runs its kernel
-probes (K5, K6) with the JAX package
-``desenet_tpu``, JAX, flax, optax, orbax, cv2 and PyYAML blocked: the port
-never needs JAX or the JAX package, and the card's machine may lack cv2 and
-PyYAML. A second test reads the port's sources and ``chip_smoke.py`` with
+validated, checkpoints written, reloaded and stripped), serves a checkpoint
+through ``load_predictor``, runs the detect program plain, with TTA and on
+an ensemble, validates an ensemble with TTA, scores by the COCO protocol
+and runs its kernel probes (K5, K6) with the JAX package
+``desenet_tpu``, JAX, flax, optax, orbax, cv2, PyYAML, matplotlib and
+pandas blocked: the port never needs JAX or the JAX package, and the
+card's machine may lack the other four. A second test reads the port's sources and ``chip_smoke.py`` with
 ``ast`` and fails on any import of those, at module level or inside a
 function."""
 
@@ -20,7 +22,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = r"""
 import sys
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "orbax.checkpoint",
-           "cv2", "yaml")
+           "cv2", "yaml", "matplotlib", "pandas")
 for m in BLOCKED:
     sys.modules[m] = None  # any import of these raises ImportError
 
@@ -42,6 +44,10 @@ import json
 import pkgutil
 import numpy as np
 import torch
+
+# one intra-op thread: the test workers run beside it, and torch's spinning
+# pool slows tenfold when the cores are oversubscribed
+torch.set_num_threads(1)
 
 import desenet_tpu_torch
 from desenet_tpu_torch.api import Predictor
@@ -174,6 +180,45 @@ with tempfile.TemporaryDirectory() as tmp:
     assert checkpoint.load_checkpoint(save_dir + "/best_stripped")["params"]
     with open(save_dir + "/opt.yaml") as fh:
         assert json.load(fh)["device"] == "cpu"
+
+# the inference and validation slice: a checkpoint served through
+# load_predictor, the detect program (K1, K2) plain, with TTA and on an
+# ensemble, Validator with TTA on the ensemble, the COCO scorer, the plot
+# targets and feature maps
+from desenet_tpu_torch.api import load_predictor
+from desenet_tpu_torch.cli import detect as cli_detect
+from desenet_tpu_torch.eval.coco import evaluate_coco
+from desenet_tpu_torch.eval.ensemble import EnsembleModel
+from desenet_tpu_torch.utils import plots
+with tempfile.TemporaryDirectory() as tmp:
+    with open(tmp + "/tiny.json", "w") as fh:
+        json.dump(cfg, fh)
+    params, stats = checkpoint.split_stats(sd)
+    checkpoint._write(tmp + "/ckpt", {"params": params, "batch_stats": stats},
+                      {"cfg": tmp + "/tiny.json", "de_nc": 3, "se_nc": 2,
+                       "de_names": ["a", "b", "c"], "se_names": ["x", "y"]})
+    lp = load_predictor(tmp + "/ckpt", imgsz=64, conf_thres=1e-3, half=False,
+                        device="cpu")
+    lres = lp(img)
+    assert np.array_equal(lres.xyxy[0], res.xyxy[0])
+    assert lres.to_dicts()[0][0]["name"] in lp.names == ["a", "b", "c"]
+    assert len(lres.xywhn[0]) == len(lres.tolist()[0].xyxy[0])
+    det_model, _, meta = cli_detect.load_detector([tmp + "/ckpt"], False, "cpu")
+    ens, _, _ = cli_detect.load_detector([tmp + "/ckpt"] * 2, False, "cpu")
+    u8 = torch.from_numpy(img)[None]
+    for m, aug in ((det_model, False), (det_model, True), (ens, True)):
+        nms, seg_cls = cli_detect.detect_program(m, u8, 1e-3, augment=aug)
+        assert seg_cls.shape == (1, 64, 64) and nms.boxes.shape[1] == 1000
+    val_ens = EnsembleModel([val_model, val_model])
+    em = Validator(val_ens, nc=3, se_nc=2, augment=True).run(batches)
+    assert em["seen"] == 4, em
+assert plots.output_to_target(nms).shape[1] == 7
+assert len(plots.feature_maps(tiny, torch.rand(1, 3, 64, 64))) > 10
+anno = {"images": [{"id": 1}], "categories": [{"id": 1}], "annotations": [
+    {"id": 1, "image_id": 1, "category_id": 1, "bbox": [0, 0, 9, 9]}]}
+pred_rec = [{"image_id": 1, "category_id": 1, "bbox": [0, 0, 9, 9],
+             "score": 0.9}]
+assert evaluate_coco(anno, pred_rec, quiet=True)[1] == 1.0
 
 # the K5/K6 slice's entry points
 import contextlib, io

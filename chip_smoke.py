@@ -10,7 +10,9 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
 1. build: nvcc builds the kernels from desenet_tpu_torch/csrc, one process
    per source, all at once (ptxas lines; the tensor-core kernels of K4, K5
    and K6 must not spill, and their SASS must hold HMMA instructions where
-   cuobjdump is at hand);
+   cuobjdump is at hand), and beside them the host compiler builds the
+   native host library from csrc/host (desenet_tpu_torch/native.py), with
+   libjpeg where jpeglib.h is found;
 2. each kernel against its plain PyTorch version on the card: the shared
    tensor-core tile alone (one bf16 1x1 stage, K 512, N 256) against
    torch.matmul in f32, K1 on testing.NMS_FUSED_CASES (a sparse decode, one
@@ -90,10 +92,14 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
    steps (torch.profiler), peak allocated memory; (b) when PIL and cv2
    import: cli.train.main end to end on a fake dataset (32 train and 8 val
    images at 640, desenet_tpu_torch.tools.make_fake_dataset) at batch 16
-   for 1 epoch with mosaic and autoanchor on, and the host's data time per
-   batch (the loader alone, one thread a batch; and the samples with every
-   worker thread busy) beside the device's step time at b16; without them
-   one line says that (b) did not run and why;
+   for 1 epoch with mosaic and autoanchor on, the device's step time at
+   b16, then on those 640 px sources and on 32 oversized 1280 px ones: the
+   native rasterizer's masks of a batch against PIL's and assemble_batch
+   against np.stack, and the host's data time (the loader alone, one thread
+   a batch; and the samples with every worker thread busy) with the PIL
+   decode, --fast-decode (or, without libjpeg in the library, the error it
+   raises), --cache-images ram and --cache-images disk, each beside the
+   step; without PIL and cv2 one line says that (b) did not run and why;
 9. the model family: (a) yolov5m_seg and yolov5l_seg at full width and
    depth, random weights from seed 0, served at b128/640 bf16 through
    Predictor (FusedFocus stem) with K1/K2's launch counters reset before
@@ -126,7 +132,18 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
    Validator.run once), K3 on its own top-16384 set with keep-sets
    identical to plain, and with the fused seg head K4 launched once a
    variant and held on the 544 and 448 px variants' neck maps against
-   plain (check_psp2).
+   plain (check_psp2);
+11. multi-process data-parallel training, yolov5s_seg at full width, 640 px,
+   on a fake dataset (32 train and 8 val images at 640): (a) cli.train
+   through the DESENET_* environment launch as one process over NCCL, 1
+   epoch at b16 bf16 with the EMA validated on process 0 (K3's launch
+   counter reset before and read after); (b) two ranks of the one card
+   over gloo with CUDA tensors (NCCL refuses two ranks of one card):
+   two float64 SGD steps of a global batch of 16 (8 a rank) held to
+   testing's float64 bars against one process on the whole batch, then
+   cli.train in the two ranks for 1 epoch at b16 bf16, where only rank 0
+   writes its run directory and launches K3 (its counter reset in the rank
+   before and sent back after).
 
 Inputs of the kernel checks come from desenet_tpu_torch.testing, shared with
 tests/test_torch_kernels_cuda.py.
@@ -221,12 +238,38 @@ def phase0():
 
 
 def phase1():
+    import threading
+
+    from desenet_tpu_torch import native
     from desenet_tpu_torch.ops import _ext
 
+    # the host library (the host compiler) builds beside the kernels (nvcc)
+    host = {}
+
+    def build_host():
+        t0 = time.perf_counter()
+        try:
+            host["so"] = native.build()
+        except Exception as e:  # noqa: BLE001 - raised in the main thread
+            host["error"] = e
+        host["s"] = time.perf_counter() - t0
+
+    host_build = threading.Thread(target=build_host)
     t = time.perf_counter()
+    host_build.start()
     _ext.load()
     dt = time.perf_counter() - t
-    log(1, f"kernels ready in {dt:.3f} s ({_ext.build_dir()})")
+    host_build.join()
+    if "error" in host:
+        raise host["error"]
+    cxx = native._cxx()
+    log(1, f"kernels ready in {dt:.3f} s ({_ext.build_dir()}); host "
+        f"library {host['so']} in {host['s']:.3f} s by {cxx} "
+        f"{' '.join(native.build_flags(cxx)[0])}: OpenMP "
+        + ("yes" if native.has_openmp(cxx) else "no (batch loops on the "
+           "calling thread)") + ", libjpeg "
+        + ("yes" if native.jpeg_available() else
+           "no (jpeglib.h absent at build: --fast-decode raises)"))
     logf = os.path.join(_ext.build_dir(), "build.log")
     entry, spills = None, {}
     with open(logf) as fh:
@@ -1436,12 +1479,10 @@ def phase8(card: str) -> int:
 
 def phase8b(card: str, tmp: str) -> int:
     from desenet_tpu_torch.cli import train as cli_train
-    from desenet_tpu_torch.data import create_mixed_dataloader, to_device
     from desenet_tpu_torch.ops import nms_pallas
     from desenet_tpu_torch.tools.make_fake_dataset import generate
     from desenet_tpu_torch.tools.profile_train_step import (device_batches,
                                                             trainer)
-    from desenet_tpu_torch.train.engine import DEFAULT_HYP
     from desenet_tpu_torch.utils.callbacks import Callbacks
 
     dev = torch.device("cuda")
@@ -1469,26 +1510,6 @@ def phase8b(card: str, tmp: str) -> int:
         raise AssertionError(f"cli.train: results.csv {lines}, K3 launched "
                              f"{k3} times")
     nb = 32 // B_CLI
-    # the host's data time: the same training loader alone, staging to the
-    # card; the device's step time: CUDA events over warm steps at B_CLI
-    loader, _ = create_mixed_dataloader(
-        os.path.join(root, "Images", "train"), img_size=IMGSZ,
-        batch_size=B_CLI, augment=True, hyp=DEFAULT_HYP,
-        stage=to_device(dev))
-    t = time.perf_counter()
-    for _ in loader:
-        pass
-    torch.cuda.synchronize()
-    data_ms = (time.perf_counter() - t) / nb * 1e3
-    # the loader makes each batch on one thread; the host's rate with
-    # every worker busy: the epoch's samples on as many threads
-    from concurrent.futures import ThreadPoolExecutor
-
-    ds, workers = loader.dataset, loader.workers
-    t = time.perf_counter()
-    with ThreadPoolExecutor(workers) as pool:
-        list(pool.map(ds.get_sample, range(len(ds))))
-    rate_ms = (time.perf_counter() - t) / len(ds) * B_CLI * 1e3
     state, step, spec = trainer(True, dev, B_CLI, IMGSZ, torch.bfloat16)
     cycle = itertools.cycle(device_batches(2, B_CLI, IMGSZ, spec.de_nc, dev))
 
@@ -1497,17 +1518,88 @@ def phase8b(card: str, tmp: str) -> int:
         state, _ = step(state, next(cycle))
 
     step_ms = cuda_ms(one, 5)
+    del state, step, cycle
     log("8b", f"cli.train.main yolov5s_seg b{B_CLI}/{IMGSZ} bf16 on a fake "
         f"dataset (32 train, 8 val at {IMGSZ}, written in {made:.3f} s), "
         f"mosaic and autoanchor on, 1 epoch: {wall:.3f} s wall in all, the "
         f"training loop {clock.loops[0]:.3f} s for {nb} batches; last line "
-        f"of results.csv {lines[-1]}; K3 launched {k3} times. Host data "
-        f"{data_ms:.3f} ms a batch of {B_CLI} (the training loader alone, "
-        f"staged to the card, one thread a batch), {rate_ms:.3f} ms per "
-        f"{B_CLI} samples with all {workers} worker threads busy, against "
-        f"the device step {step_ms:.3f} ms (CUDA events, 5 warm steps) "
-        f"[{card}]")
+        f"of results.csv {lines[-1]}; K3 launched {k3} times; the device "
+        f"step {step_ms:.3f} ms (CUDA events, 5 warm steps) [{card}]")
+    # the host's data time on 640 px sources and on oversized 1280 px ones
+    big = os.path.join(tmp, "fakeds1280")
+    generate(big, n_train=32, n_val=1, size=2 * IMGSZ, seed=1)
+    for src in (root, big):
+        host_readings(card, os.path.join(src, "Images", "train"), step_ms)
     return k3
+
+
+# the host data path's options, each timed by phase 8(b)
+HOST_PATHS = (("PIL decode", {}), ("--fast-decode", {"fast_decode": True}),
+              ("--cache-images ram", {"cache_images": "ram"}),
+              ("--cache-images disk", {"cache_images": "disk"}))
+
+
+def host_readings(card: str, split: str, step_ms: float) -> None:
+    """The training loader's host time on ``split`` (mosaic, b16) with each
+    of ``HOST_PATHS``, against the device step: the loader alone (one
+    thread a batch, staged to the card) and the epoch's samples with every
+    worker thread busy. First the native rasterizer's masks against PIL's
+    and the native assembler against np.stack on a batch."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from desenet_tpu_torch import native
+    from desenet_tpu_torch.data import create_mixed_dataloader, to_device
+    from desenet_tpu_torch.train.engine import DEFAULT_HYP
+
+    dev = torch.device("cuda")
+    kw = dict(img_size=IMGSZ, batch_size=B_CLI, augment=True, hyp=DEFAULT_HYP)
+    loader, ds = create_mixed_dataloader(split, **kw)
+    pos = [int(p) for p in loader._epoch_positions()[:B_CLI]]
+    got = [ds.get_sample(p) for p in pos]
+    os.environ["DESENET_NATIVE_RASTER"] = "0"  # the PIL path
+    try:
+        want = [ds.get_sample(p) for p in pos]
+    finally:
+        del os.environ["DESENET_NATIVE_RASTER"]
+    for g, w in zip(got, want):
+        if not (np.array_equal(g[2], w[2]) and np.array_equal(g[0], w[0])):
+            raise AssertionError(f"{split}: the native rasterizer's mask "
+                                 "differs from PIL's")
+    imgs = [g[0] for g in got]
+    if not np.array_equal(native.assemble_batch(imgs), np.stack(imgs)):
+        raise AssertionError("assemble_batch differs from np.stack")
+    src = ds.shapes[0].astype(int).tolist()
+    log("8b", f"{split} ({src[0]}x{src[1]} sources): a batch's {B_CLI} "
+        f"masks (mosaics, warped polygons) from the native rasterizer equal "
+        f"PIL's; assemble_batch equals np.stack")
+    for name, opt in HOST_PATHS:
+        if opt.get("fast_decode") and not native.jpeg_available():
+            try:
+                create_mixed_dataloader(split, **kw, **opt)
+            except RuntimeError as e:
+                log("8b", f"{name}: libjpeg was absent when the host library "
+                    f"was built, and the option raised as it should ({e})")
+                continue
+            raise AssertionError("--fast-decode without libjpeg did not "
+                                 "raise")
+        t = time.perf_counter()
+        loader, ds = create_mixed_dataloader(split, stage=to_device(dev),
+                                             **kw, **opt)
+        setup = time.perf_counter() - t
+        t = time.perf_counter()
+        n = sum(1 for _ in loader)
+        torch.cuda.synchronize()
+        data_ms = (time.perf_counter() - t) / n * 1e3
+        t = time.perf_counter()
+        with ThreadPoolExecutor(loader.workers) as pool:
+            list(pool.map(ds.get_sample, range(len(ds))))
+        rate_ms = (time.perf_counter() - t) / len(ds) * B_CLI * 1e3
+        log("8b", f"host, {src[0]} px sources, {name}: set-up "
+            f"{setup:.3f} s, {data_ms:.3f} ms a batch of {B_CLI} (the "
+            f"loader alone, one thread a batch, staged to the card), "
+            f"{rate_ms:.3f} ms per {B_CLI} samples with all "
+            f"{loader.workers} worker threads busy, against the device step "
+            f"{step_ms:.3f} ms: host / step {rate_ms / step_ms:.2f} [{card}]")
 
 
 
@@ -2033,6 +2125,141 @@ def phase10(card: str, sd: dict, errs: dict, extras: dict) -> dict:
     return launches
 
 
+B_DP = 16  # phase 11's global batch
+DP_STEPS = 2
+
+
+def _rank_train(rank: int, n: int, coordinator: str, argv) -> tuple:
+    """Phase 11(b): one of two processes of one card over gloo, through
+    cli.train; returns (its results, K3's launches in it)."""
+    from desenet_tpu_torch.cli import train as cli_train
+    from desenet_tpu_torch.ops import nms_pallas
+    from desenet_tpu_torch.parallel import multihost
+
+    multihost.init_multihost(coordinator, n, rank, device=argv.device,
+                             backend="gloo")
+    try:
+        nms_pallas.launches = 0
+        res = cli_train.main(argv(rank))
+        return res, nms_pallas.launches
+    finally:
+        multihost.shutdown()
+
+
+@dataclasses.dataclass
+class _Argv:
+    """cli.train's argv for a rank (a picklable callable)."""
+    data: str
+    project: str
+    device: str = "cuda:0"
+    cfg: str = "yolov5s_seg"
+    imgsz: int = IMGSZ
+
+    def __call__(self, rank: int) -> list:
+        return ["--data", self.data, "--cfg", self.cfg, "--epochs", "1",
+                "--batch-size", str(B_DP), "--img-size", str(self.imgsz),
+                "--project", os.path.join(self.project, f"rank{rank}"),
+                "--name", "dp", "--no-tb", "--device", self.device]
+
+
+def phase11(card: str) -> int:
+    """Multi-process data-parallel training; returns K3's launches."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from desenet_tpu_torch.cli import train as cli_train
+    from desenet_tpu_torch.models import config_path
+    from desenet_tpu_torch.ops import nms_pallas
+    from desenet_tpu_torch.parallel.multihost import free_port, spawn
+    from desenet_tpu_torch.testing import (TRAIN_PARITY_STEPS,
+                                           check_train_parity, parity_errors,
+                                           train_steps)
+    from desenet_tpu_torch.tools import dryrun_multichip
+    from desenet_tpu_torch.tools.make_fake_dataset import generate
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        data = generate(os.path.join(tmp, "fakeds"), n_train=32, n_val=8,
+                        size=IMGSZ, seed=0)
+        # (a) one process through the environment launch, over NCCL
+        env = {"DESENET_COORDINATOR": f"localhost:{free_port()}",
+               "DESENET_NUM_PROCESSES": "1", "DESENET_PROCESS_ID": "0"}
+        os.environ.update(env)
+        nms_pallas.launches = 0
+        t = time.perf_counter()
+        try:
+            res = cli_train.main(_Argv(data, os.path.join(tmp, "one"),
+                                       "cuda")(0))
+        finally:
+            for k in env:
+                del os.environ[k]
+        k3 = nms_pallas.launches
+        wall = time.perf_counter() - t
+        with open(os.path.join(res["save_dir"], "results.csv")) as fh:
+            rows = list(csv.DictReader(fh))
+        if (k3 < 1 or len(rows) != 1 or dist.is_initialized()
+                or not np.isfinite(float(rows[0]["train/seg_loss"]))):
+            raise AssertionError(f"11(a): K3 launched {k3} times, results "
+                                 f"{rows}, a group left {dist.is_initialized()}")
+        log("11a", f"cli.train through DESENET_COORDINATOR (1 process, "
+            f"NCCL) yolov5s_seg b{B_DP}/{IMGSZ} bf16, 1 epoch of "
+            f"{32 // B_DP} batches on the fake dataset, EMA validated on "
+            f"process 0: K3 launched {k3} times, seg loss "
+            f"{float(rows[0]['train/seg_loss']):.4f}, fitness "
+            f"{res['best_fitness']:.4f}; {wall:.3f} s wall [{card}]")
+
+        # (b) two ranks on the one card over gloo (NCCL refuses two ranks
+        # of one card): training steps of the global batch against one
+        # process, then cli.train end to end
+        with open(config_path("yolov5s_seg")) as fh:
+            cfg = json.load(fh)
+        dtype = torch.float64
+        kw = dict(cfg=cfg, imgsz=IMGSZ, b=B_DP, fused=True, dtype=dtype,
+                  steps=DP_STEPS, seed=0)
+        t = time.perf_counter()
+        got = dryrun_multichip.run(2, "cuda:0", "gloo", **kw)
+        two = time.perf_counter() - t
+        want = train_steps("cuda:0", **kw)
+        errs = parity_errors(got, want)
+        check_train_parity(errs, dtype, "11(b) two ranks")
+        log("11b", f"two ranks of one card (gloo, CUDA tensors), yolov5s_seg "
+            f"at full width, {IMGSZ} px, float64, {DP_STEPS} SGD steps of a "
+            f"global batch of {B_DP} (8 a rank) against one process on the "
+            f"whole batch, held to testing's float64 bars (f32 parity holds "
+            f"{TRAIN_PARITY_STEPS[torch.float32]} step): losses "
+            f"{[round(g[0], 6) for g in got]} against "
+            f"{[round(w[0], 6) for w in want]}; worst errors by step "
+            + "; ".join(", ".join(
+                f"{g} {e:.2e}" if g == "loss" else f"{g} {e[0]:.2e}"
+                for g, e in step.items()) for step in errs)
+            + f"; {two:.3f} s for the two ranks [{card}]")
+        nms_pallas.launches = 0
+        t = time.perf_counter()
+        res, k3_rank0 = spawn(_rank_train, 2, _Argv(data, tmp))
+        wall = time.perf_counter() - t
+        k3 += k3_rank0 + nms_pallas.launches
+        sd0 = os.path.join(tmp, "rank0", "dp")
+        missing = [f for f in ("results.csv", "opt.yaml", "last/meta.json",
+                               "best_stripped/state.pt")
+                   if not os.path.exists(os.path.join(sd0, f))]
+        if (missing or os.path.exists(os.path.join(tmp, "rank1"))
+                or k3_rank0 < 1 or nms_pallas.launches):
+            raise AssertionError(
+                f"11(b): rank 0 lacks {missing}, rank 1 wrote "
+                f"{os.path.exists(os.path.join(tmp, 'rank1'))}, K3 launched "
+                f"{k3_rank0} times on rank 0")
+        with open(os.path.join(sd0, "results.csv")) as fh:
+            row = list(csv.DictReader(fh))[-1]
+        log("11b", f"cli.train in two ranks of one card (gloo), yolov5s_seg "
+            f"b{B_DP} ({B_DP // 2} a rank)/{IMGSZ} bf16, 1 epoch: only rank 0 "
+            f"wrote its run directory (results.csv, opt.yaml, last, "
+            f"best_stripped), K3 launched {k3_rank0} times by rank 0's EMA "
+            f"validation, seg loss {float(row['train/seg_loss']):.4f} "
+            f"(one process, 11(a): {float(rows[0]['train/seg_loss']):.4f}); "
+            f"{wall:.3f} s wall with the two processes' start [{card}]")
+    return k3
+
+
 def main() -> None:
     took = {}
 
@@ -2064,6 +2291,7 @@ def main() -> None:
         launches[k] += v
     for k, v in timed("10", phase10, card, sd, errs, extras).items():
         launches[k] += v
+    launches["nms_greedy"] += timed("11", phase11, card)
     log("times", "seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in took.items())
         + f"; {sum(took.values()):.1f} in all")

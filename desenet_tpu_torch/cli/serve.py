@@ -1,13 +1,17 @@
 """Serving CLI: micro-batching HTTP inference server on the port.
 
-    python -m desenet_tpu_torch.cli.serve --cfg yolov5s_seg --weights sd.npz
+    python -m desenet_tpu_torch.cli.serve --weights runs/train/exp/best
+    python -m desenet_tpu_torch.cli.serve --cfg yolov5s_seg --state-dict sd.npz
     python -m desenet_tpu_torch.cli.serve --cfg yolov5s_seg --seed 0
 
-``--weights`` is a torch-named state dict saved with ``np.savez``
-(``tools/export_torch_sd.py`` writes one from a JAX checkpoint); ``--seed``
-serves random weights made from that seed instead. POST image bytes to
-/predict (add ?mask=1 for the base64-PNG class mask); GET /healthz and
-/info for liveness and model metadata.
+``--weights`` is a checkpoint directory, as the JAX CLI's is: the port's
+``cli.train`` writes them, and ``api.load_predictor`` serves its EMA with
+the names, class counts and anchors of its meta.json. The port adds two
+sources of its own, each built from ``--cfg``: ``--state-dict``, a
+torch-named state dict saved with ``np.savez`` (``tools/export_torch_sd.py``
+writes one from a JAX checkpoint), and ``--seed``, random weights made from
+that seed. POST image bytes to /predict (add ?mask=1 for the base64-PNG
+class mask); GET /healthz and /info for liveness and model metadata.
 """
 
 from __future__ import annotations
@@ -17,20 +21,24 @@ import logging
 
 import torch
 
-from desenet_tpu_torch.api import Predictor
+from desenet_tpu_torch.api import Predictor, load_predictor
 from desenet_tpu_torch.models import build_model, config_path, init_weights
 from desenet_tpu_torch.serve import InferenceServer
 from desenet_tpu_torch.utils.convert import load_npz_state_dict
 
 
-def main(argv=None):
+def parse_opt(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("--cfg", default="yolov5s_seg",
-                        help="bundled config name or .json/.yaml path")
     src = parser.add_mutually_exclusive_group(required=True)
-    src.add_argument("--weights", help="torch-named state dict (.npz)")
+    src.add_argument("--weights",
+                     help="checkpoint directory (meta.json + state.pt)")
+    src.add_argument("--state-dict",
+                     help="torch-named state dict (.npz) of --cfg")
     src.add_argument("--seed", type=int,
-                     help="serve random weights made from this seed")
+                     help="serve random weights of --cfg made from this seed")
+    parser.add_argument("--cfg", default="yolov5s_seg",
+                        help="bundled config name or .json/.yaml path, for "
+                             "--state-dict and --seed")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--host", default="127.0.0.1",
                         help="bind address; the endpoint is unauthenticated, "
@@ -51,28 +59,39 @@ def main(argv=None):
                         help="largest accepted request body (413 above)")
     parser.add_argument("--no-half", action="store_true",
                         help="run float32 instead of bfloat16")
-    args = parser.parse_args(argv)
+    return parser.parse_args(argv)
 
-    logging.basicConfig(level=logging.INFO, format="%(message)s")
-    cfg = config_path(args.cfg)
+
+def build_predictor(args) -> Predictor:
+    """The ``Predictor`` that ``main`` serves, from the parsed options."""
+    kw = dict(imgsz=args.img_size, conf_thres=args.conf_thres,
+              iou_thres=args.iou_thres, max_det=args.max_det,
+              half=not args.no_half, device=args.device)
     if args.weights:
-        sd = load_npz_state_dict(args.weights)
+        return load_predictor(args.weights, **kw)
+    cfg = config_path(args.cfg)
+    if args.state_dict:
+        sd = load_npz_state_dict(args.state_dict)
     else:
         model, _ = build_model(cfg)
         sd = init_weights(model, torch.Generator().manual_seed(args.seed)
                           ).state_dict()
-    predictor = Predictor(cfg, sd, imgsz=args.img_size,
-                          conf_thres=args.conf_thres,
-                          iou_thres=args.iou_thres, max_det=args.max_det,
-                          half=not args.no_half, device=args.device)
+    return Predictor(cfg, sd, **kw)
+
+
+def main(argv=None):
+    args = parse_opt(argv)
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    predictor = build_predictor(args)
     server = InferenceServer(predictor, host=args.host, port=args.port,
                              max_batch=args.max_batch,
                              max_wait_ms=args.max_wait_ms,
                              max_queue=args.max_queue,
                              max_body_bytes=int(args.max_body_mb * 1024 * 1024))
-    logging.info("serving %s (%s) on http://%s:%d (max_batch=%d, "
-                 "max_wait=%sms)", args.cfg, args.weights or
-                 f"seed {args.seed}", args.host, server.port, args.max_batch,
+    source = (args.weights or f"{args.cfg} from "
+              + (args.state_dict or f"seed {args.seed}"))
+    logging.info("serving %s on http://%s:%d (max_batch=%d, max_wait=%sms)",
+                 source, args.host, server.port, args.max_batch,
                  args.max_wait_ms)
     try:
         server.serve_forever()

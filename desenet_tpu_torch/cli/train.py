@@ -1,4 +1,4 @@
-"""Training CLI on the port, single process on one device.
+"""Training CLI on the port.
 
     python -m desenet_tpu_torch.cli.train --data data.yaml --cfg yolov5s_seg \\
         --epochs 100 --batch-size 16 --img-size 640
@@ -6,12 +6,27 @@
 The flags and defaults of ``desenet_tpu.cli.train``, plus ``--device``
 (``cuda`` by default; ``--device cpu`` trains on the CPU, and nothing falls
 back to it). A bare ``--resume`` finds the most recent ``last`` checkpoint
-under the working directory and restores the run's ``opt.yaml``. Flags
-whose work is not ported raise NotImplementedError naming ROADMAP.md
-(``train.engine.refuse_unported``): ``--fast-decode``, ``--cache-images``,
-``--n-devices``/``--spatial`` above 1 and a multi-process launch
-(``DESENET_COORDINATOR``), the W&B flags and ``--remat``. ``--sync-bn`` is
-accepted and does nothing, as in the JAX package.
+under the working directory and restores the run's ``opt.yaml``.
+
+Several processes, one a device, train on one global batch (``--batch-size``
+is global; ``train.engine`` says how the work is split):
+
+- ``--n-devices N`` starts N processes on this host, process i on
+  ``cuda:i`` (``--device cpu``: N processes on the CPU over gloo); it
+  raises when the host has fewer cards;
+- or each process is started by hand with the JAX package's environment::
+
+    DESENET_COORDINATOR=host0:1234 DESENET_NUM_PROCESSES=2 \\
+    DESENET_PROCESS_ID=0 python -m desenet_tpu_torch.cli.train ...
+
+  where process i takes ``cuda:$LOCAL_RANK`` (``LOCAL_RANK`` defaults to
+  the process id, for one host).
+
+Flags whose work is not ported raise NotImplementedError naming ROADMAP.md
+(``train.engine.refuse_unported``): ``--spatial`` above 1, the W&B flags
+and ``--remat``. ``--sync-bn`` is accepted and does nothing, as in the JAX
+package: with several processes BN always takes the global batch's
+statistics.
 """
 
 from __future__ import annotations
@@ -19,6 +34,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import sys
 
 from desenet_tpu_torch.train.engine import TrainConfig, train
 from desenet_tpu_torch.utils.general import set_logging
@@ -76,7 +92,9 @@ def parse_opt(argv=None):
                    help="compute dtype (autocast); parameters stay float32")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
-    p.add_argument("--n-devices", type=int, default=None, help="not ported")
+    p.add_argument("--n-devices", type=int, default=None,
+                   help="train in this many processes on this host, one a "
+                        "device")
     p.add_argument("--spatial", type=int, default=1, help="not ported")
     p.add_argument("--no-tb", action="store_true")
     p.add_argument("--noautoanchor", action="store_true")
@@ -96,9 +114,11 @@ def parse_opt(argv=None):
     p.add_argument("--artifact-alias", "--artifact_alias", type=str,
                    default="latest", help="not ported")
     p.add_argument("--sync-bn", action="store_true",
-                   help="accepted for compatibility; one process, so BN "
-                        "statistics are the whole batch's")
-    p.add_argument("--fast-decode", action="store_true", help="not ported")
+                   help="accepted for compatibility; BN statistics are "
+                        "always the global batch's")
+    p.add_argument("--fast-decode", action="store_true",
+                   help="scaled JPEG decode of the training images (native "
+                        "libjpeg; not pixel-equal to PIL, val keeps PIL)")
     p.add_argument("--rect", action="store_true",
                    help="rectangular training (aspect-sorted batch shapes)")
     p.add_argument("--quad", action="store_true",
@@ -110,19 +130,75 @@ def parse_opt(argv=None):
                    help="materialize full-res seg logits for the CE loss "
                         "instead of the tiled upsample+CE")
     p.add_argument("--cache-images", choices=("ram", "disk"), default=None,
-                   help="not ported")
+                   help="decode and resize each training image once: 'ram' "
+                        "keeps the arrays, 'disk' writes memory-mapped .npy "
+                        "files")
     return p.parse_args(argv)
+
+
+def process_device(device: str, local_rank: int) -> str:
+    """The device of the process of ``local_rank`` on its host: a bare
+    ``cuda`` becomes ``cuda:<local_rank>``; an explicit index or the CPU
+    stays."""
+    return f"cuda:{local_rank}" if device == "cuda" else device
+
+
+def _maybe_init_multihost(device: str) -> str:
+    """Join the process group when the environment names one (the JAX
+    CLI's DESENET_COORDINATOR, DESENET_NUM_PROCESSES, DESENET_PROCESS_ID);
+    returns this process's device."""
+    coord = os.environ.get("DESENET_COORDINATOR")
+    if not coord:
+        return device
+    from desenet_tpu_torch.parallel.multihost import init_multihost
+
+    try:
+        n = int(os.environ["DESENET_NUM_PROCESSES"])
+        pid = int(os.environ["DESENET_PROCESS_ID"])
+    except (KeyError, ValueError) as e:
+        raise ValueError(
+            "DESENET_COORDINATOR needs DESENET_NUM_PROCESSES and "
+            f"DESENET_PROCESS_ID as integers ({e})") from None
+    device = process_device(device, int(os.environ.get("LOCAL_RANK", pid)))
+    init_multihost(coord, n, pid, device=device)
+    return device
+
+
+def _spawned(rank: int, n: int, coordinator: str, argv) -> dict:
+    """One of ``--n-devices``' processes: ``main`` under the environment
+    launch."""
+    os.environ.update(DESENET_COORDINATOR=coordinator,
+                      DESENET_NUM_PROCESSES=str(n),
+                      DESENET_PROCESS_ID=str(rank), LOCAL_RANK=str(rank))
+    return main(argv)
+
+
+def launch(n: int, device: str, argv) -> dict:
+    """Train in ``n`` processes on this host (``--n-devices``), process i on
+    ``cuda:i`` or the CPU; returns process 0's results."""
+    import torch
+
+    from desenet_tpu_torch.parallel.multihost import spawn
+
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if device.startswith("cuda") and cards < n:
+        raise RuntimeError(f"--n-devices {n}: this host has {cards} CUDA "
+                           "card(s)")
+    return spawn(_spawned, n, argv)
 
 
 def main(argv=None, callbacks=None):
     """Parse ``argv`` and train; ``callbacks`` (``utils.callbacks``) gets
-    the engine's hooks beside the loggers."""
+    the engine's hooks beside the loggers (one process only)."""
     set_logging()
-    if os.environ.get("DESENET_COORDINATOR"):
-        raise NotImplementedError(
-            "a multi-process launch (DESENET_COORDINATOR) is not ported to "
-            "desenet_tpu_torch yet (ROADMAP.md, Queue 1 item 7)")
     o = parse_opt(argv)
+    if (o.n_devices or 1) > 1 and not os.environ.get("DESENET_COORDINATOR"):
+        if callbacks is not None:
+            raise ValueError("callbacks cannot cross into --n-devices' "
+                             "processes")
+        return launch(o.n_devices, o.device,
+                      sys.argv[1:] if argv is None else list(argv))
+    o.device = _maybe_init_multihost(o.device)
     overrides = None
     if o.resume is True:
         # bare --resume: the most recent run, with its own options; an
@@ -162,7 +238,13 @@ def main(argv=None, callbacks=None):
     )
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
-    results = train(cfg, callbacks)
+    try:
+        results = train(cfg, callbacks)
+    finally:
+        if os.environ.get("DESENET_COORDINATOR"):
+            from desenet_tpu_torch.parallel.multihost import shutdown
+
+            shutdown()
     print(f"done: save_dir={results['save_dir']} "
           f"best_fitness={results['best_fitness']:.4f}")
     return results

@@ -8,10 +8,14 @@ per-batch shapes, polygon rasterizing and COCO-rescaling ``shapes``
 metadata, and for training (``augment=True``) mosaic (4 and 9 images),
 mixup, the random perspective warp, HSV jitter and flips. Each sample's
 augmentation draws from its own generator, seeded by (seed, epoch, index),
-so a sample is the same bytes in either package and in any order. The
-decoded-image caches and the scaled JPEG decode of the JAX package are not
-ported (ROADMAP.md). numpy and the standard library at module level; PIL is
-imported where an image is opened, cv2 where one is resized or warped.
+so a sample is the same bytes in either package and in any order.
+``fast_decode`` decodes JPEGs with the native library's scaled libjpeg
+decode (``native.decode_jpeg_scaled``, not pixel-equal to PIL, so it is
+opt-in; without libjpeg in the library it raises), ``cache_images``
+("ram" or "disk") decodes each image once, and ``collate`` packs images
+with ``native.assemble_batch``. numpy and the standard library at module
+level; PIL is imported where an image is opened, cv2 where one is resized
+or warped.
 
 Label formats:
   DeLabels/<split>/x.txt : lines "cls x y w h" normalized xywh
@@ -145,7 +149,12 @@ class MixedDataset:
         fast_decode: bool = False,
         cache_images: Optional[str] = None,
     ):
-        refuse_unported_decode(fast_decode, cache_images)
+        if cache_images not in (None, "ram", "disk"):
+            raise ValueError(f"cache_images={cache_images!r}: 'ram', 'disk' "
+                             "or None")
+        if fast_decode:
+            require_fast_decode()
+        self.fast_decode = fast_decode
         self.img_size = img_size
         self.batch_size = batch_size
         self.augment = augment
@@ -234,6 +243,56 @@ class MixedDataset:
         if self.rect:
             self._setup_rect()
 
+        # the decoded-image cache: decode and resize every image once
+        self.im_cache: Optional[List] = None
+        if cache_images:
+            self._setup_image_cache(cache_images, prefix)
+
+    # ------------------------------------------------------------------
+    def _setup_image_cache(self, mode: str, prefix: str = ""):
+        """Decode and resize every image once. 'ram' keeps the arrays
+        (read-only); 'disk' writes .npy files into ``<labels>.imgcache``
+        beside the label cache and reads them back memory-mapped, so the
+        page cache shares them across threads and runs. The key holds the
+        file's path, size and mtime and ``img_size``, as the JAX package's
+        does, so either package reads the other's files."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        self.im_cache = [None] * self.n
+        cdir = None
+        if mode == "disk":
+            cdir = Path(self.de_label_files[0]).parent.with_suffix(".imgcache")
+            cdir.mkdir(parents=True, exist_ok=True)
+
+        def one(i):
+            if mode == "ram":
+                arr, hw0, hw = self.load_image(i)
+                arr = np.ascontiguousarray(arr)
+                arr.setflags(write=False)
+                self.im_cache[i] = (arr, hw0, hw)
+                return arr.nbytes
+            p = Path(self.img_files[i])
+            st = p.stat()
+            key = hashlib.sha1(
+                f"{p.resolve()}:{st.st_size}:{int(st.st_mtime)}:"
+                f"{self.img_size}:rgb".encode()).hexdigest()[:24]
+            f = cdir / f"{key}.npy"
+            if not f.exists():
+                arr, _, _ = self.load_image(i)
+                tmp = f.with_suffix(f".{os.getpid()}.tmp.npy")
+                np.save(tmp, np.ascontiguousarray(arr))
+                os.replace(tmp, f)
+                nbytes = arr.nbytes
+            else:
+                nbytes = f.stat().st_size
+            self.im_cache[i] = f
+            return nbytes
+
+        with ThreadPoolExecutor(max_workers=NUM_THREADS) as ex:
+            total = sum(ex.map(one, range(self.n)))
+        LOGGER.info("%simage cache (%s): %d images, %.2f GB", prefix, mode,
+                    self.n, total / 1e9)
+
     # ------------------------------------------------------------------
     def _build_cache(self, want_hash):
         items = []
@@ -308,10 +367,25 @@ class MixedDataset:
 
     def load_image(self, index: int):
         """Decode + EXIF-correct + resize long side to img_size. Returns
-        (RGB uint8 array, (h0, w0), (h, w))."""
+        (RGB uint8 array, (h0, w0), (h, w)): from the image cache where
+        there is one, else by the scaled JPEG decode with ``fast_decode``
+        (PIL for the files it does not take), else by PIL."""
         from PIL import Image, ImageOps
 
-        img = Image.open(self.img_files[index])
+        if self.im_cache is not None:
+            c = self.im_cache[index]
+            if isinstance(c, tuple):  # ram: (arr, (h0, w0), (h, w))
+                return c
+            if c is not None:  # disk: a memory-mapped, read-only .npy
+                arr = np.load(c, mmap_mode="r")
+                w0, h0 = self.shapes[index]  # the label cache keeps (w, h)
+                return arr, (int(h0), int(w0)), arr.shape[:2]
+        path = self.img_files[index]
+        if self.fast_decode:
+            out = self._load_image_fast(path)
+            if out is not None:
+                return out
+        img = Image.open(path)
         try:  # exif_transpose copies the whole image even when there is no
             # orientation tag; only pay it when a rotation actually applies
             rotated = img.getexif().get(0x0112, 1) != 1
@@ -324,6 +398,46 @@ class MixedDataset:
         if r != 1:  # LANCZOS for down- and up-scaling, as the JAX package
             img = img.resize((int(w0 * r), int(h0 * r)), Image.LANCZOS)
         arr = np.asarray(img.convert("RGB"))
+        return arr, (h0, w0), arr.shape[:2]
+
+    def _load_image_fast(self, path):
+        """The scaled JPEG decode at the largest DCT scale whose long side
+        stays >= ``img_size``, then one cv2 resize (INTER_AREA down,
+        INTER_LINEAR up) to PIL's output size. None, so that PIL decodes the
+        file, for a file that is not a JPEG, an EXIF-rotated one or a stream
+        libjpeg refuses, as in the JAX package."""
+        from PIL import Image
+
+        from desenet_tpu_torch import native
+
+        try:
+            with open(path, "rb") as f:
+                data = f.read()
+        except OSError:
+            return None
+        if data[:2] != b"\xff\xd8":
+            return None
+        if b"Exif" in data[:256]:
+            # an orientation tag needs PIL's transpose
+            try:
+                with Image.open(path) as im:
+                    if im.getexif().get(0x0112, 1) != 1:
+                        return None
+            except Exception:  # noqa: BLE001 - unreadable EXIF: PIL's path
+                return None
+        out = native.decode_jpeg_scaled(data, self.img_size)
+        if out is None:
+            return None
+        arr, (h0, w0) = out
+        r = self.img_size / max(w0, h0)
+        tw, th = int(w0 * r), int(h0 * r)
+        if arr.shape[:2] != (th, tw):
+            import cv2
+
+            interp = (cv2.INTER_AREA if (th <= arr.shape[0]
+                                         and tw <= arr.shape[1])
+                      else cv2.INTER_LINEAR)
+            arr = cv2.resize(arr, (tw, th), interpolation=interp)
         return arr, (h0, w0), arr.shape[:2]
 
     # ------------------------------------------------------------------
@@ -488,17 +602,16 @@ class MixedDataset:
                                   border=self.mosaic_border, **self._warp())
 
 
-def refuse_unported_decode(fast_decode: bool, cache_images) -> None:
-    """The JAX package's scaled JPEG decode (native libjpeg) and decoded-
-    image caches are not ported."""
-    if fast_decode:
-        raise NotImplementedError(
-            "--fast-decode (native libjpeg decode) is not ported to "
-            "desenet_tpu_torch yet (ROADMAP.md, Queue 1)")
-    if cache_images:
-        raise NotImplementedError(
-            "--cache-images is not ported to desenet_tpu_torch yet "
-            "(ROADMAP.md, Queue 1)")
+def require_fast_decode() -> None:
+    """Raise unless the native library decodes JPEG: the scaled decode's
+    pixels differ from PIL's, so PIL does not stand in for it."""
+    from desenet_tpu_torch import native
+
+    if not native.jpeg_available():
+        raise RuntimeError(
+            "fast_decode needs the native library built with libjpeg "
+            "(jpeglib.h was not found when it was built, or "
+            "DESENET_NATIVE=0); PIL's pixels differ, so it does not stand in")
 
 
 def _mosaic9_position(i, s, w, h, w0, h0, wp, hp):
@@ -592,11 +705,14 @@ def pad_det_targets(dets: Sequence[np.ndarray], max_targets: int):
 
 
 def collate(samples, max_targets: int = 128):
-    """Samples -> fixed-shape batch dict for the train and eval steps."""
+    """Samples -> fixed-shape batch dict for the train and eval steps; the
+    images packed by ``native.assemble_batch``."""
+    from desenet_tpu_torch.native import assemble_batch
+
     imgs, dets, segs, paths, shapes = zip(*samples)
     det_t, det_m = pad_det_targets(dets, max_targets)
     return {
-        "image": np.stack(imgs, 0),
+        "image": assemble_batch(list(imgs)),
         "det_targets": det_t,
         "det_mask": det_m,
         # uint8: seg class ids are < 256 by construction; the narrow dtype

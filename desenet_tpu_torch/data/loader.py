@@ -174,8 +174,8 @@ def create_mixed_dataloader(
 ):
     """(loader, dataset) over ``path`` (an image dir, a txt listing or a
     list of either); ``augment=True`` is the training loader (shuffled,
-    drop_last, augmented with ``hyp``). ``fast_decode`` and
-    ``cache_images`` raise NotImplementedError (``MixedDataset``)."""
+    drop_last, augmented with ``hyp``); ``fast_decode`` and
+    ``cache_images`` go to ``MixedDataset``."""
     dataset = MixedDataset(
         path, img_size=img_size, batch_size=batch_size, augment=augment,
         hyp=hyp, rect=rect, stride=stride, pad=pad, single_cls=single_cls,

@@ -10,6 +10,13 @@ Every (target, anchor, neighbour offset) triple is a slot of a fixed-size
 candidate set, B * M * na * 5 per scale, with a validity mask, as in the JAX
 package. When two targets claim one (cell, anchor), the objectness target
 is the larger IoU (``scatter_reduce_`` with ``amax``), not the last write.
+
+With several processes (``parallel.multihost``) each holds its rows of the
+global batch and returns its share of the global batch's loss: the
+normalizers (each scale's valid-candidate count, the batch size of the
+objectness mean and of the ``* B``) are summed over the processes, without
+gradient, before dividing, so the shares add up to the loss of the global
+batch, which is what the JAX package's single program computes.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from desenet_tpu_torch.ops.boxes import bbox_iou
+from desenet_tpu_torch.parallel.multihost import global_sum
+from desenet_tpu_torch.parallel.mesh import process_count
 
 
 def smooth_bce(eps: float = 0.1) -> Tuple[float, float]:
@@ -112,10 +121,16 @@ class DetectionLoss:
         """preds: per-scale (B, na, ny, nx, no) raw logits.
         targets: (B, M, 5) [cls, x, y, w, h] normalized; target_mask: (B, M).
         Returns (total, (lbox, lobj, lcls)) with total = sum * B
-        (loss.py:166-168), each a 0-d f32 tensor."""
+        (loss.py:166-168), each a 0-d f32 tensor; with several processes
+        this process's share of them, B the global batch size."""
         B, M = targets.shape[:2]
         na = self.na
         dev = targets.device
+        # the global batch size, and this process's share of it
+        b_all, b_share = B, 1.0
+        if process_count() > 1:
+            b_all = global_sum(torch.full((), float(B), device=dev))
+            b_share = B / b_all
         cp, cn = smooth_bce(self.label_smoothing)
         targets = targets.float()
 
@@ -183,7 +198,7 @@ class DetectionLoss:
             iou = bbox_iou(torch.cat([pxy, pwh], -1), torch.cat([txy, twh], -1),
                            x1y1x2y2=False, CIoU=True)  # (K,)
 
-            n_valid = valid_f.sum().clamp(min=1.0)
+            n_valid = global_sum(valid_f.sum()).clamp(min=1.0)
             lbox = lbox + ((1.0 - iou) * valid_f).sum() / n_valid
 
             # objectness target: deterministic scatter-max of the detached IoU
@@ -194,7 +209,7 @@ class DetectionLoss:
             tobj.scatter_reduce_(0, flat_idx, score, reduce="amax",
                                  include_self=True)
             tobj = tobj.clamp(min=0.0).reshape(B, na, ny, nx)
-            obji = self._bce(pi[..., 4], tobj, self.obj_pw).mean()
+            obji = self._bce(pi[..., 4], tobj, self.obj_pw).mean() * b_share
             lobj = lobj + obji * self.balance[i]
 
             if self.nc > 1:
@@ -210,4 +225,4 @@ class DetectionLoss:
         lbox = lbox * self.box_gain
         lobj = lobj * self.obj_gain
         lcls = lcls * self.cls_gain
-        return (lbox + lobj + lcls) * B, (lbox, lobj, lcls)
+        return (lbox + lobj + lcls) * b_all, (lbox, lobj, lcls)

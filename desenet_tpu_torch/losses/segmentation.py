@@ -4,7 +4,9 @@ Counterpart of ``desenet_tpu/losses/segmentation.py`` (the reference
 SegmentationLosses, core/utils/loss.py:227-282): mean pixel cross-entropy
 with ``ignore_index`` and an optional class weight, and the aux-output
 combinations of the BiSe head. Logits are NCHW here (the JAX functions
-take NHWC).
+take NHWC). With several processes the CE's denominator (the valid pixels,
+or their class weights) is summed over the processes before dividing, so
+each returns its share of the global batch's mean.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from __future__ import annotations
 from typing import Sequence, Union
 
 import torch
+
+from desenet_tpu_torch.parallel.multihost import global_sum
 
 
 def _ce(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -1,
@@ -33,9 +37,9 @@ def _ce(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -1,
                              device=logits.device)[:, None, None]
         w = torch.where(onehot, cw, 0.0).sum(1)
         nll = nll * w
-        denom = torch.where(valid, w, 0.0).sum()
+        denom = global_sum(torch.where(valid, w, 0.0).sum())
     else:
-        denom = valid.sum().clamp(min=1)
+        denom = global_sum(valid.sum()).clamp(min=1)
     return torch.where(valid, nll, 0.0).sum() / denom
 
 

@@ -13,7 +13,9 @@ Numerics that differ from PyTorch defaults and are kept on purpose:
 
 - BatchNorm eps 1e-3 and momentum 0.03 (torch defaults: 1e-5 / 0.1), and
   in training the running variance takes the biased batch variance, as
-  flax's BatchNorm does (torch's takes the unbiased one).
+  flax's BatchNorm does (torch's takes the unbiased one). With a process
+  group of more than one process, training BN takes its statistics over
+  the global batch, as the JAX step's BN over a sharded batch does.
 - ``ConvBnAct`` skips its BN when the conv's INPUT map is 1x1 (a reference
   quirk; the JAX package decides it at trace time, here at run time). Those
   BNs still exist in the state dict and keep their init.
@@ -31,6 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from desenet_tpu_torch.parallel import multihost
+from desenet_tpu_torch.parallel.mesh import process_count
 from desenet_tpu_torch.ops.resize import (
     adaptive_avg_pool,
     max_pool_same,
@@ -60,11 +64,15 @@ class BatchNorm2d(nn.BatchNorm2d):
     package's ``layers.BatchNorm``, momentum 0.97 there). Normalization,
     the running mean and eval mode are torch's; ``num_batches_tracked`` is
     not advanced. With ``momentum=None`` (torch's cumulative average, which
-    flax does not have) the module is torch's own."""
+    flax does not have) the module is torch's own. With a process group of
+    more than one process the statistics are the global batch's
+    (``_global_batch_norm``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.momentum is None:
             return super().forward(x)
+        if process_count() > 1:
+            return self._global_batch_norm(x)
         # F.batch_norm moves a copy of the variance by m * var * n / (n - 1)
         # (autograd keeps that copy); the n / (n - 1) is taken back from its
         # own statistics, with no pass over x
@@ -76,6 +84,31 @@ class BatchNorm2d(nn.BatchNorm2d):
             old = self.running_var
             old.copy_(rv - (rv - old * (1.0 - self.momentum)) / n)
         return y
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """BN over the batch of every process: one sum of per-channel
+        [count, sum, sum of squares] over the processes, in at least f32,
+        with autograd through it; flax's variance (the mean of squares less
+        the squared mean, floored at 0), biased, which the running variance
+        moves toward as flax's does. Not ``nn.SyncBatchNorm``, whose running
+        variance takes the unbiased variance."""
+        c = x.shape[1]
+        xs = x.to(torch.promote_types(x.dtype, torch.float32))
+        count = torch.full((1,), x.numel() // c, dtype=xs.dtype,
+                           device=x.device)
+        stats = multihost.global_sum_grad(torch.cat(
+            [count, xs.sum((0, 2, 3)), (xs * xs).sum((0, 2, 3))]))
+        n = stats[0]
+        mean = stats[1:c + 1] / n
+        var = torch.clamp(stats[c + 1:] / n - mean * mean, min=0.0)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        shift = self.bias - mean * scale
+        y = xs * scale[:, None, None] + shift[:, None, None]
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.detach() * m)
+            self.running_var.mul_(1.0 - m).add_(var.detach() * m)
+        return y.to(x.dtype)
 
 
 def batch_norm(c: int) -> BatchNorm2d:

@@ -14,7 +14,9 @@ memory is one (B, C, TB, W) block.
 Dtype rules are the JAX package's: f32 logits contract in f32, bf16 ones
 in bf16 (f32 accumulation inside each product); the CE is f32; the CE's
 gradient is cast to the logits' dtype before the transposed contractions.
-Plain PyTorch: no TPU kernel stands behind it.
+With several processes the denominator (valid pixels, or their class
+weights) is summed over the processes, as the seg CE's is. Plain PyTorch:
+no TPU kernel stands behind it.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import functools
 import torch
 
 from desenet_tpu_torch.ops.resize import _linear_matrix
+from desenet_tpu_torch.parallel.multihost import global_sum
 
 __all__ = ["upsampled_ce"]
 
@@ -99,7 +102,7 @@ class _UpsampledCE(torch.autograd.Function):
             w = _pixel_weight(valid, onehot, cw)
             nll_sum = nll_sum + (nll * w).sum()
             den = den + w.sum()
-        den = den.clamp(min=1.0)
+        den = global_sum(den).clamp(min=1.0)
         ctx.save_for_backward(z, labels, den)
         ctx.cfg = (out_hw, align_corners, ignore_index, cw, row_target)
         return nll_sum / den

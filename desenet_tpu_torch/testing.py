@@ -10,6 +10,7 @@ Everything is made on the CPU; callers move it to the device.
 from __future__ import annotations
 
 import contextlib
+from typing import Optional
 
 import numpy as np
 import torch
@@ -541,27 +542,33 @@ def train_batch(rng, b: int, imgsz: int, nc: int, max_targets: int = 32
 
 
 def train_steps(device, fused: bool, dtype: torch.dtype, steps: int,
-                seed: int = 0) -> list:
-    """The tiny model (``tiny_cfg``, 64 px, batch 2, SGD, a batch that always
-    steps) takes ``steps`` training steps on ``device`` from a seeded state
-    and batch. Returns per step ``(loss, {group: {key: tensor}})``, the
-    groups ``params``, ``stats``, ``mu`` and ``ema`` copied to the CPU in
-    float64 after the step."""
+                seed: int = 0, cfg=None, imgsz: int = 64, b: int = 2,
+                rows: Optional[slice] = None) -> list:
+    """A model (``cfg``, the tiny one by default, at ``imgsz``) takes
+    ``steps`` training steps on ``device`` from a seeded state and a seeded
+    global batch of ``b`` (SGD, a batch that always steps). ``rows``: this
+    process's rows of the global batch in a multi-process run (the step
+    takes the global batch's gradient, ``train/step.py``). Returns per step
+    ``(loss, {group: {key: tensor}})``, the groups ``params``, ``stats``,
+    ``mu`` and ``ema`` copied to the CPU in float64 after the step."""
     from desenet_tpu_torch.models import build_model, init_weights
     from desenet_tpu_torch.train import create_train_state, make_train_step
     from desenet_tpu_torch.train.engine import load_hyp, loss_and_schedule
     from desenet_tpu_torch.train.state import bn_stats
 
     dev = torch.device(device)
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in train_batch(
-        np.random.default_rng(seed), 2, 64, 3, 8).items()}
-    model, spec = build_model(tiny_cfg(), seg_upsample=not fused, train=True)
+    model, spec = build_model(cfg or tiny_cfg(), seg_upsample=not fused,
+                              train=True)
+    batch = train_batch(np.random.default_rng(seed), b, imgsz, spec.de_nc, 8)
+    batch = {k: torch.from_numpy(v[rows or slice(None)]).to(dev)
+             for k, v in batch.items()}
     init_weights(model, torch.Generator().manual_seed(seed))
-    model.to(dev, dtype)
-    det_loss, opt_cfg, lf = loss_and_schedule(load_hyp(), spec, 64, 10)
+    # bf16 computes under autocast on f32 parameters, as the engine's step
+    model.to(dev, torch.float32 if dtype == torch.bfloat16 else dtype)
+    det_loss, opt_cfg, lf = loss_and_schedule(load_hyp(), spec, imgsz, 10)
     state = create_train_state(model, opt_cfg)
     step = make_train_step(model, det_loss, opt_cfg, lf, nb=4,
-                           warmup_iters=2, nominal_bs=2, batch_size=2,
+                           warmup_iters=2, nominal_bs=b, batch_size=b,
                            fused_seg=fused, dtype=dtype)
     out = []
     for _ in range(steps):
@@ -577,24 +584,29 @@ def train_steps(device, fused: bool, dtype: torch.dtype, steps: int,
     return out
 
 
+def parity_errors(got: list, want: list) -> list:
+    """Per step of two ``train_steps`` runs: the loss's relative error and
+    each state group's worst (error, tensor) against its tensor's largest
+    magnitude, ``want`` the reference."""
+    res = []
+    for (loss, g_snap), (ref_loss, w_snap) in zip(got, want):
+        errs = {"loss": abs(loss - ref_loss) / abs(ref_loss)}
+        for g in w_snap:
+            errs[g] = max((float((g_snap[g][k] - w).abs().max())
+                           / max(float(w.abs().max()), 1e-30), k)
+                          for k, w in w_snap[g].items())
+        res.append(errs)
+    return res
+
+
 def train_parity(device, fused: bool, dtype: torch.dtype, seed: int = 0
                  ) -> list:
     """``train_steps`` for ``TRAIN_PARITY_STEPS[dtype]`` steps on ``device``
-    and on the CPU. Returns per step the loss's relative error and each
-    state group's worst (error, tensor) against its tensor's largest
-    magnitude, the CPU run the reference. Run f32 on a card under
-    ``no_tf32``."""
+    and on the CPU; their ``parity_errors``, the CPU run the reference. Run
+    f32 on a card under ``no_tf32``."""
     runs = [train_steps(dev, fused, dtype, TRAIN_PARITY_STEPS[dtype], seed)
             for dev in (device, "cpu")]
-    res = []
-    for (loss, got), (ref_loss, want) in zip(*runs):
-        errs = {"loss": abs(loss - ref_loss) / abs(ref_loss)}
-        for g in want:
-            errs[g] = max((float((got[g][k] - w).abs().max())
-                           / max(float(w.abs().max()), 1e-30), k)
-                          for k, w in want[g].items())
-        res.append(errs)
-    return res
+    return parity_errors(*runs)
 
 
 def check_train_parity(res: list, dtype: torch.dtype, what: str) -> None:

@@ -1,0 +1,95 @@
+"""Data-parallel dry run: N processes take training steps of one global
+batch, held against one process taking them on the whole batch.
+
+    python -m desenet_tpu_torch.tools.dryrun_multichip [--nproc 2]
+
+The port's analog of ``__graft_entry__.dryrun_multichip`` (whose record is
+``MULTICHIP_r05.json``): by default N gloo processes on the CPU, each
+holding its rows of a global batch of 2N images (``testing.train_batch``),
+take two full training steps of the tiny config (fused seg loss, SGD,
+every step an optimizer step) in float64 from one seeded state; then one
+process takes the same steps on the whole batch, and process 0's losses
+and state are held to ``testing``'s float64 bars against it (in f32 the
+tiny model's BN over a few values lets any two runs drift apart after the
+first step, ``testing.TRAIN_PARITY_STEPS``). Prints one line::
+
+    dryrun_multichip(2): ok - loss=... step2_loss=... dparams=... (one
+    process on the global batch: loss rel err ..., params ...)
+
+and exits non-zero on any failure. ``run`` is the launcher that
+``chip_smoke.py`` phase 11(b) also takes, with two processes on one card
+over gloo.
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Optional
+
+import torch
+
+
+def _worker(rank: int, n: int, coordinator: str, device: str,
+            backend: Optional[str], kw: dict):
+    from desenet_tpu_torch.parallel import multihost
+    from desenet_tpu_torch.testing import no_tf32, train_steps
+
+    if torch.device(device).type == "cpu":
+        torch.set_num_threads(1)
+    multihost.init_multihost(coordinator, n, rank, device=device,
+                             backend=backend)
+    try:
+        rows = multihost.local_batch_slice(kw["b"])
+        with no_tf32():
+            return train_steps(device, rows=rows, **kw)
+    finally:
+        multihost.shutdown()
+
+
+def run(nproc: int, device: str = "cpu", backend: Optional[str] = None,
+        **kw) -> list:
+    """``testing.train_steps(device, rows=<this process's rows>, **kw)`` in
+    ``nproc`` processes of one group (``backend`` as ``init_multihost``
+    picks it); returns process 0's steps. ``kw`` needs ``b``, the global
+    batch, and takes ``train_steps``' other keywords."""
+    from desenet_tpu_torch.parallel.multihost import spawn
+
+    return spawn(_worker, nproc, device, backend, kw)
+
+
+def main(argv=None) -> None:
+    from desenet_tpu_torch.models import build_model, init_weights
+    from desenet_tpu_torch.testing import (check_train_parity, no_tf32,
+                                           parity_errors, tiny_cfg,
+                                           train_steps)
+
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--nproc", type=int, default=2)
+    p.add_argument("--device", default="cpu",
+                   help="cpu, or cuda:<i> (every process on that card, gloo)")
+    p.add_argument("--steps", type=int, default=2)
+    args = p.parse_args(argv)
+
+    kw = dict(fused=True, dtype=torch.float64, steps=args.steps, seed=0,
+              b=2 * args.nproc)
+    got = run(args.nproc, args.device,
+              "gloo" if args.device.startswith("cuda") else None, **kw)
+    torch.set_num_threads(1)
+    with no_tf32():
+        want = train_steps(args.device, **kw)
+    errs = parity_errors(got, want)
+    check_train_parity(errs, kw["dtype"], f"dryrun_multichip({args.nproc})")
+    model, _ = build_model(tiny_cfg(), seg_upsample=False, train=True)
+    init_weights(model, torch.Generator().manual_seed(kw["seed"]))
+    init = {k: v.double() for k, v in model.state_dict().items()}
+    last = got[-1][1]["params"]
+    dparams = sum(float((v - init[k]).abs().sum()) for k, v in last.items())
+    print(f"dryrun_multichip({args.nproc}): ok - loss={got[0][0]:.4f} "
+          f"step{len(got)}_loss={got[-1][0]:.4f} dparams={dparams:.3e} (one "
+          f"process on the global batch: loss rel err "
+          f"{max(e['loss'] for e in errs):.2e}, params "
+          f"{max(e['params'][0] for e in errs):.2e})", flush=True)
+
+
+if __name__ == "__main__":
+    main()

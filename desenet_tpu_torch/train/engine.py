@@ -1,8 +1,10 @@
 """The training engine: set-up, epoch loop, validation of the EMA weights,
 checkpoints.
 
-Counterpart of ``desenet_tpu/train/engine.py``, single process on one
-device. ``train(cfg)`` keeps the JAX engine's order: the run directory
+Counterpart of ``desenet_tpu/train/engine.py``: one process on one
+device, or several processes, one a device, in the process group of
+``parallel.multihost`` (``cli/train.py`` starts them). ``train(cfg)`` keeps
+the JAX engine's order: the run directory
 (``hyp.yaml``, ``opt.yaml``), the dataset check, the augmented training
 loader and the rect validation loader, the class weights, the autoanchor
 gate (a rebuild on new anchors), the loss gains and the schedule
@@ -21,9 +23,18 @@ the device and are read at the log ticks, four an epoch: the loop makes no
 host round trip per batch. The engine runs where ``cfg.device`` says
 (``cuda`` by default) and raises if that device is absent.
 
-The JAX engine's device mesh, multi-process launch, W&B sink, rematerial-
-ization, decoded-image caches and scaled JPEG decode are not ported
-(``refuse_unported``; ROADMAP.md).
+With several processes, as in the JAX engine: the global batch divides
+by the process count and each process loads a strided shard of every
+epoch (``loader.py``'s rank/world_size), ``--quad`` needs the per-process
+batch to divide by 4, ``--rect`` is refused; process 0 owns the run
+directory, ``opt.yaml``/``hyp.yaml``, ``results.csv``, plots, checkpoints
+and the EMA validation, and sends the others the run directory and each
+epoch's fitness; the processes meet at the dataset cache, each epoch's
+checkpoints and the end. The step takes the gradient of the global batch's
+loss with BN over the global batch (``train/step.py``).
+
+The JAX engine's data x spatial mesh, W&B sink and rematerialization are
+not ported (``refuse_unported``; ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -42,6 +53,8 @@ import torch
 from desenet_tpu_torch.losses import DetectionLoss
 from desenet_tpu_torch.models import build_model, config_path, init_weights
 from desenet_tpu_torch.models.heads import anchors_grid_units
+from desenet_tpu_torch.parallel import multihost
+from desenet_tpu_torch.parallel.mesh import process_count, process_index
 from desenet_tpu_torch.train.optim import OptimConfig
 from desenet_tpu_torch.train.schedule import linear_lr as _linear_lr
 from desenet_tpu_torch.train.schedule import one_cycle
@@ -166,13 +179,10 @@ def loss_and_schedule(hyp: Dict, spec, imgsz: int, epochs: int,
 def refuse_unported(cfg: TrainConfig) -> None:
     """Raise NotImplementedError for the options whose work belongs to
     later work (ROADMAP.md names each)."""
-    from desenet_tpu_torch.data.dataset import refuse_unported_decode
-
-    refuse_unported_decode(cfg.fast_decode, cfg.cache_images)
-    if (cfg.n_devices or 1) > 1 or cfg.spatial > 1:
+    if cfg.spatial > 1:
         raise NotImplementedError(
-            f"--n-devices/--spatial above 1 (training on several devices) "
-            f"{_ROADMAP} item 7)")
+            f"--spatial above 1 (the data x spatial mesh) {_ROADMAP} "
+            "item 11)")
     wandb = {"--wandb": cfg.wandb, "--upload-dataset": cfg.upload_dataset,
              "--entity": cfg.entity is not None,
              "--bbox-interval": cfg.bbox_interval != -1,
@@ -188,12 +198,40 @@ def refuse_unported(cfg: TrainConfig) -> None:
 
 
 def resolve_device(name: str) -> torch.device:
-    """``name`` as a device; a CUDA one must exist (no quiet CPU run)."""
+    """``name`` as a device; a CUDA one must exist (no quiet CPU run). A
+    bare ``cuda`` is the process's current card (``cuda:LOCAL_RANK`` in a
+    multi-process run, ``init_multihost`` sets it)."""
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {name}: torch finds no CUDA device; "
                            "pass --device cpu to train on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def check_processes(cfg: TrainConfig, pc: int) -> None:
+    """The JAX engine's conditions on a run of ``pc`` processes."""
+    if cfg.n_devices not in (None, 1) and cfg.n_devices != pc:
+        raise ValueError(
+            f"--n-devices {cfg.n_devices} trains in {cfg.n_devices} "
+            f"processes, one a device, and this run has {pc}: cli.train "
+            "starts them, or launch them with DESENET_COORDINATOR, "
+            "DESENET_NUM_PROCESSES and DESENET_PROCESS_ID")
+    if pc == 1:
+        return
+    if cfg.batch_size % pc:
+        raise ValueError(f"global batch {cfg.batch_size} not divisible by "
+                         f"{pc} processes")
+    if cfg.quad and (cfg.batch_size // pc) % 4:
+        raise ValueError(
+            f"--quad needs the per-process batch ({cfg.batch_size}/{pc}="
+            f"{cfg.batch_size // pc}) divisible by 4 (collate groups 4 "
+            "images per super-image)")
+    if cfg.rect:
+        raise ValueError("multi-process training is incompatible with "
+                         "--rect: aspect-sorted batch shapes diverge across "
+                         "processes")
 
 
 def _snapshot(cfg: TrainConfig) -> Dict:
@@ -309,12 +347,21 @@ def train(cfg: TrainConfig, callbacks: Optional[Callbacks] = None) -> Dict:
     from desenet_tpu_torch.utils.loggers import Loggers
 
     refuse_unported(cfg)
+    pc, is_main = process_count(), process_index() == 0
+    check_processes(cfg, pc)
     callbacks = callbacks or Callbacks()
     dev = resolve_device(cfg.device)
+    if cfg.fast_decode:  # before the run directory: no libjpeg, no run
+        from desenet_tpu_torch.data.dataset import require_fast_decode
+
+        require_fast_decode()
     generator = init_seeds(cfg.seed)
     hyp = load_hyp(cfg.hyp)
-    save_dir = make_run_dir(cfg, hyp)
-    callbacks.auto_register(Loggers(save_dir, use_tb=cfg.use_tb))
+    # process 0 makes the run directory and sends its name to the others
+    save_dir = make_run_dir(cfg, hyp) if is_main else None
+    save_dir = multihost.broadcast_str("save_dir", save_dir)
+    if is_main:
+        callbacks.auto_register(Loggers(save_dir, use_tb=cfg.use_tb))
 
     data = check_dataset(cfg.data)
     de_nc = 1 if cfg.single_cls else int(data["de"]["nc"])
@@ -333,19 +380,30 @@ def train(cfg: TrainConfig, callbacks: Optional[Callbacks] = None) -> Dict:
         init = ckpt.inference_state_dict(ckpt.load_checkpoint(cfg.weights))
 
     # the loader's threads copy each batch to the card ahead of the step
-    # (multi-scale resizes host batches first, so it stages none)
+    # (multi-scale resizes host batches first, so it stages none); each
+    # process loads a strided shard of every epoch. Process 0 writes the
+    # label and image caches first, the others then read them.
+    local_bs = cfg.batch_size // pc
+    if not is_main:
+        multihost.sync_hosts("dataset_cache")
     train_loader, train_ds = create_mixed_dataloader(
-        data["train"], img_size=imgsz, batch_size=cfg.batch_size,
+        data["train"], img_size=imgsz, batch_size=local_bs,
         augment=True, hyp=hyp, stride=stride, single_cls=cfg.single_cls,
         workers=cfg.workers, max_targets=cfg.max_targets, seed=cfg.seed,
         stage=None if cfg.multi_scale else to_device(dev), rect=cfg.rect,
-        quad=cfg.quad)
-    val_loader, _ = create_mixed_dataloader(
-        data["val"], img_size=imgsz, batch_size=cfg.batch_size,
-        augment=False, rect=True, pad=0.5, stride=stride,
-        single_cls=cfg.single_cls, workers=cfg.workers,
-        max_targets=cfg.max_targets, seed=cfg.seed)
-    nb = len(train_loader)
+        quad=cfg.quad, fast_decode=cfg.fast_decode,
+        cache_images=cfg.cache_images, rank=process_index(), world_size=pc)
+    val_loader = None
+    if is_main:  # validation runs on process 0 only
+        val_loader, _ = create_mixed_dataloader(
+            data["val"], img_size=imgsz, batch_size=local_bs,
+            augment=False, rect=True, pad=0.5, stride=stride,
+            single_cls=cfg.single_cls, workers=cfg.workers,
+            max_targets=cfg.max_targets, seed=cfg.seed)
+        multihost.sync_hosts("dataset_cache")
+    # every process takes the same number of steps an epoch: the floor over
+    # the ranks (a rank may own one more sample of the strided order)
+    nb = (len(train_ds) // pc) // local_bs if pc > 1 else len(train_loader)
     class_weights = labels_to_class_weights(train_ds.det_labels, de_nc)
     LOGGER.info("class weights: %s", np.round(class_weights, 3))
 
@@ -372,6 +430,8 @@ def train(cfg: TrainConfig, callbacks: Optional[Callbacks] = None) -> Dict:
                       save_dir=save_dir, names=dict(enumerate(de_names)),
                       anchors=anchors, init=init, resumed=resumed,
                       generator=generator)
+    if not is_main:
+        loop.validator = None
 
     resample = None
     if cfg.image_weights:
@@ -415,7 +475,9 @@ def fit(cfg: TrainConfig, loop: Loop, train_batches: Iterable,
     ``train_batches`` (``loop.nb`` of them an epoch), validate the EMA on
     ``val_batches``, log, checkpoint under ``save_dir`` (unless
     ``cfg.nosave``), stop early; then strip ``best``. ``resample(rng)``
-    resamples the images at each epoch start (``image_weights``)."""
+    resamples the images at each epoch start (``image_weights``). With
+    several processes, process 0 validates, logs and checkpoints, and the
+    others take its fitness."""
     from desenet_tpu_torch.utils import checkpoint as ckpt
     from desenet_tpu_torch.utils.convert import load_state_dict
     from desenet_tpu_torch.utils.general import EarlyStopping
@@ -425,11 +487,14 @@ def fit(cfg: TrainConfig, loop: Loop, train_batches: Iterable,
     imgsz = imgsz or cfg.imgsz
     state, step, nb = loop.state, loop.step, loop.nb
     dev = next(iter(state.params.values())).device
+    pc, is_main = process_count(), process_index() == 0
     stopper = EarlyStopping(patience=cfg.patience)
     best_fitness = loop.best_fitness
     callbacks.run("on_train_start")
-    LOGGER.info("training %s on %s for %d epochs (%d batches/epoch, %s)",
-                cfg.cfg, cfg.data, cfg.epochs, nb, dev)
+    if is_main:
+        LOGGER.info("training %s on %s for %d epochs (%d batches/epoch, "
+                    "%s%s)", cfg.cfg, cfg.data, cfg.epochs, nb, dev,
+                    f", {pc} processes" if pc > 1 else "")
     t_start = time.time()
     final_results = {}
     ms_rng = np.random.default_rng(cfg.seed + 7)
@@ -459,9 +524,11 @@ def fit(cfg: TrainConfig, loop: Loop, train_batches: Iterable,
                 mloss_n += len(loss_hist)
                 loss_hist.clear()
                 mloss = mloss_sum / max(mloss_n, 1)
-                LOGGER.info("epoch %d/%d batch %d/%d  box %.4f obj %.4f "
-                            "cls %.4f seg %.4f  lr %.5f", epoch,
-                            cfg.epochs - 1, i + 1, nb, *mloss, metrics["lr"])
+                if is_main:
+                    LOGGER.info("epoch %d/%d batch %d/%d  box %.4f obj %.4f "
+                                "cls %.4f seg %.4f  lr %.5f", epoch,
+                                cfg.epochs - 1, i + 1, nb, *mloss,
+                                metrics["lr"])
             callbacks.run("on_train_batch_end")
         callbacks.run("on_train_epoch_end")
 
@@ -473,7 +540,7 @@ def fit(cfg: TrainConfig, loop: Loop, train_batches: Iterable,
             callbacks.run("on_val_start")
             results = loop.validator.run(val_batches)
             callbacks.run("on_val_end")
-        fi = float(fitness_det_seg(
+        fi = multihost.broadcast_float(fitness_det_seg(
             np.asarray([[results["mp"], results["mr"], results["map50"],
                          results["map"]]]), results["miou"])[0])
         row = {
@@ -490,16 +557,17 @@ def fit(cfg: TrainConfig, loop: Loop, train_batches: Iterable,
             "x/lr": float(loop.lr0 * loop.lf(np.float32(epoch))),
         }
         callbacks.run("on_fit_epoch_end", row)
-        mem = (f"  mem {torch.cuda.memory_allocated(dev) / 2**30:.1f}G"
-               if dev.type == "cuda" else "")
-        LOGGER.info("epoch %d done in %.1fs  mAP50 %.4f mAP %.4f mIoU %.4f "
-                    "fitness %.4f%s", epoch, time.time() - t_ep,
-                    results["map50"], results["map"], results["miou"], fi,
-                    mem)
+        if is_main:
+            mem = (f"  mem {torch.cuda.memory_allocated(dev) / 2**30:.1f}G"
+                   if dev.type == "cuda" else "")
+            LOGGER.info("epoch %d done in %.1fs  mAP50 %.4f mAP %.4f mIoU "
+                        "%.4f fitness %.4f%s", epoch, time.time() - t_ep,
+                        results["map50"], results["map"], results["miou"],
+                        fi, mem)
 
         if fi > best_fitness:
             best_fitness = fi
-        if not cfg.nosave:
+        if not cfg.nosave and is_main:
             ckpt.save_checkpoint(os.path.join(save_dir, "last"), state, epoch,
                                  best_fitness, loop.meta)
             if best_fitness == fi:
@@ -509,17 +577,22 @@ def fit(cfg: TrainConfig, loop: Loop, train_batches: Iterable,
                 ckpt.save_checkpoint(os.path.join(save_dir, f"epoch{epoch}"),
                                      state, epoch, best_fitness, loop.meta)
             callbacks.run("on_model_save")
+        # no process goes on (or ends) while process 0 writes
+        multihost.sync_hosts(f"ckpt_epoch_{epoch}")
         final_results = results
         if stopper(epoch, fi):
             break
 
-    LOGGER.info("training finished in %.1f min; best fitness %.4f",
-                (time.time() - t_start) / 60, best_fitness)
-    if not cfg.nosave and os.path.isdir(os.path.join(save_dir, "best")):
+    if is_main:
+        LOGGER.info("training finished in %.1f min; best fitness %.4f",
+                    (time.time() - t_start) / 60, best_fitness)
+    if (not cfg.nosave and is_main
+            and os.path.isdir(os.path.join(save_dir, "best"))):
         # the inference checkpoint: EMA weights, no optimizer
         ckpt.strip_checkpoint(os.path.join(save_dir, "best"),
                               os.path.join(save_dir, "best_stripped"))
     callbacks.run("on_train_end")
     callbacks.run("teardown")
+    multihost.sync_hosts("train_end")
     return {"save_dir": save_dir, "best_fitness": best_fitness,
             **final_results}

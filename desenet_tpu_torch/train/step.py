@@ -13,6 +13,14 @@ update and the EMA run only then (the JAX step computes both and selects).
 The JAX step's compiler options (the latency-hiding scheduler gate),
 buffer donation and ``remat_convs`` schedule a TPU program and are not
 ported.
+
+With several processes (``parallel.multihost``) each takes its rows of the
+global batch; the BN statistics and the losses' normalizers are the global
+batch's (``layers.BatchNorm2d``, ``losses``), so each process's loss is its
+share of the global batch's and the gradient of that loss is the sum of
+theirs: the gradients are summed over the processes (not averaged) before
+the update, and every process applies the same update. The reference's
+seg loss times WORLD_SIZE is not copied, as in the JAX step.
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ from desenet_tpu_torch.losses import DetectionLoss, segmentation_loss
 from desenet_tpu_torch.models.build import require_seg_head
 from desenet_tpu_torch.models.layers import Dropout
 from desenet_tpu_torch.ops.seg_ce import upsampled_ce
+from desenet_tpu_torch.parallel.mesh import process_count
+from desenet_tpu_torch.parallel.multihost import global_sum, sum_gradients
 from desenet_tpu_torch.train import optim as O
 from desenet_tpu_torch.train.ema import ema_update
 from desenet_tpu_torch.train.schedule import warmup_interp
@@ -82,8 +92,11 @@ def make_train_step(
     ``layers.Dropout`` modules (the BiSe and Base seg heads) draw their
     masks from it, or from the device's default generator when it is None.
 
+    ``batch_size`` and ``nominal_bs`` are global: with several processes
+    ``batch`` is this process's rows of a global batch of ``batch_size``.
+
     ``metrics``: ``loss, lbox, lobj, lcls, lseg`` (0-d tensors on the
-    device), ``lr`` (float) and ``stepped`` (0 or 1)."""
+    device, the global batch's), ``lr`` (float) and ``stepped`` (0 or 1)."""
     require_seg_head(model.spec, "make_train_step")
     if fused_seg == bool(model.seg_upsample):
         raise ValueError(
@@ -138,6 +151,8 @@ def make_train_step(
 
         if do_step:
             with torch.no_grad():
+                sum_gradients([p.grad for p in state.params.values()
+                               if p.grad is not None])
                 pinned = [state.params[k].clone() for k in frozen]
                 O.apply_updates(state.params,
                                 {k: p.grad for k, p in state.params.items()},
@@ -152,12 +167,15 @@ def make_train_step(
                 p.grad = None
             state.last_opt_step = ni
         state.step = ni + 1
+        losses = (loss, *comps, seg_l)
+        if process_count() > 1:  # the shares of the processes, added
+            losses = global_sum(torch.stack([v.detach() for v in losses]))
         metrics = {
-            "loss": loss.detach(),
-            "lbox": comps[0].detach(),
-            "lobj": comps[1].detach(),
-            "lcls": comps[2].detach(),
-            "lseg": seg_l.detach(),
+            "loss": losses[0].detach(),
+            "lbox": losses[1].detach(),
+            "lobj": losses[2].detach(),
+            "lcls": losses[3].detach(),
+            "lseg": losses[4].detach(),
             "lr": float(opt_cfg.lr0 * lr_scale * warmup_t),
             "stepped": int(do_step),
         }

@@ -284,10 +284,12 @@ def test_train_loader_batches_equal(split, quad, rank, world):
             assert_batches_equal(g, w)
 
 
-def test_stage_to_device_and_refused_decode(split):
+def test_stage_to_device_and_refused_decode(split, monkeypatch):
     """The stage callback hands the step tensors (on the CPU here, so no
-    pinned copy); the JAX package's scaled decode and image caches are
-    refused."""
+    pinned copy); the scaled decode without libjpeg in the native library
+    and an unknown image-cache mode are refused
+    (tests/test_torch_native.py holds both options against the JAX
+    package)."""
     import torch
 
     (loader, _) = port_loader.create_mixed_dataloader(
@@ -297,6 +299,12 @@ def test_stage_to_device_and_refused_decode(split):
     assert all(isinstance(batch[k], torch.Tensor) for k in
                port_loader.ARRAY_KEYS)
     assert batch["image"].dtype == torch.uint8 and batch["paths"]
-    for kw in (dict(fast_decode=True), dict(cache_images="ram")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_loader.create_mixed_dataloader(split, augment=True, **kw)
+    with pytest.raises(ValueError, match="cache_images"):
+        port_loader.create_mixed_dataloader(split, augment=True,
+                                            cache_images="gpu")
+    from desenet_tpu_torch import native
+
+    monkeypatch.setattr(native, "jpeg_available", lambda: False)
+    with pytest.raises(RuntimeError, match="libjpeg"):
+        port_loader.create_mixed_dataloader(split, augment=True,
+                                            fast_decode=True)

@@ -255,8 +255,7 @@ def test_engine_options_run(runs, opts):
             "item"]
 
 
-REFUSED = [["--fast-decode"], ["--cache-images", "ram"],
-           ["--n-devices", "2"], ["--spatial", "2"], ["--wandb"],
+REFUSED = [["--spatial", "2"], ["--wandb"],
            ["--upload-dataset"], ["--entity", "me"],
            ["--bbox-interval", "3"], ["--artifact-alias", "v1"], ["--remat"]]
 
@@ -270,9 +269,54 @@ def test_unported_flags_raise(flag, tmp_path):
 
 
 def test_multi_process_launch_raises(monkeypatch):
+    """A multi-process launch is ported (tests/test_torch_multiproc_*.py);
+    an environment that names a coordinator but not the process count and
+    id is refused before anything joins, and --spatial names its ROADMAP
+    item."""
     monkeypatch.setenv("DESENET_COORDINATOR", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    monkeypatch.delenv("DESENET_NUM_PROCESSES", raising=False)
+    with pytest.raises(ValueError, match="DESENET_NUM_PROCESSES"):
         cli_train.main(["--data", "x.yaml"])
+    with pytest.raises(NotImplementedError, match="item 11"):
+        engine.refuse_unported(engine.TrainConfig(spatial=2))
+
+
+@pytest.mark.parametrize("flag", [["--fast-decode"],
+                                  ["--cache-images", "ram"],
+                                  ["--n-devices", "2"]],
+                         ids=lambda f: f[0])
+def test_formerly_refused_flags(flag, tmp_path, monkeypatch):
+    """The flags that the port refused until the host data path and the
+    multi-process engine were ported reach the engine: the scaled decode
+    without libjpeg and --n-devices without the cards are refused before
+    any run directory; the image cache runs on to the missing dataset."""
+    from desenet_tpu_torch import native
+
+    monkeypatch.setattr(native, "jpeg_available", lambda: False)
+    want = {"--fast-decode": (RuntimeError, "libjpeg"),
+            "--cache-images": (FileNotFoundError, "x.yaml"),
+            "--n-devices": (RuntimeError, "CUDA card")}[flag[0]]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--data", "x.yaml", "--project", str(tmp_path)] + flag
+    if flag[0] != "--n-devices":
+        argv += ["--device", "cpu"]
+    with pytest.raises(want[0], match=want[1]):
+        cli_train.main(argv)
+    assert not os.listdir(tmp_path) or flag[0] == "--cache-images"
+
+
+def test_multi_process_conditions():
+    """The JAX engine's conditions on a run of several processes."""
+    cfg = engine.TrainConfig(batch_size=8)
+    engine.check_processes(cfg, 2)
+    for bad, match in ((dict(batch_size=9), "not divisible"),
+                       (dict(batch_size=4, quad=True), "--quad"),
+                       (dict(batch_size=8, rect=True), "--rect"),
+                       (dict(batch_size=8, n_devices=4), "--n-devices 4")):
+        with pytest.raises(ValueError, match=match):
+            engine.check_processes(engine.TrainConfig(**bad), 2)
+    with pytest.raises(ValueError, match="--n-devices 2"):
+        engine.check_processes(engine.TrainConfig(n_devices=2), 1)
 
 
 def test_cuda_without_a_card_raises(monkeypatch, tmp_path):

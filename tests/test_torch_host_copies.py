@@ -11,7 +11,12 @@ originals, on the CPU, on the same inputs made with numpy from a seed:
   batch, arrays equal (needs cv2 and PIL; the JAX package's optional C++
   rasterizer is bit-identical to the PIL fill the port uses);
 - ``serve.py``: ``BatchRunner``'s buckets, padding, ordering and shedding on
-  a stub predictor.
+  a stub predictor;
+- ``native.py`` and ``csrc/host/fastops.cpp``: the C++ source is the JAX
+  package's ``native/fastops.cpp`` less its space-to-depth assembler, line
+  for line outside comments, and the wrapper's copy of the JAX wrapper's
+  frame-header parse reads each JPEG's size (``tests/test_torch_native.py``
+  holds the built libraries and the wrappers against each other).
 """
 
 import os
@@ -215,10 +220,11 @@ def test_pad_det_targets_equal_and_augment_refused(fake_split):
     for g, w in zip(pad_det_targets(dets, 6), jax_pad(dets, 6)):
         np.testing.assert_array_equal(g, w)
     # the augmented path is ported (tests/test_torch_augment.py holds it
-    # against the JAX package's); its decoded-image cache is not
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # against the JAX package's), its image caches too
+    # (tests/test_torch_native.py); a cache mode of neither kind is refused
+    with pytest.raises(ValueError, match="cache_images"):
         create_mixed_dataloader(fake_split, img_size=64, batch_size=2,
-                                augment=True, cache_images="ram")
+                                augment=True, cache_images="vram")
 
 
 class StubDetections:
@@ -288,3 +294,53 @@ def test_batch_runner_stops_and_joins():
     assert not runner.submit(req)
     with pytest.raises(ValueError, match="max_batch"):
         port_serve.BatchRunner(StubPredictor(), max_batch=0)
+
+
+def _code_lines(path, drop_fn=None):
+    """The source's lines outside // comments, blank lines dropped, and
+    without the function whose signature starts with ``drop_fn``."""
+    out, skip, depth = [], False, 0
+    with open(path) as fh:
+        for line in fh:
+            code = line.split("//")[0].rstrip()
+            if drop_fn and code.startswith(drop_fn):
+                skip = True
+            if skip:
+                depth += code.count("{") - code.count("}")
+                if depth == 0 and "}" in code:
+                    skip = False
+                continue
+            if code.strip():
+                out.append(code)
+    return out
+
+
+def test_native_source_is_the_jax_packages():
+    from desenet_tpu_torch import native
+
+    repo = os.path.dirname(HERE)
+    want = _code_lines(os.path.join(repo, "native", "fastops.cpp"),
+                       drop_fn="void assemble_batch_s2d4")
+    got = _code_lines(native.SOURCE)
+    assert got == want
+    assert not any("s2d4" in ln for ln in got)
+
+
+def test_native_jpeg_size_reads_the_frame_header(tmp_path):
+    """The SOF parse the wrapper sizes its output by, on JPEGs of several
+    shapes and with an EXIF block before the frame header."""
+    from PIL import Image
+
+    from desenet_tpu_torch import native
+
+    rng = np.random.default_rng(0)
+    for i, (h, w) in enumerate([(64, 96), (517, 333), (8, 2000)]):
+        p = str(tmp_path / f"{i}.jpg")
+        exif = Image.Exif()
+        exif[0x0112] = 1
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(
+            p, exif=exif)
+        with open(p, "rb") as fh:
+            data = fh.read()
+        assert native.jpeg_size(data) == (h, w)
+    assert native.jpeg_size(b"\xff\xd8" + b"\x00" * 32) is None

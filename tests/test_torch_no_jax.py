@@ -4,8 +4,11 @@ loader), takes two training steps, runs the training engine's
 epoch loop (``train.engine.fit``: one epoch on in-memory batches, the EMA
 validated, checkpoints written, reloaded and stripped), serves a checkpoint
 through ``load_predictor``, runs the detect program plain, with TTA and on
-an ensemble, validates an ensemble with TTA, scores by the COCO protocol
-and runs its kernel probes (K5, K6) with the JAX package
+an ensemble, validates an ensemble with TTA, scores by the COCO protocol,
+runs its kernel probes (K5, K6), builds and loads its native host library
+(``native.py``: the assembler, the rasterizer, the scaled JPEG decode) and
+takes a data-parallel step in two gloo processes
+(``tools/dryrun_multichip.run``) with the JAX package
 ``desenet_tpu``, JAX, flax, optax, orbax, cv2, PyYAML, matplotlib and
 pandas blocked: the port never needs JAX or the JAX package, and the
 card's machine may lack the other four. A second test reads the port's sources and ``chip_smoke.py`` with
@@ -227,6 +230,28 @@ for tool in (probe_stem_pallas, proto_c3_kernel):
     with contextlib.redirect_stdout(buf):
         rc = tool.main(["--device", "cpu", "--batch", "1", "--imgsz", "64"])
     assert rc == 0 and "parity" in buf.getvalue(), buf.getvalue()
+# the host data path's native library, built from csrc/host at first use
+from desenet_tpu_torch import native
+from desenet_tpu_torch.data.rasterize import rasterize_polygons_pil
+assert native.available()
+tiles = [np.full((4, 5, 3), i, np.uint8) for i in range(3)]
+assert np.array_equal(native.assemble_batch(tiles), np.stack(tiles))
+poly = [(1, np.array([[2, 2], [30, 4], [20, 28]], np.float32))]
+assert np.array_equal(native.rasterize_polygons_native(poly, (32, 32)),
+                      rasterize_polygons_pil(poly, (32, 32)))
+if native.jpeg_available():
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(np.zeros((48, 64, 3), np.uint8)).save(buf, "JPEG")
+    dec, hw0 = native.decode_jpeg_scaled(buf.getvalue(), 32)
+    assert hw0 == (48, 64) and dec.shape == (24, 32, 3), dec.shape
+
+# a data-parallel step in two processes (gloo), the global batch's gradient
+from desenet_tpu_torch.tools import dryrun_multichip
+steps = dryrun_multichip.run(2, "cpu", fused=True, dtype=torch.float64,
+                             steps=1, seed=0, b=4)
+assert len(steps) == 1 and np.isfinite(steps[0][0]), steps[0][0]
+
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in {b.split(".")[0] for b in BLOCKED}
                 | {"desenet_tpu"} and sys.modules[m] is not None)

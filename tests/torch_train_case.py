@@ -47,15 +47,15 @@ def tiny_cfg():
         return yaml.safe_load(fh)
 
 
-def batch(seed=0):
-    """uint8 images, up to M targets an image, uint8 seg labels with a blob
-    under each box (tests/test_train_step.py's shapes)."""
+def batch(seed=0, b=B):
+    """uint8 images, 2 + i targets in image i (up to M), uint8 seg labels
+    with a blob under each box (tests/test_train_step.py's shapes)."""
     rng = np.random.default_rng(seed)
-    img = rng.integers(0, 256, (B, S, S, 3), dtype=np.uint8)
-    seg = np.zeros((B, S, S), np.uint8)
-    tg = np.zeros((B, M, 5), np.float32)
-    mask = np.zeros((B, M), bool)
-    for i in range(B):
+    img = rng.integers(0, 256, (b, S, S, 3), dtype=np.uint8)
+    seg = np.zeros((b, S, S), np.uint8)
+    tg = np.zeros((b, M, 5), np.float32)
+    mask = np.zeros((b, M), bool)
+    for i in range(b):
         n = 2 + i
         for j in range(n):
             cx, cy = rng.uniform(0.25, 0.75, 2)
@@ -114,6 +114,28 @@ def run_case(fused, adam, accum, freeze=0, steps=3, start=5, f64=True):
 
 
 def _run_case(fused, adam, accum, freeze, steps, start, f64):
+    c = setup(fused, adam, accum, freeze, start, f64)
+    b = batch()
+    jb = {k: jnp.asarray(v) for k, v in b.items()}
+    jst, pst = c["jst"], c["pst"]
+    out = []
+    for _ in range(steps):
+        jst, jm = c["jstep"](jst, jb, jax.random.PRNGKey(0))
+        pst, pm = c["pstep"](pst, {k: torch.from_numpy(v)
+                                   for k, v in b.items()})
+        out.append(({k: float(v) for k, v in jm.items()},
+                    {k: float(v) for k, v in pm.items()},
+                    jax_snapshot(jst, c["spec"], adam),
+                    port_snapshot(pst, adam)))
+    return out
+
+
+def setup(fused, adam, accum, freeze=0, start=5, f64=True, b=B):
+    """One state on both sides and both steps, for a (global) batch of
+    ``b``: a dict of the JAX ``jst``/``jstep``, the port's ``pst``/
+    ``pstep``, the port's ``spec`` and what rebuilds the port's side in
+    another process (``jstate`` as numpy, ``cfg``, ``opt`` and ``common``
+    keywords). Call under ``jax.enable_x64(f64)``."""
     cfg = tiny_cfg()
     jdt = jnp.float64 if f64 else jnp.float32
     jmodel, jspec = jax_build_model(cfg, seg_upsample=not fused, dtype=jdt)
@@ -169,11 +191,11 @@ def _run_case(fused, adam, accum, freeze, steps, start, f64):
                   count=start)
     pst = train_state_from_jax(jstate, model, pcfg)
 
-    nominal = 4 * B if accum else B
+    nominal = 4 * b if accum else b
     # tau 4, not 2000: at u / tau = 0.003 the f32 decay 1 - exp(-u / tau)
     # keeps about 2e-5 of relative accuracy, and XLA's f32 exp and numpy's
     # differ there by that much
-    common = dict(nb=4, warmup_iters=8, nominal_bs=nominal, batch_size=B,
+    common = dict(nb=4, warmup_iters=8, nominal_bs=nominal, batch_size=b,
                   freeze=freeze, ema_tau=4.0)
     jdet = JDetectionLoss(anchors=ANCHORS, nc=3)
     pdet = DetectionLoss(anchors=ANCHORS, nc=3)
@@ -184,16 +206,8 @@ def _run_case(fused, adam, accum, freeze, steps, start, f64):
                             fused_seg=fused,
                             dtype=torch.float64 if f64 else torch.float32,
                             **common)
-    b = batch()
-    jb = {k: jnp.asarray(v) for k, v in b.items()}
-    out = []
-    for _ in range(steps):
-        jst, jm = jstep(jst, jb, jax.random.PRNGKey(0))
-        pst, pm = pstep(pst, {k: torch.from_numpy(v) for k, v in b.items()})
-        out.append(({k: float(v) for k, v in jm.items()},
-                    {k: float(v) for k, v in pm.items()},
-                    jax_snapshot(jst, spec, adam), port_snapshot(pst, adam)))
-    return out
+    return dict(jst=jst, jstep=jstep, pst=pst, pstep=pstep, spec=spec,
+                jstate=jstate, cfg=cfg, opt=kw, common=common)
 
 
 # the bars, shared with the card's check (testing.py says where they come

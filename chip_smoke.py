@@ -143,7 +143,23 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
    testing's float64 bars against one process on the whole batch, then
    cli.train in the two ranks for 1 epoch at b16 bf16, where only rank 0
    writes its run directory and launches K3 (its counter reset in the rank
-   before and sent back after).
+   before and sent back after);
+12. quantized inference, yolov5s_seg at full width, seed-0 weights: (0) the
+   tiny int8 model (boosted weights, per-channel and per-tensor scales) on
+   the card against the CPU, where every conv is the plain version; (a)
+   the int8 Predictor (calibrated on 2 images, bf16 compute) serves one
+   b32/640 batch with every launch of the int8 conv kernel
+   (csrc/int8_conv.cu) captured: at each distinct shape the kernel's int32
+   sums bit-equal to the plain version's, its outputs at
+   testing.check_int8's bar (int8 within 1 LSB, equal on 99.9%), and the
+   kernel, the plain version and the im2col + torch._int_mm yardstick
+   timed in turns beside the shape's bound, then summed over the forward's
+   launches; (b) that Predictor serves b128/640 beside the bf16 Predictor
+   on the same weights, in turns (ms, img/s, peak memory, K1 and the int8
+   kernel counted); (c) where PIL and cv2 import, cli.val on a fake
+   dataset at 640 (16 train, 128 val images) with --int8 (2 calibration
+   batches), --act-store fp8 and neither (K3 and the int8 kernel
+   counted), then the three programs' b32 val steps in turns.
 
 Inputs of the kernel checks come from desenet_tpu_torch.testing, shared with
 tests/test_torch_kernels_cuda.py.
@@ -2260,6 +2276,335 @@ def phase11(card: str) -> int:
     return k3
 
 
+B_INT8_VAL = 32  # the int8 program whose conv shapes 12(a) takes
+N_CALIB = 2      # calibration images of the int8 Predictor
+
+
+def _im2col(x: torch.Tensor, kh: int, kw: int, stride: int, pad, dil: int):
+    """(B*Ho*Wo, KH*KW*C) int8 rows of an NCHW (channels_last) int8 map,
+    zero padded: the copy an im2col GEMM reads."""
+    xn = x.permute(0, 2, 3, 1)
+    if pad[0] or pad[1]:
+        xn = torch.nn.functional.pad(xn, (0, 0, pad[1], pad[1], pad[0],
+                                          pad[0]))
+    b, hp, wp, c = xn.shape
+    ho = (hp - dil * (kh - 1) - 1) // stride + 1
+    wo = (wp - dil * (kw - 1) - 1) // stride + 1
+    sb, sh, sw, sc = xn.stride()
+    cols = xn.as_strided((b, ho, wo, kh, kw, c), (
+        sb, stride * sh, stride * sw, dil * sh, dil * sw, sc))
+    return cols.reshape(b * ho * wo, kh * kw * c), (b, ho, wo)
+
+
+def int8_conv_library(parts, p, weights, residual=None, res_scale=None,
+                      out_scale=None, act=False, out_mode=0):
+    """The int8 conv block as PyTorch calls compute it: an im2col copy and
+    ``torch._int_mm`` (cuBLASLt) a part, the epilogue in torch ops on the
+    (M, O) rows. ``weights``: each part's (O8, K8) int8 matrix, zero padded
+    to multiples of 8 (``_int_mm``'s rule), made once outside the timing."""
+    from desenet_tpu_torch.ops import int8_conv
+
+    kh, kw = p.qw.shape[2:]
+    o = p.qw.shape[0]
+    acc = None
+    for data, g, wm in zip(parts, p.g, weights):
+        a, (b, ho, wo) = _im2col(data, kh, kw, p.stride, p.padding,
+                                 p.dilation)
+        if a.shape[1] != wm.shape[1]:
+            a = torch.nn.functional.pad(a, (0, wm.shape[1] - a.shape[1]))
+        y = torch._int_mm(a, wm.t())[:, :o].float() * g
+        acc = y if acc is None else acc + y
+    for v in (p.bn_b, p.bias):
+        if v is not None:
+            acc = acc + v
+    if p.corr is not None:
+        acc = acc - p.corr
+    if act:
+        acc = acc * torch.sigmoid(acc)
+    if residual is not None:
+        acc = acc + residual.permute(0, 2, 3, 1).reshape(-1, o).float() \
+            * res_scale.reshape(-1)
+    if out_mode == int8_conv.OUT_F32:
+        y = acc
+    elif out_mode == int8_conv.OUT_BF16:
+        y = acc.to(torch.bfloat16)
+    else:
+        y = torch.clamp(torch.round(acc / out_scale.reshape(-1)), -127.0,
+                        127.0).to(torch.int8)
+    return y.view(b, ho, wo, o).permute(0, 3, 1, 2)
+
+
+def _library_weights(p):
+    kh, kw = p.qw.shape[2:]
+    o = p.qw.shape[0]
+    out, off = [], 0
+    for c in p.channels:
+        w = p.qw[:, off:off + c].permute(0, 2, 3, 1).reshape(o, kh * kw * c)
+        off += c
+        k8, o8 = -(-w.shape[1] // 8) * 8, -(-o // 8) * 8
+        out.append(torch.nn.functional.pad(
+            w, (0, k8 - w.shape[1], 0, o8 - o)).contiguous())
+    return out
+
+
+def capture_int8_convs(fn):
+    """Every int8 conv launch of ``fn()``: {shape key: [calls, the first
+    call's arguments]}."""
+    from desenet_tpu_torch.ops import int8_conv
+
+    seen, run = {}, int8_conv.run
+
+    def spy(parts, p, residual=None, res_scale=None, out_scale=None,
+            act=False, out_mode=int8_conv.OUT_INT8):
+        key = (tuple(tuple(t.shape) for t in parts), tuple(p.qw.shape),
+               p.stride, p.padding, p.dilation, residual is not None,
+               out_mode)
+        if key not in seen:
+            seen[key] = [0, dict(parts=list(parts), p=p, residual=residual,
+                                 res_scale=res_scale, out_scale=out_scale,
+                                 act=act, out_mode=out_mode)]
+        seen[key][0] += 1
+        return run(parts, p, residual, res_scale, out_scale, act, out_mode)
+
+    int8_conv.run = spy
+    try:
+        fn()
+    finally:
+        int8_conv.run = run
+    return seen
+
+
+def int8_tiny_check(card: str) -> None:
+    """12(0): the tiny int8 model (boosted weights, calibrated on the CPU)
+    on the card against the CPU, where every conv is the plain version."""
+    from desenet_tpu_torch import quant as Q
+    from desenet_tpu_torch.models import build_model
+    from desenet_tpu_torch.testing import boosted_state
+    from desenet_tpu_torch.utils.convert import load_state_dict
+
+    cfg = tiny_cfg()
+    sd = boosted_state(build_model(cfg)[0], seed=0)
+    x = torch.rand((2, 3, 64, 64), generator=torch.Generator().manual_seed(1))
+    for pc in (True, False):
+        cm, _ = build_model(cfg, fuse_focus=True, quant=Q.QuantCfg(
+            mode="calib", per_channel_act=pc))
+        load_state_dict(cm, sd)
+        scales, means = Q.calibrate_stats(cm.eval(), [x])
+        qcfg = Q.QuantCfg(mode="int8", scales=scales, in_means=means,
+                          bias_correct=True, per_channel_act=pc)
+        outs = []
+        for dev in ("cpu", "cuda"):
+            m, _ = build_model(cfg, fuse_focus=True, quant=qcfg)
+            load_state_dict(m, sd)
+            mf = (torch.channels_last if dev == "cuda"
+                  else torch.contiguous_format)
+            m = m.to(dev, memory_format=mf).eval()
+            with torch.no_grad(), no_tf32():
+                (dec, _), seg = m(x.to(dev).contiguous(memory_format=mf))
+            outs.append((dec.float().cpu(), seg.float().cpu()))
+        (d0, s0), (d1, s1) = outs
+        derr = float((d1 - d0).abs().max() / d0.abs().max())
+        serr = float((s1 - s0).abs().max() / s0.abs().max())
+        agree = float((s1.argmax(1) == s0.argmax(1)).float().mean())
+        if derr > 0.02 or serr > 0.02 or agree < 0.99:
+            raise AssertionError(f"tiny int8 model on CUDA vs CPU: decode "
+                                 f"{derr}, seg {serr}, class map {agree}")
+        log(12, f"tiny int8 model ({'per-channel' if pc else 'per-tensor'} "
+            f"scales) on CUDA against the CPU's plain convs: decode within "
+            f"{derr:.2e} and seg logits within {serr:.2e} of their largest "
+            f"magnitude, class map equal on {agree:.6f} [{card}]")
+
+
+def phase12(card: str, sd: dict, errs: dict, timing: dict,
+            extras: dict) -> dict:
+    """Quantized inference: the int8 conv kernel at the b32/640 program's
+    shapes, the int8 Predictor at b128/640 beside the bf16 one, cli.val
+    with --int8 and --act-store fp8; returns the launches on those paths."""
+    import tempfile
+
+    from desenet_tpu_torch.api import Predictor
+    from desenet_tpu_torch.ops import int8_conv, nms_fused, nms_pallas
+    from desenet_tpu_torch.testing import check_int8
+
+    int8_tiny_check(card)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(12)
+    calib = [rng.integers(0, 256, (IMGSZ, IMGSZ, 3), dtype=np.uint8)
+             for _ in range(N_CALIB)]
+    launches = {"int8_conv": 0, "nms_fused": 0, "nms_greedy": 0}
+    t = time.perf_counter()
+    pq = Predictor("yolov5s_seg", sd, imgsz=IMGSZ, half=True, device="cuda",
+                   int8=True, calib=calib)
+    t_cal = time.perf_counter() - t
+    pb = Predictor("yolov5s_seg", sd, imgsz=IMGSZ, half=True, device="cuda")
+
+    # (a) the kernel at every distinct conv shape of the b32 program
+    g = torch.Generator(device=dev).manual_seed(12)
+    x32 = torch.randint(0, 256, (B_INT8_VAL, IMGSZ, IMGSZ, 3),
+                        dtype=torch.uint8, device=dev, generator=g)
+    seen = capture_int8_convs(lambda: pq.infer(x32))
+    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bytes": 0.0,
+           "operations": 0.0}
+    err, n_calls = 0.0, 0
+    for key, (count, a) in seen.items():
+        parts, p = a["parts"], a["p"]
+        args = {k: a[k] for k in ("residual", "res_scale", "out_scale", "act",
+                                  "out_mode")}
+        raw = int8_conv.run(parts, p, out_mode=int8_conv.OUT_I32)
+        if not torch.equal(raw, int8_conv.int8_conv_plain(
+                parts, p, out_mode=int8_conv.OUT_I32)):
+            raise AssertionError(f"int8 conv {key}: int32 sums differ from "
+                                 f"plain")
+        want = int8_conv.int8_conv_plain(parts, p, **args)
+        e = check_int8(int8_conv.run(parts, p, **args), want, str(key))
+        wl = _library_weights(p)
+        lib_out = int8_conv_library(parts, p, wl, **args)
+        check_int8(lib_out, want, f"library {key}")
+        err = max(err, e)
+        pl, k, lib = in_turns(
+            (lambda: int8_conv.int8_conv_plain(parts, p, **args), 2),
+            (lambda: int8_conv.run(parts, p, **args), 10),
+            (lambda: int8_conv_library(parts, p, wl, **args), 5))
+        b, _, h, w = parts[0].shape
+        o, _, kh, kw = p.qw.shape
+        ho, wo = want.shape[2:]
+        cin = sum(t.shape[1] for t in parts)
+        itemsize = {int8_conv.OUT_INT8: 1, int8_conv.OUT_F32: 4,
+                    int8_conv.OUT_BF16: 2}[args["out_mode"]]
+        bound = tm.int8_conv_bound(b, h, w, cin, ho, wo, o, kh, kw, itemsize,
+                                   args["residual"] is not None)
+        macs = tm.int8_conv_macs(b, ho, wo, cin, o, kh, kw)
+        tot["ms"] += count * k
+        tot["plain"] += count * pl
+        tot["lib"] += count * lib
+        tot[bound[1]] += count * bound[0]
+        n_calls += count
+        log(12, f"int8_conv x{count} parts {[t.shape[1] for t in parts]} "
+            f"({b}, {h}, {w}) -> ({o}, {ho}, {wo}) k{kh} s{p.stride} "
+            f"d{p.dilation}{' +res' if args['residual'] is not None else ''}"
+            f" out {args['out_mode']}: kernel {k:.4f} ms "
+            f"({2 * macs / k / 1e9:.1f} TOP/s), plain {pl:.3f} ms, im2col + "
+            f"_int_mm {lib:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); "
+            f"max |diff| {e} [{card}]")
+    bound_ms = tot["bytes"] + tot["operations"]
+    by = "bytes" if tot["bytes"] >= tot["operations"] else "operations"
+    timing["int8_conv"] = (tot["ms"], tot["plain"], (bound_ms, by),
+                           tot["lib"])
+    errs["int8_conv"] = err
+    extras["int8_conv"] = {"shapes": len(seen), "calls_per_forward": n_calls,
+                           "batch": B_INT8_VAL}
+    log(12, f"int8_conv over one b{B_INT8_VAL}/{IMGSZ} int8 forward: "
+        f"{n_calls} launches at {len(seen)} shapes, kernel {tot['ms']:.3f} "
+        f"ms, plain {tot['plain']:.3f} ms, im2col + _int_mm "
+        f"{tot['lib']:.3f} ms, bound {bound_ms:.4f} ms (sum of the calls' "
+        f"bounds, mostly {by}) [{card}]")
+
+    # (b) serving: the int8 Predictor beside the bf16 one, b128/640
+    int8_conv.launches = nms_fused.launches = 0
+    res = pq(calib)
+    if len(res) != N_CALIB or any(m.shape != (IMGSZ, IMGSZ)
+                                  for m in res.masks):
+        raise AssertionError(f"int8 Predictor served {res!r}")
+    x = torch.randint(0, 256, (B_SERVE, IMGSZ, IMGSZ, 3), dtype=torch.uint8,
+                      device=dev, generator=g)
+    peak = {}
+    for name, pr in (("bf16", pb), ("int8", pq)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        nms, seg = pr.infer(x)
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated() / 2**30
+        if not torch.isfinite(nms.scores).all() or seg.shape != (
+                B_SERVE, IMGSZ, IMGSZ):
+            raise AssertionError(f"{name} served program: bad outputs")
+    mb, mq = in_turns((lambda: pb.infer(x), 5), (lambda: pq.infer(x), 5))
+    k = {"int8_conv": int8_conv.launches, "nms_fused": nms_fused.launches}
+    if min(k.values()) < 1:
+        raise AssertionError(f"int8 serving launches {k}")
+    for n, v in k.items():
+        launches[n] += v
+    agree = float((pq.infer(x)[1] == pb.infer(x)[1]).float().mean())
+    log(12, f"int8 Predictor (calibrated on {N_CALIB} images in "
+        f"{t_cal:.3f} s) b{B_SERVE}/{IMGSZ}: {mq:.3f} ms/batch = "
+        f"{B_SERVE / mq * 1e3:.1f} img/s, peak {peak['int8']:.3f} GiB; bf16 "
+        f"Predictor {mb:.3f} ms/batch = {B_SERVE / mb * 1e3:.1f} img/s, peak "
+        f"{peak['bf16']:.3f} GiB (in turns); seg maps equal on {agree:.4f} "
+        f"(random weights); launches {k} [{card}]")
+
+    # (c) cli.val with --int8 and --act-store fp8 on a fake dataset; the
+    # data path needs cv2 and PIL, and a missing one fails the phase
+    import cv2  # noqa: F401
+    import PIL  # noqa: F401
+
+    from desenet_tpu_torch.cli import val as cli_val
+    from desenet_tpu_torch.eval import Validator
+    from desenet_tpu_torch.tools.make_fake_dataset import generate
+    from desenet_tpu_torch.utils.general import check_dataset
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_int8_") as tmp:
+        t = time.perf_counter()
+        data = generate(os.path.join(tmp, "ds"), n_train=8 * N_CALIB,
+                        n_val=4 * B_VAL, size=IMGSZ, seed=12)
+        made = time.perf_counter() - t
+        npz = os.path.join(tmp, "sd.npz")
+        np.savez(npz, **{k: v.cpu().numpy() for k, v in sd.items()})
+        ds = check_dataset(data)
+        nc, se_nc = int(ds["de"]["nc"]), int(ds["se"]["nc"])
+        for mode, extra in (("int8", ["--int8"]),
+                            ("fp8", ["--act-store", "fp8"]), ("bf16", [])):
+            int8_conv.launches = nms_pallas.launches = 0
+            t = time.perf_counter()
+            r = cli_val.main(["--data", data, "--cfg", "yolov5s_seg",
+                              "--weights", npz, "--batch-size", str(B_VAL),
+                              "--img-size", str(IMGSZ), "--device", "cuda",
+                              "--workers", "4", "--save-dir",
+                              os.path.join(tmp, mode)] + extra)
+            wall = time.perf_counter() - t
+            k = {"nms_greedy": nms_pallas.launches,
+                 "int8_conv": int8_conv.launches}
+            if r["seen"] != 4 * B_VAL or k["nms_greedy"] < 1 or (
+                    mode == "int8" and k["int8_conv"] < 1) or not all(
+                    0.0 <= r[m] <= 1.0 for m in ("miou", "pix_acc", "map50")):
+                raise AssertionError(f"cli.val {mode}: {r}, launches {k}")
+            for n, v in k.items():
+                launches[n] += v
+            log(12, f"cli.val {' '.join(extra) or '(bf16)'} yolov5s_seg "
+                f"b{B_VAL}/{IMGSZ}, {r['seen']} fake images (written in "
+                f"{made:.3f} s): mIoU {r['miou']:.4f}, pixAcc "
+                f"{r['pix_acc']:.4f}, mAP50 {r['map50']:.4f}; {wall:.3f} s "
+                f"wall; launches {k} [{card}]")
+        # the val step of the three programs in turns
+        models = {
+            "int8": cli_val.calibrate_int8(ds, npz, "yolov5s_seg", nc, se_nc,
+                                           IMGSZ, B_VAL, True, dev)[0],
+            "fp8": cli_val.load_model("yolov5s_seg", npz, nc, se_nc, True,
+                                      dev, act_store="fp8")[0],
+            "bf16": cli_val.load_model("yolov5s_seg", npz, nc, se_nc, True,
+                                       dev)[0]}
+    batch = val_batches(12, 1, B_VAL, IMGSZ, nc, se_nc)[0]
+    img = torch.from_numpy(batch["image"]).to(dev)
+    tg = torch.from_numpy(batch["det_targets"]).to(dev)
+    tmask = torch.from_numpy(batch["det_mask"]).to(dev)
+    steps, peak = {}, {}
+    for name, m in models.items():
+        v = Validator(m, nc=nc, se_nc=se_nc)
+        steps[name] = lambda v=v: v.eval_step(img, tg, tmask)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps[name]()
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated() / 2**30
+    ms = dict(zip(steps, in_turns(*[(f, 5) for f in steps.values()])))
+    log(12, "val step b%d/%d (forward, NMS top set with K3, seg argmax): "
+        % (B_VAL, IMGSZ) + ", ".join(
+            f"{n} {ms[n]:.3f} ms ({B_VAL / ms[n] * 1e3:.1f} img/s, peak "
+            f"{peak[n]:.3f} GiB)" for n in steps) + f" (in turns) [{card}]")
+    extras["int8_conv"].update(
+        served_b128_ms={"int8": mq, "bf16": mb},
+        val_step_b32_ms=ms)
+    return launches
+
+
 def main() -> None:
     took = {}
 
@@ -2292,6 +2637,9 @@ def main() -> None:
     for k, v in timed("10", phase10, card, sd, errs, extras).items():
         launches[k] += v
     launches["nms_greedy"] += timed("11", phase11, card)
+    launches.update(int8_conv=0)
+    for k, v in timed("12", phase12, card, sd, errs, timing, extras).items():
+        launches[k] += v
     log("times", "seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in took.items())
         + f"; {sum(took.values()):.1f} in all")
@@ -2308,6 +2656,8 @@ def main() -> None:
                      launches, errs, timing),
         kernel_entry("c3_fused", "tools/proto_c3_kernel.py:35",
                      launches, errs, timing),
+        kernel_entry("int8_conv", "desenet_tpu/quant.py:276",
+                     launches, errs, timing, extras),
     ]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

@@ -1,6 +1,6 @@
 """High-level inference API: ``Predictor`` and ``Detections``.
 
-Counterpart of ``desenet_tpu/api.py`` without int8, multi-device or the
+Counterpart of ``desenet_tpu/api.py`` without multi-device serving or the
 space-to-depth stem:
 
     from desenet_tpu_torch.api import Predictor, load_predictor
@@ -17,6 +17,13 @@ compute dtype (``x / 255``), the model with the one-conv FusedFocus stem
 and 1/8-resolution seg logits, single-label NMS (kernel K1 on the card) and
 the seg tail (kernel K2). Like the JAX package's, it needs a model with a
 seg head.
+
+``Predictor(..., int8=True, calib=[images])`` serves the int8 W8A8
+program instead (``quant.quantize_for_inference``: calibrated on the
+letterboxed ``calib`` images, every conv the int8 kernel of
+``ops/int8_conv.py`` on the card): full-resolution logits argmaxed on the
+device, as the JAX package's int8 program does, so no seg tail; NMS stays
+K1.
 """
 
 from __future__ import annotations
@@ -162,7 +169,13 @@ class Predictor:
     weights and activations (NMS and decode stay f32). ``fuse_focus=False``
     serves the reference's slice-concat Focus stem instead (the same
     function; for A/B). ``nc``, ``se_nc`` and ``anchors`` override the
-    config's. Raises ValueError for a config with no seg head."""
+    config's. Raises ValueError for a config with no seg head.
+
+    ``int8=True``: the int8 W8A8 program, calibrated on ``calib`` (a few
+    representative images: paths, BGR arrays or PIL images; ValueError
+    without them), per-channel activation scales and bias correction (the
+    JAX package's defaults); its parameters stay f32 and ``half`` sets the
+    dtype of its input and fp pieces."""
 
     def __init__(self, cfg, state_dict: Mapping[str, torch.Tensor],
                  imgsz: int = 640, conf_thres: float = 0.25,
@@ -172,22 +185,42 @@ class Predictor:
                  se_names: Optional[Sequence[str]] = None,
                  fuse_focus: bool = True, nc: Optional[int] = None,
                  se_nc: Optional[int] = None,
-                 anchors: Optional[Sequence] = None):
+                 anchors: Optional[Sequence] = None, int8: bool = False,
+                 calib: Optional[Sequence] = None):
         if isinstance(cfg, str):
             cfg = config_path(cfg)
         self.device = torch.device(device)
         self.dtype = torch.bfloat16 if half else torch.float32
-        model, self.spec = build_model(cfg, nc=nc, se_nc=se_nc,
-                                       seg_upsample=False, anchors=anchors,
-                                       fuse_focus=fuse_focus)
-        require_seg_head(self.spec, "Predictor")
-        load_state_dict(model, state_dict)
+        self.int8 = int8
         # NCHW in the channels_last memory format on the card (cuDNN's NHWC
         # kernels); the default layout on the CPU
         self._mf = (torch.channels_last if self.device.type == "cuda"
                     else torch.contiguous_format)
-        self.model = model.to(self.device, self.dtype,
-                              memory_format=self._mf)
+        if int8:
+            if not calib:
+                raise ValueError(
+                    "int8=True needs calib=[...]: a few representative "
+                    "images (paths/arrays/PIL)")
+            from desenet_tpu_torch.quant import quantize_for_inference
+
+            lb = [letterbox(self._to_bgr(im), imgsz, auto=False,
+                            stride=32)[0] for im in calib]
+            cal = torch.from_numpy(np.stack(
+                [np.ascontiguousarray(x[:, :, ::-1]) for x in lb])).permute(
+                    0, 3, 1, 2).float() / 255.0
+            self.model, self.spec, _ = quantize_for_inference(
+                cfg, state_dict, [cal], device=self.device,
+                compute_dtype=self.dtype, nc=nc, se_nc=se_nc,
+                anchors=anchors, fuse_focus=fuse_focus)
+        else:
+            model, self.spec = build_model(cfg, nc=nc, se_nc=se_nc,
+                                           seg_upsample=False,
+                                           anchors=anchors,
+                                           fuse_focus=fuse_focus)
+            load_state_dict(model, state_dict)
+            self.model = model.to(self.device, self.dtype,
+                                  memory_format=self._mf)
+        require_seg_head(self.spec, "Predictor")
         self.imgsz = imgsz
         self.conf_thres = conf_thres
         self.iou_thres = iou_thres
@@ -207,6 +240,8 @@ class Predictor:
         nms = non_max_suppression(dec, conf_thres=self.conf_thres,
                                   iou_thres=self.iou_thres,
                                   max_det=self.max_det)
+        if self.int8:  # the int8 program emits full-resolution logits
+            return nms, seg.argmax(1).to(torch.uint8)
         seg_cls = upsample_argmax(seg.permute(0, 2, 3, 1).contiguous(),
                                   scale=8, align_corners=True)
         return nms, seg_cls

@@ -10,14 +10,18 @@ the names, class counts and anchors of its meta.json. The port adds two
 sources of its own, each built from ``--cfg``: ``--state-dict``, a
 torch-named state dict saved with ``np.savez`` (``tools/export_torch_sd.py``
 writes one from a JAX checkpoint), and ``--seed``, random weights made from
-that seed. POST image bytes to /predict (add ?mask=1 for the base64-PNG
-class mask); GET /healthz and /info for liveness and model metadata.
+that seed. ``--int8 --calib-dir DIR`` serves the int8 W8A8 program,
+calibrated on up to 16 images of DIR, as the JAX CLI's. POST image bytes
+to /predict (add ?mask=1 for the base64-PNG class mask); GET /healthz and
+/info for liveness and model metadata.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import logging
+import os
 
 import torch
 
@@ -59,7 +63,22 @@ def parse_opt(argv=None):
                         help="largest accepted request body (413 above)")
     parser.add_argument("--no-half", action="store_true",
                         help="run float32 instead of bfloat16")
-    return parser.parse_args(argv)
+    parser.add_argument("--int8", action="store_true",
+                        help="serve the int8 W8A8 quantized model; needs "
+                             "--calib-dir")
+    parser.add_argument("--calib-dir", default=None,
+                        help="directory of representative images for int8 "
+                             "activation calibration (a handful suffices)")
+    args = parser.parse_args(argv)
+    if args.int8:
+        if not args.calib_dir:
+            parser.error("--int8 needs --calib-dir")
+        args.calib = sorted(
+            p for p in glob.glob(os.path.join(args.calib_dir, "*"))
+            if p.lower().endswith((".jpg", ".jpeg", ".png", ".bmp")))[:16]
+        if not args.calib:
+            parser.error(f"no images found in {args.calib_dir}")
+    return args
 
 
 def build_predictor(args) -> Predictor:
@@ -67,6 +86,8 @@ def build_predictor(args) -> Predictor:
     kw = dict(imgsz=args.img_size, conf_thres=args.conf_thres,
               iou_thres=args.iou_thres, max_det=args.max_det,
               half=not args.no_half, device=args.device)
+    if args.int8:
+        kw.update(int8=True, calib=args.calib)
     if args.weights:
         return load_predictor(args.weights, **kw)
     cfg = config_path(args.cfg)

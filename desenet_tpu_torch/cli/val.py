@@ -12,7 +12,13 @@ or a torch-named state dict saved with ``np.savez``
 class counts from the data yaml; several ``--weights`` run an ensemble
 (``eval/ensemble.py``). ``--augment`` runs test-time augmentation
 (``eval/tta.py``); ``--save-json`` with ``--coco-anno`` re-scores the
-exported predictions by the COCO protocol (``eval/coco.py``). Reading
+exported predictions by the COCO protocol (``eval/coco.py``). ``--int8``
+validates the int8 W8A8 program (``quant.quantize_for_inference``,
+calibrated on ``calib_batches`` batches of the train split at
+``min(8, batch)`` without augmentation; ``--int8-no-bias-correct``,
+``--int8-mse-clip``, ``--int8-weights-only``, ``--int8-per-tensor`` and
+``--int8-fp-hops N`` as the JAX package's), ``--act-store fp8|fp8_e5m2``
+the fp8 activation-storage program; the two exclude each other. Reading
 the image dataset goes through the port's own ``desenet_tpu_torch.data``
 (validation path only), which needs PIL, PyYAML for the data yaml, and cv2
 where an image is resized.
@@ -31,9 +37,6 @@ from desenet_tpu_torch.eval.validator import Validator
 from desenet_tpu_torch.models import build_model, config_path
 from desenet_tpu_torch.ops import PRE_TOPK_VAL, non_max_suppression
 from desenet_tpu_torch.utils.convert import load_npz_state_dict, load_state_dict
-
-_ROADMAP = "is not ported to desenet_tpu_torch yet (ROADMAP.md, Queue 1)"
-
 
 def load_weights(weights, cfg, nc: int, se_nc: int):
     """(state dict, cfg, nc, se_nc, anchors) for ``weights``: a port
@@ -87,11 +90,42 @@ def load_any(cfg, weights, nc: int, se_nc: int, half: bool = True,
     return model, model.spec
 
 
-def _refuse_unported(int8=False, act_store=None):
-    if int8:
-        raise NotImplementedError(f"--int8 inference {_ROADMAP}")
-    if act_store is not None:
-        raise NotImplementedError(f"--act-store {_ROADMAP}")
+def calibrate_int8(data, weights, cfg, nc: int, se_nc: int, imgsz: int,
+                   batch_size: int, half: bool, device, single_cls=False,
+                   calib_batches: int = 2, bias_correct: bool = True,
+                   mse_clip: bool = False, weights_only: bool = False,
+                   per_channel: bool = True, fp_hops: int = 1):
+    """The int8 model of ``weights``: calibrated on ``calib_batches``
+    batches of the train split (the val split where there is none) at
+    ``min(8, batch_size)``, no augmentation. Returns (model, spec)."""
+    from desenet_tpu_torch.data import create_mixed_dataloader
+    from desenet_tpu_torch.models.build import parse_config
+    from desenet_tpu_torch.quant import quantize_for_inference
+
+    sd, cfg, nc, se_nc, anchors = load_weights(weights, cfg, nc, se_nc)
+    cfg = config_path(cfg)
+    stride = max(parse_config(cfg, nc=nc, se_nc=se_nc).det_strides)
+    loader, _ = create_mixed_dataloader(
+        data.get("train", data["val"]), img_size=imgsz,
+        batch_size=min(8, batch_size), augment=False, rect=False,
+        stride=stride, single_cls=single_cls, workers=2)
+    calib = []
+    for b in loader:
+        calib.append(torch.from_numpy(b["image"]).permute(0, 3, 1, 2)
+                     .float() / 255.0)
+        if len(calib) >= calib_batches:
+            break
+    model, spec, _ = quantize_for_inference(
+        cfg, sd, calib, bias_correct=bias_correct, mse_clip=mse_clip,
+        weights_only=weights_only, per_channel_act=per_channel,
+        device=device, compute_dtype=torch.bfloat16 if half
+        else torch.float32, nc=nc, se_nc=se_nc, anchors=anchors,
+        det_fp_hops=fp_hops)
+    print(f"int8: calibrated on {len(calib)} batches "
+          f"(bias_correct={bias_correct} mse_clip={mse_clip} "
+          f"weights_only={weights_only} per_channel={per_channel} "
+          f"fp_hops={fp_hops})")
+    return model, spec
 
 
 def run(
@@ -119,18 +153,36 @@ def run(
     act_store=None,
     device="cuda",
     seg_head_fused=False,
+    calib_batches=2,
+    int8_bias_correct=True,
+    int8_mse_clip=False,
+    int8_weights_only=False,
+    int8_per_channel=True,
+    int8_fp_hops=1,
 ):
-    _refuse_unported(int8, act_store)
     from desenet_tpu_torch.data import create_mixed_dataloader
     from desenet_tpu_torch.utils.general import (check_dataset, check_img_size,
                                                  coco80_to_coco91_class)
 
+    if int8 and act_store is not None:
+        raise ValueError("--int8 and --act-store are mutually exclusive "
+                         "inference modes")
+    several = not isinstance(weights, (str, os.PathLike)) and len(weights) > 1
+    if several and (int8 or act_store is not None):
+        raise ValueError("--int8 and --act-store do not take an ensemble")
     # COCO's exports take its 91-id category space
     is_coco = str(data).endswith("coco.yaml")
     data = check_dataset(data)
-    model, spec = load_any(cfg, weights, int(data["de"]["nc"]),
-                           int(data["se"]["nc"]), half, device,
-                           seg_head_fused)
+    nc_data, se_nc_data = int(data["de"]["nc"]), int(data["se"]["nc"])
+    if int8:
+        w = weights if isinstance(weights, (str, os.PathLike)) else weights[0]
+        model, spec = calibrate_int8(
+            data, w, cfg, nc_data, se_nc_data, imgsz, batch_size, half,
+            device, single_cls, calib_batches, int8_bias_correct,
+            int8_mse_clip, int8_weights_only, int8_per_channel, int8_fp_hops)
+    else:
+        model, spec = load_any(cfg, weights, nc_data, se_nc_data, half,
+                               device, seg_head_fused, act_store=act_store)
     imgsz = check_img_size(imgsz, s=max(spec.det_strides))
     nc = 1 if single_cls else int(data["de"]["nc"])
     se_nc = int(data["se"]["nc"])
@@ -259,15 +311,31 @@ def parse_opt(argv=None):
                    help="COCO instances json to re-score --save-json's "
                         "predictions with (default: <data path>/annotations/"
                         "instances_val2017.json)")
-    p.add_argument("--int8", action="store_true", help="not ported")
+    p.add_argument("--int8", action="store_true",
+                   help="int8 W8A8 post-training quantization (calibrates "
+                        "on train batches; per-channel activation scales "
+                        "and bias correction by default)")
+    p.add_argument("--int8-no-bias-correct", action="store_true",
+                   help="ablation: no weight-quantization bias correction")
+    p.add_argument("--int8-mse-clip", action="store_true",
+                   help="per-channel MSE-optimal weight clip search instead "
+                        "of absmax scales")
+    p.add_argument("--int8-fp-hops", type=int, default=1,
+                   help="keep this many compute layers upstream of Detect "
+                        "full precision under --int8")
+    p.add_argument("--int8-weights-only", action="store_true",
+                   help="ablation: quantize the weights only (fp "
+                        "activations)")
+    p.add_argument("--int8-per-tensor", action="store_true",
+                   help="ablation: per-tensor activation scales")
     p.add_argument("--act-store", choices=["fp8", "fp8_e5m2"], default=None,
-                   help="not ported")
+                   help="store block activations in fp8 (eval only; "
+                        "compute stays in the model dtype)")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     o = parse_opt(argv)
-    _refuse_unported(o.int8, o.act_store)
     from desenet_tpu_torch.utils.general import (check_dataset,
                                                  increment_path, set_logging)
 
@@ -290,8 +358,14 @@ def main(argv=None):
         o.iou_thres, o.task, o.single_cls, o.verbose, not o.no_half,
         o.plots, o.save_dir, o.workers, augment=o.augment,
         save_txt=o.save_txt, save_conf=o.save_conf, save_json=o.save_json,
-        save_hybrid=o.save_hybrid, coco_anno=o.coco_anno, device=o.device,
-        seg_head_fused=o.seg_head_fused)
+        save_hybrid=o.save_hybrid, coco_anno=o.coco_anno, int8=o.int8,
+        act_store=o.act_store, device=o.device,
+        seg_head_fused=o.seg_head_fused,
+        int8_bias_correct=not o.int8_no_bias_correct,
+        int8_mse_clip=o.int8_mse_clip,
+        int8_weights_only=o.int8_weights_only,
+        int8_per_channel=not o.int8_per_tensor,
+        int8_fp_hops=o.int8_fp_hops)
 
 
 if __name__ == "__main__":

@@ -45,8 +45,11 @@ def np_xywh2xyxy(x):
 
 
 def _model_device_dtype(model, device):
+    """(device, input dtype): the model's compute dtype where it has one
+    (an int8 model keeps f32 parameters), else its parameters'."""
     p = next(model.parameters())
-    return torch.device(device) if device is not None else p.device, p.dtype
+    dtype = getattr(model, "compute_dtype", None) or p.dtype
+    return torch.device(device) if device is not None else p.device, dtype
 
 
 def _to_input(img_u8: torch.Tensor, dtype, device) -> torch.Tensor:

@@ -9,10 +9,16 @@ A Focus row is built as the reference's slice-concat plus kxk conv by
 default (``LayerSpec.name`` ``"Focus"``), so that state dicts keep the
 reference's names; ``fuse_focus=True`` builds it as the JAX package does by
 default, one (2k)x(2k)/s2 conv on the raw image (``"FusedFocus"``).
+
+``build_model(quant=...)`` builds the int8 W8A8 inference model, its
+calibration model or its weights-only ablation (``quant.QuantCfg``);
+``act_store="fp8"`` the fp8 activation-storage model. Their eval forward
+is the JAX walker's (``DeSeNet.forward``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -23,9 +29,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from desenet_tpu_torch import quant as Q
 from desenet_tpu_torch.models import heads as H
 from desenet_tpu_torch.models import layers as L
-from desenet_tpu_torch.ops.resize import resize_bilinear, upsample_nearest
+from desenet_tpu_torch.ops.resize import (resize_bilinear, upsample_nearest,
+                                          upsample_nearest_repeat)
 from desenet_tpu_torch.ops.seg_head_pallas import MAX_P8, fused_psp2_eval
 
 # width-scaled blocks take their output width first; the C3-like ones
@@ -51,6 +59,21 @@ _BLOCKS = {
     "CrossConv": L.CrossConv, "BottleneckCSP": L.BottleneckCSP, "C3": L.C3,
     "C3TR": L.C3TR, "C3SPP": L.C3SPP, "C3Ghost": L.C3Ghost,
 }
+
+
+# rows that carry QTensors through the int8 path (the JAX walker's
+# _QUANT_AWARE); every other row gets dequantized inputs and runs in fp
+QUANT_AWARE = frozenset({
+    "Conv", "C3", "Focus", "FusedFocus", "SPP", "SPPF", "Bottleneck",
+    "Upsample", "Concat", "SegMaskPSP", "SegMaskPSP2",
+})
+_QUANT_SEG_HEADS = {"SegMaskPSP", "SegMaskPSP2"}
+_PASSTHROUGH = {"Concat", "Upsample", "Contract", "Expand"}
+# the rows of a model an fp8-storage build takes here
+_ACT_STORE_ROWS = QUANT_AWARE | {"Detect"}
+# the consumers a Concat may hand an implicit concat (a part list)
+_SPLIT_CONSUMERS = {"C3", "Conv", "C3TR", "C3Ghost", "BottleneckCSP", "SPP",
+                    "SPPF"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -301,6 +324,30 @@ def _instantiate(ls: LayerSpec, c1, spec: ModelSpec, seg_upsample: bool,
     return block(c1, *a)
 
 
+def det_fp_layers(spec: "ModelSpec", hops: int) -> set:
+    """The rows that stay full precision under int8 and fp8 storage: those
+    feeding Detect, through pass-through rows (Concat, Upsample, Contract,
+    Expand cost no hop), and ``hops - 1`` compute rows further up."""
+    srcs = (set(spec.layers[spec.det_layer].f) if spec.det_layer >= 0
+            else set())
+    budget = {i: int(hops) for i in srcs}
+    frontier = list(srcs)
+    while frontier:
+        i = frontier.pop()
+        if i < 0:
+            continue
+        row = spec.layers[i]
+        nb = budget[i] if row.name in _PASSTHROUGH else budget[i] - 1
+        if nb <= 0:
+            continue
+        for j in row.f:
+            if j >= 0 and budget.get(j, 0) < nb:
+                srcs.add(j)
+                budget[j] = nb
+                frontier.append(j)
+    return srcs
+
+
 class DeSeNet(nn.Module):
     """The compiled joint detection+segmentation model.
 
@@ -318,14 +365,28 @@ class DeSeNet(nn.Module):
     in eval mode a SegMaskPSP2 head with at most ``MAX_P8`` positions at
     1/8 resolution runs as kernel K4 (``ops/seg_head_pallas.py``; its plain
     version on a CPU tensor) instead of the module graph. A SegMaskBiSe
-    head in training mode returns ``[out, aux16, aux32]`` as ``seg``."""
+    head in training mode returns ``[out, aux16, aux32]`` as ``seg``.
+
+    ``quant`` (a ``quant.QuantCfg``) or ``act_store`` (a float8 dtype):
+    the eval forward carries QTensors or fp8 maps, as the JAX walker's.
+    The rows feeding Detect stay fp (``det_fp_layers`` with
+    ``det_fp_hops``), and so do Detect and the heads without an int8
+    path. ``compute_dtype`` (int8
+    and calibration models, whose parameters stay f32 so that the int8
+    weights come from f32 ones, as the JAX package's do): the dtype of
+    the input and of the fp pieces (``torch.autocast`` around them)."""
 
     def __init__(self, spec: ModelSpec, seg_upsample: bool = True,
-                 decode_cat: bool = True, seg_head_fused: bool = False):
+                 decode_cat: bool = True, seg_head_fused: bool = False,
+                 quant=None, act_store=None, det_fp_hops: int = 1,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.spec = spec
         self.seg_upsample = seg_upsample
         self.seg_head_fused = seg_head_fused
+        self.quant = quant
+        self.act_store = act_store
+        self.compute_dtype = compute_dtype
         chs = [spec.ch_in]
         mods = []
         for ls in spec.layers:
@@ -339,37 +400,136 @@ class DeSeNet(nn.Module):
                                      decode_cat))
             chs.append(ls.c2)
         self.model = nn.ModuleList(mods)
+        self._fp_rows = set()
+        if quant is not None or act_store is not None:
+            self._setup_quant(det_fp_hops)
+
+    def _setup_quant(self, det_fp_hops: int) -> None:
+        if self.act_store is not None:
+            other = sorted({ls.name for ls in self.spec.layers}
+                           - _ACT_STORE_ROWS)
+            if other:
+                raise NotImplementedError(
+                    f"fp8 activation storage of the rows {other} is not "
+                    "ported to desenet_tpu_torch (ROADMAP.md, Queue 1)")
+        self._fp_rows = det_fp_layers(self.spec, det_fp_hops)
+        for ls, m in zip(self.spec.layers, self.model):
+            if ls.name not in QUANT_AWARE or ls.name in _PASSTHROUGH:
+                continue
+            q = None if ls.i in self._fp_rows else self.quant
+            if ls.n > 1:  # outer repeats: the JAX package's l{i}s{j}
+                for j, sub in enumerate(m):
+                    L.set_quant(sub, q, f"l{ls.i}s{j}", self.compute_dtype)
+            else:
+                L.set_quant(m, q, f"l{ls.i}", self.compute_dtype)
 
     def forward(self, x: torch.Tensor):
-        cache = {-1: x}
-        prev = x
-        det_out = seg_out = None
-        for ls, m in zip(self.spec.layers, self.model):
-            if len(ls.f) == 1:
-                inp = prev if ls.f[0] == ls.i - 1 else cache[ls.f[0]]
-            else:
-                inp = [prev if j == ls.i - 1 else cache[j] for j in ls.f]
-            if ls.name == "Upsample":
-                out = upsample_nearest(inp, ls.args[0])
-            elif ls.name == "Concat":
-                out = torch.cat(inp, 1)
-            elif ls.name == "Detect":
-                out = det_out = m(inp if isinstance(inp, list) else [inp])
-            elif ls.name in SEG_HEADS:
-                out = seg_out = self._seg_head(
-                    ls, m, inp if isinstance(inp, list) else [inp])
-            else:
-                out = m(inp)
-            if ls.i in self.spec.save:
-                cache[ls.i] = out
-            prev = out
+        """The JAX walker (``desenet_tpu/models/build.py:DeSeNet.__call__``).
+        In eval with ``quant`` or ``act_store``: the input quantized once at
+        1/127 for int8, QTensors through the quant-aware rows, dequantized
+        at every other row, the storage dtype scoped per row (never for
+        Detect or the fp rows)."""
+        qmode = not self.training and (self.quant is not None
+                                       or self.act_store is not None)
+        int8 = qmode and self.quant is not None and self.quant.is_int8
+        cd = fp_ctx = None
+        if qmode:
+            cd = self.compute_dtype or next(self.parameters()).dtype
+            x = x.to(cd)
+            fp_ctx = self._fp_ctx(x)
+        with (fp_ctx if qmode and not int8 else contextlib.nullcontext()):
+            if int8 and self.spec.layers[0].name in QUANT_AWARE:
+                x = Q.quantize(x, 1.0 / 127.0)
+            cache = {-1: x}
+            prev = x
+            det_out = seg_out = None
+            for ls, m in zip(self.spec.layers, self.model):
+                if len(ls.f) == 1:
+                    inp = prev if ls.f[0] == ls.i - 1 else cache[ls.f[0]]
+                else:
+                    inp = [prev if j == ls.i - 1 else cache[j] for j in ls.f]
+                with contextlib.ExitStack() as scope:
+                    if qmode:
+                        inp = self._enter_row(scope, ls, inp, cd,
+                                              fp_ctx if int8 else None)
+                    out = self._row(ls, m, inp, cd, qmode)
+                if ls.name == "Detect":
+                    det_out = out
+                elif ls.name in SEG_HEADS:
+                    seg_out = out
+                if ls.i in self.spec.save:
+                    cache[ls.i] = out
+                prev = out
         return det_out, seg_out
+
+    def _fp_ctx(self, x: torch.Tensor):
+        """autocast to the compute dtype where it is not the parameters'."""
+        cd = self.compute_dtype
+        if cd is None or cd == next(self.parameters()).dtype:
+            return contextlib.nullcontext()
+        return torch.autocast(x.device.type, dtype=cd)
+
+    def _enter_row(self, scope: contextlib.ExitStack, ls: LayerSpec, inp,
+                   cd, fp_ctx):
+        """A row of the quantized or fp8-storage forward: its inputs
+        dequantized where it is not quant-aware (and then, for int8, run
+        under ``fp_ctx``), its storage dtype scoped."""
+        quant_row = ls.name in QUANT_AWARE and ls.i not in self._fp_rows
+        if not quant_row:
+            inp = ([Q.dequantize(v, cd) for v in inp]
+                   if isinstance(inp, list) else Q.dequantize(inp, cd))
+            if fp_ctx is not None:
+                scope.enter_context(fp_ctx)
+        scope.enter_context(L.act_store_scope(
+            self.act_store if ls.name != "Detect"
+            and ls.i not in self._fp_rows else None))
+        return inp
+
+    def _row(self, ls: LayerSpec, m: nn.Module, inp, cd, qmode: bool):
+        """One row; ``qmode``: of the quantized or fp8-storage forward."""
+        if ls.name == "Upsample":
+            if isinstance(inp, Q.QTensor):
+                return Q.qt_upsample_nearest(inp, ls.args[0])
+            return (upsample_nearest_repeat if qmode
+                    else upsample_nearest)(inp, ls.args[0])
+        if ls.name == "Concat":
+            # implicit (a list) when the only consumer is the next row, a
+            # conv-entry block, and every part is wide enough
+            nxt = (self.spec.layers[ls.i + 1]
+                   if ls.i + 1 < len(self.spec.layers) else None)
+            splittable = (qmode and ls.i not in self.spec.save
+                          and nxt is not None
+                          and nxt.name in _SPLIT_CONSUMERS and nxt.n == 1
+                          and tuple(nxt.f) == (ls.i,))
+            if any(isinstance(v, Q.QTensor) for v in inp):
+                return (L.qt_maybe_cat(inp, cd) if splittable
+                        else Q.qt_concat(inp))
+            if splittable:
+                return L.maybe_cat(inp)
+            if len({v.dtype for v in inp}) > 1:
+                inp = [L.to_compute(v, cd) for v in inp]
+            return torch.cat(inp, 1)
+        if ls.name == "Detect":
+            return m(inp if isinstance(inp, list) else [inp])
+        if ls.name in SEG_HEADS:
+            xs = inp if isinstance(inp, list) else [inp]
+            if qmode and ls.name in _QUANT_SEG_HEADS:
+                return m.qforward(xs)
+            return self._seg_head(ls, m, xs)
+        if qmode and ls.name in QUANT_AWARE:
+            out = inp
+            for sub in (list(m) if ls.n > 1 else [m]):
+                out = sub.qforward(out)
+            return out
+        return m(torch.cat(inp, 1) if isinstance(inp, list) else inp)
 
     def _seg_head(self, ls: LayerSpec, m: nn.Module, xs) -> torch.Tensor:
         """The seg head: kernel K4 under the conditions of the JAX
-        package (eval, SegMaskPSP2, P8 <= MAX_P8), else the module."""
+        package (eval, SegMaskPSP2, neither int8 nor fp8 storage, P8 <=
+        MAX_P8), else the module."""
         if not (self.seg_head_fused and not self.training
-                and ls.name == "SegMaskPSP2"
+                and ls.name == "SegMaskPSP2" and self.quant is None
+                and self.act_store is None
                 and xs[0].shape[2] * xs[0].shape[3] <= MAX_P8):
             return m(xs)
         nhwc = [x.permute(0, 2, 3, 1).contiguous() for x in xs]
@@ -418,15 +578,28 @@ def build_model(cfg, nc: Optional[int] = None, se_nc: Optional[int] = None,
                 seg_upsample: bool = True, decode_cat: bool = True,
                 seg_head_fused: bool = False, train: bool = False,
                 anchors: Optional[Sequence] = None,
-                fuse_focus: bool = False) -> Tuple[DeSeNet, ModelSpec]:
+                fuse_focus: bool = False, quant=None, act_store=None,
+                det_fp_hops: int = 1,
+                compute_dtype: Optional[torch.dtype] = None
+                ) -> Tuple[DeSeNet, ModelSpec]:
     """Parse ``cfg`` and build the model in eval mode (BN on its running
     statistics), or in training mode with ``train=True`` (the training
     step's model, usually with ``seg_upsample=False`` for the fused seg
-    loss); ``anchors`` and ``fuse_focus`` as ``parse_config``."""
+    loss); ``anchors`` and ``fuse_focus`` as ``parse_config``.
+    ``quant``: a ``quant.QuantCfg``; ``act_store``: "fp8" (e4m3),
+    "fp8_e5m2" or a float8 dtype; the two are exclusive (ValueError);
+    ``det_fp_hops`` and ``compute_dtype`` as ``DeSeNet``."""
+    if isinstance(act_store, str):
+        act_store = L.F8_NAMES[act_store]
+    if act_store is not None and quant is not None:
+        raise ValueError("act_store (fp8 storage) and quant (int8 W8A8) are "
+                         "mutually exclusive inference modes")
     spec = parse_config(cfg, nc=nc, se_nc=se_nc, anchors=anchors,
                         fuse_focus=fuse_focus)
     model = DeSeNet(spec, seg_upsample=seg_upsample, decode_cat=decode_cat,
-                    seg_head_fused=seg_head_fused)
+                    seg_head_fused=seg_head_fused, quant=quant,
+                    act_store=act_store, det_fp_hops=det_fp_hops,
+                    compute_dtype=compute_dtype)
     return model.train(train), spec
 
 

@@ -13,6 +13,12 @@ that the served program feeds to the seg-tail kernel
 SegMaskBiSe in training always upsamples and returns ``[out, aux16,
 aux32]``; SegMaskBiSe and SegMaskBase apply ``layers.Dropout(0.1)`` before
 their class conv in training.
+
+SegMaskPSP2 and SegMaskPSP have ``qforward`` (``layers.QuantAware``): the
+JAX package's int8 head (the stem resized in int8 and kept as an implicit
+concat, the class conv an int8 conv with bias and fp logits out), its
+calibration and its fp8 storage. The other heads run on dequantized inputs
+in those modes, as in the JAX package; Detect always runs in fp.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from desenet_tpu_torch import quant as Q
 from desenet_tpu_torch.models.layers import (
     ACSP,
     ASPP,
@@ -34,8 +41,16 @@ from desenet_tpu_torch.models.layers import (
     ConvBnAct,
     Dropout,
     PyramidPooling,
+    QuantAware,
+    int8_block,
+    maybe_cat,
+    qt_maybe_cat,
+    resize_store,
+    to_compute,
 )
+from desenet_tpu_torch.ops import int8_conv
 from desenet_tpu_torch.ops.resize import resize_bilinear
+from desenet_tpu_torch.quant import QTensor
 
 
 def detect_bias_init(na: int, no: int, stride: float, fan_in: int,
@@ -148,7 +163,36 @@ def _seg_stem(head: nn.Module, xs: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.cat([f8, f16, f32], 1)
 
 
-class SegMaskPSP2(nn.Module):
+def _seg_stem_q(head, xs):
+    """``_seg_stem`` of ``qforward``: the deeper levels resized at their
+    own scale in int8, the three kept as an implicit concat where every
+    part is wide enough (``qt_maybe_cat`` / ``maybe_cat``)."""
+    f8 = head.m8[0].qforward(xs[0])
+    f16 = head.m16[0].qforward(xs[1])
+    f32 = head.m32[0].qforward(xs[2])
+    if isinstance(f8, QTensor):
+        hw = f8.data.shape[2:]
+        f16 = Q.qt_resize_bilinear(f16, hw, align_corners=True)
+        f32 = Q.qt_resize_bilinear(f32, hw, align_corners=True)
+        return qt_maybe_cat([f8, f16, f32])
+    hw = f8.shape[2:]
+    return maybe_cat([f8, resize_store(f16, hw), resize_store(f32, hw)])
+
+
+def _seg_out_q(head, conv: nn.Conv2d, fused):
+    """The 1x1 class conv of ``qforward``: on an int8 map an int8 conv with
+    bias and fp logits out (no output requant), in the compute dtype."""
+    dt = head.cdtype or conv.weight.dtype
+    if isinstance(fused, QTensor):
+        def make(scales, chans):
+            return int8_conv.prepare(conv.weight, scales, chans,
+                                     bias=conv.bias)
+
+        return int8_block(head, "out", fused, make, out_dtype=dt)
+    return conv(to_compute(fused, conv.weight.dtype))
+
+
+class SegMaskPSP2(QuantAware, nn.Module):
     """The shipped seg head: stem -> dual path {spatial = ACSP(has_global),
     context = 1x1 (c_hid/6) -> PyramidPooling} -> FFM -> 1x1 class conv ->
     8x bilinear upsample (align_corners=True).
@@ -179,8 +223,23 @@ class SegMaskPSP2(nn.Module):
                                  self.context_path(feat)]))
         return _up(out, 8) if self.upsample else out
 
+    def qmap(self) -> dict:
+        return {"m8.0": "stem/m8", "m16.0": "stem/m16", "m32.0": "stem/m32",
+                "spatial_path": "spatial_path",
+                "context_path.0": "context_red",
+                "context_path.1": "context_pp", "ffm": "ffm"}
 
-class SegMaskPSP(nn.Module):
+    def qforward(self, xs):
+        feat = _seg_stem_q(self, xs)
+        spatial = self.spatial_path.qforward(feat)
+        ctx = self.context_path[1].qforward(
+            self.context_path[0].qforward(feat))
+        out = _seg_out_q(self, self.out[0],
+                         self.ffm.qforward([spatial, ctx]))
+        return _up(out, 8) if self.upsample else out
+
+
+class SegMaskPSP(QuantAware, nn.Module):
     """PSP head (yolo.py:156-197): the m8/m16/m32 stem -> RFB2(map_reduce
     6) -> PyramidPooling(short_cut) -> FFM(k=3) -> 1x1 class conv, as
     ``out.0`` to ``out.3``."""
@@ -201,6 +260,16 @@ class SegMaskPSP(nn.Module):
 
     def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
         out = self.out(_seg_stem(self, xs))
+        return _up(out, 8) if self.upsample else out
+
+    def qmap(self) -> dict:
+        return {"m8.0": "stem/m8", "m16.0": "stem/m16", "m32.0": "stem/m32",
+                "out.0": "rfb", "out.1": "pp", "out.2": "ffm"}
+
+    def qforward(self, xs):
+        y = self.out[0].qforward(_seg_stem_q(self, xs))
+        y = self.out[2].qforward(self.out[1].qforward(y))
+        out = _seg_out_q(self, self.out[3], y)
         return _up(out, 8) if self.upsample else out
 
 

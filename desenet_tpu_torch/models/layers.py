@@ -21,10 +21,24 @@ Numerics that differ from PyTorch defaults and are kept on purpose:
   BNs still exist in the state dict and keep their init.
 
 Every ``forward`` takes and returns NCHW tensors; the JAX modules take NHWC.
+
+The quant-aware blocks (``QuantAware``: ConvBnAct, FusedFocus, Focus,
+Bottleneck, C3, SPP, SPPF, FFM, DilatedConvBnSiLU, GlobalBranch, ACSP, RFB2,
+PyramidPooling) also have ``qforward``: the JAX package's eval forward
+of the int8 W8A8 mode, its weights-only ablation, its calibration mode
+(``quant.py``) and its fp8 activation storage (``act_store_scope``), with
+its structure kept where the numbers depend on it: implicit concats
+(lists of parts) under the same 128-channel gate (``maybe_cat``,
+``qt_maybe_cat``), the fused C3 ``cv12`` (cv1 and cv2 as one conv, its BN
+never skipped), the int8 glue. The model walker (``models/build.py``)
+calls it for every row of a model built with ``quant`` or ``act_store``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import functools
 import math
 from typing import Callable, Optional, Sequence
 
@@ -33,14 +47,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from desenet_tpu_torch import quant as Q
+from desenet_tpu_torch.ops import int8_conv
 from desenet_tpu_torch.parallel import multihost
 from desenet_tpu_torch.parallel.mesh import process_count
 from desenet_tpu_torch.ops.resize import (
     adaptive_avg_pool,
+    adaptive_avg_pool_separable,
+    broadcast_hw,
     max_pool_same,
     resize_bilinear,
+    resize_bilinear_separable,
     resize_nearest,
 )
+from desenet_tpu_torch.quant import F8_DTYPES, QTensor, to_f8
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
@@ -115,9 +135,231 @@ def batch_norm(c: int) -> BatchNorm2d:
     return BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
-class ConvBnAct(nn.Module):
+# ---------------------------------------------------------------------------
+# fp8 activation storage (the JAX package's layers.py:225-315): in eval,
+# under a storage dtype scoped by the model walker, block outputs are cast to
+# float8 and their consumers upcast them; compute stays in the model dtype.
+
+F8_NAMES = {"fp8": torch.float8_e4m3fn, "fp8_e4m3": torch.float8_e4m3fn,
+            "fp8_e5m2": torch.float8_e5m2}
+
+_ACT_STORE: contextvars.ContextVar = contextvars.ContextVar(
+    "desenet_torch_act_store", default=None)
+
+
+@contextlib.contextmanager
+def act_store_scope(dtype):
+    """Scope a storage dtype for block outputs (None: a no-op scope)."""
+    token = _ACT_STORE.set(dtype)
+    try:
+        yield
+    finally:
+        _ACT_STORE.reset(token)
+
+
+def _store_act(y):
+    """Cast a block output to the scoped storage dtype. Maps of one pixel
+    (channel-attention gates, global-pool branches) stay in the compute
+    dtype."""
+    st = _ACT_STORE.get()
+    if (st is None or not isinstance(y, torch.Tensor) or y.dtype == st
+            or not y.is_floating_point()):
+        return y
+    if y.dim() >= 3 and math.prod(y.shape[2:]) <= 1:
+        return y
+    return to_f8(y, st)
+
+
+def to_compute(x, dtype):
+    """Upcast an fp8-stored activation for ops that cannot take fp8; other
+    tensors as they are."""
+    if isinstance(x, torch.Tensor) and x.dtype in F8_DTYPES:
+        return x.to(dtype)
+    return x
+
+
+def widen_mixed(xs):
+    """A part list of mixed storage / compute dtypes unified to the widest
+    compute dtype (fp8 counted as bf16), for a materialized concat."""
+    if len({v.dtype for v in xs}) > 1:
+        wide = functools.reduce(torch.promote_types, [
+            torch.bfloat16 if v.dtype in F8_DTYPES else v.dtype for v in xs])
+        xs = [v.to(wide) for v in xs]
+    return list(xs)
+
+
+def cat_parts(xs):
+    """Channel concat of tensors of one dtype (float8 included)."""
+    return torch.cat(list(xs), 1) if len(xs) > 1 else xs[0]
+
+
+# Minimum channel width of every part for a concat to stay implicit (a list
+# convolved part by part): the JAX package's SPLIT_CONV_MIN_PART. It
+# decides numbers, not only layout, in the quantized paths (a materialized
+# per-tensor int8 concat requantizes its parts; a list keeps them).
+SPLIT_CONV_MIN_PART = 128
+
+
+def _width(v) -> int:
+    return (v.data if isinstance(v, QTensor) else v).shape[1]
+
+
+def maybe_cat(xs):
+    """The list (implicit concat) when every part is at least
+    SPLIT_CONV_MIN_PART channels wide, else the materialized concat."""
+    if all(_width(v) >= SPLIT_CONV_MIN_PART for v in xs):
+        return list(xs)
+    return cat_parts(widen_mixed(xs))
+
+
+def qt_maybe_cat(xs, fp_dtype=torch.float32):
+    """int8 ``maybe_cat``: wide lists stay implicit (fp parts among them
+    are quantized by the consumer at its input site); narrow ones
+    materialize through ``qt_concat``, or in fp when a part is fp."""
+    if all(_width(v) >= SPLIT_CONV_MIN_PART for v in xs):
+        return list(xs)
+    if all(isinstance(v, QTensor) for v in xs):
+        return Q.qt_concat(xs)
+    fp_dt = next((v.dtype for v in xs if not isinstance(v, QTensor)),
+                 fp_dtype)
+    parts = [Q.dequantize(v, fp_dt) if isinstance(v, QTensor) else v
+             for v in xs]
+    return cat_parts(widen_mixed(parts))
+
+
+def _parts(x) -> list:
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def _spatial(x):
+    x = x[0] if isinstance(x, (list, tuple)) else x
+    return tuple((x.data if isinstance(x, QTensor) else x).shape[2:])
+
+
+def quantize_at_boundary(mod, x, site: str):
+    """Quantize the fp entries of ``x`` (a tensor or a part list) at the
+    module's calibrated input ``site`` scale, each part at its slice of a
+    per-channel scale: the entry of an int8 block whose producer stayed
+    fp."""
+    if isinstance(x, (list, tuple)):
+        if all(isinstance(v, QTensor) for v in x):
+            return list(x)
+        s_in = mod.quant.scale_for(Q.site_key(mod, site))
+        parts, off = [], 0
+        for v in x:
+            c = _width(v)
+            if not isinstance(v, QTensor):
+                v = Q.quantize(v, s_in if not isinstance(s_in, tuple)
+                               else s_in[off:off + c])
+            parts.append(v)
+            off += c
+        return parts
+    if not isinstance(x, QTensor):
+        return Q.quantize(x, mod.quant.scale_for(Q.site_key(mod, site)))
+    return x
+
+
+def int8_block(mod, tag: str, x, make, *, act: bool = False,
+               residual: Optional[QTensor] = None, out_scale=None,
+               out_dtype=torch.float32, groups: int = 1):
+    """One int8 conv block of ``mod`` (``quant.py:int8_conv_block``):
+    ``x`` a QTensor or a list of them; ``make(scales, channels)`` folds the
+    site's constants (``ops.int8_conv.prepare``) at the first call with
+    these input scales, as the JAX package folds them at trace time
+    (``QuantAware`` drops them when the block is moved or loaded). Returns
+    a QTensor at ``out_scale``, or fp logits in ``out_dtype`` where it is
+    None."""
+    parts = _parts(x)
+    if groups != 1 and any(isinstance(p.scale, tuple) for p in parts):
+        parts = [Q.requantize(p, Q.scale_max(p.scale)) for p in parts]
+    scales = tuple(p.scale for p in parts)
+    chans = tuple(p.data.shape[1] for p in parts)
+    dev = parts[0].data.device
+    key = (tag, scales, chans)
+    prep = mod._int8_prepared.get(key)
+    if prep is None:
+        with torch.no_grad():
+            prep = mod._int8_prepared[key] = make(scales, chans)
+    if out_scale is not None:
+        mode = int8_conv.OUT_INT8
+    else:
+        mode = (int8_conv.OUT_BF16 if out_dtype == torch.bfloat16
+                else int8_conv.OUT_F32)
+    y = int8_conv.run(
+        [p.data for p in parts], prep,
+        residual=None if residual is None else residual.data,
+        res_scale=None if residual is None else Q.scale_t(residual.scale,
+                                                          dev),
+        out_scale=None if out_scale is None else Q.scale_t(out_scale, dev),
+        act=act, out_mode=mode)
+    if out_scale is None:
+        return y.to(out_dtype)
+    return QTensor(y, out_scale)
+
+
+def _w8_weight(w: torch.Tensor, mse_clip: bool) -> torch.Tensor:
+    """A kernel round-tripped through per-output-channel int8 (f32)."""
+    qw, s_w = Q.quantize_kernel(w, mse_clip=mse_clip)
+    return qw.float() * s_w.view(-1, 1, 1, 1)
+
+
+def _bias_correction(wdq, w, mean, bn=None):
+    """E[conv(x, dq(q(W)) - W)] per output channel from the calibrated
+    input means, through the BN scale where the BN runs."""
+    corr = torch.einsum("oihw,i->o", wdq - w.float(),
+                        torch.from_numpy(np.asarray(mean, np.float32))
+                        .to(w.device))
+    if bn is not None:
+        corr = corr * Q.bn_fold_constants(bn)[0]
+    return corr
+
+
+class QuantAware:
+    """Mixin of the blocks with a quantized / fp8-storage eval forward.
+    ``quant`` (a ``quant.QuantCfg`` or None), ``qkey`` (the JAX package's
+    flax scope path of the block, the prefix of its site keys) and
+    ``cdtype`` (the compute dtype of its fp pieces) are set by
+    ``set_quant``; ``qmap`` names the quant-aware children after the JAX
+    modules."""
+
+    quant = None
+    qkey = ""
+    cdtype = None
+
+    @property
+    def _int8_prepared(self) -> dict:
+        """The folded int8 constants of the block's convs (``int8_block``),
+        by conv and input scales."""
+        return self.__dict__.setdefault("_int8_consts", {})
+
+    def drop_int8_constants(self) -> None:
+        self.__dict__.pop("_int8_consts", None)
+
+    def _apply(self, fn, *args, **kwargs):
+        self.drop_int8_constants()
+        return super()._apply(fn, *args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self.drop_int8_constants()
+        super()._load_from_state_dict(*args, **kwargs)
+
+    def qmap(self) -> dict:
+        return {}
+
+
+def set_quant(mod, quant, qkey: str, cdtype) -> None:
+    """Give ``mod`` and its quant-aware children their config, JAX scope
+    path and compute dtype."""
+    mod.quant, mod.qkey, mod.cdtype = quant, qkey, cdtype
+    mod.drop_int8_constants()
+    for path, name in mod.qmap().items():
+        set_quant(mod.get_submodule(path), quant, f"{qkey}/{name}", cdtype)
+
+
+class ConvBnAct(QuantAware, nn.Module):
     """Conv2d(bias=False) + BN + SiLU: the reference ``Conv`` block, with the
-    BN skipped on a 1x1 input map."""
+    BN skipped on a 1x1 input map. Sites: ``in`` and ``inmean`` (its input),
+    ``out``."""
 
     def __init__(self, c1: int, c2: int, k=1, s=1, p=None, g: int = 1,
                  d: int = 1, act: bool = True):
@@ -131,6 +373,68 @@ class ConvBnAct(nn.Module):
         y = self.conv(x)
         if x.shape[2] * x.shape[3] > 1:
             y = self.bn(y)
+        return self.act(y)
+
+    def _padding(self):
+        p = self.conv.padding
+        return (p, p) if isinstance(p, int) else tuple(p)
+
+    def qforward(self, x, residual=None):
+        """``x``: a tensor, a QTensor or a part list; ``residual`` is added
+        after the activation (the Bottleneck shortcut, folded into the
+        int8 epilogue)."""
+        q = self.quant
+        if q is not None and q.is_int8:
+            return self._int8(x, residual)
+        xs = [to_compute(v, self.conv.weight.dtype) for v in _parts(x)]
+        xc = cat_parts(xs)
+        y = self._w8(xc) if q is not None and q.is_w8 else self(xc)
+        if residual is not None:
+            y = y + Q.dequantize(residual, y.dtype)
+        if q is not None and q.is_calib:
+            Q.sow_in_range(self, "in", xs)
+            Q.sow_channel_mean(self, "inmean", xs)
+            Q.sow_absmax(self, "out", y)
+        return _store_act(y)
+
+    def _int8(self, x, residual):
+        q = self.quant
+        if isinstance(x, (list, tuple)) and self.conv.groups != 1:
+            x = Q.qt_concat(x)
+        x = quantize_at_boundary(self, x, "in")
+        h, w = _spatial(x)
+        bn = self.bn if h * w > 1 else None
+        mean = q.mean_for(Q.site_key(self, "inmean"))
+
+        def make(scales, chans):
+            return int8_conv.prepare(
+                self.conv.weight, scales, chans, stride=self.conv.stride[0],
+                padding=self._padding(), dilation=self.conv.dilation[0],
+                groups=self.conv.groups,
+                bn=None if bn is None else Q.bn_fold_constants(bn),
+                in_mean=mean, mse_clip=q.mse_clip)
+
+        return int8_block(self, f"bn{bn is not None}", x, make,
+                          act=isinstance(self.act, nn.SiLU),
+                          residual=residual,
+                          out_scale=q.scale_for(Q.site_key(self, "out")),
+                          groups=self.conv.groups)
+
+    def _w8(self, x):
+        """Weights-only: ``forward`` with the kernel round-tripped through
+        per-channel int8 and the bias correction before the activation."""
+        q = self.quant
+        spatial = x.shape[2] * x.shape[3] > 1
+        w = self.conv.weight
+        wdq = _w8_weight(w, q.mse_clip)
+        y = F.conv2d(x, wdq.to(x.dtype), None, self.conv.stride,
+                     self._padding(), self.conv.dilation, self.conv.groups)
+        if spatial:
+            y = self.bn(y)
+        mean = q.mean_for(Q.site_key(self, "inmean"))
+        if q.bias_correct and self.conv.groups == 1 and mean is not None:
+            corr = _bias_correction(wdq, w, mean, self.bn if spatial else None)
+            y = y - corr.to(y.dtype).view(1, -1, 1, 1)
         return self.act(y)
 
 
@@ -185,7 +489,7 @@ class Dropout(nn.Module):
         return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 
 
-class Bottleneck(nn.Module):
+class Bottleneck(QuantAware, nn.Module):
     """1x1 -> 3x3 with optional residual."""
 
     def __init__(self, c1: int, c2: int, shortcut: bool = True, g: int = 1,
@@ -199,6 +503,19 @@ class Bottleneck(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.cv2(self.cv1(x))
         return y + x if self.add else y
+
+    def qmap(self) -> dict:
+        return {"cv1": "cv1", "cv2": "cv2"}
+
+    def qforward(self, x):
+        y = self.cv1.qforward(x)
+        if not self.add:
+            return self.cv2.qforward(y)
+        # the shortcut folds into cv2's epilogue; the fp path adds in the
+        # compute dtype and stores once
+        res = x if self.quant is not None else to_compute(
+            x, self.cv1.conv.weight.dtype)
+        return self.cv2.qforward(y, residual=res)
 
 
 class BottleneckCSP(nn.Module):
@@ -223,10 +540,12 @@ class BottleneckCSP(nn.Module):
         return self.cv4(self.act(self.bn(y)))
 
 
-class C3(nn.Module):
+class C3(QuantAware, nn.Module):
     """CSP bottleneck with 3 convs (reference layout: separate cv1/cv2).
     ``inner(c_)`` builds the stack ``m`` in place of the n Bottlenecks (the
-    C3SPP, C3Ghost and C3TR variants)."""
+    C3SPP, C3Ghost and C3TR variants). ``qforward`` runs cv1 and cv2 as the
+    JAX package's one ``cv12`` conv (sites ``cv12_in``, ``cv12_inmean``,
+    ``cv12_out``), its BN never skipped."""
 
     def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True,
                  g: int = 1, e: float = 0.5,
@@ -242,8 +561,82 @@ class C3(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
 
+    def qmap(self) -> dict:
+        out = {f"m.{i}": f"m_{i}" for i in range(len(self.m))}
+        out["cv3"] = "cv3"
+        return out
 
-class SPP(nn.Module):
+    def _cv12(self):
+        """cv1 and cv2 as one conv: (weight, [BN scale, BN bias] f32)."""
+        w = torch.cat([self.cv1.conv.weight, self.cv2.conv.weight])
+        s1, b1 = Q.bn_fold_constants(self.cv1.bn)
+        s2, b2 = Q.bn_fold_constants(self.cv2.bn)
+        return w, (torch.cat([s1, s2]), torch.cat([b1, b2]))
+
+    def qforward(self, x):
+        q = self.quant
+        c_ = self.cv1.conv.out_channels
+        if q is not None and q.is_int8:
+            x = quantize_at_boundary(self, x, "cv12_in")
+            mean = q.mean_for(Q.site_key(self, "cv12_inmean"))
+
+            def make(scales, chans):
+                w, bn = self._cv12()
+                return int8_conv.prepare(w, scales, chans, bn=bn,
+                                         in_mean=mean)
+
+            yq = int8_block(self, "cv12", x, make,
+                            act=True, out_scale=q.scale_for(
+                                Q.site_key(self, "cv12_out")))
+            y1, y2 = Q.qt_slice(yq, 0, c_), Q.qt_slice(yq, c_,
+                                                     yq.data.shape[1])
+        else:
+            dt = self.cv1.conv.weight.dtype
+            xs = [to_compute(v, dt) for v in _parts(x)]
+            xc = cat_parts(xs)
+            w, (s_bn, b_bn) = self._cv12()
+            if q is not None and q.is_w8:
+                wdq = _w8_weight(w, q.mse_clip)
+                y = F.conv2d(xc, wdq.to(dt))
+            else:
+                y = F.conv2d(xc, w)
+            y = torch.cat([self.cv1.bn(y[:, :c_]), self.cv2.bn(y[:, c_:])], 1)
+            if q is not None and q.is_w8 and q.bias_correct:
+                mean = q.mean_for(Q.site_key(self, "cv12_inmean"))
+                if mean is not None:
+                    corr = _bias_correction(wdq, w, mean) * s_bn
+                    y = y - corr.to(y.dtype).view(1, -1, 1, 1)
+            y = F.silu(y)
+            if q is not None and q.is_calib:
+                Q.sow_absmax(self, "cv12_out", y)
+                Q.sow_in_range(self, "cv12_in", xs)
+                Q.sow_channel_mean(self, "cv12_inmean", xs)
+            y = _store_act(y)
+            y1, y2 = y[:, :c_], y[:, c_:]
+        for b in self.m:
+            y1 = b.qforward(y1)
+        cat = (qt_maybe_cat([y1, y2]) if isinstance(y1, QTensor)
+               else maybe_cat([y1, y2]))
+        return self.cv3.qforward(cat)
+
+
+def _pools_q(mod, y, ks, serial: bool):
+    """SPP / SPPF after cv1: the max pools (of the int8 data where ``y`` is
+    a QTensor, of the upcast map where it is fp8-stored) and cv2 over
+    their implicit concat."""
+    if isinstance(y, QTensor):
+        pools = [y]
+        for k in ks:
+            pools.append(Q.qt_max_pool(pools[-1] if serial else y, k))
+        return mod.cv2.qforward(qt_maybe_cat(pools))
+    y = to_compute(y, mod.cv1.conv.weight.dtype)
+    pools = [y]
+    for k in ks:
+        pools.append(max_pool_same(pools[-1] if serial else y, k))
+    return mod.cv2.qforward(maybe_cat(pools))
+
+
+class SPP(QuantAware, nn.Module):
     """Spatial pyramid pooling: parallel stride-1 max pools."""
 
     def __init__(self, c1: int, c2: int, k: Sequence[int] = (5, 9, 13)):
@@ -258,8 +651,14 @@ class SPP(nn.Module):
         return self.cv2(torch.cat([y] + [max_pool_same(y, k) for k in self.k],
                                   1))
 
+    def qmap(self) -> dict:
+        return {"cv1": "cv1", "cv2": "cv2"}
 
-class SPPF(nn.Module):
+    def qforward(self, x):
+        return _pools_q(self, self.cv1.qforward(x), self.k, serial=False)
+
+
+class SPPF(QuantAware, nn.Module):
     """Serial-pool SPP (common.py:188-203): three chained k x k max pools."""
 
     def __init__(self, c1: int, c2: int, k: int = 5):
@@ -274,6 +673,13 @@ class SPPF(nn.Module):
         for _ in range(3):
             ys.append(max_pool_same(ys[-1], self.k))
         return self.cv2(torch.cat(ys, 1))
+
+    def qmap(self) -> dict:
+        return {"cv1": "cv1", "cv2": "cv2"}
+
+    def qforward(self, x):
+        return _pools_q(self, self.cv1.qforward(x), (self.k,) * 3,
+                        serial=True)
 
 
 class C3SPP(C3):
@@ -451,7 +857,7 @@ class Expand(nn.Module):
         return x.reshape(b, c // g ** 2, h * g, w * g)
 
 
-class Focus(nn.Module):
+class Focus(QuantAware, nn.Module):
     """Space-to-depth stem: 4-way pixel slice + conv.
 
     Slice order (y, x) = (even, even), (odd, even), (even, odd), (odd, odd),
@@ -463,18 +869,29 @@ class Focus(nn.Module):
         self.conv = ConvBnAct(c1 * 4, c2, k, s, p, g, act=act)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(torch.cat([
-            x[:, :, ::2, ::2],
-            x[:, :, 1::2, ::2],
-            x[:, :, ::2, 1::2],
-            x[:, :, 1::2, 1::2],
-        ], 1))
+        return self.conv(self._slices(x))
+
+    @staticmethod
+    def _slices(x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([x[:, :, ::2, ::2], x[:, :, 1::2, ::2],
+                          x[:, :, ::2, 1::2], x[:, :, 1::2, 1::2]], 1)
+
+    def qmap(self) -> dict:
+        return {"conv": "conv"}
+
+    def qforward(self, x):
+        if isinstance(x, QTensor):  # slices and concat keep the scale
+            s = x.scale * 4 if isinstance(x.scale, tuple) else x.scale
+            return self.conv.qforward(QTensor(self._slices(x.data), s))
+        return self.conv.qforward(self._slices(x))
 
 
-class FFM(nn.Module):
+class FFM(QuantAware, nn.Module):
     """Feature-fusion module: conv + channel attention, residual add:
     ``att = sigmoid(fc2(silu(fc1(mean(feat)))))``, ``out = feat*att + feat``.
-    ``channel_attention`` indices 1 and 3 are the reference's fc1/fc2."""
+    ``channel_attention`` indices 1 and 3 are the reference's fc1/fc2. In
+    int8 the gate multiplies the int8 map and requantizes at site
+    ``gate``."""
 
     def __init__(self, c1: int, c2: int, reduction: int = 1, k: int = 1):
         super().__init__()
@@ -490,13 +907,48 @@ class FFM(nn.Module):
     def forward(self, xs) -> torch.Tensor:
         """``xs``: one map, or a list of maps to concatenate first."""
         x = torch.cat(list(xs), 1) if isinstance(xs, (list, tuple)) else xs
-        feat = self.convblk(x)
+        return self._gated(self.convblk(x))
+
+    def _gated(self, feat: torch.Tensor) -> torch.Tensor:
         return feat * self.channel_attention(feat) + feat
 
+    def qmap(self) -> dict:
+        return {"convblk": "convblk"}
 
-class DilatedConvBnSiLU(nn.Sequential):
+    def _attention(self, att: torch.Tensor) -> torch.Tensor:
+        """fc1, SiLU, fc2 on the int8 map's (B, C, 1, 1) statistics, in
+        the compute dtype (the int8 gate)."""
+        dt = self.cdtype or self.convblk.conv.weight.dtype
+        fc1, fc2 = self.channel_attention[1], self.channel_attention[3]
+        att = F.silu(F.conv2d(att.to(dt), fc1.weight.to(dt)))
+        return F.conv2d(att, fc2.weight.to(dt))
+
+    def qforward(self, x):
+        q = self.quant
+        if isinstance(x, (list, tuple)):
+            x = (qt_maybe_cat(list(x)) if isinstance(x[0], QTensor)
+                 else maybe_cat(list(x)))
+        feat = self.convblk.qforward(x)
+        if isinstance(feat, QTensor):
+            dev = feat.data.device
+            s = Q.scale_t(feat.scale, dev)
+            att = feat.data.float().mean(dim=(2, 3), keepdim=True) * s
+            gate = (torch.sigmoid(self._attention(att)) + 1.0).float()
+            y = feat.data.float() * (s * gate)
+            s_out = q.scale_for(Q.site_key(self, "gate"))
+            return QTensor(torch.clamp(torch.round(y / Q.scale_t(s_out, dev)),
+                                       -Q.QMAX, Q.QMAX).to(torch.int8), s_out)
+        out = self._gated(to_compute(feat, self.convblk.conv.weight.dtype))
+        if q is not None and q.is_calib:
+            Q.sow_absmax(self, "gate", out)
+        return out
+
+
+class DilatedConvBnSiLU(QuantAware, nn.Sequential):
     """Dilated 3x3 conv (bias=False) + BN + SiLU, always with its BN; indices
-    0/1 are the reference's conv/bn names."""
+    0/1 are the reference's conv/bn names. Site ``out`` only (no input
+    site, no bias correction; its weights-only mode is the fp block), as in
+    the JAX package."""
 
     def __init__(self, c1: int, c2: int, d: int):
         super().__init__(
@@ -505,8 +957,24 @@ class DilatedConvBnSiLU(nn.Sequential):
             nn.SiLU(),
         )
 
+    def qforward(self, x):
+        q = self.quant
+        conv, bn = self[0], self[1]
+        if q is not None and q.is_int8:
+            def make(scales, chans):
+                return int8_conv.prepare(
+                    conv.weight, scales, chans, padding=conv.padding,
+                    dilation=conv.dilation[0], bn=Q.bn_fold_constants(bn))
 
-class GlobalBranch(nn.Sequential):
+            return int8_block(self, "conv", x, make, act=True,
+                              out_scale=q.scale_for(Q.site_key(self, "out")))
+        y = self(to_compute(x, conv.weight.dtype))
+        if q is not None and q.is_calib:
+            Q.sow_absmax(self, "out", y)
+        return _store_act(y)
+
+
+class GlobalBranch(QuantAware, nn.Sequential):
     """AdaptiveAvgPool(1) + 1x1 ConvBnAct (its BN never runs: 1x1 input),
     broadcast back to ``out_hw`` by a nearest resize."""
 
@@ -515,6 +983,17 @@ class GlobalBranch(nn.Sequential):
 
     def forward(self, x: torch.Tensor, out_hw) -> torch.Tensor:
         return resize_nearest(self[1](self[0](x)), out_hw)
+
+    def qmap(self) -> dict:
+        return {"1": "conv"}
+
+    def qforward(self, x, out_hw):
+        if isinstance(x, QTensor):
+            g = self[1].qforward(Q.qt_global_avg_pool(x, 1))
+            return QTensor(broadcast_hw(g.data, out_hw), g.scale)
+        g = adaptive_avg_pool_separable(
+            to_compute(x, self[1].conv.weight.dtype), 1)
+        return broadcast_hw(self[1].qforward(g), out_hw)
 
     def quirk_bn_prefixes(self):
         return ["1.bn."]
@@ -544,7 +1023,12 @@ class ASPP(nn.Module):
         return self.ConvLinear(torch.cat(feats, 1))
 
 
-class RFB2(nn.Module):
+def _cat_feats(feats):
+    return (qt_maybe_cat(feats) if isinstance(feats[0], QTensor)
+            else maybe_cat(feats))
+
+
+class RFB2(QuantAware, nn.Module):
     """Cascaded-dilation block of the PSP and BiSe heads
     (common.py:504-545): branch0 = 1x1 + 3x3, branch1 = dilated d0 on
     branch0, branch2 = dilated d1 on branch1, branch3 = a 1x1 on the input,
@@ -572,8 +1056,26 @@ class RFB2(nn.Module):
             feats.append(self.branch4(x2, x.shape[2:]))
         return self.ConvLinear(torch.cat(feats, 1))
 
+    def qmap(self) -> dict:
+        out = {"branch3.0": "branch3", "branch0.0": "branch0_a",
+               "branch0.1": "branch0_b", "branch1": "branch1",
+               "branch2": "branch2", "ConvLinear": "conv_linear"}
+        if self.branch4 is not None:
+            out["branch4"] = "branch4"
+        return out
 
-class ACSP(nn.Module):
+    def qforward(self, x):
+        x3 = self.branch3[0].qforward(x)
+        x0 = self.branch0[1].qforward(self.branch0[0].qforward(x))
+        x1 = self.branch1.qforward(x0)
+        x2 = self.branch2.qforward(x1)
+        feats = [x0, x1, x2, x3]
+        if self.branch4 is not None:
+            feats.append(self.branch4.qforward(x2, _spatial(x)))
+        return self.ConvLinear.qforward(_cat_feats(feats))
+
+
+class ACSP(QuantAware, nn.Module):
     """Cascaded dilated branches plus a global branch fed from the cascade
     tail: the SegMaskPSP2 spatial path."""
 
@@ -597,8 +1099,25 @@ class ACSP(nn.Module):
             feats.append(self.branch_global(x2, x.shape[2:]))
         return self.ConvLinear(torch.cat(feats, 1))
 
+    def qmap(self) -> dict:
+        out = {"branch0.0": "branch0_a", "branch0.1": "branch0_b",
+               "branch1": "branch1", "branch2": "branch2",
+               "ConvLinear": "conv_linear"}
+        if self.branch_global is not None:
+            out["branch_global"] = "branch_global"
+        return out
 
-class PyramidPooling(nn.Module):
+    def qforward(self, x):
+        x0 = self.branch0[1].qforward(self.branch0[0].qforward(x))
+        x1 = self.branch1.qforward(x0)
+        x2 = self.branch2.qforward(x1)
+        feats = [x0, x1, x2]
+        if self.branch_global is not None:
+            feats.append(self.branch_global.qforward(x2, _spatial(x)))
+        return self.ConvLinear.qforward(_cat_feats(feats))
+
+
+class PyramidPooling(QuantAware, nn.Module):
     """PSPNet pyramid pooling: adaptive-avg to k in {1,2,3,6}, 1x1 ConvBnAct
     to C/4 each, bilinear (align_corners=True) back, concat (+input if
     short_cut). The k=1 branch's BN never runs (1x1 input)."""
@@ -621,3 +1140,32 @@ class PyramidPooling(nn.Module):
 
     def quirk_bn_prefixes(self):
         return [f"conv{i + 1}.bn." for i, k in enumerate(self.k) if k == 1]
+
+    def qmap(self) -> dict:
+        return {f"conv{i + 1}": f"conv{i + 1}" for i in range(len(self.k))}
+
+    def qforward(self, x):
+        """int8: pooled at the input scale, the small maps convolved in
+        int8, upsampled at the conv's output scale."""
+        hw = _spatial(x)
+        feats = [x] if self.short_cut else []
+        for i, k in enumerate(self.k):
+            conv = getattr(self, f"conv{i + 1}")
+            if isinstance(x, QTensor):
+                y = conv.qforward(Q.qt_global_avg_pool(x, k))
+                feats.append(Q.qt_resize_bilinear(y, hw, align_corners=True))
+            else:
+                y = conv.qforward(adaptive_avg_pool_separable(x, k))
+                feats.append(resize_store(y, hw))
+        if isinstance(x, QTensor):
+            return Q.qt_concat(feats)
+        return cat_parts(widen_mixed(feats))
+
+
+def resize_store(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """The align_corners bilinear resize of the seg paths on an fp map: the
+    JAX package's bf16 form for an fp8-stored map (cast back to fp8),
+    PyTorch's otherwise."""
+    if x.dtype in F8_DTYPES:
+        return resize_bilinear_separable(x, out_hw, align_corners=True)
+    return resize_bilinear(x, out_hw, align_corners=True)

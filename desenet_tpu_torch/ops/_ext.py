@@ -65,6 +65,8 @@ _SIGNATURES = {
     "desenet_c3_fused": [_P] * 9 + [_I] * 12 + [_P, _P, _I],
     # K6's phase counters (zero unless built with -DK6_PROF). out, reset
     "desenet_c3_prof": [_P, _I],
+    # int8_conv.cu. &Int8ConvArgs (ops/int8_conv.py:_Args), stream, device
+    "desenet_int8_conv": [_P, _P, _I],
     # mma_peak.cu. blocks, threads, iters, sink, stream, device
     "desenet_mma_peak": [_I, _I, _I, _P, _P, _I],
     # mma_peak.cu. blocks, threads, iters, op, sink, stream, device

@@ -97,3 +97,72 @@ def adaptive_avg_pool(x: torch.Tensor, out_hw) -> torch.Tensor:
 def max_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
     """MaxPool2d(kernel=k, stride=1, padding=k//2) on NCHW x (the SPP pools)."""
     return F.max_pool2d(x, k, 1, k // 2)
+
+
+# ---- the JAX package's separable forms, for the int8 and fp8 paths --------
+#
+# The int8 glue rounds a resample of int8 values back to int8, and the fp8
+# storage mode rounds it to fp8: there the contraction's own rounding shows,
+# so these compute as the JAX package does (``_apply_separable``): the
+# (out, in) matrices applied over H, then over W, in f32; an fp8 input in
+# bf16 (its DEFAULT-precision path) with the result cast back to the fp8
+# dtype (``quant.to_f8``).
+
+
+def _apply_separable(x: torch.Tensor, mh: np.ndarray, mw: np.ndarray
+                     ) -> torch.Tensor:
+    from desenet_tpu_torch.quant import F8_DTYPES, to_f8
+
+    dt = x.dtype
+    cdt = torch.bfloat16 if dt == torch.bfloat16 or dt in F8_DTYPES \
+        else torch.float32
+    a = torch.from_numpy(mh).to(x.device, cdt)
+    b = torch.from_numpy(mw).to(x.device, cdt)
+    y = torch.matmul(a, x.to(cdt))  # (.., out_h, W)
+    y = torch.matmul(y, b.t())  # (.., out_h, out_w)
+    return to_f8(y, dt) if dt in F8_DTYPES else y.to(dt)
+
+
+def resize_bilinear_separable(x: torch.Tensor, out_hw,
+                              align_corners: bool = False) -> torch.Tensor:
+    """``resize_bilinear`` as the JAX package computes it."""
+    h, w = int(out_hw[0]), int(out_hw[1])
+    if tuple(x.shape[2:]) == (h, w):
+        return x
+    return _apply_separable(x, _linear_matrix(x.shape[2], h, align_corners),
+                            _linear_matrix(x.shape[3], w, align_corners))
+
+
+def adaptive_avg_pool_separable(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """``adaptive_avg_pool`` as the JAX package computes it: the mean in
+    f32 cast back for a 1x1 output, else the separable pool matrices."""
+    if isinstance(out_hw, int):
+        out_hw = (out_hw, out_hw)
+    h, w = int(out_hw[0]), int(out_hw[1])
+    if (h, w) == (1, 1):
+        from desenet_tpu_torch.quant import F8_DTYPES, to_f8
+
+        m = x.float().mean(dim=(2, 3), keepdim=True)
+        return to_f8(m, x.dtype) if x.dtype in F8_DTYPES else m.to(x.dtype)
+    return _apply_separable(x, _adaptive_pool_matrix(x.shape[2], h),
+                            _adaptive_pool_matrix(x.shape[3], w))
+
+
+def upsample_nearest_repeat(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """Integer-factor nearest upsample of NCHW x of any dtype (int8, fp8:
+    ``F.interpolate`` takes neither) by repeating each pixel, as the JAX
+    package's broadcast does; the result is channels_last in memory."""
+    if scale == 1:
+        return x
+    n, c, h, w = x.shape
+    y = x.permute(0, 2, 3, 1)[:, :, None, :, None, :].expand(
+        n, h, scale, w, scale, c)
+    return y.reshape(n, h * scale, w * scale, c).permute(0, 3, 1, 2)
+
+
+def broadcast_hw(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """A (N, C, 1, 1) map broadcast to ``out_hw`` (the nearest resize of a
+    1x1 source), materialized channels_last."""
+    n, c = x.shape[:2]
+    y = x.permute(0, 2, 3, 1).expand(n, int(out_hw[0]), int(out_hw[1]), c)
+    return y.contiguous().permute(0, 3, 1, 2)

@@ -618,3 +618,149 @@ def check_train_parity(res: list, dtype: torch.dtype, what: str) -> None:
         if bad:
             raise AssertionError(f"{what}, step {i}: {bad} over the bars "
                                  f"(loss {TRAIN_LOSS_BAR[dtype]}, state {bar})")
+
+
+# ---- the int8 slice: weights with O(1) activations -------------------------
+
+
+def realistic_convbnact_state(rng, c1: int, c2: int, k: int) -> dict:
+    """A ConvBnAct's state dict with O(1) activations: a kaiming-normal
+    kernel, unit-ish BN statistics (the JAX package's tests/test_quant.py
+    fixture, OIHW here)."""
+    kern = rng.normal(0, 1.0 / np.sqrt(k * k * c1), (c2, c1, k, k))
+    return {
+        "conv.weight": torch.tensor(kern, dtype=torch.float32),
+        "bn.weight": torch.tensor(rng.uniform(0.5, 1.5, c2), dtype=torch.float32),
+        "bn.bias": torch.tensor(rng.normal(0, 0.1, c2), dtype=torch.float32),
+        "bn.running_mean": torch.tensor(rng.normal(0, 0.05, c2),
+                                        dtype=torch.float32),
+        "bn.running_var": torch.tensor(rng.uniform(0.5, 1.5, c2),
+                                       dtype=torch.float32),
+        "bn.num_batches_tracked": torch.tensor(0),
+    }
+
+
+def boosted_state(model: torch.nn.Module, seed: int = 0) -> dict:
+    """The state dict of a DeSeNet of ``model``'s architecture as torch
+    builds it with its global generator seeded from ``seed`` (whatever the
+    process drew before; ``model`` itself is left as it is), with every conv
+    kernel redrawn N(0, 1.3 / sqrt(fan_in)) from numpy (tests/test_quant.py's
+    ``_boost_variables``): a seeded init's activations fade through the
+    depth and saturate the sigmoids, which would hide the quantization
+    error."""
+    from desenet_tpu_torch.models.build import DeSeNet
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = DeSeNet(model.spec)
+    rng = np.random.default_rng(seed)
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    for name, mod in model.named_modules():
+        if isinstance(mod, torch.nn.Conv2d):
+            w = mod.weight
+            fan = w[0].numel()
+            sd[f"{name}.weight"] = torch.tensor(
+                rng.normal(0, 1.3 / np.sqrt(fan), tuple(w.shape)),
+                dtype=torch.float32)
+    return sd
+
+
+# ---- the int8 conv kernel's cases (chip_smoke.py, the card tests) -----------
+#
+# name, batch, map, the parts' channels, output channels, kernel, stride,
+# padding, dilation, per-channel input scales, a residual, the output
+# (int8 or the class conv's f32 / bf16 logits). The residual case reads
+# its part and its residual as channel slices of wider maps (the C3
+# bottleneck's y1 is a slice of cv12's output), so pixels lie further apart
+# than the part is wide.
+INT8_CONV_CASES = (
+    ("stem", 2, 64, 64, (3,), 32, 6, 2, 2, 1, True, False, "int8"),
+    ("backbone_3x3_s2", 2, 40, 40, (64,), 128, 3, 2, 1, 1, True, False,
+     "int8"),
+    ("bottleneck_residual", 2, 40, 40, (64,), 64, 3, 1, 1, 1, True, True,
+     "int8"),
+    ("spp_4_parts", 2, 20, 20, (256, 256, 256, 256), 512, 1, 1, 0, 1, True,
+     False, "int8"),
+    ("per_tensor_2_parts", 2, 40, 40, (128, 128), 256, 1, 1, 0, 1, False,
+     False, "int8"),
+    ("dilated_d3", 2, 80, 80, (21,), 21, 3, 1, 3, 3, True, False, "int8"),
+    ("class_conv_f32", 2, 80, 80, (128,), 19, 1, 1, 0, 1, True, False,
+     "f32"),
+    ("class_conv_bf16", 2, 80, 80, (128,), 19, 1, 1, 0, 1, True, False,
+     "bf16"),
+)
+
+
+def int8_conv_case(case, device="cpu", seed: int = 0) -> dict:
+    """The inputs of ``ops.int8_conv.run`` for one of ``INT8_CONV_CASES``
+    on ``device``: int8 parts (channels_last), their constants folded by
+    ``ops.int8_conv.prepare`` from seeded f32 weights, BN and bias
+    correction, and the epilogue's arguments."""
+    from desenet_tpu_torch.ops import int8_conv
+    from desenet_tpu_torch.quant import scale_t
+
+    (_, b, h, w, chans, o, k, stride, pad, dil, per_channel, residual,
+     out) = case
+    rng = np.random.default_rng(seed)
+    cl = torch.channels_last
+
+    def int8(shape):
+        return torch.tensor(rng.integers(-127, 128, shape), dtype=torch.int8)
+
+    parts, scales = [], []
+    for c in chans:
+        if residual:  # a channel slice of a map twice as wide
+            part = int8((b, 2 * c, h, w)).to(device).contiguous(
+                memory_format=cl)[:, :c]
+        else:
+            part = int8((b, c, h, w)).to(device).contiguous(memory_format=cl)
+        parts.append(part)
+        scales.append(tuple(float(v) for v in rng.uniform(0.005, 0.05, c))
+                      if per_channel else float(rng.uniform(0.005, 0.05)))
+    cin = sum(chans)
+    weight = torch.tensor(rng.normal(0, 1 / np.sqrt(cin * k * k),
+                                     (o, cin, k, k)), dtype=torch.float32)
+    bn = (torch.tensor(rng.uniform(0.5, 1.5, o), dtype=torch.float32),
+          torch.tensor(rng.normal(0, 0.1, o), dtype=torch.float32))
+    logits = out != "int8"
+    prep = int8_conv.prepare(
+        weight.to(device), scales, chans, stride=stride, padding=(pad, pad),
+        dilation=dil, bn=None if logits else tuple(t.to(device) for t in bn),
+        bias=bn[1].to(device) if logits else None,
+        in_mean=None if logits else rng.normal(0.1, 0.5, cin))
+    res = res_scale = None
+    ho = (h + 2 * pad - dil * (k - 1) - 1) // stride + 1
+    wo = (w + 2 * pad - dil * (k - 1) - 1) // stride + 1
+    if residual:
+        res = int8((b, 2 * o, ho, wo)).to(device).contiguous(
+            memory_format=cl)[:, o:]
+        res_scale = scale_t(tuple(float(v) for v in
+                                  rng.uniform(0.01, 0.05, o)), device)
+    mode = {"int8": int8_conv.OUT_INT8, "f32": int8_conv.OUT_F32,
+            "bf16": int8_conv.OUT_BF16}[out]
+    out_scale = (scale_t(tuple(float(v) for v in rng.uniform(0.02, 0.1, o)),
+                         device) if mode == int8_conv.OUT_INT8 else None)
+    return {"parts": parts, "prep": prep, "residual": res,
+            "res_scale": res_scale, "out_scale": out_scale,
+            "act": not logits, "out_mode": mode}
+
+
+def check_int8(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """The int8 conv bar: int8 outputs within 1 LSB, equal on at least
+    99.9% of the elements; logits (f32 / bf16) within 1e-5 of the largest
+    plain magnitude (the same f32 operations; only SiLU's exp may differ by
+    an ulp). Returns the largest absolute difference."""
+    if want.dtype == torch.int8:
+        d = (got.int() - want.int()).abs()
+        eq = float((d == 0).float().mean())
+        err = float(d.max())
+        if err > 1 or eq < 0.999:
+            raise AssertionError(f"{what}: int8 max |diff| {err}, "
+                                 f"equal on {eq:.6f}")
+        return err
+    err = float((got.float() - want.float()).abs().max())
+    tol = 1e-5 * float(want.float().abs().max()) * (
+        256 if want.dtype == torch.bfloat16 else 1)
+    if err > tol:
+        raise AssertionError(f"{what}: logits max |diff| {err} > {tol}")
+    return err

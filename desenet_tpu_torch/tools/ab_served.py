@@ -18,6 +18,15 @@ back-to-back calls of its wrapper (at a few hundredths of a millisecond
 that follows the host: the allocations and the launch) and by
 ``torch.profiler`` as device time per call (``*_dev_ms``). One line per
 process, then the means per tree.
+
+``--quant`` times the quantized programs instead, on the same weights: the
+int8 ``Predictor``'s device program (calibrated on 2 seeded images) at
+b128, and the b32 val step (``Validator.eval_step``: forward, K3, seg
+argmax) of the int8 model (``quantize_for_inference``, calibrated on a
+seeded batch of 8), the fp8-storage model and the bf16 one, the three in
+turns.
+
+    python -m desenet_tpu_torch.tools.ab_served --against other/checkout --quant
 """
 
 from __future__ import annotations
@@ -36,6 +45,9 @@ IMGSZ = 640      # and from this: 25200 anchors, (B, 80, 80, 3) logits
 ANCHORS = 25200
 METRICS = ("k1_sparse_ms", "k1_sparse_dev_ms", "k1_dense_ms",
            "k1_dense_dev_ms", "k2_ms", "k2_dev_ms", "program_ms")
+VAL_BATCH = 32   # the val step's batch under --quant
+QUANT_METRICS = ("int8_program_ms", "val_int8_ms", "val_fp8_ms",
+                 "val_bf16_ms")
 
 
 def make_inputs(path: str) -> None:
@@ -50,7 +62,7 @@ def make_inputs(path: str) -> None:
                  0, 1, (BATCH, 80, 80, 3)).astype(np.float32))
 
 
-def worker(inputs: str) -> dict:
+def worker(inputs: str, quant: bool = False) -> dict:
     """Time the tree that is first on ``sys.path``; needs a card."""
     import torch
 
@@ -66,6 +78,13 @@ def worker(inputs: str) -> dict:
     data = np.load(inputs)
     out = {"tree": os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(nms_fused.__file__)))), "card": card_line()}
+    model, _ = build_model(config_path("yolov5s_seg"))
+    sd = init_weights(model, torch.Generator().manual_seed(0)).state_dict()
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randint(0, 256, (BATCH, IMGSZ, IMGSZ, 3),
+                      dtype=torch.uint8, device=dev, generator=g)
+    if quant:
+        return quant_worker(out, sd, x)
     for name in ("sparse", "dense"):
         planes = nms_fused.nms_planes(torch.from_numpy(data[name]).to(dev),
                                       0.25)
@@ -81,34 +100,70 @@ def worker(inputs: str) -> dict:
                            20)
     out["k2_dev_ms"] = sum(ms for _, ms, _ in kernel_table(
         lambda: seg_pallas.upsample_argmax(logits, 8, True), dev))
-    model, _ = build_model(config_path("yolov5s_seg"))
-    sd = init_weights(model, torch.Generator().manual_seed(0)).state_dict()
     pred = Predictor("yolov5s_seg", sd, imgsz=IMGSZ, half=True, device="cuda")
-    g = torch.Generator(device=dev).manual_seed(0)
-    x = torch.randint(0, 256, (BATCH, IMGSZ, IMGSZ, 3),
-                      dtype=torch.uint8, device=dev, generator=g)
     for _ in range(2):
         pred.infer(x)
     out["program_ms"] = cuda_ms(lambda: pred.infer(x), 10)
     return out
 
 
-def summarise(runs: list) -> dict:
+def quant_worker(out: dict, sd: dict, x) -> dict:
+    """``--quant``: the int8 served program and the three val steps."""
+    import torch
+
+    from desenet_tpu_torch.api import Predictor
+    from desenet_tpu_torch.eval import Validator
+    from desenet_tpu_torch.models import build_model, config_path
+    from desenet_tpu_torch.quant import quantize_for_inference
+    from desenet_tpu_torch.tools.timing import cuda_ms, in_turns
+    from desenet_tpu_torch.utils.convert import load_state_dict
+
+    dev = x.device
+    rng = np.random.default_rng(12)
+    calib = [rng.integers(0, 256, (IMGSZ, IMGSZ, 3), dtype=np.uint8)
+             for _ in range(2)]
+    pq = Predictor("yolov5s_seg", sd, imgsz=IMGSZ, half=True, device="cuda",
+                   int8=True, calib=calib)
+    out["int8_program_ms"] = cuda_ms(lambda: pq.infer(x), 10)
+    del pq
+    cal = torch.from_numpy(rng.integers(0, 256, (8, 3, IMGSZ, IMGSZ))
+                           .astype(np.float32) / 255.0)
+    cfg = config_path("yolov5s_seg")
+    models = {"int8": quantize_for_inference(
+        cfg, sd, [cal], device=dev, compute_dtype=torch.bfloat16)[0]}
+    for name, kw in (("fp8", {"act_store": "fp8"}), ("bf16", {})):
+        m, _ = build_model(cfg, fuse_focus=True, **kw)  # as cli.val's
+        load_state_dict(m, sd)
+        models[name] = m.to(dev, torch.bfloat16,
+                            memory_format=torch.channels_last)
+    img = x[:VAL_BATCH]
+    tg = torch.zeros((VAL_BATCH, 16, 5), device=dev)
+    tmask = torch.zeros((VAL_BATCH, 16), dtype=torch.bool, device=dev)
+    steps = [(lambda v=Validator(m, nc=m.spec.de_nc, se_nc=m.spec.se_nc):
+              v.eval_step(img, tg, tmask), 5) for m in models.values()]
+    for name, ms in zip(models, in_turns(*steps)):
+        out[f"val_{name}_ms"] = ms
+    return out
+
+
+def summarise(runs: list, metrics=METRICS) -> dict:
     """Mean of every metric per tree over its runs."""
     trees = {}
     for r in runs:
         trees.setdefault(r["tree"], []).append(r)
-    return {tree: {m: sum(r[m] for r in rs) / len(rs) for m in METRICS}
+    return {tree: {m: sum(r[m] for r in rs) / len(rs) for m in metrics}
             for tree, rs in trees.items()}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", help="root of the other checkout")
+    ap.add_argument("--quant", action="store_true",
+                    help="time the int8 and fp8 programs instead")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker:
-        print(json.dumps(worker(args.worker)), flush=True)
+        print(json.dumps(worker(args.worker, args.quant)), flush=True)
         return 0
     if not args.against or not os.path.isdir(
             os.path.join(args.against, "desenet_tpu_torch")):
@@ -126,7 +181,7 @@ def main(argv=None) -> int:
             # this file by path: its own directory, not a tree, heads sys.path
             proc = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--worker",
-                 inputs],
+                 inputs] + (["--quant"] if args.quant else []),
                 cwd=tree, env=env, capture_output=True, text=True,
                 timeout=1200)
             if proc.returncode != 0:
@@ -134,8 +189,16 @@ def main(argv=None) -> int:
                                  f"{proc.stdout}{proc.stderr}")
             runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
             print(json.dumps(runs[-1]), flush=True)
-    for tree, means in summarise(runs).items():
+    for tree, means in summarise(
+            runs, QUANT_METRICS if args.quant else METRICS).items():
         name = "this tree" if tree == here else "the other tree"
+        if args.quant:
+            print(f"{name} ({tree}), mean of 2 runs: int8 served program "
+                  f"b{BATCH}/{IMGSZ} {means['int8_program_ms']:.3f} ms; val "
+                  f"step b{VAL_BATCH}/{IMGSZ} int8 "
+                  f"{means['val_int8_ms']:.3f}, fp8 {means['val_fp8_ms']:.3f}"
+                  f", bf16 {means['val_bf16_ms']:.3f} ms [{runs[0]['card']}]")
+            continue
         print(f"{name} ({tree}), mean of 2 runs, b{BATCH}/{IMGSZ} "
               f"bf16, by events (device time by the profiler): K1 sparse "
               f"{means['k1_sparse_ms']:.4f} ({means['k1_sparse_dev_ms']:.4f}) "

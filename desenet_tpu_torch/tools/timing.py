@@ -50,6 +50,7 @@ def in_turns(*runs) -> list:
 
 H100_BYTES_PER_S = 3.35e12       # HBM3
 H100_BF16_FLOPS = 989e12         # dense bf16 on the tensor cores
+H100_INT8_OPS = 1979e12          # dense int8 on the tensor cores
 H100_F32_FLOPS = 67e12           # float32 outside the tensor cores
 NMS_PAIR_FLOPS = 16              # one IoU test of a pick against a candidate
 
@@ -152,3 +153,25 @@ def nms_greedy_bound(b: int, k: int, max_det: int, live: float,
     chain of dependent steps, so no design comes near this bound."""
     nbytes = 4 * (5 * b * k + 2 * b * max_det)
     return bound_ms(b * picks * live * NMS_PAIR_FLOPS, nbytes, H100_F32_FLOPS)
+
+
+def int8_conv_macs(b: int, ho: int, wo: int, cin: int, o: int, kh: int,
+                   kw: int) -> int:
+    """Multiply-adds of an int8 conv: every output pixel and channel over
+    the taps of every input channel (all parts together)."""
+    return b * ho * wo * o * cin * kh * kw
+
+
+def int8_conv_bound(b: int, h: int, w: int, cin: int, ho: int, wo: int,
+                    o: int, kh: int, kw: int, out_itemsize: int = 1,
+                    residual: bool = False) -> tuple:
+    """The int8 conv block on (b, h, w, cin) int8 parts -> (b, ho, wo, o):
+    the parts, the int8 weights, the residual where there is one and the
+    per-channel f32 constants read once, the output (int8, or the logits'
+    ``out_itemsize``) written once; the products at the int8 tensor-core
+    rate."""
+    nbytes = (b * h * w * cin + o * cin * kh * kw
+              + (b * ho * wo * o if residual else 0)
+              + b * ho * wo * o * out_itemsize + 4 * 6 * o)
+    return bound_ms(2 * int8_conv_macs(b, ho, wo, cin, o, kh, kw), nbytes,
+                    H100_INT8_OPS)

@@ -14,6 +14,7 @@ FusedFocus row takes it as it is).
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import re
 from typing import Dict, List, Mapping, Tuple
@@ -404,6 +405,16 @@ def focus_to_fused(sd: Mapping[str, torch.Tensor], spec: ModelSpec
                     w[:, :, oy::2, ox::2] = v[:, c * s:c * (s + 1)]
             out[f"model.{ls.i}.conv.weight"] = w
     return out
+
+
+def quant_cfg_from_jax(cfg) -> "QuantCfg":
+    """The JAX package's ``QuantCfg`` (or any object with its fields) as the
+    port's: the site keys are the same flax scope paths, so its calibrated
+    ``scales`` and ``in_means`` carry over as they are."""
+    from desenet_tpu_torch.quant import QuantCfg
+
+    return QuantCfg(**{f.name: getattr(cfg, f.name)
+                       for f in dataclasses.fields(QuantCfg)})
 
 
 def load_state_dict(model: DeSeNet, sd: Mapping[str, torch.Tensor]) -> None:

@@ -86,6 +86,26 @@ def test_other_kernels_bounds():
     assert tm.bound_ms(0, 32 * 4.5e6)[0] == pytest.approx(0.043, abs=0.001)
 
 
+def test_int8_conv_bounds():
+    """The int8 conv block: a 3x3 of 128 channels at 80x80, b32, is 60.4
+    GOP (0.0305 ms at 1979 TOP/s) against 52.6 MB (0.0157 ms); a 1x1 of
+    64 channels at 160x160 moves 105 MB (0.0313 ms) for 6.7 GOP."""
+    assert tm.int8_conv_macs(32, 80, 80, 128, 128, 3, 3) == 32 * 6400 * 128 \
+        * 128 * 9
+    ms, by = tm.int8_conv_bound(32, 80, 80, 128, 80, 80, 128, 3, 3)
+    assert by == "operations" and ms == pytest.approx(0.0305, abs=0.0002)
+    ms, by = tm.int8_conv_bound(32, 160, 160, 64, 160, 160, 64, 1, 1)
+    assert by == "bytes" and ms == pytest.approx(0.0313, abs=0.0002)
+    # a residual is read once more; f32 logits are written 4 bytes each
+    with_res = tm.int8_conv_bound(32, 160, 160, 64, 160, 160, 64, 1, 1,
+                                  residual=True)[0]
+    assert with_res == pytest.approx(ms * 1.5, rel=0.001)
+    logits = tm.int8_conv_bound(32, 80, 80, 128, 80, 80, 19, 1, 1, 4)[0]
+    assert logits == pytest.approx(
+        (32 * 6400 * (128 + 19 * 4) + 19 * 128 + 4 * 6 * 19) / 3.35e12 * 1e3,
+        rel=1e-9)
+
+
 def test_psp2_macs_counts_the_folded_weights():
     """The count, term by term, from a folded head's weight shapes."""
     from desenet_tpu_torch.testing import random_psp2_head

@@ -1,6 +1,7 @@
 """The CUDA kernels K1 (csrc/nms_fused.cu), K2 (csrc/seg_tail.cu), K3
-(csrc/nms_greedy.cu), K4 (csrc/seg_head_psp2.cu), K5 (csrc/stem_conv.cu) and
-K6 (csrc/c3_fused.cu) against their plain PyTorch versions, on the card. Each test skips without
+(csrc/nms_greedy.cu), K4 (csrc/seg_head_psp2.cu), K5 (csrc/stem_conv.cu),
+K6 (csrc/c3_fused.cu) and the int8 conv block (csrc/int8_conv.cu) against
+their plain PyTorch versions, on the card. Each test skips without
 a CUDA device (decided in the fixture, never at import). Run on the card:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
@@ -35,6 +36,13 @@ channel counts that are no multiple of 64, K4 at yolov5s_seg's width on a
 map that is no multiple of the block's 128 pixels; each test also checks
 which kernel the wrapper launched.
 
+The int8 conv block runs on ``testing.INT8_CONV_CASES`` (the FusedFocus
+stem's 3 channels at 6x6/s2, a 3x3/s2 backbone conv, a bottleneck with its
+residual read as channel slices, a 4-part SPP concat, a per-tensor 2-part
+concat, a d=3 dilated conv of 21 channels, the class conv's f32 and bf16
+logits): its int32 sums bit-equal to the plain version's float64 conv, its
+outputs at ``testing.check_int8``'s bar.
+
 The training step (no kernel of its own) is held against itself on the
 CPU, as chip_smoke.py's phase 7(a) holds it: the tiny model's SGD steps on
 the card and on the CPU (``testing.TRAIN_PARITY_STEPS``: two in float64, one
@@ -46,9 +54,11 @@ import numpy as np
 import pytest
 import torch
 
-from desenet_tpu_torch.ops import (c3_fused, nms_fused, nms_pallas,
-                                   seg_head_pallas, seg_pallas, stem_pallas)
-from desenet_tpu_torch.testing import (C3_SERVED, NMS_FUSED_CASES,
+from desenet_tpu_torch.ops import (c3_fused, int8_conv, nms_fused,
+                                   nms_pallas, seg_head_pallas, seg_pallas,
+                                   stem_pallas)
+from desenet_tpu_torch.testing import (C3_SERVED, INT8_CONV_CASES,
+                                       NMS_FUSED_CASES,
                                        SEG_TAIL_CASES, check_close,
                                        check_psp2, dense_decode,
                                        dense_sorted_candidates,
@@ -59,7 +69,8 @@ from desenet_tpu_torch.testing import (C3_SERVED, NMS_FUSED_CASES,
                                        seg_tail_input, select_planes,
                                        sorted_candidates, stem_inputs,
                                        synthetic_decode, train_parity,
-                                       check_train_parity)
+                                       check_train_parity, check_int8,
+                                       int8_conv_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -464,3 +475,33 @@ def test_detect_program_matches_cpu(cuda, full_f32, members, augment):
         1e-4 * wn.boxes.abs().max()
     assert (gn.scores.cpu() - wn.scores).abs().max() <= 1e-4
     assert (gseg.cpu() == wseg).float().mean() >= 0.999
+
+
+@pytest.mark.parametrize("case", INT8_CONV_CASES, ids=lambda c: c[0])
+def test_int8_conv_matches_plain(cuda, case):
+    """The int8 conv kernel against its plain version on the card: the
+    int32 sums over all parts bit-equal (OUT_I32), the block's outputs at
+    ``testing.check_int8``'s bar (int8 within 1 LSB, equal on 99.9%)."""
+    c = int8_conv_case(case, cuda)
+    parts, prep = c["parts"], c["prep"]
+    before = int8_conv.launches
+    raw = int8_conv.run(parts, prep, out_mode=int8_conv.OUT_I32)
+    raw_plain = int8_conv.int8_conv_plain(parts, prep,
+                                          out_mode=int8_conv.OUT_I32)
+    args = dict(residual=c["residual"], res_scale=c["res_scale"],
+                out_scale=c["out_scale"], act=c["act"],
+                out_mode=c["out_mode"])
+    got = int8_conv.run(parts, prep, **args)
+    want = int8_conv.int8_conv_plain(parts, prep, **args)
+    assert int8_conv.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(raw, raw_plain)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    check_int8(got, want, case[0])
+
+
+def test_int8_conv_refuses_groups(cuda):
+    c = int8_conv_case(INT8_CONV_CASES[1], cuda)
+    c["prep"].groups = 2
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        int8_conv.run(c["parts"], c["prep"])

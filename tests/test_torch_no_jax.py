@@ -1,5 +1,7 @@
 """desenet_tpu_torch imports (every module), serves (a PSP2 and a BiSe
-tiny model, and yolov5m_seg at full width), validates (on an in-memory
+tiny model, and yolov5m_seg at full width; the tiny model also as the
+int8 program, calibrated on one image, and built with fp8 activation
+storage), validates (on an in-memory
 loader), takes two training steps, runs the training engine's
 epoch loop (``train.engine.fit``: one epoch on in-memory batches, the EMA
 validated, checkpoints written, reloaded and stripped), serves a checkpoint
@@ -95,6 +97,20 @@ img = np.random.default_rng(0).integers(0, 256, (64, 64, 3), dtype=np.uint8)
 res = pred(img)
 assert len(res) == 1 and res.masks[0].shape == (64, 64)
 assert res.xyxy[0].shape[1] == 6
+
+# the int8 program (quant.py, ops/int8_conv.py's plain version on the CPU)
+# and the fp8-storage model
+from desenet_tpu_torch import quant
+from desenet_tpu_torch.ops import int8_conv
+q8 = Predictor(cfg, sd, imgsz=64, conf_thres=1e-3, half=False, device="cpu",
+               int8=True, calib=[img])
+assert q8.model.quant.is_int8 and len(q8.model.quant.scales) > 100
+qres = q8(img)
+assert qres.masks[0].shape == (64, 64) and qres.xyxy[0].shape[1] == 6
+f8, _ = build_model(cfg, fuse_focus=True, act_store="fp8")
+f8.load_state_dict(sd, strict=False)
+(dec8, _), seg8 = f8.eval()(torch.rand(1, 3, 64, 64))
+assert torch.isfinite(dec8).all() and seg8.shape == (1, 2, 64, 64)
 
 # another seg head (SegMaskBiSe) and the m config at full width, served
 from desenet_tpu_torch.models.heads import (SegMaskBase, SegMaskBiSe,  # noqa

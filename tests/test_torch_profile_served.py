@@ -100,8 +100,15 @@ def test_ab_served_inputs_summary_and_refusals(tmp_path, monkeypatch):
             for t, v in (("a", 1.0), ("b", 5.0), ("b", 7.0), ("a", 2.0))]
     means = ab_served.summarise(runs)
     assert means["a"]["k2_ms"] == 1.5 and means["b"]["program_ms"] == 6.0
+    qruns = [dict(tree=t, **{m: v for m in ab_served.QUANT_METRICS})
+             for t, v in (("a", 1.0), ("b", 5.0), ("b", 7.0), ("a", 2.0))]
+    qmeans = ab_served.summarise(qruns, ab_served.QUANT_METRICS)
+    assert qmeans["a"]["val_fp8_ms"] == 1.5
+    assert qmeans["b"]["int8_program_ms"] == 6.0
     with pytest.raises(SystemExit, match="--against"):
         ab_served.main(["--against", str(tmp_path)])
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
             ab_served.main(["--worker", str(tmp_path / "in.npz")])
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            ab_served.main(["--worker", str(tmp_path / "in.npz"), "--quant"])

@@ -141,9 +141,18 @@ def test_cli_val_speed_task(dataset, tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [["--int8"], ["--act-store", "fp8"]])
 def test_cli_val_refuses_unported_flags(argv):
+    """--int8 and --act-store are ported (tests/test_torch_quant_cli.py
+    runs them against the JAX CLI); what stays refused, before any data is
+    read, is what the JAX CLI refuses: the two together, and either on an
+    ensemble of several --weights."""
     base = ["--data", "unused.yaml", "--weights", "sd.npz"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli_val.main(base + argv)
+    opt = cli_val.parse_opt(base + argv)
+    assert opt.int8 != (opt.act_store == "fp8")
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        cli_val.main(base + ["--int8", "--act-store", "fp8"])
+    with pytest.raises(ValueError, match="ensemble"):
+        cli_val.main(["--data", "unused.yaml", "--weights", "a.npz",
+                      "b.npz"] + argv)
 
 
 @pytest.fixture(scope="module")

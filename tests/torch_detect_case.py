@@ -77,9 +77,11 @@ def _flat(tree):
             traverse_util.flatten_dict(tree, sep="/").items()}
 
 
-def write_checkpoints(root: str, k: int):
-    """(JAX checkpoint dir, port checkpoint dir) of member ``k``."""
-    _, variables = jax_variables(member_weights(k))
+def write_checkpoints(root: str, k: int, weights=None):
+    """(JAX checkpoint dir, port checkpoint dir) of member ``k``, or of the
+    torch-named numpy ``weights`` where given."""
+    _, variables = jax_variables(member_weights(k) if weights is None
+                                 else weights)
     params, stats = variables["params"], variables["batch_stats"]
     rng = np.random.default_rng(7 + k)
     noisy = jax.tree.map(

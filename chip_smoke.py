@@ -159,7 +159,35 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
    kernel counted); (c) where PIL and cv2 import, cli.val on a fake
    dataset at 640 (16 train, 128 val images) with --int8 (2 calibration
    batches), --act-store fp8 and neither (K3 and the int8 kernel
-   counted), then the three programs' b32 val steps in turns.
+   counted), then the three programs' b32 val steps in turns;
+13. the training and deployment tooling, yolov5s_seg at full width, 640
+   px, W&B runs under a temporary WANDB_DIR (PIL and cv2 imported
+   outright): (a) cli.log_dataset on a fake dataset (32 train, 8 val),
+   then cli.train.main at b16 bf16 for 2 epochs with --wandb
+   --upload-dataset --bbox-interval 1 --remat on the wandb-artifact://
+   splits of its *_wandb.yaml (--artifact-alias latest): the offline run's
+   history (a row an epoch, finite losses, metrics in [0, 1]), the model
+   artifact (a version an epoch, aliases latest, last, epoch N, best) and
+   the dataset artifacts checked; a third epoch resumed from
+   wandb-artifact://run_<id>_model:latest in the same run directory, the
+   counters going on; K3 at least once a validation; seconds an epoch;
+   (b) --remat at b64/640 bf16 from one state and batches: peak
+   allocated memory and the step by CUDA events over 10 warm steps, with
+   and without, in turns; in f32 (TF32 off) at b8/320 one step with and
+   without from one state and batch: the loss, gradients and BN
+   statistics held to testing's bars (moved once, not twice); (c) 13(a)'s
+   `last` exported (tools/export_model.py, torch.export) at b1/640 in f32
+   and bf16, the export seconds and MB; the consumer
+   (tools/consume_exported_model.py, torch and numpy only) in a fresh
+   process on the card equal to the live program (f32: boxes within 1e-4,
+   seg map equal), and the served Predictor (K1, K2 counted) on the same
+   image matched against the f32 export; (d) profiling.model_info of
+   yolov5s_seg at 640 (the JAX variables' 7,594,130 params; 7,594,268
+   with the two BNs that never run), profile_fn of the first C3 at
+   b128/640 bf16 forward and backward, a trace of one served b32 batch
+   (kernels in it), and ARM, ASPPs, RFB1, DAPPM, ConvBNReLU, Classify, Sum
+   (plain and weighted) in training mode on the card against the CPU
+   (f32, TF32 off), outputs and gradients.
 
 Inputs of the kernel checks come from desenet_tpu_torch.testing, shared with
 tests/test_torch_kernels_cuda.py.
@@ -2605,6 +2633,450 @@ def phase12(card: str, sd: dict, errs: dict, timing: dict,
     return launches
 
 
+B_REMAT = 64
+REMAT_STEPS = 10
+B_REMAT_F32, S_REMAT_F32 = 8, 320
+
+
+def _offline_run(save_dir: str) -> str:
+    """The one offline W&B run directory under ``save_dir``."""
+    runs = [d for d in os.listdir(save_dir) if d.startswith("offline-run-")]
+    if len(runs) != 1:
+        raise AssertionError(f"{save_dir}: offline W&B runs {runs}")
+    return os.path.join(save_dir, runs[0])
+
+
+def _manifests(run_dir: str, name: str) -> list:
+    base = os.path.join(run_dir, "artifacts", name)
+    out = []
+    for f in sorted(os.listdir(base)):
+        if f.endswith(".manifest.json"):
+            with open(os.path.join(base, f)) as fh:
+                out.append(json.load(fh))
+    return sorted(out, key=lambda m: m["version"])
+
+
+def phase13a(card: str, tmp: str) -> tuple:
+    """The training path with the W&B sink; returns (K3 launches, the
+    run's ``last`` checkpoint, the fake dataset's root)."""
+    import PIL  # noqa: F401 - decoded with PIL
+    import cv2  # noqa: F401 - the fake dataset is written with cv2
+
+    from desenet_tpu_torch.cli import log_dataset
+    from desenet_tpu_torch.cli import train as cli_train
+    from desenet_tpu_torch.ops import nms_pallas
+    from desenet_tpu_torch.tools.make_fake_dataset import generate
+    from desenet_tpu_torch.utils.callbacks import Callbacks
+    from desenet_tpu_torch.utils.wandb_logger import WANDB_ARTIFACT_PREFIX
+
+    root = os.path.join(tmp, "fakeds")
+    data = generate(root, n_train=32, n_val=8, size=IMGSZ, seed=0)
+    wb_yaml = str(log_dataset.create_dataset_artifact(data))
+    with open(wb_yaml) as fh:
+        splits = json.load(fh)
+    if not all(splits[k].startswith(WANDB_ARTIFACT_PREFIX)
+               for k in ("train", "val")):
+        raise AssertionError(f"log_dataset wrote {splits}")
+    project = os.path.join(tmp, "runs")
+    argv = ["--data", wb_yaml, "--cfg", "yolov5s_seg", "--batch-size",
+            str(B_CLI), "--img-size", str(IMGSZ), "--project", project,
+            "--name", "wb", "--no-tb", "--device", "cuda", "--wandb",
+            "--bbox-interval", "1", "--remat", "--artifact-alias", "latest"]
+    clock = EpochClock()
+
+    def clocked():  # a run's own hooks (its loggers register on them)
+        callbacks = Callbacks()
+        callbacks.auto_register(clock)
+        return callbacks
+
+    nms_pallas.launches = 0
+    t = time.perf_counter()
+    res = cli_train.main(argv + ["--epochs", "2", "--upload-dataset"],
+                         clocked())
+    first = time.perf_counter() - t
+    save_dir = res["save_dir"]
+    run_dir = _offline_run(save_dir)
+    run_id = os.path.basename(run_dir)[len("offline-run-"):]
+    with open(os.path.join(run_dir, "history.jsonl")) as fh:
+        hist = [json.loads(ln) for ln in fh]
+    rows = [h for h in hist if "train/box_loss" in h]
+    metrics = [h[k] for h in rows for k in h if k.startswith("metrics/")]
+    losses = [h[f"train/{k}_loss"] for h in rows
+              for k in ("box", "obj", "cls", "seg")]
+    if ([h["epoch"] for h in rows] != [0, 1]
+            or not np.isfinite(losses).all()
+            or not all(0 <= v <= 1 for v in metrics)):
+        raise AssertionError(f"W&B history rows {rows}")
+    model_art = f"run_{run_id}_model"
+    mans = _manifests(run_dir, model_art)
+    for epoch, man in enumerate(mans):
+        want = {"latest", "last", f"epoch {epoch}"}
+        if not want <= set(man["aliases"]):
+            raise AssertionError(f"{model_art} v{epoch}: {man['aliases']}")
+    if (len(mans) != 2 or not any("best" in m["aliases"] for m in mans)
+            or not all(os.path.isfile(os.path.join(
+                run_dir, "artifacts", model_art, f"v{m['version']}",
+                "state.pt")) for m in mans)):
+        raise AssertionError(f"{model_art}: {mans}")
+    for split in ("train", "val"):  # --upload-dataset's and log_dataset's
+        if not _manifests(run_dir, f"{split}_dataset"):
+            raise AssertionError(f"no {split}_dataset artifact in the run")
+    logged = _offline_run(os.environ["WANDB_DIR"])
+    if not all(_manifests(logged, f"{s}_dataset") for s in ("train", "val")):
+        raise AssertionError("log_dataset logged no dataset artifacts")
+
+    # a third epoch resumed from the model artifact, in the same run dir
+    t = time.perf_counter()
+    res = cli_train.main(argv + ["--epochs", "3", "--exist-ok", "--resume",
+                                 f"{WANDB_ARTIFACT_PREFIX}{model_art}:latest"],
+                         clocked())
+    resumed = time.perf_counter() - t
+    k3 = nms_pallas.launches
+    with open(os.path.join(save_dir, "results.csv")) as fh:
+        epochs = [int(r["epoch"]) for r in csv.DictReader(fh)]
+    from desenet_tpu_torch.utils import checkpoint as ckpt
+
+    counters = ckpt.load_checkpoint(os.path.join(save_dir, "last"))[
+        "counters"]
+    if (epochs != [0, 1, 2] or int(counters["epoch"]) != 2
+            or int(counters["step"]) != 3 * (32 // B_CLI) or k3 < 3):
+        raise AssertionError(f"resume: results.csv epochs {epochs}, "
+                             f"counters {counters}, K3 launched {k3} times")
+    log("13a", f"log_dataset on a fake dataset (32 train, 8 val at "
+        f"{IMGSZ}), then cli.train yolov5s_seg b{B_CLI}/{IMGSZ} bf16 "
+        f"--wandb --upload-dataset --bbox-interval 1 --remat on its "
+        f"wandb-artifact:// splits, 2 epochs in {first:.3f} s wall, then a "
+        f"third resumed from {model_art}:latest in {resumed:.3f} s: history "
+        f"{len(rows)} rows of finite losses and metrics in [0, 1], "
+        f"{len(mans)} model artifact versions with aliases "
+        f"{[m['aliases'] for m in mans]}, dataset artifacts in the run and "
+        f"under WANDB_DIR; training loop by epoch "
+        f"{', '.join(f'{v:.3f}' for v in clock.loops)} s, validations "
+        f"{', '.join(f'{v:.3f}' for v in clock.vals)} s; K3 launched {k3} "
+        f"times in 3 validations [{card}]")
+    return k3, os.path.join(save_dir, "last"), root
+
+
+def phase13b(card: str) -> None:
+    """--remat at the training step's shape, and its equality in f32."""
+    from desenet_tpu_torch.testing import (TRAIN_LOSS_BAR, TRAIN_STATE_BAR,
+                                           no_tf32)
+    from desenet_tpu_torch.tools.profile_train_step import (device_batches,
+                                                            trainer)
+    from desenet_tpu_torch.train.state import bn_stats
+
+    dev = torch.device("cuda")
+    state, step, spec = trainer(True, dev, B_REMAT, IMGSZ, torch.bfloat16)
+    batches = itertools.cycle(device_batches(2, B_REMAT, IMGSZ, spec.de_nc,
+                                             dev))
+    peaks = {}
+
+    def run(remat):
+        def one():
+            nonlocal state
+            state.model.remat = remat
+            state, _ = step(state, next(batches))
+        return one
+
+    for remat in (False, True):
+        torch.cuda.reset_peak_memory_stats()
+        run(remat)()
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated()
+    plain_ms, remat_ms = in_turns((run(False), REMAT_STEPS),
+                                  (run(True), REMAT_STEPS))
+    del state, step, batches
+
+    # f32, TF32 off: one step from one state and batch with and without
+    # remat, no optimizer step (the gradients stay in .grad)
+    got = {}
+    with no_tf32():
+        batch = device_batches(1, B_REMAT_F32, S_REMAT_F32, spec.de_nc, dev,
+                               seed=5)[0]
+        for remat in (False, True):
+            st, stp, _ = trainer(True, dev, B_REMAT_F32, S_REMAT_F32,
+                                 torch.float32)
+            st.model.remat = remat
+            st.last_opt_step = 0  # accumulate: keep the gradients
+            before = {k: v.clone() for k, v in bn_stats(st.model).items()}
+            st, m = stp(st, batch)
+            got[remat] = (float(m["loss"]),
+                          {k: p.grad.clone() for k, p in st.params.items()
+                           if p.grad is not None},
+                          {k: v.clone() for k, v in bn_stats(st.model).items()},
+                          before)
+            del st, stp
+    (l0, g0, s0, b0), (l1, g1, s1, _) = got[False], got[True]
+
+    def rel(a, b):
+        return max(float((a[k] - b[k]).abs().max())
+                   / max(float(b[k].abs().max()), 1e-30) for k in b)
+
+    loss_err = abs(l1 - l0) / abs(l0)
+    grad_err, stat_err = rel(g1, g0), rel(s1, s0)
+    # how far one forward moved the statistics (largest change)
+    moved = max(float((s0[k] - b0[k]).abs().max()) for k in b0)
+    bar = TRAIN_STATE_BAR[torch.float32][0]
+    if (set(g1) != set(g0) or not g0 or loss_err > TRAIN_LOSS_BAR[
+            torch.float32] or grad_err > bar or stat_err > bar
+            or not moved > 0):
+        raise AssertionError(
+            f"--remat f32: loss rel err {loss_err}, gradients {grad_err}, "
+            f"BN statistics {stat_err} (one forward moves them {moved})")
+    log("13b", f"--remat yolov5s_seg b{B_REMAT}/{IMGSZ} bf16 train step "
+        f"(CUDA events, {REMAT_STEPS} warm steps, in turns): without "
+        f"{plain_ms:.3f} ms, peak allocated {peaks[False] / 2**30:.3f} GiB; "
+        f"with {remat_ms:.3f} ms ({remat_ms / plain_ms:.3f}x), peak "
+        f"{peaks[True] / 2**30:.3f} GiB ({peaks[True] / peaks[False]:.3f}x)"
+        f"; f32 b{B_REMAT_F32}/{S_REMAT_F32} (TF32 off) with against "
+        f"without: loss rel err {loss_err:.2e}, gradients {grad_err:.2e}, "
+        f"BN statistics {stat_err:.2e} after one step (which moves them "
+        f"{moved:.2e}: once, not twice) [{card}]")
+
+
+N_EXPORT_CAND = 256  # candidates above the export check's conf_thres
+
+
+def phase13c(card: str, last: str, root: str, tmp: str) -> None:
+    """The serving export of 13(a)'s checkpoint, its consumer on the card,
+    the live program and the served Predictor (K1, K2), on a val image of
+    13(a)'s fake dataset (``root``)."""
+    import contextlib
+    import io
+
+    from PIL import Image
+
+    from desenet_tpu_torch.api import load_predictor
+    from desenet_tpu_torch.ops import nms_fused, seg_pallas
+    from desenet_tpu_torch.testing import no_tf32
+    from desenet_tpu_torch.tools import export_model
+
+    sys.path.insert(0, os.path.join("desenet_tpu_torch", "tools"))
+    try:
+        import consume_exported_model as consumer
+    finally:
+        sys.path.pop(0)
+    val_dir = os.path.join(root, "Images", "val")
+    img = np.asarray(Image.open(os.path.join(
+        val_dir, sorted(os.listdir(val_dir))[0])).convert("RGB"))
+    img_path = os.path.join(tmp, "img.npy")
+    np.save(img_path, img)
+    batch = torch.from_numpy(consumer.letterbox_u8(img, IMGSZ)[0][None])
+    lines = []
+    with no_tf32():
+        # a 3-epoch model scores every anchor near its prior: put conf_thres
+        # midway between the scores ranked N and N + 1 (in each dtype), so
+        # that the check has N candidates (under pre_topk 1024, where the
+        # export's selection and K1's agree) and detections to compare
+        live, confs = {}, {}
+        for fp32 in (True, False):
+            dtype = torch.float32 if fp32 else torch.bfloat16
+            live[fp32], _ = export_model.load_program(last, dtype, "cuda")
+            with torch.no_grad():
+                x = batch.cuda().permute(0, 3, 1, 2).to(dtype) / 255.0
+                dec = live[fp32].model(x)[0][0][0].float()
+            top = torch.sort(dec[:, 4] * dec[:, 5:].max(-1).values,
+                             descending=True).values
+            confs[fp32] = float((top[N_EXPORT_CAND - 1]
+                                 + top[N_EXPORT_CAND]) / 2)
+        conf = confs[True]
+        outs = {}
+        for fp32 in (True, False):
+            tag = "f32" if fp32 else "bf16"
+            out = os.path.join(tmp, f"model_{tag}.pt2")
+            made = export_model.main(
+                [last, out, "--img-size", str(IMGSZ), "--device", "cuda",
+                 "--conf-thres", repr(confs[fp32])]
+                + (["--fp32"] if fp32 else []))
+            npz = out + ".npz"
+            t = time.perf_counter()
+            if fp32:  # a fresh process: nothing of the port imported
+                proc = subprocess.run(
+                    [sys.executable, consumer.__file__, out, img_path, npz],
+                    capture_output=True, text=True, timeout=300,
+                    env=dict(os.environ, PYTHONPATH=""))
+                if proc.returncode != 0:
+                    raise AssertionError(f"consumer: {proc.stderr[-3000:]}")
+                where = "a fresh process"
+            else:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    if consumer.main([out, img_path, npz]) != 0:
+                        raise AssertionError("consumer failed")
+                where = "this process"
+            consumed = time.perf_counter() - t
+            got = outs[fp32] = dict(np.load(npz))
+            prog = live[fp32]
+            prog.conf_thres = confs[fp32]
+            with torch.no_grad():
+                want = [v.cpu().numpy() for v in prog(batch.cuda())]
+            n = int(want[3][0])
+            box_err = float(np.abs(got["boxes"][0, :n]
+                                   - want[0][0, :n]).max()) if n else 0.0
+            seg_eq = float((got["seg"] == want[4]).mean())
+            if (not np.array_equal(got["num"], want[3])
+                    or not np.array_equal(got["classes"][0, :n],
+                                          want[2][0, :n])
+                    or (fp32 and (n < 1 or box_err > 1e-4 or seg_eq < 1.0))
+                    or seg_eq < 0.999):
+                raise AssertionError(
+                    f"export {tag}: {n} live detections, consumer "
+                    f"{int(got['num'][0])}, box err {box_err}, seg equal on "
+                    f"{seg_eq}")
+            lines.append(f"{tag}: exported in {made['seconds']:.3f} s, "
+                         f"{made['bytes'] / 1e6:.3f} MB, consumed in {where}"
+                         f" in {consumed:.3f} s, {n} detections, boxes "
+                         f"within {box_err:.2e} of the live program, seg "
+                         f"equal on {seg_eq:.6f}")
+        del live, prog
+        # the served Predictor (K1, K2) on the same letterboxed image
+        pred = load_predictor(last, imgsz=IMGSZ, half=False, device="cuda",
+                              conf_thres=conf)
+        nms_fused.launches = seg_pallas.launches = 0
+        with torch.no_grad():
+            nms, seg = pred.infer(batch.cuda())
+        launched = (nms_fused.launches, seg_pallas.launches)
+        n, f32_out = int(nms.num[0]), outs[True]
+        if n != int(f32_out["num"][0]) or launched[0] < 1 or launched[1] < 1:
+            raise AssertionError(f"Predictor: {n} detections against the "
+                                 f"export's {int(f32_out['num'][0])}; K1, K2 "
+                                 f"launched {launched}")
+        dist = match_boxes(nms.boxes[0, :n].cpu(),
+                           torch.from_numpy(f32_out["boxes"][0, :n]))
+        seg_eq = float((seg.cpu().numpy() == f32_out["seg"]).mean())
+        if dist > 1e-3 or seg_eq < 0.999:
+            raise AssertionError(f"Predictor against the f32 export: boxes "
+                                 f"{dist}, seg equal on {seg_eq}")
+    log("13c", f"export of 13(a)'s 'last' at b1/{IMGSZ} (torch.export, NMS "
+        f"backend='xla', pre_topk 1024, conf_thres {conf:.6g} in f32 and "
+        f"{confs[False]:.6g} in bf16: about {N_EXPORT_CAND} candidates on a "
+        f"fake val image): "
+        f"{'; '.join(lines)}; the served Predictor f32 (K1 {launched[0]}, "
+        f"K2 {launched[1]} launches) on the same image: {n} detections, "
+        f"boxes within {dist:.2e} of the f32 export's, seg equal on "
+        f"{seg_eq:.6f} [{card}]")
+
+
+def phase13d(card: str, sd: dict, tmp: str) -> None:
+    """profiling: model_info, profile_fn of a C3, a trace of one served
+    batch (phase 4's weights ``sd``); the blocks the DSL cannot name on the
+    card against the CPU."""
+    from desenet_tpu_torch.api import Predictor
+    from desenet_tpu_torch.models import build_model, config_path, init_weights
+    from desenet_tpu_torch.models import layers as L
+    from desenet_tpu_torch.testing import TRAIN_STATE_BAR, no_tf32
+    from desenet_tpu_torch.utils import profiling
+
+    model, spec = build_model(config_path("yolov5s_seg"))
+    init_weights(model, torch.Generator().manual_seed(0))
+    model.cuda()
+    info = profiling.model_info(model, IMGSZ)
+    total = sum(p.numel() for p in model.parameters())
+    if info["params"] != 7_594_130 or total != 7_594_268:
+        raise AssertionError(f"model_info params {info['params']} (the JAX "
+                             f"variables' 7,594,130), all {total}")
+    c3 = next(m for m in model.model if isinstance(m, L.C3)).eval()
+    c3_in = c3.cv1.conv.in_channels
+    x = torch.randn(B_SERVE, c3_in, IMGSZ // 4, IMGSZ // 4, device="cuda")
+
+    def c3_bf16(v):
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            return c3(v)
+
+    prof = profiling.profile_fn(c3_bf16, x, iters=5, with_grad=True)
+    del x, model, c3
+    trace_dir = os.path.join(tmp, "trace")
+    pred = Predictor("yolov5s_seg", sd, imgsz=IMGSZ, half=True,
+                     device="cuda")
+    imgs = torch.randint(0, 256, (B_VAL, IMGSZ, IMGSZ, 3), dtype=torch.uint8,
+                         device="cuda")
+    pred.infer(imgs)
+    with profiling.trace(trace_dir):
+        pred.infer(imgs)
+        torch.cuda.synchronize()
+    trace_file = os.path.join(trace_dir, "trace.json")
+    with open(trace_file) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    if not events or not kernels:
+        raise AssertionError(f"trace: {len(events)} events, {kernels} "
+                             "kernels")
+    del pred, imgs
+
+    # the blocks the DSL cannot name, f32 (TF32 off): forward and gradient
+    blocks = {"ARM": (L.ARM(64, 64), 64), "ASPPs": (L.ASPPs(128, 64), 128),
+              "RFB1": (L.RFB1(128, 96, has_global=True), 128),
+              "DAPPM": (L.DAPPM(128, 32, 64), 128),
+              "ConvBNReLU": (L.ConvBNReLU(64, 64), 64),
+              "Classify": (L.Classify(128, 10), 128),
+              "Sum": (L.Sum(3), 64), "Sum(weighted)": (L.Sum(3, True), 64)}
+    errs = {True: [], False: []}  # output and input gradients; parameters'
+    with no_tf32():
+        for name, (blk, c) in blocks.items():
+            torch.manual_seed(0)
+            for p in blk.parameters():  # away from the identity init
+                p.data.uniform_(-0.5, 0.5)
+            xs = [torch.randn(4, c, 40, 40) for _ in range(
+                3 if name.startswith("Sum") else 1)]
+            outs = []
+            for dev in ("cpu", "cuda"):
+                b = blk.to(dev).train()
+                b.zero_grad()
+                xi = [v.detach().to(dev).requires_grad_(True) for v in xs]
+                y = b(xi if name.startswith("Sum") else xi[0])
+                (y * y).sum().backward()
+                # copies: moving the block moves its gradients in place
+                outs.append([t.detach().cpu().clone() for t in
+                             [y] + [v.grad for v in xi]
+                             + [p.grad for p in b.parameters()
+                                if p.grad is not None]])
+            # the output and the inputs' gradients at 1e-4 of their largest
+            # magnitude; the parameters' gradients (sums over the batch and
+            # map, some near zero ahead of a training BN) at testing's f32
+            # state bar
+            n_io = 1 + len(xs)
+            for i, (g, w) in enumerate(zip(outs[1], outs[0])):
+                e = float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                     1e-30)
+                bar = 1e-4 if i < n_io else TRAIN_STATE_BAR[torch.float32][0]
+                if e > bar:
+                    raise AssertionError(f"{name} tensor {i}: rel err {e} "
+                                         f"above {bar}")
+                errs[i < n_io].append(e)
+    log("13d", f"profiling: model_info yolov5s_seg at {IMGSZ}: "
+        f"{info['params']:,} params (the JAX variables'; {total:,} with the "
+        f"2 BNs that never run), {info['gflops']:.3f} GFLOPs (FlopCounter"
+        f"Mode, 2 a multiply-add); profile_fn of its first C3 at "
+        f"b{B_SERVE} ({c3_in} channels, {IMGSZ // 4}x{IMGSZ // 4}) bf16: "
+        f"forward {prof['forward_ms']:.3f} ms, forward and backward "
+        f"{prof['backward_ms']:.3f} ms, {prof['gflops']:.3f} GFLOPs; trace "
+        f"of one served b{B_VAL} batch: {len(events)} events, {kernels} "
+        f"kernels; ARM, ASPPs, RFB1, DAPPM, ConvBNReLU, Classify, Sum "
+        f"(plain and weighted) in training mode on the card against the "
+        f"CPU (f32, TF32 off): outputs and input gradients within "
+        f"{max(errs[True]):.2e}, parameter gradients within "
+        f"{max(errs[False]):.2e} of their largest magnitude [{card}]")
+
+
+def phase13(card: str, sd: dict) -> int:
+    """Training and deployment tooling; returns K3's launches."""
+    import tempfile
+
+    old = os.environ.get("WANDB_DIR")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        os.environ["WANDB_DIR"] = os.path.join(tmp, "wandb")
+        try:
+            k3, last, root = phase13a(card, tmp)
+            phase13b(card)
+            phase13c(card, last, root, tmp)
+            phase13d(card, sd, tmp)
+        finally:
+            if old is None:
+                os.environ.pop("WANDB_DIR", None)
+            else:
+                os.environ["WANDB_DIR"] = old
+    return k3
+
+
 def main() -> None:
     took = {}
 
@@ -2640,6 +3112,7 @@ def main() -> None:
     launches.update(int8_conv=0)
     for k, v in timed("12", phase12, card, sd, errs, timing, extras).items():
         launches[k] += v
+    launches["nms_greedy"] += timed("13", phase13, card, sd)
     log("times", "seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in took.items())
         + f"; {sum(took.values()):.1f} in all")

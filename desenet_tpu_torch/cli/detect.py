@@ -32,7 +32,8 @@ from desenet_tpu_torch.ops import non_max_suppression, np_scale_coords
 from desenet_tpu_torch.ops.seg_pallas import upsample_argmax
 from desenet_tpu_torch.utils.checkpoint import META
 from desenet_tpu_torch.utils.general import (check_img_size, increment_path,
-                                             save_one_box, set_logging)
+                                             save_one_box, set_logging,
+                                             set_matmul_precision)
 from desenet_tpu_torch.utils.plots import Annotator, SegAnnotator, colors
 
 
@@ -76,16 +77,6 @@ def load_detector(weights, half: bool = True, device="cuda"):
     model, spec = load_any(None, [str(w) for w in weights], None, None, half,
                            device, seg_upsample=False)
     return model, spec, meta
-
-
-def set_matmul_precision(name: str) -> None:
-    """``highest``: full f32 products (TF32 off in cuBLAS and cuDNN);
-    ``high``: TF32 allowed in both; ``default`` leaves PyTorch's
-    settings."""
-    if name in (None, "default"):
-        return
-    torch.set_float32_matmul_precision(name)
-    torch.backends.cudnn.allow_tf32 = name == "high"
 
 
 def run(

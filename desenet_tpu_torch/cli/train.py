@@ -22,11 +22,20 @@ is global; ``train.engine`` says how the work is split):
   where process i takes ``cuda:$LOCAL_RANK`` (``LOCAL_RANK`` defaults to
   the process id, for one host).
 
-Flags whose work is not ported raise NotImplementedError naming ROADMAP.md
-(``train.engine.refuse_unported``): ``--spatial`` above 1, the W&B flags
-and ``--remat``. ``--sync-bn`` is accepted and does nothing, as in the JAX
-package: with several processes BN always takes the global batch's
-statistics.
+W&B (``train.engine`` says what each flag does; unless WANDB_MODE=online
+the runs go to the port's offline backend, under the run directory, and
+``wandb-artifact://`` references are looked up there and under WANDB_DIR)::
+
+    python -m desenet_tpu_torch.cli.log_dataset --data data.yaml  # -> data_wandb.yaml
+    python -m desenet_tpu_torch.cli.train --data data_wandb.yaml --wandb \\
+        [--upload-dataset] [--bbox-interval N] [--artifact-alias A] \\
+        [--entity E] [--remat]
+
+``--remat`` recomputes each row's activations in the backward pass.
+``--spatial`` above 1 raises NotImplementedError naming ROADMAP.md
+(``train.engine.refuse_unported``). ``--sync-bn`` is accepted and does
+nothing, as in the JAX package: with several processes BN always takes
+the global batch's statistics.
 """
 
 from __future__ import annotations
@@ -104,15 +113,20 @@ def parse_opt(argv=None):
                    help="nominal batch size for grad accumulation")
     p.add_argument("--warmup-floor", type=int, default=1000,
                    help="minimum warmup iterations")
-    p.add_argument("--remat", action="store_true", help="not ported")
-    p.add_argument("--wandb", action="store_true", help="not ported")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each row's activations in the backward "
+                        "pass (activation checkpointing)")
+    p.add_argument("--wandb", action="store_true",
+                   help="log to W&B (the offline backend without wandb)")
     p.add_argument("--upload-dataset", "--upload_dataset",
-                   action="store_true", help="not ported")
-    p.add_argument("--entity", type=str, default=None, help="not ported")
+                   action="store_true",
+                   help="log the dataset splits as W&B artifacts")
+    p.add_argument("--entity", type=str, default=None, help="W&B entity")
     p.add_argument("--bbox-interval", "--bbox_interval", type=int, default=-1,
-                   help="not ported")
+                   help="W&B media panel every N epochs (-1: epochs // 10)")
     p.add_argument("--artifact-alias", "--artifact_alias", type=str,
-                   default="latest", help="not ported")
+                   default="latest",
+                   help="version of the wandb-artifact:// dataset splits")
     p.add_argument("--sync-bn", action="store_true",
                    help="accepted for compatibility; BN statistics are "
                         "always the global batch's")

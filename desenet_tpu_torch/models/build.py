@@ -374,14 +374,23 @@ class DeSeNet(nn.Module):
     path. ``compute_dtype`` (int8
     and calibration models, whose parameters stay f32 so that the int8
     weights come from f32 ones, as the JAX package's do): the dtype of
-    the input and of the fp pieces (``torch.autocast`` around them)."""
+    the input and of the fp pieces (``torch.autocast`` around them).
+
+    ``remat``: in training, each DSL row's module (not Upsample, Concat,
+    Detect or the seg head; each outer repeat alone) runs under
+    ``torch.utils.checkpoint``, as the JAX walker wraps it in ``nn.remat``:
+    its activations are recomputed in the backward pass instead of kept
+    (``layers.checkpointed``; BN moves its running statistics once). Never
+    in eval."""
 
     def __init__(self, spec: ModelSpec, seg_upsample: bool = True,
                  decode_cat: bool = True, seg_head_fused: bool = False,
                  quant=None, act_store=None, det_fp_hops: int = 1,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 remat: bool = False):
         super().__init__()
         self.spec = spec
+        self.remat = remat
         self.seg_upsample = seg_upsample
         self.seg_head_fused = seg_head_fused
         self.quant = quant
@@ -521,7 +530,14 @@ class DeSeNet(nn.Module):
             for sub in (list(m) if ls.n > 1 else [m]):
                 out = sub.qforward(out)
             return out
-        return m(torch.cat(inp, 1) if isinstance(inp, list) else inp)
+        x = torch.cat(inp, 1) if isinstance(inp, list) else inp
+        if self.remat and self.training:
+            # each outer repeat on its own, as the JAX walker's nn.remat
+            for sub in (list(m) if ls.n > 1 and isinstance(m, nn.Sequential)
+                        else [m]):
+                x = L.checkpointed(sub, x)
+            return x
+        return m(x)
 
     def _seg_head(self, ls: LayerSpec, m: nn.Module, xs) -> torch.Tensor:
         """The seg head: kernel K4 under the conditions of the JAX
@@ -580,15 +596,15 @@ def build_model(cfg, nc: Optional[int] = None, se_nc: Optional[int] = None,
                 anchors: Optional[Sequence] = None,
                 fuse_focus: bool = False, quant=None, act_store=None,
                 det_fp_hops: int = 1,
-                compute_dtype: Optional[torch.dtype] = None
-                ) -> Tuple[DeSeNet, ModelSpec]:
+                compute_dtype: Optional[torch.dtype] = None,
+                remat: bool = False) -> Tuple[DeSeNet, ModelSpec]:
     """Parse ``cfg`` and build the model in eval mode (BN on its running
     statistics), or in training mode with ``train=True`` (the training
     step's model, usually with ``seg_upsample=False`` for the fused seg
     loss); ``anchors`` and ``fuse_focus`` as ``parse_config``.
     ``quant``: a ``quant.QuantCfg``; ``act_store``: "fp8" (e4m3),
     "fp8_e5m2" or a float8 dtype; the two are exclusive (ValueError);
-    ``det_fp_hops`` and ``compute_dtype`` as ``DeSeNet``."""
+    ``det_fp_hops``, ``compute_dtype`` and ``remat`` as ``DeSeNet``."""
     if isinstance(act_store, str):
         act_store = L.F8_NAMES[act_store]
     if act_store is not None and quant is not None:
@@ -599,7 +615,7 @@ def build_model(cfg, nc: Optional[int] = None, se_nc: Optional[int] = None,
     model = DeSeNet(spec, seg_upsample=seg_upsample, decode_cat=decode_cat,
                     seg_head_fused=seg_head_fused, quant=quant,
                     act_store=act_store, det_fp_hops=det_fp_hops,
-                    compute_dtype=compute_dtype)
+                    compute_dtype=compute_dtype, remat=remat)
     return model.train(train), spec
 
 

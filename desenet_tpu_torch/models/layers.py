@@ -1,13 +1,14 @@
 """NN building blocks (torch.nn, NCHW).
 
 Counterpart of ``desenet_tpu/models/layers.py``: every block the model DSL
-can name, and the blocks of the seg heads. Blocks use the reference layout
+can name, the blocks of the seg heads, and the blocks the DSL cannot name
+(ARM, ASPPs, RFB1, DAPPM, ConvBNReLU, Classify, Sum; at the end, with the
+JAX modules' child names). Blocks use the reference layout
 and the reference's torch state-dict names (a Focus slice-concat plus a kxk
 conv; C3 with separate ``cv1``/``cv2``); ``FusedFocus`` is the JAX
 package's one-conv stem, which equals Focus on rearranged weights. The JAX
 package's TPU layout workarounds (fused ``cv12``, split-conv concats, the
-phase-layout stem) are not carried over, nor are the blocks the DSL cannot
-name (ARM, RFB1, DAPPM, ASPPs, Sum, Classify, ConvBNReLU).
+phase-layout stem) are not carried over.
 
 Numerics that differ from PyTorch defaults and are kept on purpose:
 
@@ -78,6 +79,35 @@ def make_divisible(x, divisor: int = 8) -> int:
     return int(math.ceil(x / divisor) * divisor)
 
 
+# True while torch.utils.checkpoint recomputes a block's forward in the
+# backward pass (``checkpointed``): BN then normalizes with the batch's
+# statistics as the first forward did and leaves its running statistics,
+# which that forward moved already (flax returns them as an output, so the
+# JAX package's remat never moves them twice)
+_RECOMPUTE: contextvars.ContextVar = contextvars.ContextVar(
+    "desenet_torch_recompute", default=False)
+
+
+def checkpointed(mod: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``mod(x)`` with its activations recomputed in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant, the RNG state kept, so
+    dropout draws the same bits); the recompute runs under ``_RECOMPUTE``.
+    """
+    from torch.utils.checkpoint import checkpoint
+
+    calls = [0]
+
+    def run(inp):
+        token = _RECOMPUTE.set(calls[0] > 0)
+        calls[0] += 1
+        try:
+            return mod(inp)
+        finally:
+            _RECOMPUTE.reset(token)
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=True)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose training step moves the running variance
     toward the biased batch variance, as flax's BatchNorm does (the JAX
@@ -86,7 +116,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     not advanced. With ``momentum=None`` (torch's cumulative average, which
     flax does not have) the module is torch's own. With a process group of
     more than one process the statistics are the global batch's
-    (``_global_batch_norm``)."""
+    (``_global_batch_norm``). In a recompute (``checkpointed``) the
+    running statistics stay as they are."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.momentum is None:
@@ -95,10 +126,16 @@ class BatchNorm2d(nn.BatchNorm2d):
             return self._global_batch_norm(x)
         # F.batch_norm moves a copy of the variance by m * var * n / (n - 1)
         # (autograd keeps that copy); the n / (n - 1) is taken back from its
-        # own statistics, with no pass over x
+        # own statistics, with no pass over x. A recompute moves copies of
+        # both and drops them (the same graph, so autograd saves as many
+        # tensors as in the first forward)
+        recompute = _RECOMPUTE.get()
+        rm = self.running_mean.clone() if recompute else self.running_mean
         rv = self.running_var.clone()
-        y = F.batch_norm(x, self.running_mean, rv, self.weight, self.bias,
-                         True, self.momentum, self.eps)
+        y = F.batch_norm(x, rm, rv, self.weight, self.bias, True,
+                         self.momentum, self.eps)
+        if recompute:
+            return y
         n = x.numel() // x.shape[1]
         with torch.no_grad():
             old = self.running_var
@@ -111,7 +148,9 @@ class BatchNorm2d(nn.BatchNorm2d):
         with autograd through it; flax's variance (the mean of squares less
         the squared mean, floored at 0), biased, which the running variance
         moves toward as flax's does. Not ``nn.SyncBatchNorm``, whose running
-        variance takes the unbiased variance."""
+        variance takes the unbiased variance. A recompute (``checkpointed``)
+        sums the statistics again, every process recomputing in the same
+        order in its backward pass, and moves no running statistic."""
         c = x.shape[1]
         xs = x.to(torch.promote_types(x.dtype, torch.float32))
         count = torch.full((1,), x.numel() // c, dtype=xs.dtype,
@@ -124,6 +163,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         scale = torch.rsqrt(var + self.eps) * self.weight
         shift = self.bias - mean * scale
         y = xs * scale[:, None, None] + shift[:, None, None]
+        if _RECOMPUTE.get():
+            return y.to(x.dtype)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean.detach() * m)
@@ -1169,3 +1210,196 @@ def resize_store(x: torch.Tensor, out_hw) -> torch.Tensor:
     if x.dtype in F8_DTYPES:
         return resize_bilinear_separable(x, out_hw, align_corners=True)
     return resize_bilinear(x, out_hw, align_corners=True)
+
+
+# ---------------------------------------------------------------------------
+# Blocks the model DSL cannot name, kept importable as in the JAX package
+# (desenet_tpu/models/layers.py: ARM, ASPPs, RFB1, DAPPM, ConvBNReLU,
+# Classify, Sum). Child modules carry the JAX modules' names, so that
+# ``utils/convert.block_state_dict_from_jax`` carries one block's flax
+# variables across. They run in the fp forward only (no ``qforward``).
+
+
+class ARM(nn.Module):
+    """BiSeNet attention refinement: a 3x3 ConvBnAct, then an SE gate (a
+    global pool, a 1x1 ConvBnAct without activation whose BN never runs on
+    the 1x1 map, a sigmoid) scaling it."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.conv = ConvBnAct(c1, c2, 3, 1)
+        self.att_conv = ConvBnAct(c2, c2, 1, 1, act=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        feat = self.conv(x)
+        return feat * torch.sigmoid(self.att_conv(adaptive_avg_pool(feat, 1)))
+
+    def quirk_bn_prefixes(self):
+        return ["att_conv.bn."]
+
+
+class ASPPs(nn.Module):
+    """ASPP with a 1x1 input reduction in each branch: branch0 a 1x1 and a
+    3x3, branches 1-3 a 1x1 then a dilated 3x3 (``d``), the global branch
+    on the input if ``has_global``, all to c1 // map_reduce, concatenated
+    into a 1x1 ConvBnAct."""
+
+    def __init__(self, c1: int, c2: int, d: Sequence[int] = (3, 6, 9),
+                 has_global: bool = True, map_reduce: int = 4):
+        super().__init__()
+        hid = c1 // map_reduce
+        self.d = tuple(d)
+        self.branch0_a = ConvBnAct(c1, hid, 1)
+        self.branch0_b = ConvBnAct(hid, hid, 3)
+        for i, di in enumerate(self.d, start=1):
+            setattr(self, f"branch{i}_red", ConvBnAct(c1, hid, 1))
+            setattr(self, f"branch{i}", DilatedConvBnSiLU(hid, hid, di))
+        self.branch4 = GlobalBranch(c1, hid) if has_global else None
+        self.conv_linear = ConvBnAct(hid * (len(self.d) + 1 + has_global),
+                                     c2, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        outs = [self.branch0_b(self.branch0_a(x))]
+        for i in range(1, len(self.d) + 1):
+            outs.append(getattr(self, f"branch{i}")(
+                getattr(self, f"branch{i}_red")(x)))
+        if self.branch4 is not None:
+            outs.append(self.branch4(x, x.shape[2:]))
+        return self.conv_linear(torch.cat(outs, 1))
+
+    def quirk_bn_prefixes(self):
+        return ["branch4.1.bn."] if self.branch4 is not None else []
+
+
+class RFB1(nn.Module):
+    """ASPP-like block with pre-convs: branch0 a 1x1 and a 3x3, branches
+    1-3 a 1x1, a 3x3/3x3/5x5 pre-conv and a dilated 3x3 (``d``), the
+    global branch on the input if ``has_global``, all to
+    c1 // map_reduce, concatenated into a 1x1 ConvBnAct (``fusion``)."""
+
+    PRE_K = (3, 3, 5)
+
+    def __init__(self, c1: int, c2: int, map_reduce: int = 4,
+                 d: Sequence[int] = (3, 5, 7), has_global: bool = False):
+        super().__init__()
+        inter = c1 // map_reduce
+        self.d = tuple(d)
+        self.branch0_a = ConvBnAct(c1, inter, 1)
+        self.branch0_b = ConvBnAct(inter, inter, 3)
+        for i, di in enumerate(self.d, start=1):
+            setattr(self, f"branch{i}_red", ConvBnAct(c1, inter, 1))
+            setattr(self, f"branch{i}_pre",
+                    ConvBnAct(inter, inter, self.PRE_K[i - 1]))
+            setattr(self, f"branch{i}", DilatedConvBnSiLU(inter, inter, di))
+        self.branch4 = GlobalBranch(c1, inter) if has_global else None
+        self.fusion = ConvBnAct(inter * (len(self.d) + 1 + has_global), c2,
+                                1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        outs = [self.branch0_b(self.branch0_a(x))]
+        for i in range(1, len(self.d) + 1):
+            y = getattr(self, f"branch{i}_pre")(
+                getattr(self, f"branch{i}_red")(x))
+            outs.append(getattr(self, f"branch{i}")(y))
+        if self.branch4 is not None:
+            outs.append(self.branch4(x, x.shape[2:]))
+        return self.fusion(torch.cat(outs, 1))
+
+    def quirk_bn_prefixes(self):
+        return ["branch4.1.bn."] if self.branch4 is not None else []
+
+
+class DAPPM(nn.Module):
+    """DDRNet's pyramid with pre-norm blocks (BN, SiLU, conv): the input
+    and its 5/2, 9/4 and 17/8 average pools (zero padding counted) and
+    global pool, each to ``branch_planes`` by a 1x1; each coarser scale
+    upsampled (bilinear, align_corners) onto the finer result and mixed by
+    a 3x3; the five concatenated and compressed to ``outplanes``, plus a
+    1x1 shortcut of the input."""
+
+    POOLS = ((5, 2), (9, 4), (17, 8))
+
+    def __init__(self, c1: int, branch_planes: int, outplanes: int):
+        super().__init__()
+        bp = branch_planes
+
+        def block(name: str, cin: int, cout: int, k: int):
+            setattr(self, f"{name}_bn", batch_norm(cin))
+            setattr(self, f"{name}_conv",
+                    nn.Conv2d(cin, cout, k, 1, k // 2, bias=False))
+
+        for i in range(5):
+            block(f"scale{i}", c1, bp, 1)
+        for i in range(1, 5):
+            block(f"process{i}", bp, bp, 3)
+        block("compression", 5 * bp, outplanes, 1)
+        block("shortcut", c1, outplanes, 1)
+
+    def _bn_act_conv(self, y: torch.Tensor, name: str) -> torch.Tensor:
+        y = F.silu(getattr(self, f"{name}_bn")(y))
+        return getattr(self, f"{name}_conv")(y)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, w = x.shape[2:]
+        scales = [self._bn_act_conv(x, "scale0")]
+        for i, (k, s) in enumerate(self.POOLS, start=1):
+            y = F.avg_pool2d(x, k, s, k // 2, count_include_pad=True)
+            scales.append(self._bn_act_conv(y, f"scale{i}"))
+        scales.append(self._bn_act_conv(adaptive_avg_pool(x, 1), "scale4"))
+        outs = [scales[0]]
+        for i in range(1, 5):
+            up = resize_bilinear(scales[i], (h, w), align_corners=True)
+            outs.append(self._bn_act_conv(up + outs[i - 1], f"process{i}"))
+        comp = self._bn_act_conv(torch.cat(outs, 1), "compression")
+        return comp + self._bn_act_conv(x, "shortcut")
+
+
+class ConvBNReLU(nn.Module):
+    """Conv (no bias) + BN + ReLU6."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1,
+                 p: Optional[int] = None, g: int = 1):
+        super().__init__()
+        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p), groups=g,
+                              bias=False)
+        self.bn = batch_norm(c2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu6(self.bn(self.conv(x)))
+
+
+class Classify(nn.Module):
+    """Classification head: each input globally pooled, concatenated, a
+    ``k``x``k`` conv with bias to ``c2``, flattened. ``c1``: the channels of
+    the input, or the sum over a list of inputs."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, g: int = 1):
+        super().__init__()
+        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k), groups=g, bias=True)
+
+    def forward(self, x) -> torch.Tensor:
+        xs = x if isinstance(x, (list, tuple)) else [x]
+        y = torch.cat([adaptive_avg_pool(v, 1) for v in xs], 1)
+        return self.conv(y).flatten(1)
+
+
+class Sum(nn.Module):
+    """Sum of ``n`` inputs; with ``weight`` the inputs after the first are
+    scaled by 2 sigmoid(w), w initialized to -(1, 2, ...) / 2."""
+
+    def __init__(self, n: int, weight: bool = False):
+        super().__init__()
+        self.n = n
+        self.w = (nn.Parameter(-torch.arange(1.0, n) / 2) if weight
+                  else None)
+
+    def forward(self, xs) -> torch.Tensor:
+        y = xs[0]
+        if self.w is None:
+            for v in xs[1:self.n]:
+                y = y + v
+            return y
+        w = torch.sigmoid(self.w) * 2
+        for i in range(self.n - 1):
+            y = y + xs[i + 1] * w[i]
+        return y

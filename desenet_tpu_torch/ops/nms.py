@@ -15,6 +15,12 @@ The top-k set is ordered by descending score and, on equal scores, by
 ascending flat index, as ``jax.lax.top_k`` orders it: K3 breaks ties by
 position in that set. ``torch.topk`` promises no order among equal values on
 CUDA, so the selection is a stable descending sort.
+
+``backend="xla"`` (the JAX package's name for its portable formulation)
+takes neither kernel: every prediction goes through the top-``pre_topk``
+selection and then ``_greedy_nms``, ``max_det`` rounds of argmax and IoU
+suppression in plain PyTorch ops, which ``torch.export`` can trace. Only
+the serving export (``tools/export_model.py``) asks for it.
 """
 
 from __future__ import annotations
@@ -46,6 +52,65 @@ def _top_k(scores: torch.Tensor, k: int):
     values by ascending index (``jax.lax.top_k`` order)."""
     vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
     return vals[:, :k], idx[:, :k]
+
+
+def _box_iou(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-7
+             ) -> torch.Tensor:
+    """IoU of (B, 1, 4) xyxy boxes against (B, K, 4) -> (B, K), the JAX
+    package's ``ops/boxes.box_iou`` arithmetic."""
+    inter = (torch.minimum(a[..., 2:], b[..., 2:])
+             - torch.maximum(a[..., :2], b[..., :2])).clamp(min=0).prod(-1)
+
+    def area(x):
+        return ((x[..., 2] - x[..., 0]).clamp(min=0)
+                * (x[..., 3] - x[..., 1]).clamp(min=0))
+
+    return inter / (area(a) + area(b) - inter + eps)
+
+
+def _greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
+                max_det: int):
+    """Greedy NMS of the JAX package's ``_greedy_nms``, batched: ``max_det``
+    rounds, each taking the live candidate of the highest score (the first
+    of equal ones) and suppressing it and every candidate above
+    ``iou_thres`` with it. boxes (B, K, 4) class-offset xyxy, scores (B, K)
+    with -1 where not a candidate. Returns keep indices (B, max_det) int64
+    and the keep mask (B, max_det).
+
+    Under ``torch.export`` the rounds are one ``while_loop`` (a higher-order
+    op of the graph: unrolled, the 300 rounds take tens of seconds to
+    export and load); in eager calls a Python loop over the same round."""
+    b, k = scores.shape
+    pos = torch.arange(k, device=scores.device)
+    cols = torch.arange(max_det, device=scores.device)
+
+    def round_(i, live, picks, oks):
+        j = live.argmax(1)
+        ok = live.gather(1, j[:, None])[:, 0] > 0.0
+        iou = _box_iou(boxes.gather(1, j[:, None, None].expand(-1, 1, 4)),
+                       boxes)
+        suppress = (iou > iou_thres) | (pos == j[:, None])
+        live = torch.where(ok[:, None] & suppress, -1.0, live)
+        at = cols == i
+        return (i + 1, live, torch.where(at, j[:, None], picks),
+                torch.where(at, ok[:, None], oks))
+
+    # a fresh row-major copy: the loop's carried state keeps its strides
+    # round to round (a top-k slice of one image counts as contiguous with
+    # the sorted row's stride)
+    dev = scores.device
+    carry = (torch.zeros((), dtype=torch.int64, device=dev),
+             scores.clone(memory_format=torch.contiguous_format),
+             torch.zeros((b, max_det), dtype=torch.int64, device=dev),
+             torch.zeros((b, max_det), dtype=torch.bool, device=dev))
+    if torch.compiler.is_exporting():
+        from torch._higher_order_ops import while_loop
+
+        carry = while_loop(lambda i, *_: i < max_det, round_, carry)
+    else:
+        for i in range(max_det):
+            carry = round_(i, *carry[1:])
+    return carry[2], carry[3]
 
 
 def _prep_candidates(pred: torch.Tensor, conf_thres: float, pre_topk: int,
@@ -105,6 +170,7 @@ def non_max_suppression(
     multi_label: bool = False,
     agnostic: bool = False,
     classes=None,
+    backend: str = "auto",
 ) -> NMSOutput:
     """Batched fixed-shape NMS.
 
@@ -112,11 +178,15 @@ def non_max_suppression(
     head's output), or a list of per-scale (B, A_s, 5+nc) decodes (Detect
     built with ``decode_cat=False``): candidate selection then runs per
     scale and only the top sets are merged. ``classes`` is a sequence of
-    allowed class ids."""
+    allowed class ids. ``backend``: ``"auto"`` takes K1 or K3 (the module
+    docstring says which), ``"xla"`` the top-k selection and
+    ``_greedy_nms`` in plain PyTorch ops."""
+    if backend not in ("auto", "xla"):
+        raise ValueError(f"backend {backend!r}: 'auto' or 'xla'")
     preds = (list(prediction) if isinstance(prediction, (list, tuple))
              else [prediction])
     classes = tuple(classes) if classes is not None else None
-    if not multi_label and len(preds) == 1:
+    if backend == "auto" and not multi_label and len(preds) == 1:
         boxes, scores, cls, valid = fused_select_nms(
             preds[0], conf_thres=conf_thres, iou_thres=iou_thres,
             max_det=max_det, agnostic=agnostic, classes=classes,
@@ -139,10 +209,13 @@ def non_max_suppression(
                                                                  pre_topk)
     offset = 0.0 if agnostic else float(MAX_WH)
     nms_boxes = top_boxes + cls_idx[..., None] * offset
-    keep_idx, keep_sc = greedy_nms_pallas(nms_boxes, top_scores, iou_thres,
-                                          max_det)
-    keep_ok = keep_sc > 0.0
-    idx = keep_idx.long()
+    if backend == "xla":
+        idx, keep_ok = _greedy_nms(nms_boxes, top_scores, iou_thres, max_det)
+    else:
+        keep_idx, keep_sc = greedy_nms_pallas(nms_boxes, top_scores,
+                                              iou_thres, max_det)
+        keep_ok = keep_sc > 0.0
+        idx = keep_idx.long()
     out_boxes = torch.where(
         keep_ok[..., None],
         top_boxes.gather(1, idx[..., None].expand(-1, -1, 4)), 0.0)

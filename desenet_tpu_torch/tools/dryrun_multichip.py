@@ -1,10 +1,13 @@
 """Data-parallel dry run: N processes take training steps of one global
 batch, held against one process taking them on the whole batch.
 
-    python -m desenet_tpu_torch.tools.dryrun_multichip [--nproc 2]
+    python -m desenet_tpu_torch.tools.dryrun_multichip [--nproc 2] \\
+        [--device cuda|cuda:<i>|cpu]
 
 The port's analog of ``__graft_entry__.dryrun_multichip`` (whose record is
-``MULTICHIP_r05.json``): by default N gloo processes on the CPU, each
+``MULTICHIP_r05.json``): N gloo processes on the current card (``--device
+cuda``, the default; without a card it raises and names ``--device cpu``)
+or on the CPU (``--device cpu``), each
 holding its rows of a global batch of 2N images (``testing.train_batch``),
 take two full training steps of the tiny config (fused seg loss, SGD,
 every step an optimizer step) in float64 from one seeded state; then one
@@ -46,7 +49,7 @@ def _worker(rank: int, n: int, coordinator: str, device: str,
         multihost.shutdown()
 
 
-def run(nproc: int, device: str = "cpu", backend: Optional[str] = None,
+def run(nproc: int, device: str, backend: Optional[str] = None,
         **kw) -> list:
     """``testing.train_steps(device, rows=<this process's rows>, **kw)`` in
     ``nproc`` processes of one group (``backend`` as ``init_multihost``
@@ -62,13 +65,16 @@ def main(argv=None) -> None:
     from desenet_tpu_torch.testing import (check_train_parity, no_tf32,
                                            parity_errors, tiny_cfg,
                                            train_steps)
+    from desenet_tpu_torch.train.engine import resolve_device
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--nproc", type=int, default=2)
-    p.add_argument("--device", default="cpu",
-                   help="cpu, or cuda:<i> (every process on that card, gloo)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the current card), cuda:<i> (every process "
+                        "on that card, gloo) or cpu")
     p.add_argument("--steps", type=int, default=2)
     args = p.parse_args(argv)
+    args.device = str(resolve_device(args.device))
 
     kw = dict(fused=True, dtype=torch.float64, steps=args.steps, seed=0,
               b=2 * args.nproc)

@@ -33,12 +33,25 @@ epoch's fitness; the processes meet at the dataset cache, each epoch's
 checkpoints and the end. The step takes the gradient of the global batch's
 loss with BN over the global batch (``train/step.py``).
 
-The JAX engine's data x spatial mesh, W&B sink and rematerialization are
-not ported (``refuse_unported``; ROADMAP.md).
+``--wandb`` (process 0 only, as in the JAX engine): a ``WandbLogger``
+(``utils/wandb_logger.py``: the port's offline backend unless
+WANDB_MODE=online) on the callbacks, with ``--bbox-interval`` -1 resolved
+to ``epochs // 10`` (1 up to 10 epochs); ``wandb-artifact://`` dataset
+splits (at ``--artifact-alias``), ``--resume`` and ``--weights`` resolved
+before the path checks (and sent to the other processes); with
+``--upload-dataset`` the splits logged as dataset artifacts; after each
+save ``last`` logged into the model artifact ``run_<id>_model`` with the
+aliases ``latest``, ``last``, ``epoch N`` and, for the best epoch,
+``best``. ``--remat`` recomputes each DSL row's activations in the
+backward pass (``models/build.py``).
+
+The JAX engine's data x spatial mesh is not ported (``refuse_unported``;
+ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import math
@@ -183,18 +196,6 @@ def refuse_unported(cfg: TrainConfig) -> None:
         raise NotImplementedError(
             f"--spatial above 1 (the data x spatial mesh) {_ROADMAP} "
             "item 11)")
-    wandb = {"--wandb": cfg.wandb, "--upload-dataset": cfg.upload_dataset,
-             "--entity": cfg.entity is not None,
-             "--bbox-interval": cfg.bbox_interval != -1,
-             "--artifact-alias": cfg.artifact_alias != "latest"}
-    for flag, on in wandb.items():
-        if on:
-            raise NotImplementedError(f"{flag} (the W&B sink) {_ROADMAP} "
-                                      "item 8)")
-    if cfg.remat:
-        raise NotImplementedError(
-            f"--remat (activation checkpointing) {_ROADMAP} item 4: only "
-            "if a cell runs out of memory)")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -275,6 +276,7 @@ class Loop:
     meta: Dict
     start_epoch: int = 0
     best_fitness: float = 0.0
+    wandb: object = None  # utils.wandb_logger.WandbLogger, or None
 
 
 def build_loop(cfg: TrainConfig, hyp: Dict, de_nc: int, se_nc: int, nb: int,
@@ -303,6 +305,7 @@ def build_loop(cfg: TrainConfig, hyp: Dict, de_nc: int, se_nc: int, nb: int,
                            anchors=anchors)
 
     model, spec = build(not cfg.fused_seg_loss, True)
+    model.remat = cfg.remat
     init_weights(model, generator or torch.Generator().manual_seed(cfg.seed))
     if init is not None and resumed is None:
         sd, n = intersect_trees(init, model.state_dict())
@@ -362,8 +365,18 @@ def train(cfg: TrainConfig, callbacks: Optional[Callbacks] = None) -> Dict:
     save_dir = multihost.broadcast_str("save_dir", save_dir)
     if is_main:
         callbacks.auto_register(Loggers(save_dir, use_tb=cfg.use_tb))
+    wb = _wandb_logger(cfg, hyp, save_dir) if is_main and cfg.wandb else None
+    if wb is not None:
+        callbacks.auto_register(wb)
+    data_cfg, cfg = _resolve_artifacts(cfg, wb, pc)
 
-    data = check_dataset(cfg.data)
+    data = check_dataset(data_cfg)
+    if wb is not None and cfg.upload_dataset:
+        # the splits keep their local paths in this run; the artifacts
+        # carry copies
+        wb.log_dataset_artifact(
+            {"train": data.get("train"), "val": data.get("val")},
+            dict(enumerate(data["de"]["names"])), project=cfg.project)
     de_nc = 1 if cfg.single_cls else int(data["de"]["nc"])
     se_nc = int(data["se"]["nc"])
     de_names = ["item"] if cfg.single_cls else list(data["de"]["names"])
@@ -430,6 +443,7 @@ def train(cfg: TrainConfig, callbacks: Optional[Callbacks] = None) -> Dict:
                       save_dir=save_dir, names=dict(enumerate(de_names)),
                       anchors=anchors, init=init, resumed=resumed,
                       generator=generator)
+    loop.wandb = wb
     if not is_main:
         loop.validator = None
 
@@ -442,6 +456,54 @@ def train(cfg: TrainConfig, callbacks: Optional[Callbacks] = None) -> Dict:
 
     return fit(cfg, loop, train_loader, val_loader, save_dir, callbacks,
                imgsz=imgsz, stride=stride, resample=resample)
+
+
+def _wandb_logger(cfg: TrainConfig, hyp: Dict, save_dir: str):
+    """The run's ``WandbLogger`` under ``save_dir``; ``bbox_interval`` -1
+    becomes ``epochs // 10`` (1 up to 10 epochs)."""
+    from desenet_tpu_torch.utils.wandb_logger import WandbLogger
+
+    bbox_interval = (cfg.bbox_interval if cfg.bbox_interval > 0 else
+                     (cfg.epochs // 10 if cfg.epochs > 10 else 1))
+    return WandbLogger(project=os.path.basename(cfg.project)
+                       or "desenet_tpu_torch", name=cfg.name,
+                       config={**_snapshot(cfg), "hyp": hyp},
+                       bbox_interval=bbox_interval, entity=cfg.entity,
+                       dir=save_dir)
+
+
+def _resolve_artifacts(cfg: TrainConfig, wb, pc: int):
+    """``(data, cfg)``: the dataset yaml (a path, or the loaded dict with
+    its ``wandb-artifact://`` splits at ``cfg.artifact_alias`` made local)
+    and ``cfg`` with ``wandb-artifact://`` ``resume`` and ``weights`` made
+    local. Process 0 resolves (with an enabled logger); the others take its
+    result."""
+    from desenet_tpu_torch.utils.general import load_yaml
+    from desenet_tpu_torch.utils.wandb_logger import WANDB_ARTIFACT_PREFIX
+
+    data, paths = cfg.data, {}
+    if wb is not None and wb.enabled:
+        if isinstance(data, (str, os.PathLike)):
+            data = load_yaml(data)
+        for k in ("train", "val"):
+            if str(data.get(k, "")).startswith(WANDB_ARTIFACT_PREFIX):
+                local = wb.download_dataset_artifact(
+                    data[k], alias=cfg.artifact_alias)
+                if not local:
+                    raise FileNotFoundError(
+                        f"dataset artifact {data[k]} not found")
+                data[k] = local
+        for attr in ("resume", "weights"):
+            path = getattr(cfg, attr)
+            if str(path).startswith(WANDB_ARTIFACT_PREFIX):
+                local = wb.download_model_artifact(path)
+                if not local:
+                    raise FileNotFoundError(f"model artifact {path} not found")
+                paths[attr] = local
+    if pc > 1 and cfg.wandb:
+        data, paths = json.loads(multihost.broadcast_str(
+            "wandb_artifacts", json.dumps([data, paths])))
+    return data, dataclasses.replace(cfg, **paths)
 
 
 def _multi_scale(batch: Dict, rng: np.random.Generator, imgsz: int,
@@ -577,6 +639,10 @@ def fit(cfg: TrainConfig, loop: Loop, train_batches: Iterable,
                 ckpt.save_checkpoint(os.path.join(save_dir, f"epoch{epoch}"),
                                      state, epoch, best_fitness, loop.meta)
             callbacks.run("on_model_save")
+            if loop.wandb is not None and loop.wandb.enabled:
+                loop.wandb.log_model(os.path.join(save_dir, "last"), epoch,
+                                     fi, best_model=best_fitness == fi,
+                                     total_epochs=cfg.epochs)
         # no process goes on (or ends) while process 0 writes
         multihost.sync_hosts(f"ckpt_epoch_{epoch}")
         final_results = results

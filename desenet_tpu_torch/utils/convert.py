@@ -191,6 +191,15 @@ def flax_path_to_torch_key(path: Tuple[str, ...], spec: ModelSpec) -> str:
         for pat, rep in _ROW_RULES.get(ls.name, ()):
             inner = re.sub(pat, rep, inner)
 
+    prefix = f"model.{li}." + (f"{seq}." if seq else "")
+    return prefix + _torch_subkey(inner)
+
+
+def _torch_subkey(inner: str) -> str:
+    """A flax sub-path (``cv1/conv/conv2d/kernel``) as the torch sub-key
+    (``cv1.conv.weight``): the JAX wrappers' ``conv2d`` and inner ``bn``
+    levels dropped, ``m_0`` as ``m.0``, the leaf renamed (a leaf with no
+    torch name, such as Sum's ``w``, keeps its own)."""
     leaf_src = inner.rsplit("/", 1)[-1]
     body = inner[: -(len(leaf_src) + 1)] if "/" in inner else ""
     body = body.replace("conv/conv2d", "conv")
@@ -198,10 +207,72 @@ def flax_path_to_torch_key(path: Tuple[str, ...], spec: ModelSpec) -> str:
     body = re.sub(r"(^|/)conv2d($|/)", r"\1\2", body).strip("/")
     body = re.sub(r"m_(\d+)", r"m.\1", body)
     body = body.replace("/", ".")
+    leaf = _LEAF.get(leaf_src, leaf_src)
+    return f"{body}.{leaf}" if body else leaf
 
-    prefix = f"model.{li}." + (f"{seq}." if seq else "")
-    leaf = _LEAF[leaf_src]
-    return prefix + (f"{body}.{leaf}" if body else leaf)
+
+# flax sub-paths of the blocks the DSL cannot name (``models/layers.py``:
+# ARM ... Sum) whose torch modules differ from the JAX ones: the global
+# branch's ConvBnAct is index 1 of ``GlobalBranch``, a dilated branch's
+# conv and BN are indices 0 and 1 of ``DilatedConvBnSiLU``, DAPPM's bare
+# BNs drop the inner ``bn`` level
+_BLOCK_RULES = (
+    (r"^(branch\d+)/conv/(conv|bn)/", r"\1/1/\2/"),
+    (r"^(branch\d+)/conv/conv2d/", r"\1/0/"),
+    (r"^(branch\d+)/bn/bn/", r"\1/1/"),
+    (r"(^|/)(\w+_bn)/bn/", r"\1\2/"),
+)
+
+
+def block_tree_from_jax(flat: Mapping[str, np.ndarray],
+                        block: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """One block's flax tree -> tensors under the block's state-dict keys,
+    for the blocks the DSL cannot name (ARM, ASPPs, RFB1, DAPPM,
+    ConvBNReLU, Classify, Sum).
+
+    ``flat`` maps ``"params/conv/conv/conv2d/kernel"``-style paths (the
+    block's ``flatten_dict(variables, sep="/")``, or any tree of that
+    shape: gradients, ``batch_stats`` alone) to arrays. Raises on a key the
+    block lacks or a shape that differs."""
+    want = block.state_dict()
+    out = {}
+    for key, val in flat.items():
+        col, inner = key.split("/", 1)
+        if col not in ("params", "batch_stats"):
+            raise KeyError(f"unexpected collection in {key}")
+        for pat, rep in _BLOCK_RULES:
+            inner = re.sub(pat, rep, inner)
+        val = np.asarray(val)
+        val = val if val.dtype == np.float64 else val.astype(np.float32)
+        tkey = _torch_subkey(inner)
+        if tkey not in want:
+            raise KeyError(f"{key} maps to {tkey!r}, which the block lacks")
+        t = torch.tensor(to_torch_tensor(val, inner.rsplit("/", 1)[-1]))
+        if tuple(t.shape) != tuple(want[tkey].shape):
+            raise ValueError(f"shape mismatch for {tkey}: {tuple(t.shape)} "
+                             f"vs {tuple(want[tkey].shape)}")
+        out[tkey] = t
+    return out
+
+
+def block_state_dict_from_jax(flat: Mapping[str, np.ndarray],
+                              block: torch.nn.Module
+                              ) -> Dict[str, torch.Tensor]:
+    """One block's flax variables (``params`` and ``batch_stats``) -> its
+    whole state dict (``block_tree_from_jax``). BNs that never run
+    (``block.quirk_bn_prefixes()``) have no JAX variables and keep the
+    block's values; step counters are 0. Raises where any other key has no
+    JAX variable."""
+    out = block_tree_from_jax(flat, block)
+    quirk = tuple(getattr(block, "quirk_bn_prefixes", lambda: [])())
+    for k, v in block.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            out[k] = torch.zeros_like(v)
+        elif k not in out:
+            if not k.startswith(quirk):
+                raise KeyError(f"no JAX variable for {k}")
+            out[k] = v.clone()
+    return out
 
 
 def fused_csp_sources(path: Tuple[str, ...]):

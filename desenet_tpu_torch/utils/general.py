@@ -1,16 +1,24 @@
 """General host utilities of the entry points: dataset yaml checks,
 image-size rounding, run-dir increment, logging, the COCO class map, and for
 training the seeds, the latest run, class and image weights and early
-stopping; for detection the coloured console string and the box crop.
+stopping; for detection the coloured console string, the box crop, the
+matmul precision and the second-stage classifier; the file and suffix
+checks, the environment banner, a SIGALRM timeout, the offline
+``attempt_download`` and the evolution bookkeeping (``print_mutation``).
 
-The port's own copy of those functions of ``desenet_tpu/utils/general.py``
-(and ``make_divisible``, which they call); numpy and the standard library at
-module level, PyYAML imported where a yaml file that is not JSON is read,
-cv2 where a crop is written.
+The port's own copy of the functions of ``desenet_tpu/utils/general.py``
+(and ``make_divisible``, which they call), less ``host_cache_tag`` and
+``enable_compile_cache``, which key XLA's compilation cache (eager PyTorch
+has none); numpy and the standard library at module level, PyYAML imported
+where a yaml file that is not JSON is read, cv2 where an image is cropped.
+The files this module writes (``hyp_evolve.yaml``) are JSON text, which
+YAML reads too.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import glob
 import json
 import logging
@@ -18,6 +26,7 @@ import math
 import os
 import random
 import re
+import signal
 from pathlib import Path
 from typing import Dict, List, Sequence
 
@@ -57,12 +66,14 @@ def colorstr(*input):
 
 
 def load_yaml(path) -> Dict:
-    """A yaml file as a dict: JSON text (a subset of YAML) without PyYAML,
-    anything else through PyYAML."""
+    """A yaml file as a dict: JSON text (a subset of YAML), after any
+    whole-line ``#`` comments, without PyYAML; anything else through
+    PyYAML."""
     with open(path, encoding="utf-8") as f:
         text = f.read()
     try:
-        return json.loads(text)
+        return json.loads("\n".join(ln for ln in text.splitlines()
+                                    if not ln.lstrip().startswith("#")))
     except ValueError:
         import yaml
 
@@ -209,3 +220,192 @@ def save_one_box(xyxy, im, file="crop.jpg", gain=1.02, pad=10, square=False,
         Path(file).parent.mkdir(parents=True, exist_ok=True)
         cv2.imwrite(str(file), crop)
     return crop
+
+
+def set_matmul_precision(name: str) -> None:
+    """``highest``: full f32 products (TF32 off in cuBLAS and cuDNN);
+    ``high``: TF32 allowed in both; ``default`` leaves PyTorch's
+    settings."""
+    if name in (None, "default"):
+        return
+    torch.set_float32_matmul_precision(name)
+    torch.backends.cudnn.allow_tf32 = name == "high"
+
+
+def one_cycle_np(y1=1.0, y2=1.0, steps=100):
+    """Host-side one-cycle lambda: cosine from y1 to y2 over ``steps``."""
+    return lambda x: ((1 - math.cos(x * math.pi / steps)) / 2) * (y2 - y1) + y1
+
+
+def check_environment(min_python=(3, 10)) -> Dict:
+    """Environment banner: the interpreter version (at least
+    ``min_python``, else ValueError), torch's version, its CUDA build and
+    the visible cards. Installs nothing."""
+    import platform
+    import sys
+
+    if sys.version_info < min_python:
+        raise ValueError(f"python {min_python} required, running "
+                         f"{platform.python_version()}")
+    info = {"python": platform.python_version(), "torch": torch.__version__,
+            "cuda": torch.version.cuda,
+            "devices": [torch.cuda.get_device_name(i)
+                        for i in range(torch.cuda.device_count())]
+            if torch.cuda.is_available() else []}
+    LOGGER.info("environment: %s", info)
+    return info
+
+
+class Timeout(contextlib.ContextDecorator):
+    """SIGALRM timeout context (main thread only); ``seconds=0`` disables
+    it. A TimeoutError is swallowed unless ``suppress_timeout_errors`` is
+    False."""
+
+    def __init__(self, seconds: int, timeout_msg: str = "",
+                 suppress_timeout_errors: bool = True):
+        self.seconds = int(seconds)
+        self.msg = timeout_msg
+        self.suppress = suppress_timeout_errors
+
+    def _handler(self, signum, frame):
+        raise TimeoutError(self.msg)
+
+    def __enter__(self):
+        if self.seconds > 0:
+            signal.signal(signal.SIGALRM, self._handler)
+            signal.alarm(self.seconds)
+
+    def __exit__(self, exc_type, exc, tb):
+        if self.seconds > 0:
+            signal.alarm(0)
+        return bool(self.suppress and exc_type is TimeoutError)
+
+
+def try_except(func):
+    """Decorator: log the wrapped function's exception as a warning and
+    return None."""
+
+    @functools.wraps(func)
+    def wrapper(*args, **kwargs):
+        try:
+            return func(*args, **kwargs)
+        except Exception as e:  # noqa: BLE001 - the decorator's purpose
+            LOGGER.warning("%s: %s", func.__name__, e)
+
+    return wrapper
+
+
+def check_suffix(file, suffix=(".ckpt",), msg=""):
+    """ValueError where a file (or one of a list) has a suffix outside
+    ``suffix``; files without a suffix pass."""
+    if isinstance(suffix, str):
+        suffix = (suffix,)
+    for f in file if isinstance(file, (list, tuple)) else [file]:
+        s = Path(f).suffix.lower()
+        if s and s not in suffix:
+            raise ValueError(f"{msg}{f} acceptable suffix is {suffix}")
+
+
+def check_file(file: str) -> str:
+    """A local file: the path itself, or the one match of ``**/<file>``
+    under the working directory. URLs raise (this build is offline), as do
+    no match and several."""
+    file = str(file)
+    if os.path.isfile(file) or not file:
+        return file
+    if file.startswith(("http:/", "https:/")):
+        raise FileNotFoundError(
+            f"cannot download {file}: this build is offline; fetch it "
+            "manually and pass a local path")
+    found = glob.glob(os.path.join("**", file), recursive=True)
+    if not found:
+        raise FileNotFoundError(f"file not found: {file}")
+    if len(found) > 1:
+        raise FileNotFoundError(f"multiple matches for {file}: {found}")
+    return found[0]
+
+
+def check_yaml(file, suffix=(".yaml", ".yml")):
+    check_suffix(file, suffix)
+    return check_file(file)
+
+
+def print_args(name: str, opt):
+    LOGGER.info("%s: %s", colorstr(name + ": "),
+                ", ".join(f"{k}={v}" for k, v in vars(opt).items()))
+
+
+def user_config_dir(dir_name: str = "desenet_tpu_torch",
+                    env_var: str = "DESENET_CONFIG_DIR") -> Path:
+    """A writable per-user config directory: ``$env_var`` where set, else
+    ``~/.config/<dir_name>``; made if absent."""
+    env = os.getenv(env_var)
+    path = Path(env) if env else Path.home() / ".config" / dir_name
+    path.mkdir(parents=True, exist_ok=True)
+    return path
+
+
+def apply_classifier(boxes_xyxy, classes, im0, classifier_fn, size=224):
+    """Second-stage classifier filter: each detection box squared and
+    padded (1.3x + 30 px), cropped from the BGR image ``im0`` (clipped to
+    it), resized to ``size`` by cv2 and batched as RGB 0-1 float NHWC
+    through ``classifier_fn`` (-> class scores). Returns the boolean mask
+    of the detections whose classifier argmax agrees with ``classes``."""
+    import cv2
+
+    boxes = np.asarray(boxes_xyxy, np.float32).reshape(-1, 4)
+    classes = np.asarray(classes).reshape(-1)
+    if len(boxes) == 0:
+        return np.ones(0, bool)
+    cx, cy = (boxes[:, 0] + boxes[:, 2]) / 2, (boxes[:, 1] + boxes[:, 3]) / 2
+    side = np.maximum(boxes[:, 2] - boxes[:, 0],
+                      boxes[:, 3] - boxes[:, 1]) * 1.3 + 30
+    h0, w0 = im0.shape[:2]
+    x1 = np.clip((cx - side / 2).astype(int), 0, w0 - 1)
+    y1 = np.clip((cy - side / 2).astype(int), 0, h0 - 1)
+    x2 = np.clip((cx + side / 2).astype(int), 1, w0)
+    y2 = np.clip((cy + side / 2).astype(int), 1, h0)
+    ims = []
+    for a1, b1, a2, b2 in zip(x1, y1, x2, y2):
+        cut = im0[b1:max(b2, b1 + 1), a1:max(a2, a1 + 1)]
+        im = cv2.resize(cut, (size, size))[:, :, ::-1]  # BGR -> RGB
+        ims.append(np.ascontiguousarray(im, np.float32) / 255.0)
+    pred_cls = np.asarray(classifier_fn(np.stack(ims))).argmax(1)
+    return pred_cls == classes.astype(pred_cls.dtype)
+
+
+def attempt_download(file, url: str = ""):
+    """The local path of ``file``; this build is offline, so a missing file
+    raises FileNotFoundError."""
+    p = Path(str(file))
+    if p.exists():
+        return str(p)
+    raise FileNotFoundError(
+        f"{file} not found locally and downloads are disabled in this "
+        f"offline build{' (wanted ' + url + ')' if url else ''}")
+
+
+def print_mutation(results: dict, hyp: dict, save_dir: str):
+    """Evolution bookkeeping: append the (results, hyp) row to
+    ``save_dir/evolve.csv`` and write the best row's hyp to
+    ``hyp_evolve.yaml`` (a ``#`` comment line, then JSON text)."""
+    import csv
+
+    os.makedirs(save_dir, exist_ok=True)
+    csv_path = os.path.join(save_dir, "evolve.csv")
+    keys = list(results.keys()) + list(hyp.keys())
+    vals = list(results.values()) + list(hyp.values())
+    new = not os.path.exists(csv_path)
+    with open(csv_path, "a", newline="") as f:
+        w = csv.writer(f)
+        if new:
+            w.writerow(keys)
+        w.writerow([f"{float(v):.5g}" for v in vals])
+    with open(csv_path) as f:
+        rows = list(csv.DictReader(f))
+    fit_key = "fitness" if "fitness" in results else keys[0]
+    best = max(rows, key=lambda r: float(r[fit_key]))
+    with open(os.path.join(save_dir, "hyp_evolve.yaml"), "w") as f:
+        f.write(f"# best of {len(rows)} generations "
+                f"({fit_key}={best[fit_key]})\n")
+        json.dump({k: float(best[k]) for k in hyp}, f, indent=1)

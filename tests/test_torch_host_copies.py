@@ -16,7 +16,15 @@ originals, on the CPU, on the same inputs made with numpy from a seed:
   package's ``native/fastops.cpp`` less its space-to-depth assembler, line
   for line outside comments, and the wrapper's copy of the JAX wrapper's
   frame-header parse reads each JPEG's size (``tests/test_torch_native.py``
-  holds the built libraries and the wrappers against each other).
+  holds the built libraries and the wrappers against each other);
+- ``data/converters.py``: the same label files, byte for byte, from seeded
+  VOC xml and labelme json;
+- ``data/misc_tools.py``: the same folders, flattened copies, autosplit
+  index files (one seed), box crops and renames on copies of one seeded
+  dataset;
+- ``utils/wandb_offline.py``: the same run directory from the same calls
+  (up to the media files' time-stamped names), and each package reading
+  the other's artifacts by alias.
 """
 
 import os
@@ -344,3 +352,171 @@ def test_native_jpeg_size_reads_the_frame_header(tmp_path):
             data = fh.read()
         assert native.jpeg_size(data) == (h, w)
     assert native.jpeg_size(b"\xff\xd8" + b"\x00" * 32) is None
+
+
+# ---- data/converters.py, data/misc_tools.py, utils/wandb_offline.py -------
+
+
+def _voc_and_labelme(root, rng):
+    """Pascal-VOC xml and labelme json files made from ``rng`` (one with an
+    unknown class, one with a zero-size image, one with no shapes)."""
+    import json
+
+    os.makedirs(root)
+    names = ["car", "person", "sign", "tree"]
+    for i in range(5):
+        w, h = (0, 0) if i == 3 else rng.integers(100, 800, 2)
+        objs = []
+        for _ in range(rng.integers(0, 4)):
+            x0, y0 = rng.uniform(0, 90, 2)
+            x1, y1 = x0 + rng.uniform(1, 60), y0 + rng.uniform(1, 60)
+            objs.append(
+                f"<object><name>{names[rng.integers(4)]}</name><bndbox>"
+                f"<xmin>{x0:.3f}</xmin><ymin>{y0:.3f}</ymin>"
+                f"<xmax>{x1:.3f}</xmax><ymax>{y1:.3f}</ymax></bndbox>"
+                "</object>")
+        with open(os.path.join(root, f"im{i}.xml"), "w") as f:
+            f.write(f"<annotation><size><width>{w}</width><height>{h}"
+                    f"</height></size>{''.join(objs)}</annotation>")
+        shapes = [{"label": names[rng.integers(4)],
+                   "points": rng.uniform(-5, 120, (rng.integers(3, 7), 2))
+                   .tolist()} for _ in range(0 if i == 2 else 3)]
+        with open(os.path.join(root, f"im{i}.json"), "w") as f:
+            json.dump({"imageWidth": 100, "imageHeight": 80,
+                       "shapes": shapes}, f)
+    with open(os.path.join(root, "notes.txt"), "w") as f:
+        f.write("not a label file")
+
+
+def _files(root):
+    out = {}
+    for base, _, names in os.walk(root):
+        for n in names:
+            p = os.path.join(base, n)
+            with open(p, "rb") as f:
+                out[os.path.relpath(p, root)] = f.read()
+    return out
+
+
+def test_converters_write_the_jax_packages_label_files(tmp_path):
+    from desenet_tpu.data import converters as jconv
+    from desenet_tpu_torch.data import converters as pconv
+
+    src = str(tmp_path / "src")
+    _voc_and_labelme(src, np.random.default_rng(0))
+    cmap = {"car": 0, "person": 1, "sign": 2}
+    for name in ("voc_xml_to_txt", "labelme_json_to_txt"):
+        n_p = getattr(pconv, name)(src, str(tmp_path / "p" / name), cmap)
+        n_j = getattr(jconv, name)(src, str(tmp_path / "j" / name), cmap)
+        assert n_p == n_j > 0, name
+        got, want = (_files(str(tmp_path / k / name)) for k in ("p", "j"))
+        assert got == want and len(got) == n_p, name
+
+
+def _dataset_tree(root, rng):
+    """A fake dataset (Images/DeLabels splits, one image of each without
+    labels) written with cv2, boxes drawn from ``rng``."""
+    import cv2
+
+    for split in ("train", "val"):
+        for i in range(4):
+            img_dir = os.path.join(root, "Images", split)
+            lab_dir = os.path.join(root, "DeLabels", split)
+            os.makedirs(img_dir, exist_ok=True)
+            os.makedirs(lab_dir, exist_ok=True)
+            name = f"sidewalk_{split}{i}"
+            im = rng.integers(0, 256, (48 + 8 * i, 64, 3)).astype(np.uint8)
+            cv2.imwrite(os.path.join(img_dir, name + ".png"), im)
+            if i == 3:
+                continue  # an image without labels
+            rows = [f"{rng.integers(3)} {rng.uniform(0.2, 0.8):.4f} "
+                    f"{rng.uniform(0.2, 0.8):.4f} {rng.uniform(0.1, 0.4):.4f}"
+                    f" {rng.uniform(0.1, 0.4):.4f}" for _ in range(2)]
+            with open(os.path.join(lab_dir, name + ".txt"), "w") as f:
+                f.write("\n".join(rows) + "\n")
+
+
+@pytest.mark.parametrize("annotated_only", [False, True])
+def test_misc_tools_equal(tmp_path, annotated_only):
+    import shutil
+
+    from desenet_tpu.data import misc_tools as jmt
+    from desenet_tpu_torch.data import misc_tools as pmt
+
+    base = str(tmp_path / "base")
+    _dataset_tree(base, np.random.default_rng(0))
+    for k in ("p", "j"):
+        shutil.copytree(base, str(tmp_path / k / "ds"))
+    for mod, k in ((pmt, "p"), (jmt, "j")):
+        ds = str(tmp_path / k / "ds")
+        images = os.path.join(ds, "Images")
+        assert mod.create_folder(str(tmp_path / k / "new")) == str(
+            tmp_path / k / "new")
+        mod.flatten_recursive(os.path.join(ds, "DeLabels"))
+        counts = mod.autosplit(images, weights=(0.5, 0.3, 0.2), seed=3,
+                               annotated_only=annotated_only)
+        assert sum(counts) == (6 if annotated_only else 8)
+        n = mod.extract_boxes(os.path.join(ds, "Images", "train"))
+        assert n > 0
+        renamed = mod.rename_dataset_prefix(ds, "road")
+        assert len(renamed) > 14 and all(
+            os.path.basename(new).startswith("road_") for _, new in renamed)
+    got, want = (_files(str(tmp_path / k)) for k in ("p", "j"))
+    assert sorted(got) == sorted(want)
+    for name in want:  # crops are JPEGs that cv2 writes the same
+        assert got[name] == want[name], name
+
+
+def _backend_run(mod, root):
+    """The same calls on one package's offline W&B backend."""
+    run = mod.init(project="t", name="n", config={"lr0": 0.01, "k": [1, 2]},
+                   id="fixed", dir=root, job_type="Training")
+    t = mod.Table(["id", "image"])
+    img = np.arange(48, dtype=np.uint8).reshape(4, 4, 3)
+    t.add_data("a", mod.Image(img, caption="c"))
+    t.add_data("b", mod.Image("some/path.jpg"))
+    mod.log({"loss": np.float32(0.5), "step": np.int64(3), "table": t})
+    run.log({"imgs": [mod.Image(img, masks={"p": {
+        "mask_data": np.eye(4, dtype=np.uint8), "class_labels": {0: "x"}}})]},
+            step=7)
+    src = os.path.join(root, "src")
+    os.makedirs(os.path.join(src, "sub"), exist_ok=True)
+    with open(os.path.join(src, "sub", "w.bin"), "wb") as f:
+        f.write(b"\x01" * 32)
+    for v in range(2):
+        art = mod.Artifact("m", type="model", metadata={"v": v})
+        art.add_dir(src)
+        art.add_file(os.path.join(src, "sub", "w.bin"), "top.bin")
+        art.add(t, "tbl")
+        mod.log_artifact(art, aliases=["latest", f"epoch {v}", ""])
+    run.finish()
+    return os.path.join(root, "offline-run-fixed")
+
+
+def test_wandb_offline_writes_the_jax_packages_run(tmp_path):
+    import json
+    import re
+
+    from desenet_tpu.utils import wandb_offline as joff
+    from desenet_tpu_torch.utils import wandb_offline as poff
+
+    media = re.compile(rb"media_\d+_\d+")
+    got = _backend_run(poff, str(tmp_path / "p"))
+    want = _backend_run(joff, str(tmp_path / "j"))
+    gf, wf = _files(got), _files(want)
+    norm = lambda d: sorted((media.sub(b"M", k.encode()), media.sub(b"M", v))  # noqa: E731
+                            for k, v in d.items())
+    assert norm(gf) == norm(wf)
+    with open(os.path.join(got, "summary.json")) as f:
+        assert json.load(f)["_step"] == 7
+    # each package reads the other's artifacts, by alias
+    for mod, other in ((poff, want), (joff, got)):
+        run = mod.init(project="t", id="reader", dir=os.path.dirname(other))
+        art = run.use_artifact("m:epoch 0")
+        assert art.metadata == {"v": 0} and art.type == "model"
+        with open(os.path.join(art.download(), "top.bin"), "rb") as f:
+            assert f.read() == b"\x01" * 32
+        assert art.get("tbl").columns == ["id", "image"]
+        assert run.use_artifact("m").metadata == {"v": 1}
+        assert run.use_artifact("m:nope") is None
+        run.finish()

@@ -155,7 +155,7 @@ def test_n_devices_needs_the_cards(monkeypatch, tmp_path):
 def test_dryrun_multichip_two_processes():
     out = subprocess.run(
         [sys.executable, "-m", "desenet_tpu_torch.tools.dryrun_multichip",
-         "--nproc", "2"], cwd=REPO, env=ENV, capture_output=True, text=True,
+         "--nproc", "2", "--device", "cpu"], cwd=REPO, env=ENV, capture_output=True, text=True,
         timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
     last = out.stdout.strip().splitlines()[-1]

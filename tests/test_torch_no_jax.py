@@ -8,9 +8,12 @@ validated, checkpoints written, reloaded and stripped), serves a checkpoint
 through ``load_predictor``, runs the detect program plain, with TTA and on
 an ensemble, validates an ensemble with TTA, scores by the COCO protocol,
 runs its kernel probes (K5, K6), builds and loads its native host library
-(``native.py``: the assembler, the rasterizer, the scaled JPEG decode) and
+(``native.py``: the assembler, the rasterizer, the scaled JPEG decode),
 takes a data-parallel step in two gloo processes
-(``tools/dryrun_multichip.run``) with the JAX package
+(``tools/dryrun_multichip.run``), logs a dataset through ``cli.log_dataset``
+(the offline W&B backend), exports a checkpoint's serving program and runs
+it through the consumer, and runs ``utils/profiling.model_info`` and a
+block the DSL cannot name, with the JAX package
 ``desenet_tpu``, JAX, flax, optax, orbax, cv2, PyYAML, matplotlib and
 pandas blocked: the port never needs JAX or the JAX package, and the
 card's machine may lack the other four. A second test reads the port's sources and ``chip_smoke.py`` with
@@ -267,6 +270,52 @@ from desenet_tpu_torch.tools import dryrun_multichip
 steps = dryrun_multichip.run(2, "cpu", fused=True, dtype=torch.float64,
                              steps=1, seed=0, b=4)
 assert len(steps) == 1 and np.isfinite(steps[0][0]), steps[0][0]
+
+# the training and deployment tooling: cli.log_dataset through the offline
+# W&B backend (its yaml is JSON text), the serving export of a checkpoint
+# and its consumer, profiling, the blocks the DSL cannot name
+import os
+from PIL import Image
+from desenet_tpu_torch.cli import log_dataset
+from desenet_tpu_torch.models import layers as L
+from desenet_tpu_torch.tools import consume_exported_model, export_model
+from desenet_tpu_torch.utils import profiling
+with tempfile.TemporaryDirectory() as tmp:
+    os.environ["WANDB_DIR"] = tmp + "/wandb"
+    splits = {}
+    for split in ("train", "val"):
+        os.makedirs(f"{tmp}/ds/Images/{split}")
+        Image.fromarray(img).save(f"{tmp}/ds/Images/{split}/a.jpg")
+        splits[split] = f"{tmp}/ds/Images/{split}"
+    with open(tmp + "/ds/data.yaml", "w") as fh:
+        json.dump({**splits, "de": {"nc": 3, "names": ["a", "b", "c"]},
+                   "se": {"nc": 2, "names": ["x", "y"]}}, fh)
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = log_dataset.create_dataset_artifact(tmp + "/ds/data.yaml")
+    with open(out) as fh:
+        assert json.load(fh)["train"] == "wandb-artifact://train_dataset:latest"
+    with open(tmp + "/tiny.json", "w") as fh:
+        json.dump(cfg, fh)
+    params, stats = checkpoint.split_stats(sd)
+    checkpoint._write(tmp + "/ckpt", {"params": params, "batch_stats": stats},
+                      {"cfg": tmp + "/tiny.json", "de_nc": 3, "se_nc": 2,
+                       "de_names": ["a", "b", "c"], "se_names": ["x", "y"]})
+    with contextlib.redirect_stdout(io.StringIO()):
+        made = export_model.main([tmp + "/ckpt", tmp + "/m.pt2",
+                                  "--img-size", "64", "--fp32", "--device",
+                                  "cpu"])
+    assert made["bytes"] > 0
+    np.save(tmp + "/img.npy", img)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert consume_exported_model.main([tmp + "/m.pt2",
+                                            tmp + "/img.npy"]) == 0
+    assert "seg class histogram" in buf.getvalue()
+    del os.environ["WANDB_DIR"]
+with contextlib.redirect_stdout(io.StringIO()):
+    info = profiling.model_info(tiny, 64)
+assert info["params"] == profiling.count_params(tiny)
+assert L.DAPPM(8, 4, 8)(torch.rand(2, 8, 16, 16)).shape == (2, 8, 16, 16)
 
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in {b.split(".")[0] for b in BLOCKED}

@@ -100,9 +100,12 @@ def port_snapshot(st, adam):
     return out
 
 
-def run_case(fused, adam, accum, freeze=0, steps=3, start=5, f64=True):
+def run_case(fused, adam, accum, freeze=0, steps=3, start=5, f64=True,
+             remat=False):
     """Both packages take ``steps`` steps from one state. Returns a list of
     (jax metrics, port metrics, jax snapshot, port snapshot) per step.
+    ``remat``: both models rematerialize each row in training (JAX's
+    ``nn.remat``, the port's ``torch.utils.checkpoint``).
 
     ``f64``: both forward and backward passes, the weights and the
     optimizer buffers in float64 (JAX under ``jax.enable_x64``, its model
@@ -110,11 +113,12 @@ def run_case(fused, adam, accum, freeze=0, steps=3, start=5, f64=True):
     ``.double()``); the losses, the seg upsample's contractions and the EMA
     stay float32 on both sides, as in the f32 step."""
     with jax.enable_x64(f64):
-        return _run_case(fused, adam, accum, freeze, steps, start, f64)
+        return _run_case(fused, adam, accum, freeze, steps, start, f64,
+                         remat)
 
 
-def _run_case(fused, adam, accum, freeze, steps, start, f64):
-    c = setup(fused, adam, accum, freeze, start, f64)
+def _run_case(fused, adam, accum, freeze, steps, start, f64, remat=False):
+    c = setup(fused, adam, accum, freeze, start, f64, remat=remat)
     b = batch()
     jb = {k: jnp.asarray(v) for k, v in b.items()}
     jst, pst = c["jst"], c["pst"]
@@ -130,7 +134,8 @@ def _run_case(fused, adam, accum, freeze, steps, start, f64):
     return out
 
 
-def setup(fused, adam, accum, freeze=0, start=5, f64=True, b=B):
+def setup(fused, adam, accum, freeze=0, start=5, f64=True, b=B,
+          remat=False):
     """One state on both sides and both steps, for a (global) batch of
     ``b``: a dict of the JAX ``jst``/``jstep``, the port's ``pst``/
     ``pstep``, the port's ``spec`` and what rebuilds the port's side in
@@ -138,8 +143,10 @@ def setup(fused, adam, accum, freeze=0, start=5, f64=True, b=B):
     keywords). Call under ``jax.enable_x64(f64)``."""
     cfg = tiny_cfg()
     jdt = jnp.float64 if f64 else jnp.float32
-    jmodel, jspec = jax_build_model(cfg, seg_upsample=not fused, dtype=jdt)
-    model, spec = build_model(cfg, seg_upsample=not fused, train=True)
+    jmodel, jspec = jax_build_model(cfg, seg_upsample=not fused, dtype=jdt,
+                                    remat=remat)
+    model, spec = build_model(cfg, seg_upsample=not fused, train=True,
+                              remat=remat)
     init_weights(model, torch.Generator().manual_seed(0))
     template = jax.eval_shape(
         lambda: jmodel.init({"params": jax.random.PRNGKey(0),

@@ -188,6 +188,22 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
    (kernels in it), and ARM, ASPPs, RFB1, DAPPM, ConvBNReLU, Classify, Sum
    (plain and weighted) in training mode on the card against the CPU
    (f32, TF32 off), outputs and gradients.
+14. the parallel layer, yolov5s_seg at full width, seed-0 weights, 640 px:
+   (a) Predictor(n_devices=count + 1) refused; two replicas on the one
+   card (Predictor._place_replicas) against n_devices=1: in f32 (TF32
+   off) at b16 and b15 (padded) and in bf16 at b128 and b127 counts
+   equal, boxes within 1e-3, seg maps on 99.9%, K1 and K2 launched 6
+   times each in bf16, run_batch timed in turns; n_devices=2 on two
+   cards where the machine has them; (b) two gloo ranks of the card as a
+   dp1 x sp2 mesh: the f32 eval forward at b4 (decode and 1/8 seg logits,
+   and the seg head as K4 on the gathered maps) within SPATIAL_F32_BAR of
+   one process's; (c) in those ranks one f32
+   training step at b8 (TF32 off) within testing's f32 bars of one
+   process's, then bf16 steps timed with each rank's peak allocated
+   memory beside one process's; cli.train --spatial 2 in two ranks for 1
+   epoch at b8 (only rank 0 writes, K3 in its EMA validation); (d)
+   tools.dryrun_multichip --nproc 4 (dp over 4 ranks, then dp2 x sp2 at
+   128 px against dp).
 
 Inputs of the kernel checks come from desenet_tpu_torch.testing, shared with
 tests/test_torch_kernels_cuda.py.
@@ -2198,12 +2214,14 @@ class _Argv:
     device: str = "cuda:0"
     cfg: str = "yolov5s_seg"
     imgsz: int = IMGSZ
+    extra: tuple = ()  # later flags win (phase 14: --spatial, --batch-size)
 
     def __call__(self, rank: int) -> list:
         return ["--data", self.data, "--cfg", self.cfg, "--epochs", "1",
                 "--batch-size", str(B_DP), "--img-size", str(self.imgsz),
                 "--project", os.path.join(self.project, f"rank{rank}"),
-                "--name", "dp", "--no-tb", "--device", self.device]
+                "--name", "dp", "--no-tb", "--device", self.device,
+                *self.extra]
 
 
 def phase11(card: str) -> int:
@@ -2847,7 +2865,8 @@ def phase13c(card: str, last: str, root: str, tmp: str) -> None:
     from PIL import Image
 
     from desenet_tpu_torch.api import load_predictor
-    from desenet_tpu_torch.ops import nms_fused, seg_pallas
+    from desenet_tpu_torch.ops import (nms_fused, non_max_suppression,
+                                       seg_pallas)
     from desenet_tpu_torch.testing import no_tf32
     from desenet_tpu_torch.tools import export_model
 
@@ -2865,20 +2884,22 @@ def phase13c(card: str, last: str, root: str, tmp: str) -> None:
     lines = []
     with no_tf32():
         # a 3-epoch model scores every anchor near its prior: put conf_thres
-        # midway between the scores ranked N and N + 1 (in each dtype), so
-        # that the check has N candidates (under pre_topk 1024, where the
-        # export's selection and K1's agree) and detections to compare
+        # midway between the scores ranked N and N + 1 (in each dtype)
+        # (under pre_topk 1024, where the export's selection and K1's
+        # agree), so that there are candidates and detections to compare
         live, confs = {}, {}
         for fp32 in (True, False):
             dtype = torch.float32 if fp32 else torch.bfloat16
             live[fp32], _ = export_model.load_program(last, dtype, "cuda")
             with torch.no_grad():
                 x = batch.cuda().permute(0, 3, 1, 2).to(dtype) / 255.0
-                dec = live[fp32].model(x)[0][0][0].float()
-            top = torch.sort(dec[:, 4] * dec[:, 5:].max(-1).values,
-                             descending=True).values
+                dec = live[fp32].model(x)[0][0].float()
+            score = dec[0, :, 4] * dec[0, :, 5:].max(-1).values
+            top = torch.sort(score, descending=True).values
             confs[fp32] = float((top[N_EXPORT_CAND - 1]
                                  + top[N_EXPORT_CAND]) / 2)
+            if fp32:
+                dec_live, score_live = dec, score
         conf = confs[True]
         outs = {}
         for fp32 in (True, False):
@@ -2928,31 +2949,64 @@ def phase13c(card: str, last: str, root: str, tmp: str) -> None:
                          f"within {box_err:.2e} of the live program, seg "
                          f"equal on {seg_eq:.6f}")
         del live, prog
-        # the served Predictor (K1, K2) on the same letterboxed image
+        # the served Predictor (K1, K2) on the same letterboxed image. Its
+        # f32 forward rounds otherwise than the graph's (channels_last, its
+        # own kernels), and the model gives hundreds of anchors scores a
+        # few ulps apart, whose order, and so the boxes greedy NMS keeps,
+        # follow that rounding: its decode is held against the graph's, K1
+        # against the graph's NMS on the Predictor's decode, and the seg
+        # map against the export's
         pred = load_predictor(last, imgsz=IMGSZ, half=False, device="cuda",
                               conf_thres=conf)
+        with torch.no_grad():
+            x = batch.cuda().permute(0, 3, 1, 2).float().contiguous(
+                memory_format=pred._mf) / 255
+            dec = pred.model(x)[0][0].float()
+            ref = non_max_suppression(
+                dec, conf_thres=conf, iou_thres=pred.iou_thres,
+                max_det=pred.max_det, pre_topk=1024, backend="xla")
+        score = dec[0, :, 4] * dec[0, :, 5:].max(-1).values
+        score_err = float((score - score_live).abs().max())
+        dec_err = float((dec[..., :4] - dec_live[..., :4]).abs().max())
+        cand = torch.sort(score_live[score_live > conf],
+                          descending=True).values
+        near = int((cand[:-1] - cand[1:] <= 2 * score_err).sum())
+        if score_err > 1e-6 or dec_err > 1e-3:
+            raise AssertionError(f"Predictor's decode against the f32 "
+                                 f"program's: scores {score_err}, boxes "
+                                 f"{dec_err}")
         nms_fused.launches = seg_pallas.launches = 0
         with torch.no_grad():
             nms, seg = pred.infer(batch.cuda())
         launched = (nms_fused.launches, seg_pallas.launches)
-        n, f32_out = int(nms.num[0]), outs[True]
-        if n != int(f32_out["num"][0]) or launched[0] < 1 or launched[1] < 1:
+        n, n_ref = int(nms.num[0]), int(ref.num[0])
+        box_err = float((nms.boxes[0, :n] - ref.boxes[0, :n]).abs().max()
+                        ) if n else 0.0
+        # K1 returns its boxes less the class offset (cls * 4096): within
+        # half an ulp there, under 1e-3 px for 6 classes
+        if (n != n_ref or n < 1 or box_err > 1e-3
+                or not torch.equal(nms.classes[0, :n], ref.classes[0, :n])
+                or launched[0] < 1 or launched[1] < 1):
             raise AssertionError(f"Predictor: {n} detections against the "
-                                 f"export's {int(f32_out['num'][0])}; K1, K2 "
-                                 f"launched {launched}")
-        dist = match_boxes(nms.boxes[0, :n].cpu(),
-                           torch.from_numpy(f32_out["boxes"][0, :n]))
+                                 f"graph's NMS's {n_ref} on its decode, box "
+                                 f"err {box_err}; K1, K2 launched "
+                                 f"{launched}")
+        f32_out = outs[True]
         seg_eq = float((seg.cpu().numpy() == f32_out["seg"]).mean())
-        if dist > 1e-3 or seg_eq < 0.999:
-            raise AssertionError(f"Predictor against the f32 export: boxes "
-                                 f"{dist}, seg equal on {seg_eq}")
+        if seg_eq < 0.999:
+            raise AssertionError(f"Predictor against the f32 export: seg "
+                                 f"equal on {seg_eq}")
     log("13c", f"export of 13(a)'s 'last' at b1/{IMGSZ} (torch.export, NMS "
         f"backend='xla', pre_topk 1024, conf_thres {conf:.6g} in f32 and "
-        f"{confs[False]:.6g} in bf16: about {N_EXPORT_CAND} candidates on a "
-        f"fake val image): "
+        f"{confs[False]:.6g} in bf16 midway between the scores ranked "
+        f"{N_EXPORT_CAND} and {N_EXPORT_CAND + 1}, on a fake val image): "
         f"{'; '.join(lines)}; the served Predictor f32 (K1 {launched[0]}, "
-        f"K2 {launched[1]} launches) on the same image: {n} detections, "
-        f"boxes within {dist:.2e} of the f32 export's, seg equal on "
+        f"K2 {launched[1]} launches) on the same image: decode within "
+        f"{score_err:.3g} (scores) and {dec_err:.3g} (boxes) of the f32 "
+        f"program's, where {near} of the {len(cand)} candidates lie within "
+        f"twice that of the next; {n} detections, as the graph's NMS on its "
+        f"decode (boxes within {box_err:.2e}; the export kept "
+        f"{int(f32_out['num'][0])}), seg equal to the export's on "
         f"{seg_eq:.6f} [{card}]")
 
 
@@ -3077,6 +3131,293 @@ def phase13(card: str, sd: dict) -> int:
     return k3
 
 
+B_SP = 8          # 14(c)'s batch
+B_SP_FWD = 4      # 14(b)'s batch
+SP_TIMED_STEPS = 5
+SPATIAL_F32_BAR = 1e-5  # of the largest |output|: bands against one process
+
+
+def phase14a(card: str, sd: dict) -> dict:
+    """Multi-device Predictor; returns K1's and K2's launches."""
+    from desenet_tpu_torch.api import Predictor
+    from desenet_tpu_torch.ops import nms_fused, seg_pallas
+
+    n_cards = torch.cuda.device_count()
+    try:
+        Predictor("yolov5s_seg", sd, n_devices=n_cards + 1)
+    except ValueError as e:
+        if "devices" not in str(e):
+            raise
+        refused = str(e)
+    else:
+        raise AssertionError(f"14(a): n_devices={n_cards + 1} was accepted")
+    cuda0 = torch.device("cuda", 0)
+
+    def compare(one, two, imgs, what):
+        a, b = one.run_batch(imgs), two.run_batch(imgs)
+        if not all(len(v) == len(imgs) for v in a + b):
+            raise AssertionError(f"{what}: not {len(imgs)} rows")
+        nums = bool((a[3] == b[3]).all())
+        box = max([match_boxes(torch.from_numpy(b[0][i, :n]),
+                               torch.from_numpy(a[0][i, :n]))
+                   for i, n in enumerate(a[3].tolist()) if n == b[3][i]]
+                  + [0.0])
+        seg = float((a[4] == b[4]).mean())
+        if not nums or box > 1e-3 or seg < 0.999:
+            raise AssertionError(f"{what}: num equal {nums}, box err {box}, "
+                                 f"seg agreement {seg}")
+        return nums, box, seg
+
+    # f32 (TF32 off): two replicas on the one card against one, on a batch
+    # that splits evenly and one that pads
+    rng = np.random.default_rng(14)
+    imgs = rng.integers(0, 256, (B_SERVE, IMGSZ, IMGSZ, 3), dtype=np.uint8)
+    with no_tf32():
+        one = Predictor("yolov5s_seg", sd, half=False, conf_thres=1e-3)
+        two = Predictor("yolov5s_seg", sd, half=False, conf_thres=1e-3)
+        two._place_replicas([cuda0, cuda0])
+        f32 = [compare(one, two, imgs[:n], f"14(a) f32 b{n}")
+               for n in (16, 15)]
+        del one, two
+    log("14a", f"n_devices={n_cards + 1} refused ({refused!r}); f32 (TF32 "
+        f"off) two replicas on the one card against n_devices=1, "
+        f"yolov5s_seg {IMGSZ} px: b16 and b15 (padded to 16) num equal "
+        f"{[r[0] for r in f32]}, boxes within "
+        f"{max(r[1] for r in f32):.3g} (atol 1e-3), seg maps "
+        f"{min(r[2] for r in f32):.6f} equal (>= 0.999)")
+
+    # bf16 at b128 and b127: the served shape, timed in turns
+    one = Predictor("yolov5s_seg", sd, conf_thres=1e-3)
+    two = Predictor("yolov5s_seg", sd, conf_thres=1e-3)
+    two._place_replicas([cuda0, cuda0])
+    nms_fused.launches = seg_pallas.launches = 0
+    bf16 = [compare(one, two, imgs[:n], f"14(a) bf16 b{n}")
+            for n in (B_SERVE, B_SERVE - 1)]
+    k1, k2 = nms_fused.launches, seg_pallas.launches
+    if k1 != 6 or k2 != 6:  # one + two replicas, two batches
+        raise AssertionError(f"14(a): K1 launched {k1}, K2 {k2} times "
+                             "(6 each expected)")
+    ms_one, ms_two = in_turns((lambda: one.run_batch(imgs), 3),
+                              (lambda: two.run_batch(imgs), 3))
+    log("14a", f"bf16 yolov5s_seg b{B_SERVE}/{IMGSZ}, run_batch (letterboxed "
+        f"uint8 in, numpy out): n_devices=1 {ms_one:.3f} ms, two replicas "
+        f"on the one card {ms_two:.3f} ms ({ms_two / ms_one:.3f}x); "
+        f"against one replica at b{B_SERVE} and b{B_SERVE - 1}: num equal "
+        f"{[r[0] for r in bf16]}, boxes within "
+        f"{max(r[1] for r in bf16):.3g} (atol 1e-3), seg maps "
+        f"{[round(r[2], 6) for r in bf16]} equal (>= 0.999); K1 {k1}, K2 "
+        f"{k2} launches [{card}]")
+    del one, two
+    launches = {"nms_fused": k1, "seg_tail": k2}
+    if n_cards >= 2:
+        one = Predictor("yolov5s_seg", sd, conf_thres=1e-3)
+        multi = Predictor("yolov5s_seg", sd, conf_thres=1e-3, n_devices=2)
+        nms_fused.launches = seg_pallas.launches = 0
+        r = compare(one, multi, imgs, "14(a) two cards")
+        launches["nms_fused"] += nms_fused.launches
+        launches["seg_tail"] += seg_pallas.launches
+        ms_one, ms_two = in_turns((lambda: one.run_batch(imgs), 3),
+                                  (lambda: multi.run_batch(imgs), 3))
+        log("14a", f"n_devices=2 on two cards: {ms_two:.3f} ms against "
+            f"{ms_one:.3f} on one; num equal {r[0]}, seg {r[2]:.6f} equal "
+            f"[{card}]")
+        del one, multi
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _s_model(train: bool):
+    """yolov5s_seg at full width, seed-0 weights, 1/8 seg logits, on the
+    card (channels_last)."""
+    from desenet_tpu_torch.models import build_model, config_path, init_weights
+
+    model, spec = build_model(config_path("yolov5s_seg"), seg_upsample=False,
+                              train=train)
+    init_weights(model, torch.Generator().manual_seed(0))
+    return model.to("cuda:0", memory_format=torch.channels_last), spec
+
+
+def _sp_forward(mesh=None):
+    """14(b): the f32 eval forward of B_SP_FWD seeded images (this rank's
+    bands under ``mesh``); (decode, 1/8 seg logits, the 1/8 seg logits of
+    the seg head as kernel K4, which takes the gathered maps under
+    ``mesh``) on the CPU."""
+    import contextlib
+
+    from desenet_tpu_torch.parallel import spatial
+    from desenet_tpu_torch.parallel.mesh import spatial_band
+
+    model, _ = _s_model(False)
+    model.eval()
+    x = torch.from_numpy(np.random.default_rng(15).integers(
+        0, 256, (B_SP_FWD, IMGSZ, IMGSZ, 3), dtype=np.uint8))
+    if mesh is not None:
+        x = spatial_band({"image": x}, mesh)["image"]
+    x = x.to("cuda:0").permute(0, 3, 1, 2).float().div(255).contiguous(
+        memory_format=torch.channels_last)
+    band = (spatial.scope(mesh, IMGSZ) if mesh is not None
+            else contextlib.nullcontext())
+    with torch.no_grad(), band:
+        (dec, _), seg = model(x)
+        model.seg_head_fused = True
+        seg_k4 = model(x)[1]
+    return dec.cpu(), seg.float().cpu(), seg_k4.float().cpu()
+
+
+def _sp_bf16_steps(mesh=None) -> tuple:
+    """14(c): yolov5s_seg training steps at b{B_SP}/640 in bf16 (this
+    rank's bands under ``mesh``): (ms a step over SP_TIMED_STEPS after two
+    warm ones, peak allocated GiB over them)."""
+    from desenet_tpu_torch.testing import train_batch
+    from desenet_tpu_torch.train import create_train_state, make_train_step
+    from desenet_tpu_torch.train.engine import load_hyp, loss_and_schedule
+
+    model, spec = _s_model(True)
+    det_loss, opt_cfg, lf = loss_and_schedule(load_hyp(), spec, IMGSZ, 10)
+    state = create_train_state(model, opt_cfg)
+    step = make_train_step(model, det_loss, opt_cfg, lf, nb=4,
+                           warmup_iters=2, nominal_bs=B_SP, batch_size=B_SP,
+                           fused_seg=True, dtype=torch.bfloat16, mesh=mesh)
+    batch = {k: torch.from_numpy(v).to("cuda:0") for k, v in train_batch(
+        np.random.default_rng(16), B_SP, IMGSZ, spec.de_nc, 16).items()}
+    for _ in range(2):
+        state, m = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    for _ in range(SP_TIMED_STEPS):
+        state, m = step(state, batch)
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) / SP_TIMED_STEPS * 1e3
+    if not np.isfinite(loss):
+        raise AssertionError(f"14(c): bf16 loss {loss}")
+    return ms, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _sp_rank(rank: int, n: int, coordinator: str, step_kw: dict) -> dict:
+    """14(b) and (c) in one of two ranks of the one card (gloo): the band
+    forward, the f32 step, the bf16 steps; every rank's bf16 numbers."""
+    import torch.distributed as dist
+
+    from desenet_tpu_torch.parallel import multihost
+    from desenet_tpu_torch.parallel.mesh import make_mesh
+    from desenet_tpu_torch.testing import train_steps
+
+    multihost.init_multihost(coordinator, n, rank, device="cuda:0",
+                             backend="gloo")
+    try:
+        mesh = make_mesh(n, spatial=n)
+        with no_tf32():
+            fwd = _sp_forward(mesh)
+            steps = train_steps("cuda:0", spatial=n, **step_kw)
+        bf16 = [None] * n
+        dist.all_gather_object(bf16, _sp_bf16_steps(mesh))
+        return {"fwd": fwd, "steps": steps, "bf16": bf16}
+    finally:
+        multihost.shutdown()
+
+
+def phase14(card: str, sd: dict) -> dict:
+    """The parallel layer: (a) the multi-device Predictor, (b) and (c) the
+    spatial forward and step of two ranks of the one card against one
+    process, (c) cli.train --spatial 2, (d) the dp2 x sp2 dry run; returns
+    K1's, K2's and K3's launches."""
+    import tempfile
+
+    from desenet_tpu_torch.models import config_path
+    from desenet_tpu_torch.ops import nms_pallas
+    from desenet_tpu_torch.parallel.multihost import spawn
+    from desenet_tpu_torch.testing import (check_train_parity, parity_errors,
+                                           train_steps)
+    from desenet_tpu_torch.tools.make_fake_dataset import generate
+
+    launches = phase14a(card, sd)
+
+    with open(config_path("yolov5s_seg")) as fh:
+        cfg = json.load(fh)
+    step_kw = dict(cfg=cfg, imgsz=IMGSZ, b=B_SP, fused=True,
+                   dtype=torch.float32, steps=1, seed=0)
+    t = time.perf_counter()
+    got = spawn(_sp_rank, 2, step_kw)
+    wall = time.perf_counter() - t
+    with no_tf32():
+        want_fwd = _sp_forward()
+        want_steps = train_steps("cuda:0", **step_kw)
+    errs = []
+    for g, w, what in zip(got["fwd"], want_fwd,
+                          ("decode", "1/8 seg logits", "K4's 1/8 seg logits")):
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"14(b) {what}: {tuple(g.shape)} vs "
+                                 f"{tuple(w.shape)}")
+        rel = float((g - w).abs().max()) / float(w.abs().max())
+        if rel > SPATIAL_F32_BAR:
+            raise AssertionError(f"14(b) {what}: {rel} of the largest "
+                                 f"|output| above {SPATIAL_F32_BAR}")
+        errs.append(rel)
+    log("14b", f"spatial eval forward, yolov5s_seg b{B_SP_FWD}/{IMGSZ} f32 "
+        f"(TF32 off), dp1 x sp2 in two ranks of the one card (gloo) against "
+        f"one process: decode {errs[0]:.3g}, 1/8 seg logits {errs[1]:.3g}, "
+        f"K4 on the gathered maps {errs[2]:.3g} of the largest |output| "
+        f"(bar {SPATIAL_F32_BAR:g})")
+    perrs = parity_errors(got["steps"], want_steps)
+    check_train_parity(perrs, torch.float32, "14(c) dp1 x sp2 f32 step")
+    (ms_sp, peak_sp), (ms_sp1, peak_sp1) = got["bf16"]
+    ms_one, peak_one = _sp_bf16_steps()
+    log("14c", f"spatial training step, yolov5s_seg b{B_SP}/{IMGSZ}, dp1 x "
+        f"sp2 in two ranks of the one card against one process: f32 (TF32 "
+        f"off) one step loss {got['steps'][0][0]:.6f} against "
+        f"{want_steps[0][0]:.6f}, errors "
+        + ", ".join(f"{g} {e:.2e}" if g == "loss" else f"{g} {e[0]:.2e}"
+                    for g, e in perrs[0].items())
+        + f" (testing's f32 bars); bf16 step {ms_sp:.3f} / {ms_sp1:.3f} ms "
+        f"(ranks 0 / 1, gloo through the host) against {ms_one:.3f} ms in one "
+        f"process; peak allocated {peak_sp:.3f} / {peak_sp1:.3f} GiB a rank "
+        f"against {peak_one:.3f} GiB ({peak_sp / peak_one:.3f}x); "
+        f"{wall:.3f} s for the two ranks with their start [{card}]")
+
+    # cli.train --spatial 2 in the two ranks, the EMA validated on rank 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sp_") as tmp:
+        data = generate(os.path.join(tmp, "fakeds"), n_train=16, n_val=8,
+                        size=IMGSZ, seed=0)
+        nms_pallas.launches = 0
+        t = time.perf_counter()
+        res, k3 = spawn(_rank_train, 2, _Argv(data, tmp, extra=(
+            "--spatial", "2", "--batch-size", str(B_SP))))
+        wall = time.perf_counter() - t
+        sd0 = os.path.join(tmp, "rank0", "dp")
+        with open(os.path.join(sd0, "results.csv")) as fh:
+            row = list(csv.DictReader(fh))[-1]
+        if (k3 < 1 or nms_pallas.launches
+                or os.path.exists(os.path.join(tmp, "rank1"))
+                or not np.isfinite(float(row["train/seg_loss"]))):
+            raise AssertionError(f"14(c): K3 launched {k3} times on rank 0, "
+                                 f"rank 1 wrote "
+                                 f"{os.path.exists(os.path.join(tmp, 'rank1'))}"
+                                 f", row {row}")
+    log("14c", f"cli.train --spatial 2 in two ranks of the one card (gloo), "
+        f"yolov5s_seg b{B_SP}/{IMGSZ} bf16, 1 epoch on a fake dataset of 16: "
+        f"seg loss {float(row['train/seg_loss']):.4f}, the EMA validated on "
+        f"rank 0's card unsharded, K3 launched {k3} times; {wall:.3f} s "
+        f"wall with the processes' start [{card}]")
+    launches["nms_greedy"] = k3
+
+    # (d) the dry run: dp2 on 4 gloo ranks of the card, then dp2 x sp2
+    t = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m",
+                          "desenet_tpu_torch.tools.dryrun_multichip",
+                          "--nproc", "4"], capture_output=True, text=True,
+                         timeout=600)
+    lines = [ln for ln in out.stdout.splitlines()
+             if ln.startswith("dryrun_multichip(4): ok")]
+    if out.returncode or len(lines) != 2:
+        raise AssertionError(f"14(d): rc {out.returncode}, "
+                             f"{out.stdout[-2000:]} {out.stderr[-3000:]}")
+    for ln in lines:
+        log("14d", f"{ln} [{time.perf_counter() - t:.1f} s; {card}]")
+    return launches
+
+
 def main() -> None:
     took = {}
 
@@ -3113,6 +3454,8 @@ def main() -> None:
     for k, v in timed("12", phase12, card, sd, errs, timing, extras).items():
         launches[k] += v
     launches["nms_greedy"] += timed("13", phase13, card, sd)
+    for k, v in timed("14", phase14, card, sd).items():
+        launches[k] += v
     log("times", "seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in took.items())
         + f"; {sum(took.values()):.1f} in all")

@@ -1,7 +1,6 @@
 """High-level inference API: ``Predictor`` and ``Detections``.
 
-Counterpart of ``desenet_tpu/api.py`` without multi-device serving or the
-space-to-depth stem:
+Counterpart of ``desenet_tpu/api.py`` without the space-to-depth stem:
 
     from desenet_tpu_torch.api import Predictor, load_predictor
     from desenet_tpu_torch.utils.convert import load_npz_state_dict
@@ -24,10 +23,21 @@ letterboxed ``calib`` images, every conv the int8 kernel of
 ``ops/int8_conv.py`` on the card): full-resolution logits argmaxed on the
 device, as the JAX package's int8 program does, so no seg tail; NMS stays
 K1.
+
+``Predictor(..., n_devices=N)`` serves over N devices, as the JAX
+package's data-parallel ``Predictor`` does over a 1-D mesh: one replica of
+the model on each of ``cuda:0`` to ``cuda:N-1`` (N replicas on the CPU
+for ``device="cpu"``), each batch padded to a multiple of N by repeating
+its last image and split in N slices, each slice uploaded from pinned
+memory and every replica's program (forward, K1, K2) queued before any
+result is copied back, with the intent that the cards overlap (not yet
+measured on two cards); the padded rows are dropped. Every replica holds
+the same weights, so the results are those of one device.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 from typing import List, Mapping, Optional, Sequence, Union
 
@@ -39,6 +49,7 @@ from desenet_tpu_torch.models import (build_model, config_path,
                                      require_seg_head)
 from desenet_tpu_torch.ops import non_max_suppression, np_scale_coords
 from desenet_tpu_torch.ops.seg_pallas import upsample_argmax
+from desenet_tpu_torch.parallel.mesh import Mesh, pad_batch_for_mesh
 from desenet_tpu_torch.utils.convert import load_state_dict
 from desenet_tpu_torch.utils.general import save_one_box
 from desenet_tpu_torch.utils.plots import Annotator, SegAnnotator, colors
@@ -175,7 +186,14 @@ class Predictor:
     representative images: paths, BGR arrays or PIL images; ValueError
     without them), per-channel activation scales and bias correction (the
     JAX package's defaults); its parameters stay f32 and ``half`` sets the
-    dtype of its input and fp pieces."""
+    dtype of its input and fp pieces.
+
+    ``n_devices``: replicas on that many devices (module docstring);
+    ValueError with more than ``torch.cuda.device_count()`` on the card.
+    ``bake_weights``: accepted for the JAX package's signature and has no
+    effect. There it chooses between weights compiled into each program
+    and weights passed to it; eager PyTorch holds one copy of the weights
+    a replica either way."""
 
     def __init__(self, cfg, state_dict: Mapping[str, torch.Tensor],
                  imgsz: int = 640, conf_thres: float = 0.25,
@@ -186,10 +204,22 @@ class Predictor:
                  fuse_focus: bool = True, nc: Optional[int] = None,
                  se_nc: Optional[int] = None,
                  anchors: Optional[Sequence] = None, int8: bool = False,
-                 calib: Optional[Sequence] = None):
+                 calib: Optional[Sequence] = None, n_devices: int = 1,
+                 bake_weights: bool = True):
         if isinstance(cfg, str):
             cfg = config_path(cfg)
         self.device = torch.device(device)
+        self.n_devices = max(1, int(n_devices))
+        del bake_weights  # no effect (class docstring)
+        if self.device.type == "cuda" and self.n_devices > 1:
+            avail = torch.cuda.device_count()
+            if self.n_devices > avail:
+                raise ValueError(f"n_devices={n_devices} but only {avail} "
+                                 "devices are visible")
+            devices = [torch.device("cuda", i) for i in range(self.n_devices)]
+            self.device = devices[0]
+        else:
+            devices = [self.device] * self.n_devices
         self.dtype = torch.bfloat16 if half else torch.float32
         self.int8 = int8
         # NCHW in the channels_last memory format on the card (cuDNN's NHWC
@@ -229,14 +259,27 @@ class Predictor:
             str(i) for i in range(self.spec.de_nc)]
         self.se_names = list(se_names) if se_names else [
             str(i) for i in range(self.spec.se_nc)]
+        self._place_replicas(devices)
+
+    def _place_replicas(self, devices: Sequence[torch.device]) -> None:
+        """One replica of the model on each of ``devices`` (a device named
+        twice takes two slices of each batch on one replica)."""
+        models = {self.device: self.model}
+        for d in devices:
+            d = torch.device(d)
+            if d not in models:
+                models[d] = copy.deepcopy(self.model).to(d)
+        self._replicas = [(torch.device(d), models[torch.device(d)])
+                          for d in devices]
 
     @torch.inference_mode()
-    def infer(self, img_u8: torch.Tensor):
+    def infer(self, img_u8: torch.Tensor, model=None):
         """The device program: (B, H, W, 3) uint8 RGB on the device ->
-        (NMSOutput, (B, H, W) uint8 seg class map)."""
+        (NMSOutput, (B, H, W) uint8 seg class map); ``model`` a replica
+        (the first by default)."""
         x = img_u8.permute(0, 3, 1, 2).to(self.dtype)
         x = x.contiguous(memory_format=self._mf) / 255
-        (dec, _), seg = self.model(x)
+        (dec, _), seg = (model or self.model)(x)
         nms = non_max_suppression(dec, conf_thres=self.conf_thres,
                                   iou_thres=self.iou_thres,
                                   max_det=self.max_det)
@@ -271,14 +314,7 @@ class Predictor:
             letterbox(im, self.imgsz)[0]
             [:, :, ::-1]) for im in imgs0]
         h, w = rgb[0].shape[:2]
-        batch = torch.from_numpy(np.stack(rgb)).to(self.device)
-        nms, seg_cls = self.infer(batch)
-
-        boxes = nms.boxes.cpu().numpy()
-        scores = nms.scores.cpu().numpy()
-        classes = nms.classes.cpu().numpy()
-        nums = nms.num.cpu().numpy()
-        seg_np = seg_cls.cpu().numpy()
+        boxes, scores, classes, nums, seg_np = self.run_batch(np.stack(rgb))
 
         xyxy, masks = [], []
         for i, im0 in enumerate(imgs0):
@@ -302,6 +338,27 @@ class Predictor:
             masks.append(m)
         return Detections(imgs0, xyxy, masks, names=self.names,
                           se_names=self.se_names)
+
+    def run_batch(self, batch: np.ndarray):
+        """The device program over the replicas on a (B, H, W, 3) uint8
+        batch: padded to a multiple of the replica count
+        (``pad_batch_for_mesh``: the last image repeated), a slice a
+        replica, all queued before any copy to the host. Returns numpy
+        (boxes, scores, classes, num, seg classes) of the B images."""
+        n, k = batch.shape[0], len(self._replicas)
+        batch = pad_batch_for_mesh({"image": batch}, Mesh(k, 1))[0]["image"]
+        outs = []
+        for (dev, model), part in zip(self._replicas, np.split(batch, k)):
+            x = torch.from_numpy(part)
+            if dev.type == "cuda":
+                x = x.pin_memory()
+            outs.append(self.infer(x.to(dev, non_blocking=True), model))
+        host = [(nms.boxes.cpu().numpy(), nms.scores.cpu().numpy(),
+                 nms.classes.cpu().numpy(), nms.num.cpu().numpy(),
+                 seg.cpu().numpy()) for nms, seg in outs]
+        if k == 1:
+            return host[0]
+        return tuple(np.concatenate(v)[:n] for v in zip(*host))
 
 
 def load_predictor(weights: str, **kw) -> Predictor:

@@ -11,7 +11,11 @@ sources of its own, each built from ``--cfg``: ``--state-dict``, a
 torch-named state dict saved with ``np.savez`` (``tools/export_torch_sd.py``
 writes one from a JAX checkpoint), and ``--seed``, random weights made from
 that seed. ``--int8 --calib-dir DIR`` serves the int8 W8A8 program,
-calibrated on up to 16 images of DIR, as the JAX CLI's. POST image bytes
+calibrated on up to 16 images of DIR, as the JAX CLI's. ``--n-devices N``
+serves each micro-batch over N cards (``Predictor(n_devices=N)``: a
+replica a card, the batch padded to a multiple of N); ``--no-bake-weights``
+is the JAX CLI's flag, accepted and without effect (eager PyTorch holds
+one weight copy a replica either way). POST image bytes
 to /predict (add ?mask=1 for the base64-PNG class mask); GET /healthz and
 /info for liveness and model metadata.
 """
@@ -63,6 +67,13 @@ def parse_opt(argv=None):
                         help="largest accepted request body (413 above)")
     parser.add_argument("--no-half", action="store_true",
                         help="run float32 instead of bfloat16")
+    parser.add_argument("--n-devices", type=int, default=1,
+                        help="shard each micro-batch over this many cards "
+                             "(a replica a card; batch pads to a multiple)")
+    parser.add_argument("--no-bake-weights", action="store_true",
+                        help="the JAX CLI's shared-weights option, "
+                             "accepted and without effect: the port holds "
+                             "one weight copy a replica either way")
     parser.add_argument("--int8", action="store_true",
                         help="serve the int8 W8A8 quantized model; needs "
                              "--calib-dir")
@@ -85,7 +96,9 @@ def build_predictor(args) -> Predictor:
     """The ``Predictor`` that ``main`` serves, from the parsed options."""
     kw = dict(imgsz=args.img_size, conf_thres=args.conf_thres,
               iou_thres=args.iou_thres, max_det=args.max_det,
-              half=not args.no_half, device=args.device)
+              half=not args.no_half, device=args.device,
+              n_devices=args.n_devices,
+              bake_weights=not args.no_bake_weights)
     if args.int8:
         kw.update(int8=True, calib=args.calib)
     if args.weights:

@@ -32,10 +32,16 @@ the runs go to the port's offline backend, under the run directory, and
         [--entity E] [--remat]
 
 ``--remat`` recomputes each row's activations in the backward pass.
-``--spatial`` above 1 raises NotImplementedError naming ROADMAP.md
-(``train.engine.refuse_unported``). ``--sync-bn`` is accepted and does
-nothing, as in the JAX package: with several processes BN always takes
-the global batch's statistics.
+``--spatial k`` splits each image's height over k processes of a data
+row (``--n-devices`` counts all of them: data x spatial; on one host),
+for images too large for one device::
+
+    python -m desenet_tpu_torch.cli.train ... --n-devices 4 --spatial 2
+
+A size below 2 rows a process at the deepest stride is refused before
+any process starts. ``--sync-bn`` is accepted and does nothing, as in
+the JAX package: with several processes BN always takes the global
+batch's statistics.
 """
 
 from __future__ import annotations
@@ -104,7 +110,10 @@ def parse_opt(argv=None):
     p.add_argument("--n-devices", type=int, default=None,
                    help="train in this many processes on this host, one a "
                         "device")
-    p.add_argument("--spatial", type=int, default=1, help="not ported")
+    p.add_argument("--spatial", type=int, default=1,
+                   help="spatial-partitioning factor: split image height "
+                        "over this many processes (devices = data x "
+                        "spatial)")
     p.add_argument("--no-tb", action="store_true")
     p.add_argument("--noautoanchor", action="store_true")
     p.add_argument("--multi-scale", action="store_true")
@@ -201,6 +210,22 @@ def launch(n: int, device: str, argv) -> dict:
     return spawn(_spawned, n, argv)
 
 
+def check_spatial_launch(o) -> None:
+    """Refuse a ``--spatial`` run's sizes before its processes start: the
+    mesh's layout (``make_mesh`` outside a group) against the config's
+    deepest stride, as ``train.engine`` checks it again in each."""
+    from desenet_tpu_torch.models import config_path
+    from desenet_tpu_torch.models.build import parse_config
+    from desenet_tpu_torch.parallel.mesh import make_mesh
+    from desenet_tpu_torch.train.engine import check_mesh_size
+    from desenet_tpu_torch.utils.general import check_img_size
+
+    stride = int(max(parse_config(config_path(o.cfg)).det_strides))
+    cfg = TrainConfig(spatial=o.spatial, multi_scale=o.multi_scale)
+    check_mesh_size(cfg, make_mesh(o.n_devices, spatial=o.spatial),
+                    check_img_size(o.img_size, s=stride), stride)
+
+
 def main(argv=None, callbacks=None):
     """Parse ``argv`` and train; ``callbacks`` (``utils.callbacks``) gets
     the engine's hooks beside the loggers (one process only)."""
@@ -210,6 +235,8 @@ def main(argv=None, callbacks=None):
         if callbacks is not None:
             raise ValueError("callbacks cannot cross into --n-devices' "
                              "processes")
+        if o.spatial > 1:
+            check_spatial_launch(o)
         return launch(o.n_devices, o.device,
                       sys.argv[1:] if argv is None else list(argv))
     o.device = _maybe_init_multihost(o.device)

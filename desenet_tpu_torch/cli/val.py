@@ -18,7 +18,9 @@ calibrated on ``calib_batches`` batches of the train split at
 ``min(8, batch)`` without augmentation; ``--int8-no-bias-correct``,
 ``--int8-mse-clip``, ``--int8-weights-only``, ``--int8-per-tensor`` and
 ``--int8-fp-hops N`` as the JAX package's), ``--act-store fp8|fp8_e5m2``
-the fp8 activation-storage program; the two exclude each other. Reading
+the fp8 activation-storage program; the two exclude each other.
+``--matmul-precision highest`` turns TF32 off in cuBLAS and cuDNN (f32
+parity with ``--no-half``), as ``cli.detect``'s does. Reading
 the image dataset goes through the port's own ``desenet_tpu_torch.data``
 (validation path only), which needs PIL, PyYAML for the data yaml, and cv2
 where an image is resized.
@@ -328,6 +330,10 @@ def parse_opt(argv=None):
                         "activations)")
     p.add_argument("--int8-per-tensor", action="store_true",
                    help="ablation: per-tensor activation scales")
+    p.add_argument("--matmul-precision", choices=["default", "high", "highest"],
+                   default="default",
+                   help="highest: full f32 products, TF32 off in cuBLAS and "
+                        "cuDNN (use with --no-half for f32 parity)")
     p.add_argument("--act-store", choices=["fp8", "fp8_e5m2"], default=None,
                    help="store block activations in fp8 (eval only; "
                         "compute stays in the model dtype)")
@@ -337,9 +343,11 @@ def parse_opt(argv=None):
 def main(argv=None):
     o = parse_opt(argv)
     from desenet_tpu_torch.utils.general import (check_dataset,
-                                                 increment_path, set_logging)
+                                                 increment_path, set_logging,
+                                                 set_matmul_precision)
 
     set_logging()
+    set_matmul_precision(o.matmul_precision)
     if o.task in ("speed", "study"):
         data = check_dataset(o.data)
         nc, se_nc = int(data["de"]["nc"]), int(data["se"]["nc"])

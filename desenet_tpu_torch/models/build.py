@@ -35,6 +35,7 @@ from desenet_tpu_torch.models import layers as L
 from desenet_tpu_torch.ops.resize import (resize_bilinear, upsample_nearest,
                                           upsample_nearest_repeat)
 from desenet_tpu_torch.ops.seg_head_pallas import MAX_P8, fused_psp2_eval
+from desenet_tpu_torch.parallel import spatial
 
 # width-scaled blocks take their output width first; the C3-like ones
 # repeat their inner stack n times, the others repeat as a whole
@@ -381,7 +382,13 @@ class DeSeNet(nn.Module):
     ``torch.utils.checkpoint``, as the JAX walker wraps it in ``nn.remat``:
     its activations are recomputed in the backward pass instead of kept
     (``layers.checkpointed``; BN moves its running statistics once). Never
-    in eval."""
+    in eval.
+
+    Under ``parallel.spatial.scope`` the input is this rank's height band
+    of the batch and the outputs are whole on every spatial rank (Detect's
+    inputs and the seg head's output gathered, ``models/heads.py``, or
+    K4's inputs); the quantized and fp8-storage programs refuse a
+    scope."""
 
     def __init__(self, spec: ModelSpec, seg_upsample: bool = True,
                  decode_cat: bool = True, seg_head_fused: bool = False,
@@ -440,6 +447,9 @@ class DeSeNet(nn.Module):
         Detect or the fp rows)."""
         qmode = not self.training and (self.quant is not None
                                        or self.act_store is not None)
+        if qmode and spatial.active():
+            raise ValueError("the int8 and fp8-storage programs do not run "
+                             "on height bands (parallel/spatial.py)")
         int8 = qmode and self.quant is not None and self.quant.is_int8
         cd = fp_ctx = None
         if qmode:
@@ -519,7 +529,10 @@ class DeSeNet(nn.Module):
                 inp = [L.to_compute(v, cd) for v in inp]
             return torch.cat(inp, 1)
         if ls.name == "Detect":
-            return m(inp if isinstance(inp, list) else [inp])
+            # of bands: the whole maps on every spatial rank (1x1 convs,
+            # then the decode and the loss as on one device)
+            xs = inp if isinstance(inp, list) else [inp]
+            return m([spatial.gather_rows(v) for v in xs])
         if ls.name in SEG_HEADS:
             xs = inp if isinstance(inp, list) else [inp]
             if qmode and ls.name in _QUANT_SEG_HEADS:
@@ -542,13 +555,19 @@ class DeSeNet(nn.Module):
     def _seg_head(self, ls: LayerSpec, m: nn.Module, xs) -> torch.Tensor:
         """The seg head: kernel K4 under the conditions of the JAX
         package (eval, SegMaskPSP2, neither int8 nor fp8 storage, P8 <=
-        MAX_P8), else the module."""
+        MAX_P8), else the module. Under a spatial scope K4 takes the
+        whole maps (``gather_rows`` of its inputs, as GSPMD gathers the
+        pallas_call's operands) and its output is whole."""
+        ctx = spatial.current()
+        h8 = xs[0].shape[2] if ctx is None else spatial.band_of(
+            ctx, xs[0].shape[2])[2]
         if not (self.seg_head_fused and not self.training
                 and ls.name == "SegMaskPSP2" and self.quant is None
                 and self.act_store is None
-                and xs[0].shape[2] * xs[0].shape[3] <= MAX_P8):
+                and h8 * xs[0].shape[3] <= MAX_P8):
             return m(xs)
-        nhwc = [x.permute(0, 2, 3, 1).contiguous() for x in xs]
+        nhwc = [spatial.gather_rows(x).permute(0, 2, 3, 1).contiguous()
+                for x in xs]
         out = fused_psp2_eval(nhwc, m, int(ls.args[0])).to(xs[0].dtype)
         out = out.permute(0, 3, 1, 2)  # NCHW view of the NHWC logits
         if self.seg_upsample:

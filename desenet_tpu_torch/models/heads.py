@@ -19,6 +19,16 @@ JAX package's int8 head (the stem resized in int8 and kept as an implicit
 concat, the class conv an int8 conv with bias and fp logits out), its
 calibration and its fp8 storage. The other heads run on dequantized inputs
 in those modes, as in the JAX package; Detect always runs in fp.
+
+Under a spatial scope (``parallel/spatial.py``) the heads run on height
+bands: their convs and pools as ``layers`` says, the 2x and 4x
+align_corners upsamples within a head on the band
+(``resize_bilinear_band``), and each head's outputs gathered whole onto
+every spatial rank (``gather_rows``) before the final 8x upsample, so
+that the losses and the seg tail see whole maps. Detect is 1x1 convs;
+the model walker gathers its inputs (``models/build.py``). Dropout draws
+its mask over the band, so BiSe and Base in training are not bitwise the
+one-process program.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ from desenet_tpu_torch.models.layers import (
     C3SPP,
     FFM,
     RFB2,
+    Conv2d,
     ConvBnAct,
     Dropout,
     PyramidPooling,
@@ -49,7 +60,8 @@ from desenet_tpu_torch.models.layers import (
     to_compute,
 )
 from desenet_tpu_torch.ops import int8_conv
-from desenet_tpu_torch.ops.resize import resize_bilinear
+from desenet_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_band
+from desenet_tpu_torch.parallel.spatial import active, gather_rows
 from desenet_tpu_torch.quant import QTensor
 
 
@@ -147,9 +159,27 @@ class Detect(nn.Module):
 
 
 def _up(x: torch.Tensor, scale: int) -> torch.Tensor:
-    """``scale``x bilinear upsample, align_corners=True."""
+    """``scale``x bilinear upsample, align_corners=True (of a band: its
+    band of the result)."""
+    return resize_bilinear_band(x, scale)
+
+
+def _out(x: torch.Tensor, scale: int, upsample: bool = True) -> torch.Tensor:
+    """A head's output: the whole map (``gather_rows`` of a band), its
+    ``scale``x align_corners upsample where ``upsample``."""
+    x = gather_rows(x)
+    if not upsample:
+        return x
     h, w = x.shape[2:]
     return resize_bilinear(x, (h * scale, w * scale), align_corners=True)
+
+
+def _stem_up(x: torch.Tensor, hw) -> torch.Tensor:
+    """A deeper stem level resized to the 1/8 map's ``hw``
+    (align_corners)."""
+    if active():  # bands of one rank keep the levels' ratio
+        return resize_bilinear_band(x, int(hw[0]) // x.shape[2])
+    return resize_bilinear(x, hw, align_corners=True)
 
 
 def _seg_stem(head: nn.Module, xs: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -158,8 +188,8 @@ def _seg_stem(head: nn.Module, xs: Sequence[torch.Tensor]) -> torch.Tensor:
     (the JAX package's ``_SegStem``)."""
     f8 = head.m8(xs[0])
     hw = f8.shape[2:]
-    f16 = resize_bilinear(head.m16(xs[1]), hw, align_corners=True)
-    f32 = resize_bilinear(head.m32(xs[2]), hw, align_corners=True)
+    f16 = _stem_up(head.m16(xs[1]), hw)
+    f32 = _stem_up(head.m32(xs[2]), hw)
     return torch.cat([f8, f16, f32], 1)
 
 
@@ -221,7 +251,7 @@ class SegMaskPSP2(QuantAware, nn.Module):
         feat = _seg_stem(self, xs)
         out = self.out(self.ffm([self.spatial_path(feat),
                                  self.context_path(feat)]))
-        return _up(out, 8) if self.upsample else out
+        return _out(out, 8, self.upsample)
 
     def qmap(self) -> dict:
         return {"m8.0": "stem/m8", "m16.0": "stem/m16", "m32.0": "stem/m32",
@@ -260,7 +290,7 @@ class SegMaskPSP(QuantAware, nn.Module):
 
     def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
         out = self.out(_seg_stem(self, xs))
-        return _up(out, 8) if self.upsample else out
+        return _out(out, 8, self.upsample)
 
     def qmap(self) -> dict:
         return {"m8.0": "stem/m8", "m16.0": "stem/m16", "m32.0": "stem/m32",
@@ -304,12 +334,10 @@ class SegMaskBiSe(nn.Module):
         feat3 = _up(self.up32(self.m32(xs[2])), 2)
         feat2 = _up(self.up16(self.m16(xs[1]) + feat3), 2)
         out = self.out([f8, feat2])
-        if not self.training and not self.upsample:
-            return out
-        out = _up(out, 8)
         if not self.training:
-            return out
-        return [out, _up(self.aux16(feat2), 8), _up(self.aux32(feat3), 16)]
+            return _out(out, 8, self.upsample)
+        return [_out(out, 8), _out(self.aux16(feat2), 8),
+                _out(self.aux32(feat3), 16)]
 
     def train_only_prefixes(self):
         return ["aux16.", "aux32."]
@@ -338,7 +366,7 @@ class SegMaskLab(nn.Module):
 
     def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
         out = self.decoder([self.detail(xs[0]), _up(self.encoder(xs[1]), 2)])
-        return _up(out, 8) if self.upsample else out
+        return _out(out, 8, self.upsample)
 
 
 class SegMaskBase(nn.Module):
@@ -353,8 +381,7 @@ class SegMaskBase(nn.Module):
         c_spp = int(c_hid * 1.5)
         self.m = nn.Sequential(
             C3(ch[0], c_hid, n, shortcut), C3SPP(c_hid, c_spp, (5, 9, 13)),
-            Dropout(0.1), nn.Conv2d(c_spp, n_segcls, 3, 1, 1, bias=False))
+            Dropout(0.1), Conv2d(c_spp, n_segcls, 3, 1, 1, bias=False))
 
     def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
-        out = self.m(xs[0])
-        return _up(out, 8) if self.upsample else out
+        return _out(self.m(xs[0]), 8, self.upsample)

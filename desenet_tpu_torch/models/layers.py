@@ -23,6 +23,16 @@ Numerics that differ from PyTorch defaults and are kept on purpose:
 
 Every ``forward`` takes and returns NCHW tensors; the JAX modules take NHWC.
 
+Under ``parallel.spatial.scope`` (``--spatial``) each map is this rank's
+height band of the global map, and the ops that see across rows take
+their neighbours' rows: every conv of kernel or stride above 1
+(``Conv2d``, which every block here builds), the SPP pools
+(``max_pool_same``), the global pools of GlobalBranch and FFM and the
+PyramidPooling bins (``adaptive_avg_pool``), PyramidPooling's resize
+back (``resize_bilinear_onto``). Focus's slices and the neck's nearest
+upsample are local on whole bands; BN's statistics are the world's sums
+already. C3TR, whose attention spans the whole map, refuses a band.
+
 The quant-aware blocks (``QuantAware``: ConvBnAct, FusedFocus, Focus,
 Bottleneck, C3, SPP, SPPF, FFM, DilatedConvBnSiLU, GlobalBranch, ACSP, RFB2,
 PyramidPooling) also have ``qforward``: the JAX package's eval forward
@@ -50,7 +60,7 @@ from torch import nn
 
 from desenet_tpu_torch import quant as Q
 from desenet_tpu_torch.ops import int8_conv
-from desenet_tpu_torch.parallel import multihost
+from desenet_tpu_torch.parallel import multihost, spatial
 from desenet_tpu_torch.parallel.mesh import process_count
 from desenet_tpu_torch.ops.resize import (
     adaptive_avg_pool,
@@ -58,6 +68,7 @@ from desenet_tpu_torch.ops.resize import (
     broadcast_hw,
     max_pool_same,
     resize_bilinear,
+    resize_bilinear_onto,
     resize_bilinear_separable,
     resize_nearest,
 )
@@ -91,17 +102,22 @@ _RECOMPUTE: contextvars.ContextVar = contextvars.ContextVar(
 def checkpointed(mod: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """``mod(x)`` with its activations recomputed in the backward pass
     (``torch.utils.checkpoint``, non-reentrant, the RNG state kept, so
-    dropout draws the same bits); the recompute runs under ``_RECOMPUTE``.
+    dropout draws the same bits); the recompute runs under ``_RECOMPUTE``
+    and the forward's spatial scope.
     """
     from torch.utils.checkpoint import checkpoint
 
     calls = [0]
+    # the recompute may run on autograd's device thread, outside the
+    # forward's spatial scope: it takes the scope the forward ran in
+    band = spatial.current()
 
     def run(inp):
         token = _RECOMPUTE.set(calls[0] > 0)
         calls[0] += 1
         try:
-            return mod(inp)
+            with spatial.reenter(band):
+                return mod(inp)
         finally:
             _RECOMPUTE.reset(token)
 
@@ -397,6 +413,18 @@ def set_quant(mod, quant, qkey: str, cdtype) -> None:
         set_quant(mod.get_submodule(path), quant, f"{qkey}/{name}", cdtype)
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that convolves a height band with its halo under a
+    spatial scope (``parallel.spatial.conv2d``) where its kernel or stride
+    spans rows; ``nn.Conv2d``'s forward otherwise."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if (self.kernel_size[0] > 1 or self.stride[0] > 1) \
+                and spatial.active():
+            return spatial.conv2d(self, x)
+        return super().forward(x)
+
+
 class ConvBnAct(QuantAware, nn.Module):
     """Conv2d(bias=False) + BN + SiLU: the reference ``Conv`` block, with the
     BN skipped on a 1x1 input map. Sites: ``in`` and ``inmean`` (its input),
@@ -405,8 +433,8 @@ class ConvBnAct(QuantAware, nn.Module):
     def __init__(self, c1: int, c2: int, k=1, s=1, p=None, g: int = 1,
                  d: int = 1, act: bool = True):
         super().__init__()
-        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p), dilation=d,
-                              groups=g, bias=False)
+        self.conv = Conv2d(c1, c2, k, s, autopad(k, p), dilation=d,
+                           groups=g, bias=False)
         self.bn = batch_norm(c2)
         self.act = nn.SiLU() if act else nn.Identity()
 
@@ -812,6 +840,9 @@ class TransformerBlock(nn.Module):
         self.c2 = c2
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if spatial.active():
+            raise ValueError("C3TR attends over the whole map; spatial "
+                             "partitioning cannot split it into bands")
         if self.conv is not None:
             x = self.conv(x)
         b, _, h, w = x.shape
@@ -860,7 +891,7 @@ class MixConv2d(nn.Module):
         idx = np.floor(np.linspace(0, n - 1e-6, c2)).astype(int)
         ch = [int((idx == g).sum()) for g in range(n)]
         self.m = nn.ModuleList(
-            nn.Conv2d(c1, ch[g], k[g], s, k[g] // 2, bias=False)
+            Conv2d(c1, ch[g], k[g], s, k[g] // 2, bias=False)
             for g in range(n))
         self.bn = batch_norm(c2)
         self.act = nn.SiLU()
@@ -951,7 +982,9 @@ class FFM(QuantAware, nn.Module):
         return self._gated(self.convblk(x))
 
     def _gated(self, feat: torch.Tensor) -> torch.Tensor:
-        return feat * self.channel_attention(feat) + feat
+        # channel_attention[0]'s pool, over the whole map of a band
+        att = self.channel_attention[1:](adaptive_avg_pool(feat, 1))
+        return feat * att + feat
 
     def qmap(self) -> dict:
         return {"convblk": "convblk"}
@@ -993,7 +1026,7 @@ class DilatedConvBnSiLU(QuantAware, nn.Sequential):
 
     def __init__(self, c1: int, c2: int, d: int):
         super().__init__(
-            nn.Conv2d(c1, c2, 3, 1, padding=d, dilation=d, bias=False),
+            Conv2d(c1, c2, 3, 1, padding=d, dilation=d, bias=False),
             batch_norm(c2),
             nn.SiLU(),
         )
@@ -1023,7 +1056,8 @@ class GlobalBranch(QuantAware, nn.Sequential):
         super().__init__(nn.AdaptiveAvgPool2d(1), ConvBnAct(c1, c2, 1))
 
     def forward(self, x: torch.Tensor, out_hw) -> torch.Tensor:
-        return resize_nearest(self[1](self[0](x)), out_hw)
+        # adaptive_avg_pool is self[0]'s op, over the whole map of a band
+        return resize_nearest(self[1](adaptive_avg_pool(x, 1)), out_hw)
 
     def qmap(self) -> dict:
         return {"1": "conv"}
@@ -1172,11 +1206,10 @@ class PyramidPooling(QuantAware, nn.Module):
             setattr(self, f"conv{i + 1}", ConvBnAct(c1, c1 // 4, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        hw = x.shape[2:]
         feats = [x] if self.short_cut else []
         for i, k in enumerate(self.k):
             y = getattr(self, f"conv{i + 1}")(adaptive_avg_pool(x, k))
-            feats.append(resize_bilinear(y, hw, align_corners=True))
+            feats.append(resize_bilinear_onto(y, x))
         return torch.cat(feats, 1)
 
     def quirk_bn_prefixes(self):

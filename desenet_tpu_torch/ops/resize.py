@@ -21,6 +21,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from desenet_tpu_torch.parallel import spatial
+
 
 @functools.lru_cache(maxsize=None)
 def _linear_matrix(n_in: int, n_out: int, align_corners: bool) -> np.ndarray:
@@ -90,13 +92,84 @@ def upsample_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
 
 
 def adaptive_avg_pool(x: torch.Tensor, out_hw) -> torch.Tensor:
-    """torch.nn.AdaptiveAvgPool2d on NCHW x."""
+    """torch.nn.AdaptiveAvgPool2d on NCHW x; of a band, the pool of the
+    whole map on every rank (``_band_adaptive_pool``)."""
+    if spatial.active():
+        return _band_adaptive_pool(x, out_hw)
     return F.adaptive_avg_pool2d(x, out_hw)
 
 
 def max_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
-    """MaxPool2d(kernel=k, stride=1, padding=k//2) on NCHW x (the SPP pools)."""
+    """MaxPool2d(kernel=k, stride=1, padding=k//2) on NCHW x (the SPP pools);
+    of a band, with its -inf halo (``spatial.max_pool_same``)."""
+    if spatial.active():
+        return spatial.max_pool_same(x, k)
     return F.max_pool2d(x, k, 1, k // 2)
+
+
+# ---- bands of a height-sharded map (``parallel/spatial.py``) --------------
+#
+# A band's slice of the (out, in) H matrix names the input rows it needs:
+# the pools sum the band's rows into every bin (``spatial_sum`` adds the
+# ranks' partial sums), the resizes fetch the few rows past the band that
+# its output rows read (``spatial.rows``). The contractions run in the
+# band's dtype (f32 for f32 and bf16 under autocast, as matmuls go).
+
+
+def _contract(x: torch.Tensor, mh: np.ndarray, mw: np.ndarray
+              ) -> torch.Tensor:
+    a = torch.from_numpy(np.ascontiguousarray(mh)).to(x.device, x.dtype)
+    b = torch.from_numpy(np.ascontiguousarray(mw)).to(x.device, x.dtype)
+    return torch.matmul(torch.matmul(a, x), b.t())
+
+
+def _band_adaptive_pool(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """The adaptive average pool of the whole map of the band ``x``, on
+    every spatial rank: the band's partial bin sums (in at least f32),
+    added over the ranks."""
+    oh, ow = (out_hw, out_hw) if isinstance(out_hw, int) else out_hw
+    ctx = spatial.current()
+    starts, stops, h = spatial.band_of(ctx, x.shape[2])
+    s, e = starts[ctx.me], stops[ctx.me]
+    xa = x.to(torch.promote_types(x.dtype, torch.float32))
+    if (oh, ow) == (1, 1):
+        part = xa.sum((2, 3), keepdim=True) / float(h * x.shape[3])
+    else:
+        part = _contract(xa, _adaptive_pool_matrix(h, oh)[:, s:e],
+                         _adaptive_pool_matrix(x.shape[3], ow))
+    return spatial.spatial_sum(part).to(x.dtype)
+
+
+def resize_bilinear_band(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """``resize_bilinear(x, (H * scale, W * scale), align_corners=True)``;
+    of a band, this rank's band of the resized map (``scale`` times its
+    rows), from the rows the band's output rows read."""
+    h, w = x.shape[2:]
+    if not spatial.active():
+        return resize_bilinear(x, (h * scale, w * scale), align_corners=True)
+    ctx = spatial.current()
+    starts, stops, h = spatial.band_of(ctx, h)
+    m = _linear_matrix(h, h * scale, True)
+    spans = []
+    for s, e in zip(starts, stops):
+        cols = np.nonzero(m[s * scale:e * scale].any(0))[0]
+        spans.append((int(cols[0]), int(cols[-1]) + 1))
+    a, b = spans[ctx.me]
+    mh = m[starts[ctx.me] * scale:stops[ctx.me] * scale, a:b]
+    return _contract(spatial.rows(x, spans), mh,
+                     _linear_matrix(w, w * scale, True))
+
+
+def resize_bilinear_onto(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The align_corners bilinear resize of ``y`` to ``x``'s size; where
+    ``x`` is a band and ``y`` a whole (pooled) map, to ``x``'s band of the
+    whole map's size."""
+    if not spatial.active():
+        return resize_bilinear(y, x.shape[2:], align_corners=True)
+    ctx = spatial.current()
+    starts, stops, h = spatial.band_of(ctx, x.shape[2])
+    mh = _linear_matrix(y.shape[2], h, True)[starts[ctx.me]:stops[ctx.me]]
+    return _contract(y, mh, _linear_matrix(y.shape[3], x.shape[3], True))
 
 
 # ---- the JAX package's separable forms, for the int8 and fp8 paths --------

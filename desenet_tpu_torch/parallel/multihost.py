@@ -14,9 +14,13 @@ collectives itself:
   ``broadcast_float`` send process 0's value to all (the engine's run
   directory and fitness);
 - ``global_sum`` adds a tensor over the processes without gradient (the
-  losses' normalizers), ``global_sum_grad`` with it (the BatchNorm
-  statistics of the global batch), ``sum_gradients`` adds the gradients
-  in place (the gradient of the global batch's loss is their sum);
+  losses' normalizers; under a spatial scope over the data axis only,
+  since the ranks of a spatial group hold the same images),
+  ``global_sum_grad`` with it (the BatchNorm statistics of the global
+  batch: a spatial group's bands add up to its images), ``sum_gradients``
+  adds the gradients in place (the gradient of the global batch's loss is
+  their sum);
+- ``host_count`` is the number of hosts the processes run on;
 - ``spawn`` starts processes of one group on this host.
 
 At one process (no group, or a group of one) each is the identity.
@@ -33,7 +37,7 @@ from typing import Iterable, Optional
 import torch
 import torch.distributed as dist
 
-from desenet_tpu_torch.parallel import mesh
+from desenet_tpu_torch.parallel import mesh, spatial
 
 LOGGER = logging.getLogger("desenet_tpu_torch")
 
@@ -44,6 +48,7 @@ __all__ = [
     "broadcast_str",
     "broadcast_float",
     "global_sum",
+    "host_count",
     "global_sum_grad",
     "sum_gradients",
     "spawn",
@@ -131,13 +136,26 @@ def broadcast_float(value: float) -> float:
 
 
 def global_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the processes, with no gradient (a count or a
-    normalizer); ``x`` itself at one process."""
-    if mesh.process_count() == 1:
+    """``x`` summed over the processes (over the data axis under a spatial
+    scope), with no gradient (a count or a normalizer); ``x`` itself at
+    one process."""
+    ctx = spatial.current()
+    n = mesh.process_count() if ctx is None else ctx.mesh.n_data
+    if n == 1:
         return x
     out = x.detach().clone()
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=None if ctx is None else ctx.mesh.data_group)
     return out
+
+
+def host_count() -> int:
+    """The number of distinct hosts of the processes (1 without a
+    group)."""
+    if mesh.process_count() == 1:
+        return 1
+    names = [None] * mesh.process_count()
+    dist.all_gather_object(names, socket.gethostname(), group=_host_group)
+    return len(set(names))
 
 
 def global_sum_grad(x: torch.Tensor) -> torch.Tensor:

@@ -543,19 +543,28 @@ def train_batch(rng, b: int, imgsz: int, nc: int, max_targets: int = 32
 
 def train_steps(device, fused: bool, dtype: torch.dtype, steps: int,
                 seed: int = 0, cfg=None, imgsz: int = 64, b: int = 2,
-                rows: Optional[slice] = None) -> list:
+                rows: Optional[slice] = None, spatial: int = 1) -> list:
     """A model (``cfg``, the tiny one by default, at ``imgsz``) takes
     ``steps`` training steps on ``device`` from a seeded state and a seeded
     global batch of ``b`` (SGD, a batch that always steps). ``rows``: this
     process's rows of the global batch in a multi-process run (the step
-    takes the global batch's gradient, ``train/step.py``). Returns per step
+    takes the global batch's gradient, ``train/step.py``). ``spatial``
+    above 1: the process group is a data x spatial mesh
+    (``parallel.mesh.make_mesh``), the rows are this process's data row's
+    and the step trains on its height band of them. Returns per step
     ``(loss, {group: {key: tensor}})``, the groups ``params``, ``stats``,
     ``mu`` and ``ema`` copied to the CPU in float64 after the step."""
     from desenet_tpu_torch.models import build_model, init_weights
+    from desenet_tpu_torch.parallel.mesh import make_mesh
+    from desenet_tpu_torch.parallel.multihost import local_batch_slice
     from desenet_tpu_torch.train import create_train_state, make_train_step
     from desenet_tpu_torch.train.engine import load_hyp, loss_and_schedule
     from desenet_tpu_torch.train.state import bn_stats
 
+    mesh = None
+    if spatial > 1:
+        mesh = make_mesh(spatial=spatial)
+        rows = local_batch_slice(b, mesh.data_index, mesh.n_data)
     dev = torch.device(device)
     model, spec = build_model(cfg or tiny_cfg(), seg_upsample=not fused,
                               train=True)
@@ -569,7 +578,7 @@ def train_steps(device, fused: bool, dtype: torch.dtype, steps: int,
     state = create_train_state(model, opt_cfg)
     step = make_train_step(model, det_loss, opt_cfg, lf, nb=4,
                            warmup_iters=2, nominal_bs=b, batch_size=b,
-                           fused_seg=fused, dtype=dtype)
+                           fused_seg=fused, dtype=dtype, mesh=mesh)
     out = []
     for _ in range(steps):
         state, m = step(state, batch)

@@ -19,9 +19,19 @@ first step, ``testing.TRAIN_PARITY_STEPS``). Prints one line::
     dryrun_multichip(2): ok - loss=... step2_loss=... dparams=... (one
     process on the global batch: loss rel err ..., params ...)
 
-and exits non-zero on any failure. ``run`` is the launcher that
-``chip_smoke.py`` phase 11(b) also takes, with two processes on one card
-over gloo.
+and exits non-zero on any failure. At ``--nproc`` 4 or more and even, as
+``__graft_entry__.dryrun_multichip`` does, the same processes then take
+one step as a ``dp(N/2) x sp2`` mesh (``--spatial 2``: each image's
+height split over two processes, ``parallel/spatial.py``) at 128 px on a
+global batch of N, against pure data parallelism over the N processes on
+the same batch; the losses within the JAX dry run's 1e-3, and the whole
+state within ``testing``'s float64 bars::
+
+    dryrun_multichip(4): ok - dp2 x sp2 mesh loss=... (matches dp: loss
+    rel err ..., params ...)
+
+``run`` is the launcher that ``chip_smoke.py`` phases 11(b) and 14 also
+take, with two processes on one card over gloo.
 """
 
 from __future__ import annotations
@@ -42,9 +52,10 @@ def _worker(rank: int, n: int, coordinator: str, device: str,
     multihost.init_multihost(coordinator, n, rank, device=device,
                              backend=backend)
     try:
-        rows = multihost.local_batch_slice(kw["b"])
+        if kw.get("spatial", 1) == 1:
+            kw = dict(kw, rows=multihost.local_batch_slice(kw["b"]))
         with no_tf32():
-            return train_steps(device, rows=rows, **kw)
+            return train_steps(device, **kw)
     finally:
         multihost.shutdown()
 
@@ -78,8 +89,8 @@ def main(argv=None) -> None:
 
     kw = dict(fused=True, dtype=torch.float64, steps=args.steps, seed=0,
               b=2 * args.nproc)
-    got = run(args.nproc, args.device,
-              "gloo" if args.device.startswith("cuda") else None, **kw)
+    backend = "gloo" if args.device.startswith("cuda") else None
+    got = run(args.nproc, args.device, backend, **kw)
     torch.set_num_threads(1)
     with no_tf32():
         want = train_steps(args.device, **kw)
@@ -95,6 +106,30 @@ def main(argv=None) -> None:
           f"process on the global batch: loss rel err "
           f"{max(e['loss'] for e in errs):.2e}, params "
           f"{max(e['params'][0] for e in errs):.2e})", flush=True)
+    if args.nproc >= 4 and args.nproc % 2 == 0:
+        spatial_phase(args.nproc, args.device, backend)
+
+
+def spatial_phase(nproc: int, device: str, backend: Optional[str]) -> None:
+    """One float64 step of a ``dp(nproc/2) x sp2`` mesh at 128 px (the
+    deepest map keeps 2 rows a band, ``check_spatial``) against pure data
+    parallelism on the same global batch of ``nproc``."""
+    from desenet_tpu_torch.testing import check_train_parity, parity_errors
+
+    kw = dict(fused=True, dtype=torch.float64, steps=1, seed=0, b=nproc,
+              imgsz=128)
+    got = run(nproc, device, backend, spatial=2, **kw)
+    want = run(nproc, device, backend, **kw)
+    errs = parity_errors(got, want)
+    if abs(got[0][0] - want[0][0]) >= 1e-3:
+        raise AssertionError(f"dp x sp loss {got[0][0]} against dp "
+                             f"{want[0][0]}")
+    check_train_parity(errs, kw["dtype"],
+                       f"dryrun_multichip({nproc}) dp x sp")
+    print(f"dryrun_multichip({nproc}): ok - dp{nproc // 2} x sp2 mesh "
+          f"loss={got[0][0]:.4f} (matches dp: loss rel err "
+          f"{errs[0]['loss']:.2e}, params {errs[0]['params'][0]:.2e})",
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -45,8 +45,17 @@ aliases ``latest``, ``last``, ``epoch N`` and, for the best epoch,
 ``best``. ``--remat`` recomputes each DSL row's activations in the
 backward pass (``models/build.py``).
 
-The JAX engine's data x spatial mesh is not ported (``refuse_unported``;
-ROADMAP.md).
+``--spatial k`` (the JAX engine's data x spatial mesh): the processes
+form an ``n_data x k`` grid (``parallel.mesh.make_mesh``; ``--n-devices
+N`` starts N = n_data x k of them), the global batch divides over the
+data axis only, and the k processes of a data row load the same shard
+and each trains on its height band of it (``train/step.py``).
+``check_spatial`` holds the smallest size the run feeds (multi-scale's
+0.5x floor) to 2 rows per band at the deepest stride, and the run must
+stay on one host. The EMA validation runs as in the JAX engine, where it
+is one device's program outside the mesh: process 0 validates the whole
+val batches on its own device, the model unsharded (kernel K3's NMS on a
+card), and sends the others the fitness.
 """
 
 from __future__ import annotations
@@ -67,7 +76,9 @@ from desenet_tpu_torch.losses import DetectionLoss
 from desenet_tpu_torch.models import build_model, config_path, init_weights
 from desenet_tpu_torch.models.heads import anchors_grid_units
 from desenet_tpu_torch.parallel import multihost
-from desenet_tpu_torch.parallel.mesh import process_count, process_index
+from desenet_tpu_torch.parallel.mesh import (Mesh, check_spatial,
+                                             make_mesh, process_count,
+                                             process_index)
 from desenet_tpu_torch.train.optim import OptimConfig
 from desenet_tpu_torch.train.schedule import linear_lr as _linear_lr
 from desenet_tpu_torch.train.schedule import one_cycle
@@ -93,7 +104,6 @@ DEFAULT_HYP = dict(
 
 LOSS_KEYS = ("lbox", "lobj", "lcls", "lseg")
 BATCH_KEYS = ("image", "det_targets", "det_mask", "seg_labels")
-_ROADMAP = "is not ported to desenet_tpu_torch yet (ROADMAP.md, Queue 1"
 
 
 @dataclass
@@ -141,7 +151,7 @@ class TrainConfig:
     rect: bool = False  # aspect-sorted batch shapes (no mosaic, no shuffle)
     quad: bool = False  # quad collate: groups of 4 -> one 2x-size image
     freeze: int = 0  # freeze the first N layers
-    spatial: int = 1
+    spatial: int = 1  # processes of a data row, each on a height band
     fused_seg_loss: bool = True  # 1/8 seg logits, CE of their 8x upsample
     # by row blocks (ops/seg_ce.py), the JAX engine's default
     device: str = "cuda"  # where the model trains; "cpu" only when asked
@@ -189,15 +199,6 @@ def loss_and_schedule(hyp: Dict, spec, imgsz: int, epochs: int,
     return det_loss, opt_cfg, lf
 
 
-def refuse_unported(cfg: TrainConfig) -> None:
-    """Raise NotImplementedError for the options whose work belongs to
-    later work (ROADMAP.md names each)."""
-    if cfg.spatial > 1:
-        raise NotImplementedError(
-            f"--spatial above 1 (the data x spatial mesh) {_ROADMAP} "
-            "item 11)")
-
-
 def resolve_device(name: str) -> torch.device:
     """``name`` as a device; a CUDA one must exist (no quiet CPU run). A
     bare ``cuda`` is the process's current card (``cuda:LOCAL_RANK`` in a
@@ -212,27 +213,56 @@ def resolve_device(name: str) -> torch.device:
 
 
 def check_processes(cfg: TrainConfig, pc: int) -> None:
-    """The JAX engine's conditions on a run of ``pc`` processes."""
+    """The JAX engine's conditions on a run of ``pc`` processes, of which
+    ``pc // spatial`` data ranks split the batch."""
     if cfg.n_devices not in (None, 1) and cfg.n_devices != pc:
         raise ValueError(
             f"--n-devices {cfg.n_devices} trains in {cfg.n_devices} "
             f"processes, one a device, and this run has {pc}: cli.train "
             "starts them, or launch them with DESENET_COORDINATOR, "
             "DESENET_NUM_PROCESSES and DESENET_PROCESS_ID")
+    sp = max(cfg.spatial, 1)
+    if pc % sp:
+        raise ValueError(
+            f"--spatial {sp} must divide the device count ({pc})")
+    n_dp = pc // sp
+    if cfg.batch_size % n_dp:
+        raise ValueError(f"global batch {cfg.batch_size} not divisible by "
+                         f"{n_dp} processes")
+    if cfg.quad and (cfg.batch_size // n_dp) % 4:
+        raise ValueError(
+            f"--quad needs the per-process batch ({cfg.batch_size}/{n_dp}="
+            f"{cfg.batch_size // n_dp}) divisible by 4 (collate groups 4 "
+            "images per super-image)")
     if pc == 1:
         return
-    if cfg.batch_size % pc:
-        raise ValueError(f"global batch {cfg.batch_size} not divisible by "
-                         f"{pc} processes")
-    if cfg.quad and (cfg.batch_size // pc) % 4:
-        raise ValueError(
-            f"--quad needs the per-process batch ({cfg.batch_size}/{pc}="
-            f"{cfg.batch_size // pc}) divisible by 4 (collate groups 4 "
-            "images per super-image)")
     if cfg.rect:
         raise ValueError("multi-process training is incompatible with "
                          "--rect: aspect-sorted batch shapes diverge across "
                          "processes")
+
+
+def make_run_mesh(cfg: TrainConfig, pc: int) -> Mesh:
+    """The run's mesh: its ``pc`` processes as ``pc // spatial`` data rows
+    of ``spatial`` (every process calls it). Spatial partitioning keeps to
+    one host, as the JAX engine's multi-process runs keep to spatial 1."""
+    if cfg.spatial > 1 and multihost.host_count() > 1:
+        raise ValueError(
+            "multi-host training supports spatial=1 only (each host's "
+            "processes load whole images of their data rows)")
+    return make_mesh(pc, spatial=cfg.spatial)
+
+
+def check_mesh_size(cfg: TrainConfig, mesh: Mesh, imgsz: int,
+                    stride: int) -> None:
+    """``check_spatial`` at the smallest size the run feeds (multi-scale's
+    0.5x floor in ``stride`` multiples), as the JAX engine holds it."""
+    if cfg.spatial <= 1:
+        return
+    min_sz = ((imgsz // 2) // stride * stride) if cfg.multi_scale else imgsz
+    check_spatial(mesh, min_sz, max_stride=stride)
+    LOGGER.info("mesh: %d-way data x %d-way spatial", mesh.n_data,
+                mesh.spatial)
 
 
 def _snapshot(cfg: TrainConfig) -> Dict:
@@ -284,13 +314,15 @@ def build_loop(cfg: TrainConfig, hyp: Dict, de_nc: int, se_nc: int, nb: int,
                names: Optional[Dict[int, str]] = None, anchors=None,
                init: Optional[Dict[str, torch.Tensor]] = None,
                resumed: Optional[Dict] = None,
-               generator: Optional[torch.Generator] = None) -> Loop:
+               generator: Optional[torch.Generator] = None,
+               mesh: Optional[Mesh] = None) -> Loop:
     """The model in training mode on ``device`` (weights from
     ``generator``, then ``init`` transferred by name and shape, or the
     whole state from ``resumed``), its ``TrainState``, the training step
     with the warmup of ``max(round(warmup_epochs * nb), warmup_floor)``
-    iterations, and ``Validator`` over the eval twin (full-resolution seg
-    logits, the compute dtype)."""
+    iterations (on ``mesh``'s bands where it has a spatial axis), and
+    ``Validator`` over the eval twin (full-resolution seg logits, the
+    compute dtype)."""
     from desenet_tpu_torch.eval import Validator
     from desenet_tpu_torch.utils.checkpoint import (intersect_trees,
                                                     restore_train_state)
@@ -327,7 +359,7 @@ def build_loop(cfg: TrainConfig, hyp: Dict, de_nc: int, se_nc: int, nb: int,
         model, det_loss, opt_cfg, lf, nb=nb, warmup_iters=warmup_iters,
         nominal_bs=cfg.nbs, batch_size=cfg.batch_size,
         det_gain=cfg.det_gain, seg_gain=cfg.seg_gain, freeze=cfg.freeze,
-        fused_seg=cfg.fused_seg_loss, dtype=dtype)
+        fused_seg=cfg.fused_seg_loss, dtype=dtype, mesh=mesh)
     eval_model, _ = build(True, False)
     eval_model.to(dev, dtype, memory_format=mf)
     validator = Validator(eval_model, nc=de_nc, se_nc=se_nc,
@@ -349,11 +381,11 @@ def train(cfg: TrainConfig, callbacks: Optional[Callbacks] = None) -> Dict:
                                                  labels_to_image_weights)
     from desenet_tpu_torch.utils.loggers import Loggers
 
-    refuse_unported(cfg)
     pc, is_main = process_count(), process_index() == 0
-    check_processes(cfg, pc)
-    callbacks = callbacks or Callbacks()
     dev = resolve_device(cfg.device)
+    check_processes(cfg, pc)
+    mesh = make_run_mesh(cfg, pc)
+    callbacks = callbacks or Callbacks()
     if cfg.fast_decode:  # before the run directory: no libjpeg, no run
         from desenet_tpu_torch.data.dataset import require_fast_decode
 
@@ -383,6 +415,7 @@ def train(cfg: TrainConfig, callbacks: Optional[Callbacks] = None) -> Dict:
     _, spec = build_model(config_path(cfg.cfg), nc=de_nc, se_nc=se_nc)
     stride = max(spec.det_strides)
     imgsz = check_img_size(cfg.imgsz, s=stride)
+    check_mesh_size(cfg, mesh, imgsz, stride)
 
     resumed = init = None
     if cfg.resume:
@@ -396,7 +429,8 @@ def train(cfg: TrainConfig, callbacks: Optional[Callbacks] = None) -> Dict:
     # (multi-scale resizes host batches first, so it stages none); each
     # process loads a strided shard of every epoch. Process 0 writes the
     # label and image caches first, the others then read them.
-    local_bs = cfg.batch_size // pc
+    n_dp, data_rank = mesh.n_data, mesh.data_index
+    local_bs = cfg.batch_size // n_dp
     if not is_main:
         multihost.sync_hosts("dataset_cache")
     train_loader, train_ds = create_mixed_dataloader(
@@ -405,7 +439,7 @@ def train(cfg: TrainConfig, callbacks: Optional[Callbacks] = None) -> Dict:
         workers=cfg.workers, max_targets=cfg.max_targets, seed=cfg.seed,
         stage=None if cfg.multi_scale else to_device(dev), rect=cfg.rect,
         quad=cfg.quad, fast_decode=cfg.fast_decode,
-        cache_images=cfg.cache_images, rank=process_index(), world_size=pc)
+        cache_images=cfg.cache_images, rank=data_rank, world_size=n_dp)
     val_loader = None
     if is_main:  # validation runs on process 0 only
         val_loader, _ = create_mixed_dataloader(
@@ -416,7 +450,7 @@ def train(cfg: TrainConfig, callbacks: Optional[Callbacks] = None) -> Dict:
         multihost.sync_hosts("dataset_cache")
     # every process takes the same number of steps an epoch: the floor over
     # the ranks (a rank may own one more sample of the strided order)
-    nb = (len(train_ds) // pc) // local_bs if pc > 1 else len(train_loader)
+    nb = (len(train_ds) // n_dp) // local_bs if n_dp > 1 else len(train_loader)
     class_weights = labels_to_class_weights(train_ds.det_labels, de_nc)
     LOGGER.info("class weights: %s", np.round(class_weights, 3))
 
@@ -442,7 +476,7 @@ def train(cfg: TrainConfig, callbacks: Optional[Callbacks] = None) -> Dict:
     loop = build_loop(cfg, hyp, de_nc, se_nc, nb, imgsz, dev, meta,
                       save_dir=save_dir, names=dict(enumerate(de_names)),
                       anchors=anchors, init=init, resumed=resumed,
-                      generator=generator)
+                      generator=generator, mesh=mesh)
     loop.wandb = wb
     if not is_main:
         loop.validator = None

@@ -21,10 +21,23 @@ share of the global batch's and the gradient of that loss is the sum of
 theirs: the gradients are summed over the processes (not averaged) before
 the update, and every process applies the same update. The reference's
 seg loss times WORLD_SIZE is not copied, as in the JAX step.
+
+On a ``(data, spatial)`` mesh (``make_train_step(mesh=...)``, the JAX
+engine's ``--spatial``) each process holds its data row's images and
+feeds the model its height band of them (``parallel.mesh.spatial_band``)
+under ``parallel.spatial.scope``; the model's outputs come back whole on
+every rank of the spatial group, so each computes the whole loss of its
+data row's images against whole labels, with the normalizers summed over
+the data axis only (each image once). The spatial group's ranks thus hold
+``spatial`` copies of that loss, and ``gather_rows``' backward adds their
+gradients: the backward takes ``loss / spatial``, so that the gradients
+summed over all the processes are the global batch's. BN sums its
+statistics over all of them (bands of a group add up to its images).
 """
 
 from __future__ import annotations
 
+import contextlib
 import re
 from typing import Callable, Dict, Optional
 
@@ -35,7 +48,8 @@ from desenet_tpu_torch.losses import DetectionLoss, segmentation_loss
 from desenet_tpu_torch.models.build import require_seg_head
 from desenet_tpu_torch.models.layers import Dropout
 from desenet_tpu_torch.ops.seg_ce import upsampled_ce
-from desenet_tpu_torch.parallel.mesh import process_count
+from desenet_tpu_torch.parallel import spatial
+from desenet_tpu_torch.parallel.mesh import Mesh, process_count, spatial_band
 from desenet_tpu_torch.parallel.multihost import global_sum, sum_gradients
 from desenet_tpu_torch.train import optim as O
 from desenet_tpu_torch.train.ema import ema_update
@@ -71,6 +85,7 @@ def make_train_step(
     freeze: int = 0,
     fused_seg: bool = False,
     dtype: torch.dtype = torch.float32,
+    mesh: Optional[Mesh] = None,
 ):
     """Returns ``train_step(state, batch, generator=None) -> (state,
     metrics)`` for ``model`` (the state's model, in training mode).
@@ -93,7 +108,9 @@ def make_train_step(
     masks from it, or from the device's default generator when it is None.
 
     ``batch_size`` and ``nominal_bs`` are global: with several processes
-    ``batch`` is this process's rows of a global batch of ``batch_size``.
+    ``batch`` is this process's rows of a global batch of ``batch_size``
+    (its data rank's rows, whole, on a spatial ``mesh``: the step cuts the
+    image's band of this rank).
 
     ``metrics``: ``loss, lbox, lobj, lcls, lseg`` (0-d tensors on the
     device, the global batch's), ``lr`` (float) and ``stepped`` (0 or 1)."""
@@ -109,6 +126,8 @@ def make_train_step(
         model.get_parameter(name).requires_grad_(False)
     compute_cast = dtype in (torch.bfloat16, torch.float16)
     dropouts = [m for m in model.modules() if isinstance(m, Dropout)]
+    sp = mesh.spatial if mesh is not None else 1
+    max_stride = int(max(model.spec.det_strides))
 
     def train_step(state: TrainState, batch: Dict,
                    generator: Optional[torch.Generator] = None):
@@ -117,29 +136,43 @@ def make_train_step(
         ni = state.step
         dev = next(iter(state.params.values())).device
         imgs = torch.as_tensor(batch["image"], device=dev)
+        height = imgs.shape[1]
+        if sp > 1:  # this rank's height band of its data row's images
+            imgs = spatial_band({"image": imgs}, mesh, max_stride)["image"]
         x = imgs.to(dtype)
         if imgs.dtype == torch.uint8:
             x = x / 255.0
         x = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC batch
         for m in dropouts:
             m.generator = generator
-        with torch.autocast(dev.type, dtype=dtype, enabled=compute_cast):
-            det_feats, seg_out = model(x)
-        det_total, comps = det_loss_fn(
-            det_feats, torch.as_tensor(batch["det_targets"], device=dev),
-            torch.as_tensor(batch["det_mask"], device=dev))
-        seg_lab = torch.as_tensor(batch["seg_labels"], device=dev).to(
-            torch.int32)
-        if (not isinstance(seg_out, (list, tuple))
-                and seg_out.shape[2:] != seg_lab.shape[1:]):
-            # 1/8 logits: CE against their 8x align_corners upsample, tiled
-            seg_l = upsampled_ce(seg_out, seg_lab, seg_lab.shape[1:],
-                                 align_corners=True)
-        else:
-            seg_l = segmentation_loss(seg_out, seg_lab,
-                                      aux_weight=seg_aux_weight)
-        loss = det_gain * det_total + seg_gain * seg_l
-        loss.backward()  # accumulates into .grad
+        band = (spatial.scope(mesh, height, max_stride) if sp > 1
+                else contextlib.nullcontext())
+        with band:
+            with torch.autocast(dev.type, dtype=dtype,
+                                enabled=compute_cast):
+                det_feats, seg_out = model(x)
+            det_total, comps = det_loss_fn(
+                det_feats, torch.as_tensor(batch["det_targets"], device=dev),
+                torch.as_tensor(batch["det_mask"], device=dev))
+            seg_lab = torch.as_tensor(batch["seg_labels"], device=dev).to(
+                torch.int32)
+            if (not isinstance(seg_out, (list, tuple))
+                    and seg_out.shape[2:] != seg_lab.shape[1:]):
+                # 1/8 logits: CE against their 8x align_corners upsample,
+                # tiled
+                seg_l = upsampled_ce(seg_out, seg_lab, seg_lab.shape[1:],
+                                     align_corners=True)
+            else:
+                seg_l = segmentation_loss(seg_out, seg_lab,
+                                          aux_weight=seg_aux_weight)
+            loss = det_gain * det_total + seg_gain * seg_l
+            # accumulates into .grad; the spatial group's copies of the
+            # loss add up to one in the summed gradients
+            (loss / sp if sp > 1 else loss).backward()
+            losses = (loss, *comps, seg_l)
+            if process_count() > 1:  # the shares of the processes, added
+                losses = global_sum(torch.stack([v.detach()
+                                                 for v in losses]))
 
         # warmup-interpolated accumulation count (train.py:334)
         ni32 = np.float32(ni)
@@ -167,9 +200,6 @@ def make_train_step(
                 p.grad = None
             state.last_opt_step = ni
         state.step = ni + 1
-        losses = (loss, *comps, seg_l)
-        if process_count() > 1:  # the shares of the processes, added
-            losses = global_sum(torch.stack([v.detach() for v in losses]))
         metrics = {
             "loss": losses[0].detach(),
             "lbox": losses[1].detach(),

@@ -262,13 +262,12 @@ REFUSED = [["--spatial", "2"], ["--wandb"],
 
 @pytest.mark.parametrize("flag", REFUSED, ids=lambda f: f[0])
 def test_unported_flags_raise(flag, tmp_path, monkeypatch):
-    """Of the flags the port once refused, --spatial above 1 still raises
-    NotImplementedError naming ROADMAP.md; the W&B flags and --remat are
-    ported and reach the engine, which (no card) refuses the default
-    --device cuda. Both before any run directory."""
+    """The flags the port once refused are ported (--spatial above 1, the
+    W&B flags, --remat): each reaches the engine, which (no card) refuses
+    the default --device cuda, before any run directory. --spatial's runs
+    are in tests/test_torch_spatial.py."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    want = ((NotImplementedError, "ROADMAP") if flag[0] == "--spatial"
-            else (RuntimeError, "--device cpu"))
+    want = (RuntimeError, "--device cpu")
     with pytest.raises(want[0], match=want[1]):
         cli_train.main(["--data", "x.yaml", "--project", str(tmp_path)]
                        + flag)
@@ -278,14 +277,11 @@ def test_unported_flags_raise(flag, tmp_path, monkeypatch):
 def test_multi_process_launch_raises(monkeypatch):
     """A multi-process launch is ported (tests/test_torch_multiproc_*.py);
     an environment that names a coordinator but not the process count and
-    id is refused before anything joins, and --spatial names its ROADMAP
-    item."""
+    id is refused before anything joins."""
     monkeypatch.setenv("DESENET_COORDINATOR", "localhost:1234")
     monkeypatch.delenv("DESENET_NUM_PROCESSES", raising=False)
     with pytest.raises(ValueError, match="DESENET_NUM_PROCESSES"):
         cli_train.main(["--data", "x.yaml"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        engine.refuse_unported(engine.TrainConfig(spatial=2))
 
 
 @pytest.mark.parametrize("flag", [["--fast-decode"],

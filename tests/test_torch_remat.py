@@ -92,7 +92,7 @@ def test_engine_takes_remat(tmp_path):
                                               "tiny_psp2.yaml"),
                              remat=True, device="cpu", dtype="float32",
                              batch_size=2, epochs=1, project=str(tmp_path))
-    engine.refuse_unported(cfg)  # accepted
+    engine.check_processes(cfg, 1)  # accepted
     loop = engine.build_loop(cfg, engine.load_hyp(), 3, 2, 2, 64, "cpu", {})
     assert loop.state.model.remat and loop.state.model.training
     assert not loop.validator.model.remat

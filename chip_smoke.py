@@ -204,6 +204,25 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
    epoch at b8 (only rank 0 writes, K3 in its EMA validation); (d)
    tools.dryrun_multichip --nproc 4 (dp over 4 ranks, then dp2 x sp2 at
    128 px against dp).
+15. the JAX package's last modules: (a) yolov5s_seg at full width with
+   the phase-layout stem (Predictor(stem_s2d=True), the batch packed by
+   native.assemble_batch_s2d4): in f32 (TF32 off) at b16/640 on boosted
+   weights its stem output, decode and seg logits against the FusedFocus
+   Predictor's (S2D_STEM_BAR, S2D_F32_BAR of their largest magnitude), K1
+   on its decode at conf 0.001 and K2 on both stems' logits equal to
+   their plain versions, the seg maps equal on 99.9%; in bf16 at b128/640
+   on the seed-0 weights both Predictors' run_batch in turns (S2D_TURNS
+   each, medians and spread; K1 and K2 counted), rows 0 and 1 of each by
+   the profiler, the 2x2 conv's crop against F.pad, and the host's s2d
+   packing against np.stack and assemble_batch; (b) fp8 storage over
+   every row: testing.EXOTIC_CFG and tiny_psp2 with the BiSe, Lab and
+   Base heads at 64 px, float64 on the card against the CPU (rtol and
+   atol 1e-5 of the largest magnitude), the rows' storage dtypes, bf16
+   against bf16 without storage; cli.val --act-store fp8 on yolov5s_seg
+   with a C3Ghost row (K3 counted); (c) the grouped int8 conv at
+   testing.INT8_GROUPED_CASES against plain (int32 sums bit-equal), timed
+   beside its bound, and testing.GROUPED_CFG's int8 model on the card
+   against the CPU (its launches counted).
 
 Inputs of the kernel checks come from desenet_tpu_torch.testing, shared with
 tests/test_torch_kernels_cuda.py.
@@ -3418,6 +3437,443 @@ def phase14(card: str, sd: dict) -> dict:
     return launches
 
 
+B_S2D_F32 = 16   # the f32 stem_s2d check (TF32 off)
+S2D_TURNS = 5    # run_batch timings of each stem at b128, in turns
+S2D_STEM_BAR = 1e-5  # the stem's output, of its largest magnitude
+S2D_F32_BAR = 1e-3   # decode / seg logits, of the largest magnitude
+F8_CFGS = ("exotic", "BiSe", "Lab", "Base")
+
+
+def _served_forward(pred, x_u8: torch.Tensor):
+    """The Predictor's model on its device batch, as ``infer`` feeds it:
+    (decode, 1/8 seg logits NCHW)."""
+    x = x_u8.permute(0, 3, 1, 2).to(pred.dtype)
+    x = x.contiguous(memory_format=torch.channels_last) / 255
+    with torch.inference_mode():
+        (dec, _), seg = pred.model(x)
+    return dec, seg
+
+
+def _stem_device_ms(model, x: torch.Tensor) -> tuple:
+    """(device ms a call, kernel rows) of rows 0 and 1 of ``model`` on
+    ``x`` by the profiler (tools/profile_served.kernel_table)."""
+    from desenet_tpu_torch.tools.profile_served import kernel_table
+
+    def stem():
+        with torch.inference_mode():
+            return model.model[1](model.model[0](x))
+
+    rows = kernel_table(stem, x.device)
+    return sum(ms for _, ms, _ in rows), rows
+
+
+def phase15a(card: str, sd: dict) -> dict:
+    """(a) the phase-layout stem at full width: f32 against the FusedFocus
+    stem on boosted weights (testing.boosted_state: activations that do
+    not fade through the depth), K1 and K2 on its outputs against their
+    plain versions, then the bf16 served program of both stems at b128/640
+    on ``sd`` in turns, the stems' kernels by the profiler and the host's
+    s2d packing."""
+    from desenet_tpu_torch import native
+    from desenet_tpu_torch.api import Predictor
+    from desenet_tpu_torch.models import build_model, config_path
+    from desenet_tpu_torch.models import layers as L
+    from desenet_tpu_torch.ops import nms_fused, seg_pallas
+    from desenet_tpu_torch.testing import boosted_state
+
+    dev = torch.device("cuda")
+    boosted = boosted_state(build_model(config_path("yolov5s_seg"))[0])
+    rng = np.random.default_rng(15)
+    imgs = [rng.integers(0, 256, (IMGSZ, IMGSZ, 3), dtype=np.uint8)
+            for _ in range(B_SERVE)]
+    # f32, TF32 off: the two stems on one b16 batch
+    std = Predictor("yolov5s_seg", boosted, imgsz=IMGSZ, half=False,
+                    device="cuda")
+    s2d = Predictor("yolov5s_seg", boosted, imgsz=IMGSZ, half=False,
+                    device="cuda", stem_s2d=True)
+    if s2d.stem_s2d is not True or std.stem_s2d is not False or not all(
+            isinstance(s2d.model.model[i], c)
+            for i, c in ((0, L.PhaseStemA), (1, L.PhaseStemB))):
+        raise AssertionError("Predictor(stem_s2d=True) built no phase stem")
+    few = imgs[:B_S2D_F32]
+    xb = torch.from_numpy(np.stack(few)).to(dev)
+    xs = torch.from_numpy(native.assemble_batch_s2d4(few)).to(dev)
+    with no_tf32():
+        dec_b, seg_b = _served_forward(std, xb)
+        dec_s, seg_s = _served_forward(s2d, xs)
+        with torch.inference_mode():
+            stem_b = std.model.model[1](std.model.model[0](
+                xb.permute(0, 3, 1, 2).float().contiguous(
+                    memory_format=torch.channels_last) / 255))
+            stem_s = s2d.model.model[1](s2d.model.model[0](
+                xs.permute(0, 3, 1, 2).float().contiguous(
+                    memory_format=torch.channels_last) / 255))
+    torch.cuda.synchronize()
+    errs = {n: float((a - b).abs().max() / b.abs().max()) for n, a, b in (
+        ("stem", stem_s, stem_b), ("decode", dec_s, dec_b),
+        ("seg logits", seg_s, seg_b))}
+    if errs["stem"] > S2D_STEM_BAR or max(errs.values()) > S2D_F32_BAR \
+            or not torch.isfinite(dec_s).all():
+        raise AssertionError(f"stem_s2d f32 against the FusedFocus stem: "
+                             f"{errs} (bars {S2D_STEM_BAR}, {S2D_F32_BAR})")
+    # K1 on the phase stem's decode (conf 0.001: thousands of candidates)
+    planes = nms_fused.nms_planes(dec_s, 0.001)
+    got = nms_fused.greedy_select(*planes, 300, 0.45)
+    if not torch.equal(got, nms_fused.greedy_select_plain(*planes, 300,
+                                                          0.45)):
+        raise AssertionError("K1 on the stem_s2d decode differs from plain")
+    n_cand = int((planes[4] > 0).sum())
+    # K2 on both stems' seg logits: each equal to plain, the maps agreeing
+    maps = []
+    for seg in (seg_s, seg_b):
+        nhwc = seg.permute(0, 2, 3, 1).contiguous()
+        h, w = nhwc.shape[1:3]
+        k2 = seg_pallas.upsample_argmax(nhwc)
+        plain = seg_pallas.upsample_argmax_plain(
+            nhwc, *seg_pallas.seg_taps(h, 8 * h, True, dev),
+            *seg_pallas.seg_taps(w, 8 * w, True, dev))
+        if not torch.equal(k2, plain):
+            raise AssertionError("K2 on the stem_s2d seg logits differs "
+                                 "from plain")
+        maps.append(k2)
+    agree = float((maps[0] == maps[1]).float().mean())
+    if agree < 0.999:
+        raise AssertionError(f"stem_s2d seg map equal on {agree} only")
+    log("15a", f"yolov5s_seg f32 b{B_S2D_F32}/{IMGSZ} (TF32 off), phase "
+        f"stem against FusedFocus: stem output, decode and seg logits "
+        f"within {errs['stem']:.2e}, {errs['decode']:.2e}, "
+        f"{errs['seg logits']:.2e} of their largest magnitude (bars "
+        f"{S2D_STEM_BAR}, {S2D_F32_BAR}, boosted weights); K1 on its "
+        f"decode ({n_cand} candidates at conf 0.001) equal to plain, K2 on both stems' logits equal to plain, "
+        f"seg maps equal on {agree:.6f} [{card}]")
+    del std, s2d
+
+    # bf16 b128/640: the served program of both stems in turns
+    std = Predictor("yolov5s_seg", sd, imgsz=IMGSZ, half=True, device="cuda")
+    s2d = Predictor("yolov5s_seg", sd, imgsz=IMGSZ, half=True, device="cuda",
+                    stem_s2d=True)
+    host = {"np.stack": [], "assemble_batch": [], "assemble_batch_s2d4": []}
+    for _ in range(S2D_TURNS):
+        for name, fn in (("np.stack", np.stack),
+                         ("assemble_batch", native.assemble_batch),
+                         ("assemble_batch_s2d4", native.assemble_batch_s2d4)):
+            t = time.perf_counter()
+            fn(imgs)
+            host[name].append((time.perf_counter() - t) * 1e3)
+    bb = np.stack(imgs)
+    bs = native.assemble_batch_s2d4(imgs)
+    for pr, b in ((std, bb), (s2d, bs)):
+        pr.run_batch(b)  # warm
+    nms_fused.launches = seg_pallas.launches = 0
+    ms = {"FusedFocus": [], "phase": []}
+    order = [("FusedFocus", std, bb), ("phase", s2d, bs)]
+    for i in range(S2D_TURNS):
+        for name, pr, b in (order if i % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = pr.run_batch(b)
+            ms[name].append((time.perf_counter() - t) * 1e3)
+    k = {"nms_fused": nms_fused.launches, "seg_tail": seg_pallas.launches}
+    if k != {"nms_fused": 2 * S2D_TURNS, "seg_tail": 2 * S2D_TURNS}:
+        raise AssertionError(f"served program launches {k}")
+    if out[4].shape != (B_SERVE, IMGSZ, IMGSZ) or not np.isfinite(
+            out[1]).all():
+        raise AssertionError("stem_s2d served program: bad outputs")
+    # the stems alone: profiler kernel time, and l1's two paddings
+    x16 = {}
+    for name, pr, b in order:
+        x16[name] = torch.from_numpy(b).to(dev).permute(0, 3, 1, 2).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last) / 255
+    stem_ms = {name: _stem_device_ms(pr.model, x16[name])
+               for name, pr, _ in order}
+    with torch.inference_mode():
+        y0 = s2d.model.model[0](x16["phase"])
+        w2 = L.phase_stem_kernel_b(s2d.model.model[1].conv.weight).to(
+            y0.dtype)
+        pad_crop, pad_copy = in_turns(
+            (lambda: torch.nn.functional.conv2d(y0, w2, None, 1, 1)
+             [:, :, :-1, :-1].contiguous(
+                 memory_format=torch.channels_last), 10),
+            (lambda: torch.nn.functional.conv2d(
+                torch.nn.functional.pad(y0, (1, 0, 1, 0)), w2), 10))
+    med = {n: float(np.median(v)) for n, v in ms.items()}
+    spread = {n: (min(v), max(v)) for n, v in ms.items()}
+    hmed = {n: float(np.median(v)) for n, v in host.items()}
+    log("15a", f"yolov5s_seg bf16 b{B_SERVE}/{IMGSZ} run_batch in turns "
+        f"({S2D_TURNS} each): FusedFocus median {med['FusedFocus']:.3f} ms "
+        f"(min {spread['FusedFocus'][0]:.3f}, max "
+        f"{spread['FusedFocus'][1]:.3f}), phase stem median "
+        f"{med['phase']:.3f} ms (min {spread['phase'][0]:.3f}, max "
+        f"{spread['phase'][1]:.3f}); launches {k} [{card}]")
+    for name, (tot, rows) in stem_ms.items():
+        log("15a", f"{name} stem (rows 0 and 1) bf16 b{B_SERVE}/{IMGSZ}: "
+            f"{tot:.3f} ms of kernels a call by the profiler, "
+            + "; ".join(f"{r[0][:60]} {r[1]:.3f} ms x{r[2]:.0f}"
+                        for r in rows[:6]) + f" [{card}]")
+    log("15a", f"l1' 2x2 conv bf16 b{B_SERVE}: pad 1 and drop the last row "
+        f"and column {pad_crop:.3f} ms, F.pad (1, 0) then conv "
+        f"{pad_copy:.3f} ms (in turns) [{card}]")
+    log("15a", f"host packing of {B_SERVE} images at {IMGSZ} (median of "
+        f"{S2D_TURNS}): " + ", ".join(f"{n} {v:.3f} ms"
+                                      for n, v in hmed.items())
+        + f" [{card}]")
+    return k
+
+
+def _f8_cfg(name: str) -> dict:
+    """The exotic config, or tiny_psp2 with the BiSe, Lab or Base head."""
+    import copy
+
+    from desenet_tpu_torch.testing import EXOTIC_CFG
+
+    if name == "exotic":
+        return copy.deepcopy(EXOTIC_CFG)
+    cfg = tiny_cfg()
+    cfg["head"][-2] = [[16, 19, 22], 1, f"SegMask{name}", ["se_nc", 1, 256]]
+    return cfg
+
+
+def _f8_state(model) -> dict:
+    """Seeded weights with O(1) activations: init_weights, BN biases
+    offset by 0.05 cos(i) (the JAX package's tests/test_fp8_store.py
+    fixture)."""
+    from desenet_tpu_torch.models import init_weights
+
+    sd = init_weights(model, torch.Generator().manual_seed(15)).state_dict()
+    for k, v in sd.items():
+        if k.endswith("bias") and v.is_floating_point():
+            sd[k] = v + 0.05 * torch.cos(torch.arange(v.numel(),
+                                                      dtype=v.dtype))
+    return sd
+
+
+def phase15b(card: str) -> int:
+    """(b) fp8 storage over every row: the exotic config and the BiSe, Lab
+    and Base heads at 64 px, then cli.val --act-store fp8 on a config with
+    a Ghost row; returns K3's launches."""
+    import tempfile
+
+    from desenet_tpu_torch.models import build_model, config_path
+    from desenet_tpu_torch.models.build import det_fp_layers
+    from desenet_tpu_torch.ops import nms_pallas
+    from desenet_tpu_torch.utils.convert import load_state_dict
+
+    dev = torch.device("cuda")
+    x = torch.rand((2, 3, 64, 64), generator=torch.Generator().manual_seed(15))
+    for name in F8_CFGS:
+        cfg = _f8_cfg(name)
+        sd = _f8_state(build_model(cfg)[0])
+        outs = {}
+        for key, store, dt, d in (("cpu64", "fp8", torch.float64, "cpu"),
+                                  ("cuda64", "fp8", torch.float64, "cuda"),
+                                  ("cuda16", "fp8", torch.bfloat16, "cuda"),
+                                  ("cuda16_plain", None, torch.bfloat16,
+                                   "cuda")):
+            m, spec = build_model(cfg, fuse_focus=True, act_store=store)
+            load_state_dict(m, sd)
+            m = m.to(d, dt).eval()
+            rows, run = {}, m._row
+
+            def record(ls, mod, inp, cd, qmode, rows=rows, run=run):
+                rows[ls.i] = out = run(ls, mod, inp, cd, qmode)
+                return out
+
+            m._row = record
+            with torch.inference_mode(), no_tf32():
+                (dec, feats), seg = m(x.to(d, dt))
+            outs[key] = ([f.double().cpu() for f in feats]
+                         + ([] if seg is None else [seg.double().cpu()]),
+                         rows, spec, dec.double().cpu())
+        got, rows, spec, _ = outs["cuda64"]
+        # test_torch_act_store.py's bars: rtol 1e-5, atol 1e-5 of the
+        # largest magnitude (float64 on both devices: no f32 sum moves a
+        # value across an e4m3 rounding boundary)
+        for a, b in zip(got, outs["cpu64"][0]):
+            if not torch.isfinite(a).all() or not bool(
+                    ((a - b).abs() <= 1e-5 * b.abs()
+                     + 1e-5 * b.abs().max()).all()):
+                raise AssertionError(f"fp8 {name} float64 CUDA vs CPU: "
+                                     f"{float((a - b).abs().max())}")
+        fp_rows = det_fp_layers(spec, 1)
+        f8_rows = [ls.i for ls in spec.layers
+                   if isinstance(rows[ls.i], torch.Tensor)
+                   and rows[ls.i].dtype == torch.float8_e4m3fn]
+        _, rows16, _, dec16 = outs["cuda16"]
+        bad = [ls.i for ls in spec.layers if ls.i in fp_rows and isinstance(
+            rows16[ls.i], torch.Tensor) and rows16[ls.i].dtype
+            == torch.float8_e4m3fn]
+        if not f8_rows or bad:
+            raise AssertionError(f"fp8 {name}: float8 rows {f8_rows}, "
+                                 f"det rows stored float8 {bad}")
+        # bf16 against the bf16 model without storage: the decode at the
+        # JAX package's bars (tests/test_fp8_store.py: rtol 0.35, atol 5%
+        # of its largest magnitude); the seg logits of the deeper heads
+        # carry e4m3's rounding through more stores than that test's PSP2
+        # head (Base's reach 9% of their largest magnitude on the CPU), so
+        # they are held to a cosine of at least 0.995 with the bf16 logits
+        # and to 25% of their largest magnitude
+        dec0 = outs["cuda16_plain"][3]
+        if not torch.isfinite(dec16).all() or not bool(
+                ((dec16 - dec0).abs() <= 0.35 * dec0.abs()
+                 + 0.05 * dec0.abs().max()).all()):
+            raise AssertionError(f"fp8 {name} bf16 decode against bf16: "
+                                 f"{float((dec16 - dec0).abs().max())}")
+        errs = [float((dec16 - dec0).abs().max() / dec0.abs().max())]
+        cos = None
+        if spec.seg_layer >= 0:
+            a, b = outs["cuda16"][0][-1], outs["cuda16_plain"][0][-1]
+            cos = float((a * b).sum() / (a.norm() * b.norm()))
+            errs.append(float((a - b).abs().max() / b.abs().max()))
+            if not torch.isfinite(a).all() or cos < 0.995 or errs[-1] > 0.25:
+                raise AssertionError(f"fp8 {name} bf16 seg logits against "
+                                     f"bf16: cosine {cos}, {errs[-1]}")
+        log("15b", f"fp8 storage, {name} at 64 px b2: float64 on CUDA "
+            f"equal to the CPU's within 1e-5 of the largest magnitude, "
+            f"float8 rows {f8_rows} (rows feeding Detect {sorted(fp_rows)} "
+            f"in the compute dtype); bf16 decode and seg logits finite, "
+            f"within {errs} of the bf16 model's largest magnitudes, seg "
+            f"cosine {cos} [{card}]")
+
+    # cli.val --act-store fp8 on yolov5s_seg with a C3Ghost row
+    import cv2  # noqa: F401
+    import PIL  # noqa: F401
+
+    from desenet_tpu_torch.cli import val as cli_val
+    from desenet_tpu_torch.models import init_weights
+    from desenet_tpu_torch.tools.make_fake_dataset import generate
+
+    with open(config_path("yolov5s_seg")) as fh:
+        cfg = json.load(fh)
+    cfg["backbone"][4] = [-1, 3, "C3Ghost", [256]]
+    launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fp8_") as tmp:
+        data = generate(os.path.join(tmp, "ds"), n_train=4, n_val=16,
+                        size=320, seed=15)
+        cfg_path = os.path.join(tmp, "ghost.json")
+        with open(cfg_path, "w") as fh:
+            json.dump(cfg, fh)
+        from desenet_tpu_torch.utils.general import check_dataset
+
+        ds = check_dataset(data)
+        m, _ = build_model(cfg, nc=int(ds["de"]["nc"]),
+                           se_nc=int(ds["se"]["nc"]))
+        npz = os.path.join(tmp, "sd.npz")
+        np.savez(npz, **{k: v.numpy() for k, v in init_weights(
+            m, torch.Generator().manual_seed(15)).state_dict().items()})
+        nms_pallas.launches = 0
+        t = time.perf_counter()
+        r = cli_val.main(["--data", data, "--cfg", cfg_path, "--weights",
+                          npz, "--batch-size", "16", "--img-size", "320",
+                          "--device", "cuda", "--workers", "2",
+                          "--act-store", "fp8", "--save-dir",
+                          os.path.join(tmp, "val")])
+        wall = time.perf_counter() - t
+        launches = nms_pallas.launches
+    if r["seen"] != 16 or launches < 1 or not all(
+            0.0 <= r[k] <= 1.0 for k in ("miou", "pix_acc", "map50")):
+        raise AssertionError(f"cli.val --act-store fp8 (C3Ghost): {r}, K3 "
+                             f"launches {launches}")
+    log("15b", f"cli.val --act-store fp8, yolov5s_seg with a C3Ghost row, "
+        f"one b16/320 batch of fake images: mIoU {r['miou']:.4f}, mAP50 "
+        f"{r['map50']:.4f}, {wall:.3f} s wall, K3 launches {launches} "
+        f"[{card}]")
+    return launches
+
+
+def phase15c(card: str, errs: dict, extras: dict) -> int:
+    """(c) the grouped int8 conv: the kernel against its plain version at
+    testing.INT8_GROUPED_CASES, timed beside its bound, then the int8
+    model of testing.GROUPED_CFG on the card against the CPU; returns the
+    kernel's launches on that forward."""
+    from desenet_tpu_torch import quant as Q
+    from desenet_tpu_torch.models import build_model
+    from desenet_tpu_torch.ops import int8_conv
+    from desenet_tpu_torch.testing import (GROUPED_CFG, INT8_GROUPED_CASES,
+                                           boosted_state, check_int8,
+                                           int8_conv_case)
+    from desenet_tpu_torch.utils.convert import load_state_dict
+
+    rows, err = [], 0.0
+    for case in INT8_GROUPED_CASES:
+        c = int8_conv_case(case, "cuda")
+        parts, p = c["parts"], c["prep"]
+        args = {k: c[k] for k in ("residual", "res_scale", "out_scale", "act",
+                                  "out_mode")}
+        raw = int8_conv.run(parts, p, out_mode=int8_conv.OUT_I32)
+        if not torch.equal(raw, int8_conv.int8_conv_plain(
+                parts, p, out_mode=int8_conv.OUT_I32)):
+            raise AssertionError(f"grouped int8 conv {case[0]}: int32 sums "
+                                 f"differ from plain")
+        want = int8_conv.int8_conv_plain(parts, p, **args)
+        e = check_int8(int8_conv.run(parts, p, **args), want, case[0])
+        err = max(err, e)
+        pl, k = in_turns(
+            (lambda: int8_conv.int8_conv_plain(parts, p, **args), 2),
+            (lambda: int8_conv.run(parts, p, **args), 20))
+        b, cin, h, w = parts[0].shape
+        o, _, kh, kw = p.qw.shape
+        ho, wo = want.shape[2:]
+        bound, by = tm.int8_conv_bound(b, h, w, cin, ho, wo, o, kh, kw, 1,
+                                       args["residual"] is not None,
+                                       p.groups)
+        macs = tm.int8_conv_macs(b, ho, wo, cin, o, kh, kw, p.groups)
+        rows.append({"case": case[0], "groups": p.groups, "ms": k,
+                     "plain_ms": pl, "bound_ms": bound, "bound_by": by,
+                     "library_ms": None})
+        log("15c", f"grouped int8_conv {case[0]} ({b}, {h}, {w}, {cin}) -> "
+            f"({o}, {ho}, {wo}) k{kh} s{p.stride} g{p.groups}: kernel "
+            f"{k:.4f} ms ({2 * macs / k / 1e9:.1f} TOP/s), plain {pl:.3f} ms,"
+            f" bound {bound:.4f} ms ({by}); int32 sums equal, max |diff| "
+            f"after the epilogue {e} [{card}]")
+    errs["int8_conv"] = max(errs.get("int8_conv", 0.0), err)
+    extras.setdefault("int8_conv", {})["grouped"] = rows
+
+    cfg = GROUPED_CFG
+    sd = boosted_state(build_model(cfg)[0], seed=0)
+    x = torch.rand((2, 3, 64, 64), generator=torch.Generator().manual_seed(1))
+    cm, _ = build_model(cfg, fuse_focus=True,
+                        quant=Q.QuantCfg(mode="calib"))
+    load_state_dict(cm, sd)
+    scales, means = Q.calibrate_stats(cm.eval(), [x])
+    qcfg = Q.QuantCfg(mode="int8", scales=scales, in_means=means)
+    outs, launches = [], 0
+    for dev in ("cpu", "cuda"):
+        m, _ = build_model(cfg, fuse_focus=True, quant=qcfg)
+        load_state_dict(m, sd)
+        mf = (torch.channels_last if dev == "cuda"
+              else torch.contiguous_format)
+        m = m.to(dev, memory_format=mf).eval()
+        int8_conv.launches = 0
+        with torch.no_grad(), no_tf32():
+            (_, feats), _ = m(x.to(dev).contiguous(memory_format=mf))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = int8_conv.launches
+        outs.append([f.float().cpu() for f in feats])
+    n_grouped = sum(1 for mod in m.modules()
+                    if getattr(getattr(mod, "conv", None), "groups", 1) > 1
+                    and getattr(mod, "quant", None) is not None)
+    fe = max(float((a - b).abs().max() / b.abs().max())
+             for a, b in zip(outs[1], outs[0]))
+    if fe > 0.02 or launches < n_grouped or n_grouped < 5:
+        raise AssertionError(f"grouped int8 model on CUDA vs CPU: {fe}, "
+                             f"launches {launches}, grouped convs "
+                             f"{n_grouped}")
+    log("15c", f"testing.GROUPED_CFG int8 on CUDA against the CPU's plain "
+        f"convs: det features within {fe:.2e} of their largest magnitude "
+        f"(bar 0.02); {launches} int8_conv launches, {n_grouped} of them "
+        f"grouped convs [{card}]")
+    return launches
+
+
+def phase15(card: str, sd: dict, errs: dict, extras: dict) -> dict:
+    """The last unported modules: (a) the phase-layout stem, (b) fp8
+    storage over every row, (c) the grouped int8 conv."""
+    k = dict(phase15a(card, sd), nms_greedy=phase15b(card))
+    k["int8_conv"] = phase15c(card, errs, extras)
+    return k
+
+
 def main() -> None:
     took = {}
 
@@ -3455,6 +3911,8 @@ def main() -> None:
         launches[k] += v
     launches["nms_greedy"] += timed("13", phase13, card, sd)
     for k, v in timed("14", phase14, card, sd).items():
+        launches[k] += v
+    for k, v in timed("15", phase15, card, sd, errs, extras).items():
         launches[k] += v
     log("times", "seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in took.items())

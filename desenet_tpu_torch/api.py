@@ -1,6 +1,6 @@
 """High-level inference API: ``Predictor`` and ``Detections``.
 
-Counterpart of ``desenet_tpu/api.py`` without the space-to-depth stem:
+Counterpart of ``desenet_tpu/api.py``:
 
     from desenet_tpu_torch.api import Predictor, load_predictor
     from desenet_tpu_torch.utils.convert import load_npz_state_dict
@@ -16,6 +16,16 @@ compute dtype (``x / 255``), the model with the one-conv FusedFocus stem
 and 1/8-resolution seg logits, single-label NMS (kernel K1 on the card) and
 the seg tail (kernel K2). Like the JAX package's, it needs a model with a
 seg head.
+
+``Predictor(..., stem_s2d=True)`` serves the JAX package's phase-layout
+stem (``models/layers.py`` ``PhaseStemA``/``PhaseStemB``): the host packs
+each batch in space-to-depth-4 layout (``native.assemble_batch_s2d4``,
+(B, H/4, W/4, 48) uint8) and the first two layers run as a 3x3 conv of
+48 input channels and a 2x2 conv of 4 x 32, at the H/4 grid. ``None``
+(the default) means off in the port; the JAX package turns it on only on
+a TPU. A config whose stem it cannot rewrite (``build._check_stem_s2d``)
+and ``int8=True`` build the standard stem, and ``Predictor.stem_s2d``
+says which was built.
 
 ``Predictor(..., int8=True, calib=[images])`` serves the int8 W8A8
 program instead (``quant.quantize_for_inference``: calibrated on the
@@ -44,6 +54,7 @@ from typing import List, Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from desenet_tpu_torch import native
 from desenet_tpu_torch.data.augment import letterbox
 from desenet_tpu_torch.models import (build_model, config_path,
                                      require_seg_head)
@@ -188,6 +199,9 @@ class Predictor:
     JAX package's defaults); its parameters stay f32 and ``half`` sets the
     dtype of its input and fp pieces.
 
+    ``stem_s2d``: the phase-layout stem (module docstring); None or False
+    the standard one.
+
     ``n_devices``: replicas on that many devices (module docstring);
     ValueError with more than ``torch.cuda.device_count()`` on the card.
     ``bake_weights``: accepted for the JAX package's signature and has no
@@ -205,7 +219,7 @@ class Predictor:
                  se_nc: Optional[int] = None,
                  anchors: Optional[Sequence] = None, int8: bool = False,
                  calib: Optional[Sequence] = None, n_devices: int = 1,
-                 bake_weights: bool = True):
+                 bake_weights: bool = True, stem_s2d: Optional[bool] = None):
         if isinstance(cfg, str):
             cfg = config_path(cfg)
         self.device = torch.device(device)
@@ -242,15 +256,23 @@ class Predictor:
                 cfg, state_dict, [cal], device=self.device,
                 compute_dtype=self.dtype, nc=nc, se_nc=se_nc,
                 anchors=anchors, fuse_focus=fuse_focus)
+            stem_s2d = False
         else:
-            model, self.spec = build_model(cfg, nc=nc, se_nc=se_nc,
-                                           seg_upsample=False,
-                                           anchors=anchors,
-                                           fuse_focus=fuse_focus)
+            kw = dict(nc=nc, se_nc=se_nc, seg_upsample=False,
+                      anchors=anchors, fuse_focus=fuse_focus)
+            try:
+                model, self.spec = build_model(cfg, stem_s2d=bool(stem_s2d),
+                                               **kw)
+            except ValueError:  # a stem the phase layout cannot rewrite
+                if not stem_s2d:
+                    raise
+                stem_s2d = False
+                model, self.spec = build_model(cfg, **kw)
             load_state_dict(model, state_dict)
             self.model = model.to(self.device, self.dtype,
                                   memory_format=self._mf)
         require_seg_head(self.spec, "Predictor")
+        self.stem_s2d = bool(stem_s2d)
         self.imgsz = imgsz
         self.conf_thres = conf_thres
         self.iou_thres = iou_thres
@@ -274,7 +296,8 @@ class Predictor:
 
     @torch.inference_mode()
     def infer(self, img_u8: torch.Tensor, model=None):
-        """The device program: (B, H, W, 3) uint8 RGB on the device ->
+        """The device program: (B, H, W, 3) uint8 RGB on the device, or
+        with ``stem_s2d`` its (B, H/4, W/4, 48) space-to-depth-4 packing ->
         (NMSOutput, (B, H, W) uint8 seg class map); ``model`` a replica
         (the first by default)."""
         x = img_u8.permute(0, 3, 1, 2).to(self.dtype)
@@ -313,8 +336,12 @@ class Predictor:
         rgb = [np.ascontiguousarray(
             letterbox(im, self.imgsz)[0]
             [:, :, ::-1]) for im in imgs0]
+        # the network input's size, before any packing: with stem_s2d the
+        # batch is (B, H/4, W/4, 48), and the letterbox is undone from H, W
         h, w = rgb[0].shape[:2]
-        boxes, scores, classes, nums, seg_np = self.run_batch(np.stack(rgb))
+        batch = (native.assemble_batch_s2d4(rgb) if self.stem_s2d
+                 else np.stack(rgb))
+        boxes, scores, classes, nums, seg_np = self.run_batch(batch)
 
         xyxy, masks = [], []
         for i, im0 in enumerate(imgs0):
@@ -341,10 +368,11 @@ class Predictor:
 
     def run_batch(self, batch: np.ndarray):
         """The device program over the replicas on a (B, H, W, 3) uint8
-        batch: padded to a multiple of the replica count
-        (``pad_batch_for_mesh``: the last image repeated), a slice a
-        replica, all queued before any copy to the host. Returns numpy
-        (boxes, scores, classes, num, seg classes) of the B images."""
+        batch (with ``stem_s2d`` a (B, H/4, W/4, 48) one): padded to a
+        multiple of the replica count (``pad_batch_for_mesh``: the last
+        image repeated), a slice a replica, all queued before any copy to
+        the host. Returns numpy (boxes, scores, classes, num, seg classes)
+        of the B images."""
         n, k = batch.shape[0], len(self._replicas)
         batch = pad_batch_for_mesh({"image": batch}, Mesh(k, 1))[0]["image"]
         outs = []

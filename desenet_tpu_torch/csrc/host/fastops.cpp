@@ -1,7 +1,6 @@
 // fastops: native host-side kernels of desenet_tpu_torch's data path.
 //
-// The port's own copy of the JAX package's native/fastops.cpp (without its
-// space-to-depth batch assembler, a TPU layout workaround). The Python
+// The port's own copy of the JAX package's native/fastops.cpp. The Python
 // loader threads call these C routines through ctypes
 // (desenet_tpu_torch/native.py); they hold no Python lock and parallelize
 // with OpenMP:
@@ -11,6 +10,8 @@
 //                       to PIL's ImageDraw.polygon
 //   rasterize_batch     the same over a batch of masks
 //   decode_jpeg_scaled  libjpeg decode at a DCT scale (with libjpeg only)
+//   assemble_batch_s2d4 assemble_batch in the phase stem's
+//                       space-to-depth-4 layout
 //
 // Built by desenet_tpu_torch/native.py with the host compiler at first use:
 // -O3 -fPIC -fopenmp -std=c++17 -ffp-contract=off, plus -DDESENET_HAVE_JPEG
@@ -349,6 +350,34 @@ int decode_jpeg_scaled(const uint8_t*, int64_t, int32_t, uint8_t*, int64_t,
 int has_jpeg() { return 0; }
 
 #endif
+
+// Pack N HWC uint8 samples into one contiguous batch in space-to-depth-4
+// layout (n, h/4, w/4, 16c), channel order (pr, pc, ci) — the input format
+// of the phase stem (desenet_tpu_torch/models/layers.py PhaseStemA). The
+// permutation is folded into the batch memcpy: same bytes moved as
+// assemble_batch, in 4c-byte runs. h, w must be divisible by 4 (the Python
+// wrapper checks).
+void assemble_batch_s2d4(uint8_t* dst, const uint8_t** srcs, int64_t n,
+                         int64_t h, int64_t w, int64_t c) {
+  const int64_t hq = h / 4, wq = w / 4;
+  const int64_t run = 4 * c;              // one (pr, x) run: 4 pixels
+  const int64_t dst_px = 16 * c;          // output channels per (y, x)
+  const int64_t dst_sample = hq * wq * dst_px;
+#pragma omp parallel for schedule(static) collapse(2)
+  for (int64_t i = 0; i < n; ++i) {
+    for (int64_t y = 0; y < hq; ++y) {
+      const uint8_t* src = srcs[i];
+      uint8_t* drow = dst + i * dst_sample + y * wq * dst_px;
+      for (int64_t pr = 0; pr < 4; ++pr) {
+        const uint8_t* srow = src + ((4 * y + pr) * w) * c;
+        uint8_t* dbase = drow + pr * run;
+        for (int64_t x = 0; x < wq; ++x) {
+          std::memcpy(dbase + x * dst_px, srow + x * run, run);
+        }
+      }
+    }
+  }
+}
 
 int fastops_version() { return 4; }
 

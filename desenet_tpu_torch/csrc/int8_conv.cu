@@ -10,9 +10,19 @@
 // PyTorch ops): an implicit-GEMM convolution over NHWC int8 input given as
 // up to four parts (an implicit channel concat; part p has C_p channels,
 // pixels ld_p elements apart, so a channel slice of a bigger map is read in
-// place), stride, zero padding, dilation, groups 1. Rows of the GEMM are
+// place), stride, zero padding, dilation, groups. Rows of the GEMM are
 // output pixels, columns output channels, depth the taps times the part's
-// channels. Each part's int32 sum becomes f32 and is scaled by its
+// channels. A grouped conv (one part; the JAX package concatenates the parts
+// first) is one GEMM a group: blockIdx.z is the group, whose N is its
+// C_out / g output channels and whose depth its C_in / g channels times the
+// taps, read at the group's channel offset of the input; its weights are
+// packed per output channel over the group's channels, zero-padded to the
+// 32-byte depth step like any part. A depthwise conv (C_in / g = 1) is a
+// degenerate GEMM: on the tile it filled C_out / g of 64 columns and one
+// depth step, and ran 2 to 3 times slower than PyTorch's float64 conv on
+// the card (PERF.md), so it takes a CUDA-core kernel of its own,
+// int8_dw_kernel: one thread an output element, the taps summed in int32,
+// the same epilogue. Each part's int32 sum becomes f32 and is scaled by its
 // per-output-channel factor g_p at the part's end; the scaled parts are
 // added in f32 in order (JAX's per-part sum, quant.py:347-361). Then the
 // epilogue in JAX's order (quant.py:362-376): + BN bias, + conv bias, - the
@@ -52,6 +62,7 @@ constexpr int kBN = 64;
 constexpr int kBK = 32;
 constexpr int kRow = kBK + 16;  // shared-memory row pitch in bytes
 constexpr int kThreads = 128;
+constexpr int kDwThreads = 256;
 
 constexpr int kOutInt8 = 0;
 constexpr int kOutF32 = 1;
@@ -83,6 +94,7 @@ struct Int8ConvArgs {
   int out_mode;
   int act;
   int B, H, W, Ho, Wo, O, KH, KW, stride, pad_h, pad_w, dil;
+  int groups;
 };
 
 namespace {
@@ -117,6 +129,39 @@ __device__ __forceinline__ int4 load_a(const int8_t* px, int cc, int C,
                    static_cast<int>(wv[2]), static_cast<int>(wv[3]));
 }
 
+// One output element's epilogue in JAX's order: v is the f32 sum of the
+// scaled parts, isum the raw int32 sum over all of them (kOutI32)
+__device__ __forceinline__ void store_out(const Int8ConvArgs& a, int m,
+                                          int o, float v, int isum,
+                                          float bnb, float bias, float corr,
+                                          float rs, float os) {
+  const size_t oi = static_cast<size_t>(m) * a.out_ld + o;
+  if (a.out_mode == kOutI32) {
+    static_cast<int*>(a.out)[oi] = isum;
+    return;
+  }
+  v = __fadd_rn(v, bnb);
+  v = __fadd_rn(v, bias);
+  v = __fsub_rn(v, corr);
+  if (a.act) {
+    const float sg = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-v)));
+    v = __fmul_rn(v, sg);
+  }
+  if (a.res != nullptr) {
+    const int8_t r = a.res[static_cast<size_t>(m) * a.res_ld + o];
+    v = __fadd_rn(v, __fmul_rn(__int2float_rn(r), rs));
+  }
+  if (a.out_mode == kOutF32) {
+    static_cast<float*>(a.out)[oi] = v;
+  } else if (a.out_mode == kOutBf16) {
+    static_cast<__nv_bfloat16*>(a.out)[oi] = __float2bfloat16_rn(v);
+  } else {
+    int q = __float2int_rn(__fdiv_rn(v, os));
+    q = q < -127 ? -127 : (q > 127 ? 127 : q);
+    static_cast<int8_t*>(a.out)[oi] = static_cast<int8_t>(q);
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
     int8_conv_kernel(const Int8ConvArgs a) {
   __shared__ __align__(16) int8_t sA[2][kBM * kRow];
@@ -130,7 +175,11 @@ __global__ void __launch_bounds__(kThreads)
   const int wm = (warp & 1) * 32;
   const int wn = (warp >> 1) * 32;
   const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
+  // the group's output channels [o_begin, o_end); all of them at groups 1
+  const int og = a.O / a.groups;
+  const int o_begin = blockIdx.z * og;
+  const int o_end = o_begin + og;
+  const int n0 = o_begin + blockIdx.y * kBN;
   const int hw_out = a.Ho * a.Wo;
   const int M = a.B * hw_out;
 
@@ -149,7 +198,7 @@ __global__ void __launch_bounds__(kThreads)
   const int iy0 = ay * a.stride - a.pad_h;
   const int ix0 = ax * a.stride - a.pad_w;
   const int bo = n0 + lr;
-  const bool brow = bo < a.O;
+  const bool brow = bo < o_end;
 
   float facc[2][4][4];
   int iacc[2][4][4];
@@ -165,8 +214,8 @@ __global__ void __launch_bounds__(kThreads)
 
   const int taps = a.KH * a.KW;
   for (int p = 0; p < a.nparts; ++p) {
-    const int8_t* x = a.x[p];
-    const int C = a.c[p];
+    const int C = a.c[p];  // a group's channels in a grouped conv
+    const int8_t* x = a.x[p] + static_cast<size_t>(blockIdx.z) * C;
     const int ld = a.ld[p];
     const int kpad = a.kpad[p];
     const bool vec = a.vec[p] != 0;
@@ -264,7 +313,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int o = n0 + wn + nt * 8 + t4 * 2 + j;
-        const float gv = o < a.O ? gp[o] : 0.0f;
+        const float gv = o < o_end ? gp[o] : 0.0f;
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
@@ -284,7 +333,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int o = n0 + wn + nt * 8 + t4 * 2 + j;
-      if (o >= a.O) continue;
+      if (o >= o_end) continue;
       const float bnb = a.bnb[o];
       const float bias = a.bias[o];
       const float corr = a.corr[o];
@@ -297,36 +346,51 @@ __global__ void __launch_bounds__(kThreads)
           const int e = 2 * h + j;
           const int m = m0 + wm + mt * 16 + g + 8 * h;
           if (m >= M) continue;
-          const size_t oi = static_cast<size_t>(m) * a.out_ld + o;
-          if (a.out_mode == kOutI32) {
-            static_cast<int*>(a.out)[oi] = iacc[mt][nt][e];
-            continue;
-          }
-          float v = facc[mt][nt][e];
-          v = __fadd_rn(v, bnb);
-          v = __fadd_rn(v, bias);
-          v = __fsub_rn(v, corr);
-          if (a.act) {
-            const float sg = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-v)));
-            v = __fmul_rn(v, sg);
-          }
-          if (a.res != nullptr) {
-            const int8_t r = a.res[static_cast<size_t>(m) * a.res_ld + o];
-            v = __fadd_rn(v, __fmul_rn(__int2float_rn(r), rs));
-          }
-          if (a.out_mode == kOutF32) {
-            static_cast<float*>(a.out)[oi] = v;
-          } else if (a.out_mode == kOutBf16) {
-            static_cast<__nv_bfloat16*>(a.out)[oi] = __float2bfloat16_rn(v);
-          } else {
-            int q = __float2int_rn(__fdiv_rn(v, os));
-            q = q < -127 ? -127 : (q > 127 ? 127 : q);
-            static_cast<int8_t*>(a.out)[oi] = static_cast<int8_t>(q);
-          }
+          store_out(a, m, o, facc[mt][nt][e], iacc[mt][nt][e], bnb, bias,
+                    corr, rs, os);
         }
       }
     }
   }
+}
+
+// A depthwise conv (one part of one input channel a group): one thread an
+// output element, output channels fastest (coalesced NHWC stores, and the
+// input reads of one pixel's channels side by side), the taps summed in
+// int32 from the packed (kpack) weight row, then store_out
+__global__ void __launch_bounds__(kDwThreads)
+    int8_dw_kernel(const Int8ConvArgs a) {
+  const long long n = static_cast<long long>(a.B) * a.Ho * a.Wo * a.O;
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kDwThreads + threadIdx.x;
+  if (i >= n) return;
+  const int o = static_cast<int>(i % a.O);
+  const int m = static_cast<int>(i / a.O);
+  const int hw = a.Ho * a.Wo;
+  const int b = m / hw;
+  const int r = m - b * hw;
+  const int oy = r / a.Wo;
+  const int ox = r - oy * a.Wo;
+  const int8_t* x = a.x[0] + o / (a.O / a.groups);
+  const int8_t* w = a.w + static_cast<size_t>(o) * a.ktot + a.koff[0];
+  int isum = 0;
+  for (int kh = 0; kh < a.KH; ++kh) {
+    const int iy = oy * a.stride - a.pad_h + kh * a.dil;
+    if (iy < 0 || iy >= a.H) continue;
+    for (int kw = 0; kw < a.KW; ++kw) {
+      const int ix = ox * a.stride - a.pad_w + kw * a.dil;
+      if (ix < 0 || ix >= a.W) continue;
+      const int8_t v =
+          __ldg(x + (static_cast<size_t>(b * a.H + iy) * a.W + ix) * a.ld[0]);
+      isum += static_cast<int>(v) *
+              static_cast<int>(__ldg(w + kh * a.KW + kw));
+    }
+  }
+  // the tile kernel's f32 steps: 0 + the part's scaled sum, then the rest
+  const float v = __fadd_rn(0.0f, __fmul_rn(__int2float_rn(isum), a.g[0][o]));
+  store_out(a, m, o, v, isum, a.bnb[o], a.bias[o], a.corr[o],
+            a.res != nullptr ? a.res_scale[o] : 0.0f,
+            a.out_mode == kOutInt8 ? a.out_scale[o] : 1.0f);
 }
 
 }  // namespace
@@ -337,8 +401,16 @@ extern "C" int desenet_int8_conv(const Int8ConvArgs* args, void* stream,
   const Int8ConvArgs& a = *args;
   const long long M = static_cast<long long>(a.B) * a.Ho * a.Wo;
   if (M <= 0 || a.O <= 0) return 0;
+  if (a.groups > 1 && a.c[0] == 1) {  // depthwise: the CUDA-core kernel
+    const long long n = M * a.O;
+    int8_dw_kernel<<<static_cast<unsigned>((n + kDwThreads - 1) / kDwThreads),
+                     kDwThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int og = a.O / a.groups;
   const dim3 grid(static_cast<unsigned>((M + kBM - 1) / kBM),
-                  static_cast<unsigned>((a.O + kBN - 1) / kBN));
+                  static_cast<unsigned>((og + kBN - 1) / kBN),
+                  static_cast<unsigned>(a.groups));
   int8_conv_kernel<<<grid, kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());

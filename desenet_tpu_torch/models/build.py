@@ -12,8 +12,14 @@ default, one (2k)x(2k)/s2 conv on the raw image (``"FusedFocus"``).
 
 ``build_model(quant=...)`` builds the int8 W8A8 inference model, its
 calibration model or its weights-only ablation (``quant.QuantCfg``);
-``act_store="fp8"`` the fp8 activation-storage model. Their eval forward
-is the JAX walker's (``DeSeNet.forward``).
+``act_store="fp8"`` the fp8 activation-storage model, of any config. Their
+eval forward is the JAX walker's (``DeSeNet.forward``).
+
+``build_model(stem_s2d=True)`` builds the JAX package's phase-layout stem:
+rows 0 and 1 (a FusedFocus(6, 2, 2) on the input and a 3x3/s2 Conv on it,
+``_check_stem_s2d``) become ``layers.PhaseStemA``/``PhaseStemB``, which
+take the input in space-to-depth-4 layout (``ops/s2d.py``) and own the
+same parameters under the same keys.
 """
 
 from __future__ import annotations
@@ -68,10 +74,7 @@ QUANT_AWARE = frozenset({
     "Conv", "C3", "Focus", "FusedFocus", "SPP", "SPPF", "Bottleneck",
     "Upsample", "Concat", "SegMaskPSP", "SegMaskPSP2",
 })
-_QUANT_SEG_HEADS = {"SegMaskPSP", "SegMaskPSP2"}
 _PASSTHROUGH = {"Concat", "Upsample", "Contract", "Expand"}
-# the rows of a model an fp8-storage build takes here
-_ACT_STORE_ROWS = QUANT_AWARE | {"Detect"}
 # the consumers a Concat may hand an implicit concat (a part list)
 _SPLIT_CONSUMERS = {"C3", "Conv", "C3TR", "C3Ghost", "BottleneckCSP", "SPP",
                     "SPPF"}
@@ -325,6 +328,34 @@ def _instantiate(ls: LayerSpec, c1, spec: ModelSpec, seg_upsample: bool,
     return block(c1, *a)
 
 
+def _check_stem_s2d(spec: ModelSpec, quant) -> None:
+    """ValueError unless ``stem_s2d`` is an exact rewrite of the model's
+    stem: l0 = FusedFocus(k 6, s 2, p 2) on the input, l1 = Conv(k 3, s 2)
+    on l0 read by nothing else, and no int8 quant (the JAX package's
+    rule)."""
+    ok = (
+        quant is None
+        and len(spec.layers) >= 2
+        and spec.layers[0].name == "FusedFocus"
+        and tuple(spec.layers[0].args[1:4]) == (6, 2, 2)
+        and spec.layers[0].f == (-1,)
+        and spec.layers[0].n == 1
+        and spec.layers[1].name == "Conv"
+        and spec.layers[1].f == (0,)
+        and spec.layers[1].n == 1
+        and len(spec.layers[1].args) >= 3
+        and tuple(spec.layers[1].args[1:3]) == (3, 2)
+        and all(a is None or a == 1 or a is True
+                for a in spec.layers[1].args[3:])
+        and 0 not in spec.save  # nothing downstream reads the phase map
+    )
+    if not ok:
+        raise ValueError(
+            "stem_s2d=True requires l0=Focus(k=3)/FusedFocus(6,2,2) on the "
+            "input and l1=Conv(k=3,s=2) on l0 (and no int8 quant); this "
+            "config does not match — build without stem_s2d")
+
+
 def det_fp_layers(spec: "ModelSpec", hops: int) -> set:
     """The rows that stay full precision under int8 and fp8 storage: those
     feeding Detect, through pass-through rows (Concat, Upsample, Contract,
@@ -377,6 +408,13 @@ class DeSeNet(nn.Module):
     weights come from f32 ones, as the JAX package's do): the dtype of
     the input and of the fp pieces (``torch.autocast`` around them).
 
+    ``stem_s2d``: rows 0 and 1 are the phase-layout stem
+    (``layers.PhaseStemA``/``PhaseStemB``; ValueError where
+    ``_check_stem_s2d`` rejects the config) and ``forward`` takes the
+    input in space-to-depth-4 layout, (B, 16 ch_in, H/4, W/4) NCHW of
+    ``ops.s2d.space_to_depth4``'s (pr, pc, ci) channels. Not under a
+    spatial scope (NotImplementedError).
+
     ``remat``: in training, each DSL row's module (not Upsample, Concat,
     Detect or the seg head; each outer repeat alone) runs under
     ``torch.utils.checkpoint``, as the JAX walker wraps it in ``nn.remat``:
@@ -394,8 +432,11 @@ class DeSeNet(nn.Module):
                  decode_cat: bool = True, seg_head_fused: bool = False,
                  quant=None, act_store=None, det_fp_hops: int = 1,
                  compute_dtype: Optional[torch.dtype] = None,
-                 remat: bool = False):
+                 remat: bool = False, stem_s2d: bool = False):
         super().__init__()
+        if stem_s2d:
+            _check_stem_s2d(spec, quant)
+        self.stem_s2d = stem_s2d
         self.spec = spec
         self.remat = remat
         self.seg_upsample = seg_upsample
@@ -412,8 +453,13 @@ class DeSeNet(nn.Module):
                 c1 = sum(chs[x + 1] for x in ls.f)
             else:
                 c1 = chs[ls.f[0] + 1]
-            mods.append(_instantiate(ls, c1, spec, seg_upsample,
-                                     decode_cat))
+            if stem_s2d and ls.i == 0:
+                mods.append(L.PhaseStemA(spec.ch_in, ls.c2))
+            elif stem_s2d and ls.i == 1:
+                mods.append(L.PhaseStemB(c1, ls.c2))
+            else:
+                mods.append(_instantiate(ls, c1, spec, seg_upsample,
+                                         decode_cat))
             chs.append(ls.c2)
         self.model = nn.ModuleList(mods)
         self._fp_rows = set()
@@ -421,13 +467,6 @@ class DeSeNet(nn.Module):
             self._setup_quant(det_fp_hops)
 
     def _setup_quant(self, det_fp_hops: int) -> None:
-        if self.act_store is not None:
-            other = sorted({ls.name for ls in self.spec.layers}
-                           - _ACT_STORE_ROWS)
-            if other:
-                raise NotImplementedError(
-                    f"fp8 activation storage of the rows {other} is not "
-                    "ported to desenet_tpu_torch (ROADMAP.md, Queue 1)")
         self._fp_rows = det_fp_layers(self.spec, det_fp_hops)
         for ls, m in zip(self.spec.layers, self.model):
             if ls.name not in QUANT_AWARE or ls.name in _PASSTHROUGH:
@@ -447,6 +486,10 @@ class DeSeNet(nn.Module):
         Detect or the fp rows)."""
         qmode = not self.training and (self.quant is not None
                                        or self.act_store is not None)
+        if self.stem_s2d and spatial.active():
+            raise NotImplementedError(
+                "the phase-layout stem (stem_s2d) does not run on height "
+                "bands (ROADMAP.md, Queue 1)")
         if qmode and spatial.active():
             raise ValueError("the int8 and fp8-storage programs do not run "
                              "on height bands (parallel/spatial.py)")
@@ -505,7 +548,8 @@ class DeSeNet(nn.Module):
         return inp
 
     def _row(self, ls: LayerSpec, m: nn.Module, inp, cd, qmode: bool):
-        """One row; ``qmode``: of the quantized or fp8-storage forward."""
+        """One row; ``qmode``: of the quantized or fp8-storage forward,
+        where every module runs its ``qforward`` (``layers.qrun``)."""
         if ls.name == "Upsample":
             if isinstance(inp, Q.QTensor):
                 return Q.qt_upsample_nearest(inp, ls.args[0])
@@ -535,13 +579,13 @@ class DeSeNet(nn.Module):
             return m([spatial.gather_rows(v) for v in xs])
         if ls.name in SEG_HEADS:
             xs = inp if isinstance(inp, list) else [inp]
-            if qmode and ls.name in _QUANT_SEG_HEADS:
+            if qmode and hasattr(m, "qforward"):
                 return m.qforward(xs)
             return self._seg_head(ls, m, xs)
-        if qmode and ls.name in QUANT_AWARE:
+        if qmode:
             out = inp
             for sub in (list(m) if ls.n > 1 else [m]):
-                out = sub.qforward(out)
+                out = L.qrun(sub, out)
             return out
         x = torch.cat(inp, 1) if isinstance(inp, list) else inp
         if self.remat and self.training:
@@ -616,14 +660,16 @@ def build_model(cfg, nc: Optional[int] = None, se_nc: Optional[int] = None,
                 fuse_focus: bool = False, quant=None, act_store=None,
                 det_fp_hops: int = 1,
                 compute_dtype: Optional[torch.dtype] = None,
-                remat: bool = False) -> Tuple[DeSeNet, ModelSpec]:
+                remat: bool = False,
+                stem_s2d: bool = False) -> Tuple[DeSeNet, ModelSpec]:
     """Parse ``cfg`` and build the model in eval mode (BN on its running
     statistics), or in training mode with ``train=True`` (the training
     step's model, usually with ``seg_upsample=False`` for the fused seg
     loss); ``anchors`` and ``fuse_focus`` as ``parse_config``.
     ``quant``: a ``quant.QuantCfg``; ``act_store``: "fp8" (e4m3),
     "fp8_e5m2" or a float8 dtype; the two are exclusive (ValueError);
-    ``det_fp_hops``, ``compute_dtype`` and ``remat`` as ``DeSeNet``."""
+    ``det_fp_hops``, ``compute_dtype``, ``remat`` and ``stem_s2d`` as
+    ``DeSeNet`` (``stem_s2d`` needs ``fuse_focus=True``)."""
     if isinstance(act_store, str):
         act_store = L.F8_NAMES[act_store]
     if act_store is not None and quant is not None:
@@ -634,7 +680,8 @@ def build_model(cfg, nc: Optional[int] = None, se_nc: Optional[int] = None,
     model = DeSeNet(spec, seg_upsample=seg_upsample, decode_cat=decode_cat,
                     seg_head_fused=seg_head_fused, quant=quant,
                     act_store=act_store, det_fp_hops=det_fp_hops,
-                    compute_dtype=compute_dtype, remat=remat)
+                    compute_dtype=compute_dtype, remat=remat,
+                    stem_s2d=stem_s2d)
     return model.train(train), spec
 
 

@@ -17,8 +17,11 @@ their class conv in training.
 SegMaskPSP2 and SegMaskPSP have ``qforward`` (``layers.QuantAware``): the
 JAX package's int8 head (the stem resized in int8 and kept as an implicit
 concat, the class conv an int8 conv with bias and fp logits out), its
-calibration and its fp8 storage. The other heads run on dequantized inputs
-in those modes, as in the JAX package; Detect always runs in fp.
+calibration and its fp8 storage. SegMaskBiSe, SegMaskLab and SegMaskBase
+have a ``qforward`` too, their fp8-storage forward (every block stores,
+the adds, resizes and class convs upcast first, as in the JAX package);
+in the int8 program they run in fp on dequantized inputs. Detect always
+runs in fp.
 
 Under a spatial scope (``parallel/spatial.py``) the heads run on height
 bands: their convs and pools as ``layers`` says, the 2x and 4x
@@ -212,8 +215,9 @@ def _seg_stem_q(head, xs):
 def _seg_out_q(head, conv: nn.Conv2d, fused):
     """The 1x1 class conv of ``qforward``: on an int8 map an int8 conv with
     bias and fp logits out (no output requant), in the compute dtype."""
-    dt = head.cdtype or conv.weight.dtype
     if isinstance(fused, QTensor):
+        dt = head.cdtype or conv.weight.dtype
+
         def make(scales, chans):
             return int8_conv.prepare(conv.weight, scales, chans,
                                      bias=conv.bias)
@@ -339,6 +343,19 @@ class SegMaskBiSe(nn.Module):
         return [_out(out, 8), _out(self.aux16(feat2), 8),
                 _out(self.aux32(feat3), 16)]
 
+    def qforward(self, xs):
+        """Eval under fp8 storage: the convs and RFB2s store; the add and
+        the 2x resizes take the JAX package's fp8 form (``resize_store``)."""
+        f8 = self.m8[0].qforward(xs[0])
+        feat3 = self.up32[0].qforward(self.m32[0].qforward(xs[2]))
+        feat3 = resize_store(feat3, [2 * v for v in feat3.shape[2:]])
+        dt = self.up16[0].conv.weight.dtype
+        feat2 = self.up16[0].qforward(to_compute(self.m16[0].qforward(xs[1]),
+                                                 dt) + to_compute(feat3, dt))
+        feat2 = resize_store(feat2, [2 * v for v in feat2.shape[2:]])
+        out = _seg_out_q(self, self.out[2], self.out[0].qforward([f8, feat2]))
+        return _out(out, 8, self.upsample)
+
     def train_only_prefixes(self):
         return ["aux16.", "aux32."]
 
@@ -368,6 +385,14 @@ class SegMaskLab(nn.Module):
         out = self.decoder([self.detail(xs[0]), _up(self.encoder(xs[1]), 2)])
         return _out(out, 8, self.upsample)
 
+    def qforward(self, xs):
+        """Eval under fp8 storage (see ``SegMaskBiSe.qforward``)."""
+        detail = self.detail[1].qforward(self.detail[0].qforward(xs[0]))
+        enc = self.encoder[1].qforward(self.encoder[0].qforward(xs[1]))
+        enc = resize_store(enc, [2 * v for v in enc.shape[2:]])
+        y = self.decoder[1].qforward(self.decoder[0].qforward([detail, enc]))
+        return _out(_seg_out_q(self, self.decoder[2], y), 8, self.upsample)
+
 
 class SegMaskBase(nn.Module):
     """Single-input head (yolo.py:134-153) as ``m``: C3(c_hid, n), C3SPP to
@@ -385,3 +410,9 @@ class SegMaskBase(nn.Module):
 
     def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
         return _out(self.m(xs[0]), 8, self.upsample)
+
+    def qforward(self, xs):
+        """Eval under fp8 storage: the C3 (its ``cv12`` form) and the C3SPP
+        store; the class conv upcasts."""
+        y = self.m[1].qforward(self.m[0].qforward(xs[0]))
+        return _out(_seg_out_q(self, self.m[3], y), 8, self.upsample)

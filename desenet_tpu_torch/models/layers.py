@@ -7,8 +7,9 @@ JAX modules' child names). Blocks use the reference layout
 and the reference's torch state-dict names (a Focus slice-concat plus a kxk
 conv; C3 with separate ``cv1``/``cv2``); ``FusedFocus`` is the JAX
 package's one-conv stem, which equals Focus on rearranged weights. The JAX
-package's TPU layout workarounds (fused ``cv12``, split-conv concats, the
-phase-layout stem) are not carried over.
+package's TPU layout workarounds (fused ``cv12``, split-conv concats) are
+not carried over; its phase-layout stem is (``PhaseStemA``/``PhaseStemB``,
+``build_model(stem_s2d=True)``).
 
 Numerics that differ from PyTorch defaults and are kept on purpose:
 
@@ -41,8 +42,15 @@ of the int8 W8A8 mode, its weights-only ablation, its calibration mode
 its structure kept where the numbers depend on it: implicit concats
 (lists of parts) under the same 128-channel gate (``maybe_cat``,
 ``qt_maybe_cat``), the fused C3 ``cv12`` (cv1 and cv2 as one conv, its BN
-never skipped), the int8 glue. The model walker (``models/build.py``)
-calls it for every row of a model built with ``quant`` or ``act_store``.
+never skipped), the int8 glue. The other blocks (GhostConv,
+GhostBottleneck, C3Ghost, CrossConv, MixConv2d, BottleneckCSP, C3TR,
+C3SPP, the standalone BN and the seg heads' blocks) have a ``qforward``
+too, their fp8-storage forward: every ConvBnAct or DilatedConvBnSiLU inside
+stores its output in the scoped dtype and every raw add, concat, pool or
+matmul upcasts its fp8 inputs first (``to_compute``), at the JAX
+package's places. The model walker (``models/build.py``) calls
+``qforward`` for every row of a model built with ``quant`` or
+``act_store`` (``qrun``).
 """
 
 from __future__ import annotations
@@ -187,9 +195,20 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.mul_(1.0 - m).add_(var.detach() * m)
         return y.to(x.dtype)
 
+    def qforward(self, x: torch.Tensor) -> torch.Tensor:
+        """The standalone BN row under fp8 storage: an fp8 input upcast
+        first, the output in the compute dtype (as in the JAX package)."""
+        return self(to_compute(x, self.weight.dtype))
+
 
 def batch_norm(c: int) -> BatchNorm2d:
     return BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+
+def qrun(mod: nn.Module, x):
+    """``mod.qforward(x)`` where the module has one, else ``mod(x)`` (the
+    parameterless and pass-through modules)."""
+    return mod.qforward(x) if hasattr(mod, "qforward") else mod(x)
 
 
 # ---------------------------------------------------------------------------
@@ -608,6 +627,17 @@ class BottleneckCSP(nn.Module):
         y = torch.cat([self.cv3(self.m(self.cv1(x))), self.cv2(x)], 1)
         return self.cv4(self.act(self.bn(y)))
 
+    def qforward(self, x):
+        """fp8 storage: cv1, the bottlenecks and cv4 store their outputs;
+        the bare convs, the BN and the LeakyReLU run in the compute dtype."""
+        dt = self.cv2.weight.dtype
+        y1 = self.cv1.qforward(x)
+        for b in self.m:
+            y1 = b.qforward(y1)
+        xc = cat_parts([to_compute(v, dt) for v in _parts(x)])
+        y = torch.cat([self.cv3(to_compute(y1, dt)), self.cv2(xc)], 1)
+        return self.cv4.qforward(self.act(self.bn(y)))
+
 
 class C3(QuantAware, nn.Module):
     """CSP bottleneck with 3 convs (reference layout: separate cv1/cv2).
@@ -688,6 +718,18 @@ class C3(QuantAware, nn.Module):
                else maybe_cat([y1, y2]))
         return self.cv3.qforward(cat)
 
+    def _qforward_separate(self, x):
+        """The fp8-storage forward of the C3 variants (C3SPP, C3Ghost,
+        C3TR), which the JAX package builds with separate cv1 and cv2 (no
+        ``cv12``): both store their outputs, the inner stack runs on cv1's,
+        the two are concatenated whole (upcast where their dtypes differ:
+        C3TR's transformer returns the compute dtype) and cv3 stores."""
+        y1 = self.cv1.qforward(x)
+        y1 = (qrun(self.m, y1) if not isinstance(self.m, nn.Sequential)
+              else functools.reduce(lambda y, b: b.qforward(y), self.m, y1))
+        y2 = self.cv2.qforward(x)
+        return self.cv3.qforward(cat_parts(widen_mixed([y1, y2])))
+
 
 def _pools_q(mod, y, ks, serial: bool):
     """SPP / SPPF after cv1: the max pools (of the int8 data where ``y`` is
@@ -759,6 +801,9 @@ class C3SPP(C3):
         super().__init__(c1, c2, 1, True, g, e,
                          inner=lambda c_: SPP(c_, c_, k))
 
+    def qforward(self, x):
+        return self._qforward_separate(x)
+
 
 class GhostConv(nn.Module):
     """GhostNet conv (common.py:630-639): a primary conv to c2/2 and a
@@ -774,6 +819,12 @@ class GhostConv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.cv1(x)
         return torch.cat([y, self.cv2(y)], 1)
+
+    def qforward(self, x):
+        """fp8 storage: both convs store; their outputs concatenated as
+        they are (one dtype)."""
+        y = self.cv1.qforward(x)
+        return torch.cat([y, self.cv2.qforward(y)], 1)
 
 
 class GhostBottleneck(nn.Module):
@@ -797,6 +848,17 @@ class GhostBottleneck(nn.Module):
         y = self.conv(x)
         return y + self.shortcut(x) if self.add else y
 
+    def qforward(self, x):
+        """fp8 storage: the convs store; the shortcut add upcasts both
+        sides and stores the sum."""
+        y = functools.reduce(lambda v, m: qrun(m, v), self.conv, x)
+        if not self.add:
+            return y
+        sc = (functools.reduce(lambda v, m: qrun(m, v), self.shortcut, x)
+              if isinstance(self.shortcut, nn.Sequential) else x)
+        dt = self.conv[0].cv1.conv.weight.dtype
+        return _store_act(to_compute(y, dt) + to_compute(sc, dt))
+
 
 class C3Ghost(C3):
     """C3 with GhostBottlenecks as its inner stack (common.py:164-169)."""
@@ -805,6 +867,9 @@ class C3Ghost(C3):
                  g: int = 1, e: float = 0.5):
         super().__init__(c1, c2, n, shortcut, g, e, inner=lambda c_: (
             nn.Sequential(*(GhostBottleneck(c_, c_) for _ in range(n)))))
+
+    def qforward(self, x):
+        return self._qforward_separate(x)
 
 
 class TransformerLayer(nn.Module):
@@ -845,6 +910,16 @@ class TransformerBlock(nn.Module):
                              "partitioning cannot split it into bands")
         if self.conv is not None:
             x = self.conv(x)
+        return self._tokens(x)
+
+    def qforward(self, x):
+        """fp8 storage: the conv (where there is one) stores; the tokens
+        run in the compute dtype and so does the output."""
+        if self.conv is not None:
+            x = self.conv.qforward(x)
+        return self._tokens(to_compute(x, self.linear.weight.dtype))
+
+    def _tokens(self, x: torch.Tensor) -> torch.Tensor:
         b, _, h, w = x.shape
         p = x.flatten(2).permute(2, 0, 1)  # (H*W, B, C)
         p = self.tr(p + self.linear(p))
@@ -859,6 +934,9 @@ class C3TR(C3):
                  g: int = 1, e: float = 0.5):
         super().__init__(c1, c2, n, shortcut, g, e,
                          inner=lambda c_: TransformerBlock(c_, c_, 4, n))
+
+    def qforward(self, x):
+        return self._qforward_separate(x)
 
 
 class CrossConv(nn.Module):
@@ -877,6 +955,14 @@ class CrossConv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.cv2(self.cv1(x))
         return x + y if self.add else y
+
+    def qforward(self, x):
+        """fp8 storage: both convs in the compute dtype with no store
+        between them (the JAX block's bare convs); only the residual sum
+        is stored."""
+        x = to_compute(x, self.cv1.conv.weight.dtype)
+        y = self.cv2(self.cv1(x))
+        return _store_act(x + y) if self.add else y
 
 
 class MixConv2d(nn.Module):
@@ -898,6 +984,11 @@ class MixConv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.act(self.bn(torch.cat([m(x) for m in self.m], 1)))
+
+    def qforward(self, x):
+        """fp8 storage: an fp8 input upcast, the output in the compute
+        dtype (the JAX block stores nothing)."""
+        return self(to_compute(x, self.bn.weight.dtype))
 
 
 class Contract(nn.Module):
@@ -956,6 +1047,166 @@ class Focus(QuantAware, nn.Module):
             s = x.scale * 4 if isinstance(x.scale, tuple) else x.scale
             return self.conv.qforward(QTensor(self._slices(x.data), s))
         return self.conv.qforward(self._slices(x))
+
+
+# ---------------------------------------------------------------------------
+# The phase-layout (space-to-depth-4) stem: an exact rewrite of FusedFocus +
+# Conv (the JAX package's layers.py:1543-1706). The host delivers images in
+# s2d4 layout (H/4, W/4, 16 ci) with channel order (pr, pc, ci), pr/pc the
+# 4x4 pixel phase (ops/s2d.py, native.assemble_batch_s2d4), and the first
+# two layers become stride-1 convs at the H/4 grid with deep contractions:
+#
+#   l0': 3x3/s1 conv 16 ci -> 4 c0, pad 1       [6x6/s2/p2, ci -> c0]
+#   l1': 2x2/s1 conv 4 c0 -> c1, pad (1,0),(1,0) [3x3/s2/p1, c0 -> c1]
+#
+# l0' emits (qy, qx, c0) channels, qy/qx the 2x2 output phase; l1' consumes
+# them and emits the standard (H/4, W/4, c1) map. In HWIO, as the JAX
+# package writes the maps (out-of-range taps are 0):
+#
+#   W3[dr+1, dc+1, (pr,pc,ci), (qy,qx,co)] = W6[4dr+pr-2qy+2, 4dc+pc-2qx+2,
+#                                               ci, co]
+#   W2[er+1, ec+1, (qy,qx,ci), co]         = W1[2er+qy+1, 2ec+qx+1, ci, co]
+#
+# The modules own the parameters of the FusedFocus and ConvBnAct they
+# replace under the same state-dict keys (``conv.weight`` 6x6 / 3x3 OIHW,
+# ``bn.*``) and gather the phase kernel inside the forward, so checkpoints,
+# the EMA, optimizer state and ``utils/convert`` cross unchanged and
+# autograd carries the exact gradient back to W6 / W1.
+
+
+@functools.lru_cache(maxsize=None)
+def _phase_index_a():
+    """Row/column taps of W6 for the (dr, dc, pr, pc, qy, qx) grid, 6 where
+    out of range (the zero pad row/column)."""
+    dr = np.arange(-1, 2).reshape(3, 1, 1, 1, 1, 1)
+    dc = np.arange(-1, 2).reshape(1, 3, 1, 1, 1, 1)
+    pr = np.arange(4).reshape(1, 1, 4, 1, 1, 1)
+    pc = np.arange(4).reshape(1, 1, 1, 4, 1, 1)
+    qy = np.arange(2).reshape(1, 1, 1, 1, 2, 1)
+    qx = np.arange(2).reshape(1, 1, 1, 1, 1, 2)
+    shape = (3, 3, 4, 4, 2, 2)
+    kr = np.broadcast_to(4 * dr + pr - 2 * qy + 2, shape)
+    kc = np.broadcast_to(4 * dc + pc - 2 * qx + 2, shape)
+    valid = (kr >= 0) & (kr < 6) & (kc >= 0) & (kc < 6)
+    return np.where(valid, kr, 6), np.where(valid, kc, 6)
+
+
+@functools.lru_cache(maxsize=None)
+def _phase_index_b():
+    """Row/column taps of W1 for the (er, ec, qy, qx) grid (all in range)."""
+    er = np.arange(-1, 1).reshape(2, 1, 1, 1)
+    ec = np.arange(-1, 1).reshape(1, 2, 1, 1)
+    qy = np.arange(2).reshape(1, 1, 2, 1)
+    qx = np.arange(2).reshape(1, 1, 1, 2)
+    shape = (2, 2, 2, 2)
+    return (np.broadcast_to(2 * er + qy + 1, shape).copy(),
+            np.broadcast_to(2 * ec + qx + 1, shape).copy())
+
+
+@functools.lru_cache(maxsize=None)
+def _phase_index(which: str, device: torch.device):
+    """``_phase_index_a`` or ``_b`` as index tensors on ``device``, made
+    once a device (no host copy in the forward)."""
+    idx = _phase_index_a() if which == "a" else _phase_index_b()
+    return tuple(torch.from_numpy(np.ascontiguousarray(i)).to(device)
+                 for i in idx)
+
+
+def _gather_taps(w: torch.Tensor, which: str) -> torch.Tensor:
+    """``w`` (O, I, K, K) at the tap grid ``which`` (rows, columns; K means
+    a zero tap): (*grid, O, I)."""
+    wp = F.pad(w, (0, 1, 0, 1)).permute(2, 3, 0, 1)  # (K+1, K+1, O, I)
+    rows, cols = _phase_index(which, w.device)
+    return wp[rows, cols]
+
+
+def phase_stem_kernel_a(w6: torch.Tensor) -> torch.Tensor:
+    """(co, ci, 6, 6) 6x6/s2/p2 kernel -> (4 co, 16 ci, 3, 3) phase kernel,
+    OIHW, input channels (pr, pc, ci), output channels (qy, qx, co)."""
+    co, ci = w6.shape[:2]
+    w3 = _gather_taps(w6, "a")  # (3,3,4,4,2,2,co,ci)
+    return w3.permute(4, 5, 6, 2, 3, 7, 0, 1).reshape(4 * co, 16 * ci, 3, 3)
+
+
+def phase_stem_kernel_b(w1: torch.Tensor) -> torch.Tensor:
+    """(co, ci, 3, 3) 3x3/s2/p1 kernel -> (co, 4 ci, 2, 2) phase kernel,
+    OIHW, input channels (qy, qx, ci)."""
+    co, ci = w1.shape[:2]
+    w2 = _gather_taps(w1, "b")  # (2,2,2,2,co,ci)
+    return w2.permute(4, 2, 3, 5, 0, 1).reshape(co, 4 * ci, 2, 2)
+
+
+class _PhaseStem(QuantAware, nn.Module):
+    """A phase module: quant-aware so that the walker scopes it as the row
+    it replaces (``set_quant``); no int8 path (``_check_stem_s2d``)."""
+
+    def qforward(self, x):
+        """The forward, which stores its output under fp8 storage."""
+        return self(x)
+
+
+class PhaseStemA(_PhaseStem):
+    """Phase-layout replacement for l0 = FusedFocus (ConvBnAct c2, 6, 2, 2).
+
+    Input (B, 16 ci, H/4, W/4) in s2d4 channel order (pr, pc, ci); output
+    (B, 4 c2, H/4, W/4) in (qy, qx, c2) order. In training the BN takes its
+    statistics per original channel over B x 4 phases x H/4 x W/4 (the
+    port's ``BatchNorm2d`` on the map folded to (4B, c2, H/4, W/4), so the
+    biased running variance and the global-batch path stay as they are);
+    in eval it is the running-statistics affine tiled over the phases."""
+
+    def __init__(self, ci: int, c2: int):
+        super().__init__()
+        self.conv = Conv2d(ci, c2, 6, 2, 2, bias=False)
+        self.bn = batch_norm(c2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.conv.weight
+        x = to_compute(x, w.dtype)
+        y = F.conv2d(x, phase_stem_kernel_a(w).to(x.dtype), None, 1, 1)
+        b, c4, h, wd = y.shape
+        if self.training:
+            y = self.bn(y.reshape(b * 4, c4 // 4, h, wd)).reshape(
+                b, c4, h, wd)
+            return F.silu(y)
+        # BN on running statistics as a per-channel affine in f32, tiled
+        # over the four output phases (the (qy, qx, c2) order)
+        bn = self.bn
+        s = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
+        shift = bn.bias.float() - bn.running_mean.float() * s
+        s, shift = (v.repeat(4).to(y.dtype).view(1, -1, 1, 1)
+                    for v in (s, shift))
+        return _store_act(F.silu(y * s + shift))
+
+
+class PhaseStemB(_PhaseStem):
+    """Phase-layout replacement for l1 = Conv (ConvBnAct c2, 3, 2).
+
+    Input (B, 4 ci, H/4, W/4) in (qy, qx, ci) order, PhaseStemA's output;
+    output the standard (B, c2, H/4, W/4) map, so every row from 2 on is
+    unchanged. The (1, 0) padding of the 2x2 conv is a padding of 1 with
+    the last output row and column dropped (no padded copy of the input:
+    on the card 1.04 ms at b128/640 bf16 with the crop's copy, against
+    1.81 for ``F.pad`` and the conv, PERF.md)."""
+
+    def __init__(self, ci: int, c2: int):
+        super().__init__()
+        self.conv = Conv2d(ci, c2, 3, 2, 1, bias=False)
+        self.bn = batch_norm(c2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.conv.weight
+        x = to_compute(x, w.dtype)
+        y = F.conv2d(x, phase_stem_kernel_b(w).to(x.dtype), None, 1, 1)
+        y = y[:, :, :-1, :-1]
+        # BN on the strided crop takes PyTorch's generic elementwise path
+        # (a 1.97 ms kernel at b128/640 bf16 on the card, PERF.md); the
+        # copy gives it the channels_last BN kernel
+        mf = (torch.channels_last
+              if x.is_contiguous(memory_format=torch.channels_last)
+              else torch.contiguous_format)
+        y = self.bn(y.contiguous(memory_format=mf))
+        return _store_act(F.silu(y))
 
 
 class FFM(QuantAware, nn.Module):
@@ -1096,6 +1347,15 @@ class ASPP(nn.Module):
         if self.branch4 is not None:
             feats.append(self.branch4(x, x.shape[2:]))
         return self.ConvLinear(torch.cat(feats, 1))
+
+    def qforward(self, x):
+        """fp8 storage (SegMaskLab's ASPP): the branches store, the global
+        one stays in the compute dtype, their concat under ``maybe_cat``."""
+        feats = [self.branch0[0].qforward(x), self.branch1.qforward(x),
+                 self.branch2.qforward(x), self.branch3.qforward(x)]
+        if self.branch4 is not None:
+            feats.append(self.branch4.qforward(x, _spatial(x)))
+        return self.ConvLinear.qforward(maybe_cat(feats))
 
 
 def _cat_feats(feats):
@@ -1267,6 +1527,14 @@ class ARM(nn.Module):
         feat = self.conv(x)
         return feat * torch.sigmoid(self.att_conv(adaptive_avg_pool(feat, 1)))
 
+    def qforward(self, x):
+        """fp8 storage: the 3x3 conv stores; the gate and the product run
+        in the compute dtype."""
+        dt = self.conv.conv.weight.dtype
+        feat = to_compute(self.conv.qforward(x), dt)
+        att = self.att_conv.qforward(adaptive_avg_pool(feat, 1))
+        return feat * torch.sigmoid(to_compute(att, dt))
+
     def quirk_bn_prefixes(self):
         return ["att_conv.bn."]
 
@@ -1299,6 +1567,16 @@ class ASPPs(nn.Module):
         if self.branch4 is not None:
             outs.append(self.branch4(x, x.shape[2:]))
         return self.conv_linear(torch.cat(outs, 1))
+
+    def qforward(self, x):
+        """fp8 storage: every ConvBnAct and dilated conv stores."""
+        outs = [self.branch0_b.qforward(self.branch0_a.qforward(x))]
+        for i in range(1, len(self.d) + 1):
+            outs.append(getattr(self, f"branch{i}").qforward(
+                getattr(self, f"branch{i}_red").qforward(x)))
+        if self.branch4 is not None:
+            outs.append(self.branch4.qforward(x, _spatial(x)))
+        return self.conv_linear.qforward(maybe_cat(outs))
 
     def quirk_bn_prefixes(self):
         return ["branch4.1.bn."] if self.branch4 is not None else []
@@ -1337,6 +1615,17 @@ class RFB1(nn.Module):
         if self.branch4 is not None:
             outs.append(self.branch4(x, x.shape[2:]))
         return self.fusion(torch.cat(outs, 1))
+
+    def qforward(self, x):
+        """fp8 storage: every ConvBnAct and dilated conv stores."""
+        outs = [self.branch0_b.qforward(self.branch0_a.qforward(x))]
+        for i in range(1, len(self.d) + 1):
+            y = getattr(self, f"branch{i}_pre").qforward(
+                getattr(self, f"branch{i}_red").qforward(x))
+            outs.append(getattr(self, f"branch{i}").qforward(y))
+        if self.branch4 is not None:
+            outs.append(self.branch4.qforward(x, _spatial(x)))
+        return self.fusion.qforward(maybe_cat(outs))
 
     def quirk_bn_prefixes(self):
         return ["branch4.1.bn."] if self.branch4 is not None else []
@@ -1386,6 +1675,11 @@ class DAPPM(nn.Module):
         comp = self._bn_act_conv(torch.cat(outs, 1), "compression")
         return comp + self._bn_act_conv(x, "shortcut")
 
+    def qforward(self, x):
+        """fp8 storage: the input upcast; the pre-norm blocks store
+        nothing."""
+        return self(to_compute(x, self.scale0_conv.weight.dtype))
+
 
 class ConvBNReLU(nn.Module):
     """Conv (no bias) + BN + ReLU6."""
@@ -1399,6 +1693,10 @@ class ConvBNReLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu6(self.bn(self.conv(x)))
+
+    def qforward(self, x):
+        """fp8 storage: the input upcast; nothing stored."""
+        return self(to_compute(x, self.conv.weight.dtype))
 
 
 class Classify(nn.Module):

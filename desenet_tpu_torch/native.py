@@ -1,8 +1,9 @@
 """ctypes bridge to the port's native host library (``csrc/host/fastops.cpp``).
 
 The port's own copy of ``desenet_tpu/native.py``, with its names:
-``available``, ``assemble_batch``, ``rasterize_polygons_native``,
-``jpeg_available`` and ``decode_jpeg_scaled``. The library is built at
+``available``, ``assemble_batch``, ``assemble_batch_s2d4``,
+``rasterize_polygons_native``, ``jpeg_available`` and
+``decode_jpeg_scaled``. The library is built at
 first use (never at import) by the host compiler, with the flags of the
 JAX package's ``native/Makefile`` less ``-march=native`` (the build
 directory is keyed by the source's hash and may outlive the machine):
@@ -135,6 +136,9 @@ def _load() -> Optional[ctypes.CDLL]:
             _PI32 = ctypes.POINTER(ctypes.c_int32)
             lib.assemble_batch.argtypes = [_P, ctypes.POINTER(_P), _I64, _I64]
             lib.assemble_batch.restype = None
+            lib.assemble_batch_s2d4.argtypes = [_P, ctypes.POINTER(_P)] + \
+                [_I64] * 4
+            lib.assemble_batch_s2d4.restype = None
             lib.rasterize_polygons.argtypes = [_P, _I64, _I64, _P, _P, _P,
                                                _I64]
             lib.rasterize_polygons.restype = _I64
@@ -176,6 +180,30 @@ def assemble_batch(samples: Sequence[np.ndarray]) -> np.ndarray:
     out = np.empty((len(srcs), *shape), np.uint8)
     lib.assemble_batch(out.ctypes.data_as(ctypes.c_void_p), _pointers(srcs),
                        len(srcs), int(np.prod(shape)))
+    return out
+
+
+def assemble_batch_s2d4(samples: Sequence[np.ndarray]) -> np.ndarray:
+    """Pack N (H, W, C) uint8 samples into one (N, H/4, W/4, 16C) batch in
+    space-to-depth-4 layout (the phase stem's input, ``ops/s2d.py``), the
+    permutation folded into the batch copy; ``ops.s2d.space_to_depth4_np``
+    of ``np.stack`` when the library is opted out. H or W not divisible by
+    4 raises ValueError."""
+    h, w, c = samples[0].shape
+    if h % 4 or w % 4:
+        raise ValueError(f"s2d4 needs H, W divisible by 4, got {h}x{w}")
+    lib = _load()
+    if lib is None:
+        from desenet_tpu_torch.ops.s2d import space_to_depth4_np
+
+        return space_to_depth4_np(np.stack(samples, 0))
+    if any(s.shape != (h, w, c) for s in samples):
+        raise ValueError("assemble_batch_s2d4: samples differ in shape: "
+                         f"{sorted({s.shape for s in samples})}")
+    srcs = [np.ascontiguousarray(s, dtype=np.uint8) for s in samples]
+    out = np.empty((len(srcs), h // 4, w // 4, 16 * c), np.uint8)
+    lib.assemble_batch_s2d4(out.ctypes.data_as(ctypes.c_void_p),
+                            _pointers(srcs), len(srcs), h, w, c)
     return out
 
 

@@ -1,4 +1,14 @@
-from desenet_tpu_torch.ops.boxes import box_iou, np_scale_coords, xywh2xyxy
+from desenet_tpu_torch.ops.boxes import (
+    bbox_ioa,
+    box_iou,
+    clip_coords,
+    np_scale_coords,
+    wh_iou,
+    xyn2xy,
+    xywh2xyxy,
+    xywhn2xyxy,
+    xyxy2xywhn,
+)
 from desenet_tpu_torch.ops.nms import (
     MAX_WH,
     PRE_TOPK_PRODUCTION,
@@ -20,9 +30,15 @@ from desenet_tpu_torch.ops.seg_pallas import upsample_argmax
 from desenet_tpu_torch.ops.stem_pallas import stem_conv, stem_weight_matrix
 
 __all__ = [
+    "bbox_ioa",
     "box_iou",
+    "clip_coords",
     "np_scale_coords",
+    "wh_iou",
+    "xyn2xy",
     "xywh2xyxy",
+    "xywhn2xyxy",
+    "xyxy2xywhn",
     "MAX_WH",
     "PRE_TOPK_PRODUCTION",
     "PRE_TOPK_VAL",

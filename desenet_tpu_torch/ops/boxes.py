@@ -1,9 +1,11 @@
 """Box geometry for the serving path and the detection loss.
 
 Counterpart of ``desenet_tpu/ops/boxes.py`` (what the served program and
-the training loss use) plus ``np_scale_coords``, copied from
+the training loss use, and the JAX package's other public helpers:
+``xywhn2xyxy``, ``xyxy2xywhn``, ``xyn2xy``, ``clip_coords``, ``wh_iou``,
+``bbox_ioa``) plus ``np_scale_coords``, copied from
 ``desenet_tpu/eval/validator.py`` because that module imports JAX. Boxes
-live in the last axis of size 4.
+live in the last axis of size 4, on torch tensors.
 """
 
 from __future__ import annotations
@@ -17,6 +19,60 @@ def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
     """[cx,cy,w,h] -> [x1,y1,x2,y2]."""
     cx, cy, w, h = x.unbind(-1)
     return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+
+
+def xywhn2xyxy(x: torch.Tensor, w=640, h=640, padw=0,
+               padh=0) -> torch.Tensor:
+    """Normalized [cx,cy,w,h] -> pixel [x1,y1,x2,y2], plus the letterbox
+    pad offset."""
+    cx, cy, bw, bh = x.unbind(-1)
+    return torch.stack([w * (cx - bw / 2) + padw, h * (cy - bh / 2) + padh,
+                        w * (cx + bw / 2) + padw, h * (cy + bh / 2) + padh],
+                       -1)
+
+
+def xyxy2xywhn(x: torch.Tensor, w=640, h=640, clip: bool = False,
+               eps: float = 0.0) -> torch.Tensor:
+    """Pixel [x1,y1,x2,y2] -> normalized [cx,cy,w,h], clipped to the
+    image (less ``eps``) first where ``clip``."""
+    if clip:
+        x = clip_coords(x, (h - eps, w - eps))
+    x1, y1, x2, y2 = x.unbind(-1)
+    return torch.stack([((x1 + x2) / 2) / w, ((y1 + y2) / 2) / h,
+                        (x2 - x1) / w, (y2 - y1) / h], -1)
+
+
+def xyn2xy(x: torch.Tensor, w=640, h=640, padw=0, padh=0) -> torch.Tensor:
+    """Normalized point coordinates [x, y] -> pixel ones."""
+    xs, ys = x.unbind(-1)
+    return torch.stack([w * xs + padw, h * ys + padh], -1)
+
+
+def clip_coords(boxes: torch.Tensor, shape) -> torch.Tensor:
+    """xyxy boxes clipped to an image of ``shape`` (h, w)."""
+    h, w = shape
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    return torch.stack([x1.clamp(0, w), y1.clamp(0, h), x2.clamp(0, w),
+                        y2.clamp(0, h)], -1)
+
+
+def wh_iou(wh1: torch.Tensor, wh2: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU of (w, h) pairs centred at the origin: (N,2),(M,2) ->
+    (N,M)."""
+    wh1, wh2 = wh1[:, None], wh2[None]
+    inter = torch.minimum(wh1, wh2).prod(2)
+    return inter / (wh1.prod(2) + wh2.prod(2) - inter)
+
+
+def bbox_ioa(box1: torch.Tensor, box2: torch.Tensor,
+             eps: float = 1e-7) -> torch.Tensor:
+    """Intersection over box2's area: (4,),(N,4) -> (N,)."""
+    iw = (torch.minimum(box1[2], box2[:, 2])
+          - torch.maximum(box1[0], box2[:, 0])).clamp(min=0)
+    ih = (torch.minimum(box1[3], box2[:, 3])
+          - torch.maximum(box1[1], box2[:, 1])).clamp(min=0)
+    area2 = (box2[:, 2] - box2[:, 0]) * (box2[:, 3] - box2[:, 1]) + eps
+    return iw * ih / area2
 
 
 def box_iou(box1: torch.Tensor, box2: torch.Tensor,

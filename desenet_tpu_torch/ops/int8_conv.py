@@ -19,9 +19,11 @@ bias-correction term: the constants the JAX package folds at trace time.
 ``run`` computes the block: ``int8_conv_plain`` on a CPU tensor (the conv
 in float64, exact while |sum| < 2^53, cast to int32; ``F.conv2d`` on int8
 wraps modulo 256 on the CPU), the kernel ``csrc/int8_conv.cu`` on a CUDA
-tensor (an implicit GEMM on ``mma.sync`` m16n8k32 s8; ``launches`` counts
-its launches). No fallback: a CUDA tensor builds and launches the kernel
-or raises; a grouped conv on the card raises NotImplementedError.
+tensor (an implicit GEMM on ``mma.sync`` m16n8k32 s8, one GEMM a group
+for a grouped conv; a depthwise conv, one input channel a group, on a
+CUDA-core kernel of the same source; ``launches`` counts the launches of
+either). No fallback: a CUDA tensor builds and launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -189,6 +191,7 @@ class _Args(ctypes.Structure):
         ("KH", ctypes.c_int), ("KW", ctypes.c_int), ("stride", ctypes.c_int),
         ("pad_h", ctypes.c_int), ("pad_w", ctypes.c_int),
         ("dil", ctypes.c_int),
+        ("groups", ctypes.c_int),
     ]
 
 
@@ -197,12 +200,14 @@ def pack_weights(p: Prepared) -> None:
     part. A part of at least BK channels goes tap by tap (row-major over
     KH, KW), each tap's channels zero-padded to a multiple of BK (``kpad``
     is that padded width); a narrower one (``kpack``) as one run of (kh,
-    kw, c), zero-padded to a multiple of BK (``kpad`` its whole length)."""
+    kw, c), zero-padded to a multiple of BK (``kpad`` its whole length).
+    A grouped conv's one part counts a group's channels: each output
+    channel's row holds its own group's weights."""
     if p.packed is not None:
         return
-    o, _, kh, kw = p.qw.shape
+    o, cg, kh, kw = p.qw.shape
     cols, koff, kpad, kpack, off, k = [], [], [], [], 0, 0
-    for c in p.channels:
+    for c in (p.channels if p.groups == 1 else [cg]):
         w = p.qw[:, off:off + c].permute(0, 2, 3, 1)  # (O, KH, KW, c)
         packed = c < BK
         if packed:
@@ -259,14 +264,9 @@ def int8_conv_kernel(parts: Sequence[torch.Tensor], p: Prepared,
     global launches
     from desenet_tpu_torch.ops import _ext
 
-    if p.groups != 1:
-        raise NotImplementedError(
-            "a grouped int8 conv has no CUDA kernel in desenet_tpu_torch "
-            "(ROADMAP.md, Queue 1): the int8 graphs of the bundled configs "
-            "have none")
-    if not 1 <= len(parts) <= MAX_PARTS:
+    if not 1 <= len(parts) <= (MAX_PARTS if p.groups == 1 else 1):
         raise ValueError(f"int8 conv takes 1 to {MAX_PARTS} input parts, "
-                         f"got {len(parts)}")
+                         f"one for a grouped conv, got {len(parts)}")
     x0 = parts[0]
     dev = x0.device
     b, _, h, w = x0.shape
@@ -289,7 +289,7 @@ def int8_conv_kernel(parts: Sequence[torch.Tensor], p: Prepared,
     for i, t in enumerate(parts):
         t, (ptr, ld) = _nhwc(t)
         keep.append(t)
-        c = t.shape[1]
+        c = t.shape[1] // p.groups  # a group's channels
         a.x[i], a.c[i], a.ld[i] = ptr, c, ld
         a.g[i] = p.g[i].data_ptr()
         a.kpad[i], a.koff[i] = p.kpad[i], p.koff[i]
@@ -315,6 +315,7 @@ def int8_conv_kernel(parts: Sequence[torch.Tensor], p: Prepared,
     a.B, a.H, a.W, a.Ho, a.Wo, a.O = b, h, w, ho, wo, o
     a.KH, a.KW, a.stride = kh, kw, p.stride
     a.pad_h, a.pad_w, a.dil = p.padding[0], p.padding[1], p.dilation
+    a.groups = p.groups
     stream, device = _ext.stream_and_device(x0)
     _ext.check(_ext.load().desenet_int8_conv(ctypes.addressof(a), stream,
                                              device), "int8_conv")

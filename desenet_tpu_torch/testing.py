@@ -516,6 +516,31 @@ EXOTIC_CFG = {
 }
 
 
+# grouped DSL Conv rows (g 2, 4 and depthwise; k 1 and 3; stride 1 and 2),
+# which the int8 program runs as grouped int8 convs (ops/int8_conv.py);
+# the last Conv row feeds Detect and stays fp
+GROUPED_CFG = {
+    "de_nc": 2,
+    "depth_multiple": 1.0,
+    "width_multiple": 1.0,
+    "anchors": [[10, 13, 16, 30, 33, 23]],
+    "backbone": [
+        [-1, 1, "Focus", [16, 3]],
+        [-1, 1, "Conv", [32, 3, 2]],
+        [-1, 1, "Conv", [32, 3, 1, None, 2]],
+        [-1, 1, "Conv", [64, 3, 2, None, 4]],
+        [-1, 1, "Conv", [64, 1, 1, None, 4]],
+        [-1, 1, "Conv", [64, 3, 1, None, 64]],
+        [-1, 1, "C3", [64]],
+        [-1, 1, "Conv", [64, 3, 2, None, 64]],
+        [-1, 1, "Conv", [64, 1, 1]],
+    ],
+    "head": [
+        [[-1], 1, "Detect", ["de_nc", "anchors"]],
+    ],
+}
+
+
 def train_batch(rng, b: int, imgsz: int, nc: int, max_targets: int = 32
                 ) -> dict:
     """A training batch (tests/test_train_step.py's kind, at any size):
@@ -699,17 +724,42 @@ INT8_CONV_CASES = (
      "bf16"),
 )
 
+# grouped convs (the fields above and the group count last): per-tensor
+# input scales (a grouped int8 conv takes no per-channel ones), g 2 and 4,
+# depthwise (one channel a group, GhostConv's cheap 5x5 among them), k 1,
+# 3 and 5, stride 1 and 2, one with the residual read from a slice
+INT8_GROUPED_CASES = (
+    ("g2_3x3_s1", 8, 80, 80, (128,), 128, 3, 1, 1, 1, False, False, "int8",
+     2),
+    ("g2_1x1_s2", 8, 80, 80, (128,), 128, 1, 2, 0, 1, False, False, "int8",
+     2),
+    ("g4_1x1_s1", 8, 80, 80, (128,), 256, 1, 1, 0, 1, False, False, "int8",
+     4),
+    ("g4_3x3_s2", 8, 80, 80, (128,), 128, 3, 2, 1, 1, False, False, "int8",
+     4),
+    ("g2_3x3_residual", 8, 40, 40, (64,), 64, 3, 1, 1, 1, False, True,
+     "int8", 2),
+    ("dw_3x3_s1", 8, 80, 80, (128,), 128, 3, 1, 1, 1, False, False, "int8",
+     128),
+    ("dw_3x3_s2", 8, 80, 80, (128,), 128, 3, 2, 1, 1, False, False, "int8",
+     128),
+    ("dw_5x5_s1", 8, 40, 40, (64,), 64, 5, 1, 2, 1, False, False, "int8",
+     64),
+)
+
 
 def int8_conv_case(case, device="cpu", seed: int = 0) -> dict:
     """The inputs of ``ops.int8_conv.run`` for one of ``INT8_CONV_CASES``
-    on ``device``: int8 parts (channels_last), their constants folded by
+    or ``INT8_GROUPED_CASES`` on ``device``: int8 parts (channels_last),
+    their constants folded by
     ``ops.int8_conv.prepare`` from seeded f32 weights, BN and bias
     correction, and the epilogue's arguments."""
     from desenet_tpu_torch.ops import int8_conv
     from desenet_tpu_torch.quant import scale_t
 
     (_, b, h, w, chans, o, k, stride, pad, dil, per_channel, residual,
-     out) = case
+     out) = case[:13]
+    groups = case[13] if len(case) > 13 else 1
     rng = np.random.default_rng(seed)
     cl = torch.channels_last
 
@@ -726,7 +776,7 @@ def int8_conv_case(case, device="cpu", seed: int = 0) -> dict:
         parts.append(part)
         scales.append(tuple(float(v) for v in rng.uniform(0.005, 0.05, c))
                       if per_channel else float(rng.uniform(0.005, 0.05)))
-    cin = sum(chans)
+    cin = sum(chans) // groups
     weight = torch.tensor(rng.normal(0, 1 / np.sqrt(cin * k * k),
                                      (o, cin, k, k)), dtype=torch.float32)
     bn = (torch.tensor(rng.uniform(0.5, 1.5, o), dtype=torch.float32),
@@ -734,7 +784,8 @@ def int8_conv_case(case, device="cpu", seed: int = 0) -> dict:
     logits = out != "int8"
     prep = int8_conv.prepare(
         weight.to(device), scales, chans, stride=stride, padding=(pad, pad),
-        dilation=dil, bn=None if logits else tuple(t.to(device) for t in bn),
+        dilation=dil, groups=groups,
+        bn=None if logits else tuple(t.to(device) for t in bn),
         bias=bn[1].to(device) if logits else None,
         in_mean=None if logits else rng.normal(0.1, 0.5, cin))
     res = res_scale = None

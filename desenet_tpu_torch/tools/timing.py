@@ -156,22 +156,22 @@ def nms_greedy_bound(b: int, k: int, max_det: int, live: float,
 
 
 def int8_conv_macs(b: int, ho: int, wo: int, cin: int, o: int, kh: int,
-                   kw: int) -> int:
+                   kw: int, groups: int = 1) -> int:
     """Multiply-adds of an int8 conv: every output pixel and channel over
-    the taps of every input channel (all parts together)."""
-    return b * ho * wo * o * cin * kh * kw
+    the taps of every input channel of its group (all parts together)."""
+    return b * ho * wo * o * (cin // groups) * kh * kw
 
 
 def int8_conv_bound(b: int, h: int, w: int, cin: int, ho: int, wo: int,
                     o: int, kh: int, kw: int, out_itemsize: int = 1,
-                    residual: bool = False) -> tuple:
-    """The int8 conv block on (b, h, w, cin) int8 parts -> (b, ho, wo, o):
-    the parts, the int8 weights, the residual where there is one and the
-    per-channel f32 constants read once, the output (int8, or the logits'
-    ``out_itemsize``) written once; the products at the int8 tensor-core
-    rate."""
-    nbytes = (b * h * w * cin + o * cin * kh * kw
+                    residual: bool = False, groups: int = 1) -> tuple:
+    """The int8 conv block on (b, h, w, cin) int8 parts -> (b, ho, wo, o)
+    in ``groups`` groups: the parts, the int8 weights, the residual where
+    there is one and the per-channel f32 constants read once, the output
+    (int8, or the logits' ``out_itemsize``) written once; the products at
+    the int8 tensor-core rate."""
+    nbytes = (b * h * w * cin + o * (cin // groups) * kh * kw
               + (b * ho * wo * o if residual else 0)
               + b * ho * wo * o * out_itemsize + 4 * 6 * o)
-    return bound_ms(2 * int8_conv_macs(b, ho, wo, cin, o, kh, kw), nbytes,
-                    H100_INT8_OPS)
+    return bound_ms(2 * int8_conv_macs(b, ho, wo, cin, o, kh, kw, groups),
+                    nbytes, H100_INT8_OPS)

@@ -12,8 +12,24 @@
   model dtype for the rows feeding Detect (and with det_fp_hops 2 their
   producers), the heads' outputs in their normal dtypes; JAX's dtypes at
   the same rows.
+- Every row the JAX package builds: ``testing.EXOTIC_CFG`` (GhostConv,
+  GhostBottleneck, C3Ghost, CrossConv, MixConv2d, DWConv, BottleneckCSP,
+  C3TR, C3SPP, Contract, Expand, the standalone BN) and tiny_psp2 with
+  the BiSe, Lab and Base seg heads on seeded variables (every conv kernel
+  N(0, 1.3 / sqrt(fan_in)), BN at identity), computing in float64 on
+  both sides (in f32 the packages' conv sums differ by some 1e-7, enough
+  to round a few values to the neighbouring e4m3 value, and such a flip
+  spreads through the layers after it): the det features and seg logits
+  within rtol 1e-5 and an atol of 1e-5 of the largest magnitude of JAX's
+  fp8 forward (they agree to 1e-7 of it; the fp8 resizes run in bf16 on
+  both sides), more than ten times that from the port's model without
+  storage, and each row's output in JAX's storage dtype (fp8 where the
+  JAX block ends in a stored conv or sum, the compute dtype after
+  CrossConv, MixConv2d and the BN row).
 - Training mode is untouched; int8 and fp8 storage exclude each other.
 """
+
+import copy
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 import yaml
+from flax import traverse_util
 
 from desenet_tpu.models import build_model as jax_build_model
 from desenet_tpu.utils.torch_convert import convert_state_dict
@@ -28,8 +45,9 @@ from desenet_tpu_torch import quant as Q
 from desenet_tpu_torch.models import build_model
 from desenet_tpu_torch.models.build import det_fp_layers
 from desenet_tpu_torch.quant import to_f8
-from desenet_tpu_torch.testing import boosted_state
-from desenet_tpu_torch.utils.convert import load_state_dict
+from desenet_tpu_torch.testing import EXOTIC_CFG, boosted_state
+from desenet_tpu_torch.utils.convert import (load_state_dict,
+                                             state_dict_from_jax)
 
 CFG = "tests/configs/tiny_psp2.yaml"
 JAX_F8 = {"fp8": jnp.float8_e4m3fn, "fp8_e5m2": jnp.float8_e5m2}
@@ -165,3 +183,78 @@ def test_int8_and_act_store_exclude_each_other(tiny):
     with pytest.raises(ValueError, match="mutually exclusive"):
         cli_val.run("unused.yaml", "unused.npz", int8=True, act_store="fp8",
                     device="cpu")
+
+
+def _every_row_cfg(name):
+    if name == "exotic":
+        return copy.deepcopy(EXOTIC_CFG)
+    with open(CFG) as fh:
+        cfg = yaml.safe_load(fh)
+    cfg["head"][-2] = [[16, 19, 22], 1, f"SegMask{name}", ["se_nc", 1, 256]]
+    return cfg
+
+
+# the rows whose JAX block leaves its output in the compute dtype
+_UNSTORED = {"CrossConv", "MixConv2d", "BatchNorm"}
+
+
+def _leaf(rng, name: str, shape) -> np.ndarray:
+    """A variable: kernels N(0, 1.3 / sqrt(fan_in)) for convs and
+    N(0, 1 / sqrt(fan_in)) otherwise, BN at identity, biases 0."""
+    if name == "kernel":
+        fan = np.prod(shape[:-1])
+        std = (1.3 if len(shape) == 4 else 1.0) / np.sqrt(fan)
+        return rng.normal(0, std, shape).astype(np.float32)
+    return (np.ones if name in ("scale", "var") else np.zeros)(
+        shape, np.float32)
+
+
+@pytest.mark.parametrize("name", ["exotic", "BiSe", "Lab", "Base"])
+def test_act_store_every_row_matches_jax(name):
+    cfg = _every_row_cfg(name)
+    rng = np.random.default_rng(0)
+    with jax.enable_x64(True):
+        jm, jspec = jax_build_model(cfg, act_store="fp8", dtype=jnp.float64)
+        shapes = jax.eval_shape(
+            lambda v: jm.init({"params": jax.random.PRNGKey(0),
+                               "dropout": jax.random.PRNGKey(0)}, v,
+                              train=False),
+            jax.ShapeDtypeStruct((1, 64, 64, 3), np.float64))
+        flat = {k: _leaf(rng, k[-1], s.shape) for k, s in
+                traverse_util.flatten_dict(shapes).items()}
+        x = rng.uniform(0, 1, (2, 64, 64, 3))
+        (_, jfeats), jseg = jax.jit(lambda v, a: jm.apply(
+            v, a, train=False))(traverse_util.unflatten_dict(flat),
+                                jnp.asarray(x))
+        jfeats = [np.asarray(f) for f in jfeats]
+        jseg = None if jseg is None else np.asarray(jseg)
+    sd, _ = state_dict_from_jax({"/".join(k): v for k, v in flat.items()},
+                                jspec)
+    m, spec = _port(cfg, sd, act_store="fp8")
+    m0, _ = _port(cfg, sd)
+    m.double(), m0.double()
+    rows, run = {}, m._row
+
+    def record(ls, mod, inp, cd, qmode):
+        rows[ls.i] = out = run(ls, mod, inp, cd, qmode)
+        return out
+
+    m._row = record
+    with torch.no_grad():
+        (_, feats), seg = m(_nchw(x))
+        (_, feats0), seg0 = m0(_nchw(x))
+    pairs = list(zip(feats, jfeats, feats0))
+    if spec.seg_layer >= 0:
+        pairs.append((seg, jseg.transpose(0, 3, 1, 2), seg0))
+    for got, want, plain in pairs:
+        atol = 1e-5 * np.abs(want).max()
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=atol)
+        assert np.abs(plain.numpy() - want).max() > 10 * atol
+    fp_rows = det_fp_layers(spec, 1)
+    for ls in spec.layers:
+        if ls.name in ("Upsample", "Concat", "Detect") or ls.name in (
+                "SegMaskBiSe", "SegMaskLab", "SegMaskBase"):
+            continue
+        stored = ls.name not in _UNSTORED and ls.i not in fp_rows
+        want = torch.float8_e4m3fn if stored else torch.float64
+        assert rows[ls.i].dtype == want, (ls.i, ls.name, rows[ls.i].dtype)

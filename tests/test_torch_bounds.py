@@ -106,6 +106,25 @@ def test_int8_conv_bounds():
         rel=1e-9)
 
 
+def test_int8_conv_grouped_bounds():
+    """A grouped conv does 1/g of the dense conv's products and reads 1/g
+    of its weights: the 3x3 of 128 channels above at g 2 is 30.2 GOP, now
+    under its 52.6 MB; depthwise (g 128) at b8 moves 6.6 MB (0.0039 ms,
+    testing.INT8_GROUPED_CASES' dw_3x3_s1) for 0.094 GOP."""
+    assert tm.int8_conv_macs(32, 80, 80, 128, 128, 3, 3, 2) * 2 == \
+        tm.int8_conv_macs(32, 80, 80, 128, 128, 3, 3)
+    ms, by = tm.int8_conv_bound(32, 80, 80, 128, 80, 80, 128, 3, 3,
+                                groups=2)
+    assert by == "bytes" and ms == pytest.approx(
+        (32 * 6400 * 256 + 128 * 64 * 9 + 4 * 6 * 128) / 3.35e12 * 1e3,
+        rel=1e-9)
+    ms, by = tm.int8_conv_bound(8, 80, 80, 128, 80, 80, 128, 3, 3,
+                                groups=128)
+    assert by == "bytes" and ms == pytest.approx(0.0039, abs=0.0001)
+    assert tm.int8_conv_macs(8, 80, 80, 128, 128, 3, 3, 128) == \
+        8 * 6400 * 128 * 9
+
+
 def test_psp2_macs_counts_the_folded_weights():
     """The count, term by term, from a folded head's weight shapes."""
     from desenet_tpu_torch.testing import random_psp2_head

@@ -40,8 +40,10 @@ The int8 conv block runs on ``testing.INT8_CONV_CASES`` (the FusedFocus
 stem's 3 channels at 6x6/s2, a 3x3/s2 backbone conv, a bottleneck with its
 residual read as channel slices, a 4-part SPP concat, a per-tensor 2-part
 concat, a d=3 dilated conv of 21 channels, the class conv's f32 and bf16
-logits): its int32 sums bit-equal to the plain version's float64 conv, its
-outputs at ``testing.check_int8``'s bar.
+logits) and ``testing.INT8_GROUPED_CASES`` (g 2 and 4, depthwise 3x3 and
+5x5, k 1 and 3, stride 1 and 2, one with its residual read from a slice):
+its int32 sums bit-equal to the plain version's float64 conv, its outputs
+at ``testing.check_int8``'s bar.
 
 The training step (no kernel of its own) is held against itself on the
 CPU, as chip_smoke.py's phase 7(a) holds it: the tiny model's SGD steps on
@@ -58,7 +60,7 @@ from desenet_tpu_torch.ops import (c3_fused, int8_conv, nms_fused,
                                    nms_pallas, seg_head_pallas, seg_pallas,
                                    stem_pallas)
 from desenet_tpu_torch.testing import (C3_SERVED, INT8_CONV_CASES,
-                                       NMS_FUSED_CASES,
+                                       INT8_GROUPED_CASES, NMS_FUSED_CASES,
                                        SEG_TAIL_CASES, check_close,
                                        check_psp2, dense_decode,
                                        dense_sorted_candidates,
@@ -477,7 +479,8 @@ def test_detect_program_matches_cpu(cuda, full_f32, members, augment):
     assert (gseg.cpu() == wseg).float().mean() >= 0.999
 
 
-@pytest.mark.parametrize("case", INT8_CONV_CASES, ids=lambda c: c[0])
+@pytest.mark.parametrize("case", INT8_CONV_CASES + INT8_GROUPED_CASES,
+                         ids=lambda c: c[0])
 def test_int8_conv_matches_plain(cuda, case):
     """The int8 conv kernel against its plain version on the card: the
     int32 sums over all parts bit-equal (OUT_I32), the block's outputs at
@@ -500,8 +503,9 @@ def test_int8_conv_matches_plain(cuda, case):
     check_int8(got, want, case[0])
 
 
-def test_int8_conv_refuses_groups(cuda):
-    c = int8_conv_case(INT8_CONV_CASES[1], cuda)
-    c["prep"].groups = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        int8_conv.run(c["parts"], c["prep"])
+def test_int8_conv_grouped_takes_one_part(cuda):
+    """A grouped conv's parts are concatenated first (as the JAX package's
+    ``int8_conv_block`` sees them): the kernel takes one."""
+    c = int8_conv_case(INT8_GROUPED_CASES[0], cuda)
+    with pytest.raises(ValueError, match="one for a grouped conv"):
+        int8_conv.run(c["parts"] * 2, c["prep"])

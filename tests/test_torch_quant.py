@@ -23,7 +23,14 @@ the JAX package's ``convert_state_dict``) go through both packages:
   tensor, det_fp_hops 1 and 2, and weights-only: decode and seg logits
   within 2% of their largest magnitude, the seg class map equal on at least
   99% of the pixels; and the port's int8 model against its fp model at the
-  JAX package's own bars (tests/test_quant.py).
+  JAX package's own bars (tests/test_quant.py);
+- grouped convs: one ConvBnAct int8 block at g 2, 4 and depthwise (a
+  per-channel input scale requantized to one per-tensor scale, no bias
+  correction, as ``int8_conv_block`` does) at the block bar above, and the
+  whole int8 model of ``testing.GROUPED_CFG`` on JAX's calibrated scales
+  (its det features within 2% of their largest magnitude); the plain
+  version's grouped int32 sums equal an int64 product group by group, and
+  the packed weights hold each output channel's group.
 
 One module-scoped JAX model, calibration and jitted forward a variant keep
 the file's time down; torch runs on one thread.
@@ -44,7 +51,8 @@ from desenet_tpu_torch import quant as Q
 from desenet_tpu_torch.models import build_model
 from desenet_tpu_torch.models.layers import ConvBnAct, set_quant
 from desenet_tpu_torch.ops import int8_conv
-from desenet_tpu_torch.testing import (INT8_CONV_CASES, boosted_state,
+from desenet_tpu_torch.testing import (GROUPED_CFG, INT8_CONV_CASES,
+                                       INT8_GROUPED_CASES, boosted_state,
                                        int8_conv_case,
                                        realistic_convbnact_state)
 from desenet_tpu_torch.utils.convert import load_state_dict, quant_cfg_from_jax
@@ -234,6 +242,74 @@ def test_convbnact_int8_block(c1, c2, k, hw, per_channel, bias_correct):
         pq = block.qforward(Q.quantize(nchw(x), s_in))
     assert pq.scale == jq.scale
     _within_one_lsb(np.asarray(jq.data), nhwc(pq.data), 0.999)
+
+
+@pytest.mark.parametrize("c1,c2,k,s,g,per_channel", [
+    (32, 48, 3, 1, 2, False),
+    (32, 64, 1, 2, 4, True),
+    (32, 32, 3, 1, 32, True),     # depthwise
+    (16, 16, 5, 2, 16, False),    # GhostConv's cheap 5x5
+])
+def test_grouped_convbnact_int8_block(c1, c2, k, s, g, per_channel):
+    rng = np.random.default_rng(c1 + k + g)
+    sd = realistic_convbnact_state(rng, c1 // g, c2, k)
+    x = rng.normal(0.3, 1, (2, 16, 16, c1)).astype(np.float32)
+    calib = JaxConvBnAct(c2, k, s, g=g, quant=JQ.QuantCfg(
+        mode="calib", per_channel_act=per_channel))
+    _, mut = calib.apply(_jax_block_vars(sd), jnp.asarray(x), train=False,
+                         mutable=["qcal", "qmean"])
+    scales = tuple(sorted(JQ.flatten_qcal(mut["qcal"]).items()))
+    means = tuple(sorted((kk, tuple(float(v) for v in vv)) for kk, vv in
+                         JQ.flatten_qmean(mut["qmean"]).items()))
+    cfg = dict(mode="int8", scales=scales, in_means=means,
+               bias_correct=True, per_channel_act=per_channel)
+    s_in = dict(scales)["in"]
+    assert isinstance(s_in, tuple) == per_channel
+    jq = JaxConvBnAct(c2, k, s, g=g, quant=JQ.QuantCfg(**cfg)).apply(
+        _jax_block_vars(sd), JQ.quantize(jnp.asarray(x), s_in), train=False)
+
+    block = ConvBnAct(c1, c2, k, s, g=g).eval()
+    block.load_state_dict(sd)
+    set_quant(block, Q.QuantCfg(**cfg), "", None)
+    with torch.no_grad():
+        pq = block.qforward(Q.quantize(nchw(x), s_in))
+    assert pq.scale == jq.scale
+    _within_one_lsb(np.asarray(jq.data), nhwc(pq.data), 0.999)
+
+
+def test_grouped_int8_model_matches_jax():
+    cfg = GROUPED_CFG
+    port_model, _ = build_model(cfg)
+    sd = boosted_state(port_model, seed=0)
+    jmodel, jspec = jax_build_model(cfg)
+    shapes = jax.eval_shape(
+        lambda v: jmodel.init({"params": jax.random.PRNGKey(0),
+                               "dropout": jax.random.PRNGKey(0)}, v,
+                              train=False),
+        jax.ShapeDtypeStruct((1, 64, 64, 3), np.float32))
+    template = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)
+    variables, report = convert_state_dict(
+        {k: v.numpy() for k, v in sd.items()}, template, jspec)
+    assert not report["missing"]
+    x = np.random.default_rng(1).uniform(0, 1, (2, 64, 64, 3)).astype(
+        np.float32)
+    cm, _ = jax_build_model(cfg, quant=JQ.QuantCfg(mode="calib"))
+    jscales, jmeans = JQ.calibrate_stats(cm, variables, [jnp.asarray(x)])
+    qcfg = JQ.QuantCfg(mode="int8", scales=jscales, in_means=jmeans)
+    jm, _ = jax_build_model(cfg, quant=qcfg)
+    (_, jfeats), _ = jax.jit(lambda v, a: jm.apply(v, a, train=False))(
+        variables, jnp.asarray(x))
+    pm, _ = build_model(cfg, fuse_focus=True, quant=Q.QuantCfg(
+        mode="int8", scales=jscales, in_means=jmeans))
+    load_state_dict(pm, sd)
+    grouped = [m for m in pm.modules() if isinstance(m, ConvBnAct)
+               and m.conv.groups > 1 and m.quant is not None]
+    assert len(grouped) == 5
+    with torch.no_grad():
+        (_, feats), _ = pm.eval()(nchw(x))
+    for got, want in zip(feats, jfeats):
+        want = np.asarray(want)
+        assert np.abs(got.numpy() - want).max() <= 0.02 * np.abs(want).max()
 
 
 # ---- the tiny model -------------------------------------------------------------
@@ -426,6 +502,37 @@ def test_int8_conv_plain_is_exact(case):
                                                                kpad)
         assert torch.equal(blk[..., :chans], w)
         assert not blk[..., chans:].any()
+
+
+@pytest.mark.parametrize("case", INT8_GROUPED_CASES, ids=lambda c: c[0])
+def test_int8_conv_grouped_plain_is_exact(case):
+    """The grouped cases at batch 1 on a 12 x 12 map: the plain version's
+    int32 sums equal an int64 im2col product taken group by group, and
+    each output channel's packed row holds its group's taps and channels,
+    zero-padded to a multiple of 32."""
+    c = int8_conv_case((case[0], 1, 12, 12) + case[4:])
+    parts, p = c["parts"], c["prep"]
+    raw = int8_conv.run(parts, p, out_mode=int8_conv.OUT_I32)
+    g, (o, cg, kh, kw) = p.groups, p.qw.shape
+    x = parts[0].long()
+    cols = torch.nn.functional.unfold(
+        x.double(), (kh, kw), dilation=p.dilation, padding=p.padding,
+        stride=p.stride).round().long()  # (B, C*kh*kw, L), channel-major
+    cols = cols.reshape(1, g, cg * kh * kw, -1)
+    w = p.qw.long().reshape(g, o // g, cg * kh * kw)
+    want = torch.einsum("gok,bgkl->bgol", w, cols).reshape(raw.shape)
+    assert raw.dtype == torch.int32 and torch.equal(raw.long(), want)
+    int8_conv.pack_weights(p)
+    kpad, kpack = p.kpad[0], p.kpack[0]
+    taps = p.qw.permute(0, 2, 3, 1)  # (O, KH, KW, cg)
+    assert kpack == (cg < 32) and p.packed.shape[1] % 32 == 0
+    if kpack:
+        n = kh * kw * cg
+        assert torch.equal(p.packed[:, :n], taps.reshape(o, n))
+        assert not p.packed[:, n:].any()
+    else:
+        blk = p.packed.reshape(o, kh, kw, kpad)
+        assert torch.equal(blk[..., :cg], taps) and not blk[..., cg:].any()
 
 
 def test_int8_conv_refuses_other_devices():

@@ -223,6 +223,18 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
    testing.INT8_GROUPED_CASES against plain (int32 sums bit-equal), timed
    beside its bound, and testing.GROUPED_CFG's int8 model on the card
    against the CPU (its launches counted).
+16. the reference-checkpoint route, yolov5s_seg at full width on boosted
+   weights (testing.boosted_state): (a) a port checkpoint of them exported
+   by tools/export_torch_sd to the reference's state dict, loaded into a
+   port DeSeNet in half and pickled as the reference's train.py saves a
+   checkpoint; (b) that .pt imported by tools/import_torch_ckpt and served
+   by api.load_predictor on the card; (c) its decode and seg logits held
+   against a Predictor built directly from the half-rounded weights (f32
+   at b8 with TF32 off, bf16 at b128, IMPORT_F32_BAR and IMPORT_BF16_BAR
+   of the largest magnitude), K1 and K2 on its b128 decode and logits
+   equal to plain, then b128/640 uint8 batches through run_batch with K1's
+   and K2's counters reset before and read after; (d) the export's and
+   import's seconds, the artifacts' MB and the served ms a batch.
 
 Inputs of the kernel checks come from desenet_tpu_torch.testing, shared with
 tests/test_torch_kernels_cuda.py.
@@ -3874,6 +3886,182 @@ def phase15(card: str, sd: dict, errs: dict, extras: dict) -> dict:
     return k
 
 
+B_IMPORT_F32 = 8        # the f32 check of the imported checkpoint (TF32 off)
+IMPORT_TURNS = 5        # timed b128 run_batch calls of the imported one
+IMPORT_F32_BAR = 1e-6   # decode / seg logits against the direct Predictor,
+IMPORT_BF16_BAR = 1e-3  # of their largest magnitude (the same weights)
+
+
+def _mb(path: str) -> float:
+    """MB of a file, or of the files under a directory."""
+    if os.path.isfile(path):
+        return os.path.getsize(path) / 1e6
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs) / 1e6
+
+
+def _held(pairs, bar: float, what: str) -> dict:
+    """Max |a - b| of each (name, a, b) over b's largest magnitude, each
+    finite and within ``bar``."""
+    errs = {}
+    for name, a, b in pairs:
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{what}: {name} is not finite")
+        errs[name] = float((a.float() - b.float()).abs().max()
+                           / b.float().abs().max())
+    if max(errs.values()) > bar:
+        raise AssertionError(f"{what}: {errs} (bar {bar})")
+    return errs
+
+
+def phase16(card: str, extras: dict) -> dict:
+    """The reference-checkpoint route: (a) full-width yolov5s_seg on
+    boosted weights (testing.boosted_state: K1 gets candidates) written as
+    a port checkpoint, exported by tools/export_torch_sd, loaded into a
+    port DeSeNet in half and pickled as the reference's train.py saves
+    one; (b) imported by tools/import_torch_ckpt and served through
+    load_predictor; (c) its decode and seg logits against a Predictor of
+    the half-rounded weights built directly (f32 at b8 with TF32 off, bf16
+    at b128), K1 and K2 on its b128 decode and logits against their plain
+    versions (K1 timed there beside plain and its bound), then b128/640
+    uint8 batches through run_batch with K1's and K2's counters reset
+    before and read after; (d) the export's and import's seconds, the
+    artifacts' MB and the served ms a batch."""
+    import tempfile
+
+    from desenet_tpu_torch.api import Predictor, load_predictor
+    from desenet_tpu_torch.models import build_model, config_path
+    from desenet_tpu_torch.ops import nms_fused, seg_pallas
+    from desenet_tpu_torch.testing import boosted_state
+    from desenet_tpu_torch.tools import export_torch_sd, import_torch_ckpt
+    from desenet_tpu_torch.train.state import bn_stats, trainable
+    from desenet_tpu_torch.utils.checkpoint import _write
+    from desenet_tpu_torch.utils.convert import (load_npz_state_dict,
+                                                 load_state_dict)
+
+    dev = torch.device("cuda")
+    model, spec = build_model(config_path("yolov5s_seg"))
+    sd = boosted_state(model)
+    load_state_dict(model, sd)
+    rounded = {k: v.half().float() if v.is_floating_point() else v
+               for k, v in sd.items()}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_import_") as tmp:
+        src, npz = os.path.join(tmp, "src"), os.path.join(tmp, "sd.npz")
+        pt, out = os.path.join(tmp, "best.pt"), os.path.join(tmp, "imported")
+        _write(src, {"params": {k: v.detach().clone()
+                                for k, v in trainable(model).items()},
+                     "batch_stats": {k: v.clone()
+                                     for k, v in bn_stats(model).items()}},
+               {"cfg": "yolov5s_seg", "de_nc": spec.de_nc,
+                "se_nc": spec.se_nc})
+        t = time.perf_counter()
+        export_torch_sd.main([src, npz])
+        export_s = time.perf_counter() - t
+        ref, _ = build_model(config_path("yolov5s_seg"))
+        load_state_dict(ref, load_npz_state_dict(npz))
+        ref = ref.half().eval()
+        torch.save({"epoch": -1, "best_fitness": None, "model": ref,
+                    "ema": ref, "updates": 0, "optimizer": None}, pt)
+        t = time.perf_counter()
+        import_torch_ckpt.main([pt, out, "--cfg", "yolov5s_seg"])
+        import_s = time.perf_counter() - t
+        mb = {"checkpoint": _mb(src), "npz": _mb(npz), "pt": _mb(pt),
+              "imported": _mb(out)}
+
+        rng = np.random.default_rng(16)
+        imgs = rng.integers(0, 256, (B_SERVE, IMGSZ, IMGSZ, 3),
+                            dtype=np.uint8)
+        # f32, TF32 off: the imported checkpoint against the weights
+        # themselves
+        imp = load_predictor(out, imgsz=IMGSZ, half=False, device="cuda")
+        direct = Predictor("yolov5s_seg", rounded, imgsz=IMGSZ, half=False,
+                           device="cuda")
+        x = torch.from_numpy(imgs[:B_IMPORT_F32]).to(dev)
+        with no_tf32():
+            dec_i, seg_i = _served_forward(imp, x)
+            dec_d, seg_d = _served_forward(direct, x)
+        f32 = _held((("decode", dec_i, dec_d), ("seg logits", seg_i, seg_d)),
+                    IMPORT_F32_BAR, "imported checkpoint f32")
+        del imp, direct, dec_i, seg_i, dec_d, seg_d
+        # bf16 b128: the same, then K1 and K2 on its decode and logits
+        imp = load_predictor(out, imgsz=IMGSZ, device="cuda")
+        direct = Predictor("yolov5s_seg", rounded, imgsz=IMGSZ,
+                           device="cuda")
+        xb = torch.from_numpy(imgs).to(dev)
+        dec_i, seg_i = _served_forward(imp, xb)
+        dec_d, seg_d = _served_forward(direct, xb)
+        bf16 = _held((("decode", dec_i, dec_d), ("seg logits", seg_i, seg_d)),
+                     IMPORT_BF16_BAR, "imported checkpoint bf16")
+        del direct, dec_d, seg_d
+    planes = nms_fused.nms_planes(dec_i, imp.conf_thres)
+    got = nms_fused.greedy_select(*planes, imp.max_det, imp.iou_thres)
+    if not torch.equal(got, nms_fused.greedy_select_plain(
+            *planes, imp.max_det, imp.iou_thres)):
+        raise AssertionError("K1 on the imported checkpoint's decode "
+                             "differs from plain")
+    n_cand = float((planes[4] > 0).sum(1).float().mean())
+    picks = float((got[..., 4] > 0).sum(1).float().mean())
+    paths = sorted(set(nms_fused.last_paths.tolist()))
+    k1_plain, k1 = in_turns(
+        (lambda: nms_fused.greedy_select_plain(*planes, imp.max_det,
+                                               imp.iou_thres), 1),
+        (lambda: nms_fused.greedy_select(*planes, imp.max_det,
+                                         imp.iou_thres), 20))
+    k1_bound = tm.nms_fused_bound(B_SERVE, planes[4].shape[1], imp.max_det,
+                                  n_cand, picks)
+    extras.setdefault("nms_fused", {}).update(
+        imported_ms=k1, imported_plain_ms=k1_plain,
+        imported_bound_ms=k1_bound[0], imported_candidates=n_cand,
+        imported_picks=picks)
+    nhwc = seg_i.permute(0, 2, 3, 1).contiguous()
+    h, w = nhwc.shape[1:3]
+    if not torch.equal(seg_pallas.upsample_argmax(nhwc),
+                       seg_pallas.upsample_argmax_plain(
+                           nhwc, *seg_pallas.seg_taps(h, 8 * h, True, dev),
+                           *seg_pallas.seg_taps(w, 8 * w, True, dev))):
+        raise AssertionError("K2 on the imported checkpoint's seg logits "
+                             "differs from plain")
+    del dec_i, seg_i, nhwc, planes
+    imp.run_batch(imgs)  # warm
+    nms_fused.launches = seg_pallas.launches = 0
+    ms = []
+    for _ in range(IMPORT_TURNS):
+        t = time.perf_counter()
+        res = imp.run_batch(imgs)
+        ms.append((time.perf_counter() - t) * 1e3)
+    k = {"nms_fused": nms_fused.launches, "seg_tail": seg_pallas.launches}
+    if k != {"nms_fused": IMPORT_TURNS, "seg_tail": IMPORT_TURNS}:
+        raise AssertionError(f"imported checkpoint served launches {k}")
+    boxes, scores, _, nums, seg_cls = res
+    if seg_cls.shape != (B_SERVE, IMGSZ, IMGSZ) or not (
+            np.isfinite(boxes).all() and np.isfinite(scores).all()) \
+            or int(nums.sum()) == 0:
+        raise AssertionError(f"imported checkpoint served program: seg "
+                             f"{seg_cls.shape}, {int(nums.sum())} boxes")
+    log("16", f"yolov5s_seg boosted weights: port checkpoint -> "
+        f"export_torch_sd {export_s:.3f} s ({mb['checkpoint']:.3f} MB -> npz "
+        f"{mb['npz']:.3f} MB), reference-style .pt in half "
+        f"{mb['pt']:.3f} MB -> import_torch_ckpt {import_s:.3f} s "
+        f"(checkpoint {mb['imported']:.3f} MB) [{card}]")
+    log("16", f"imported against a Predictor of the half-rounded weights: "
+        f"f32 b{B_IMPORT_F32}/{IMGSZ} (TF32 off) decode and seg logits "
+        f"within {f32['decode']:.2e}, {f32['seg logits']:.2e} of their "
+        f"largest magnitude (bar {IMPORT_F32_BAR}); bf16 b{B_SERVE} within "
+        f"{bf16['decode']:.2e}, {bf16['seg logits']:.2e} (bar "
+        f"{IMPORT_BF16_BAR}); K1 on its decode and K2 on its logits equal "
+        f"to plain [{card}]")
+    log("16", f"K1 nms_fused on the imported checkpoint's b{B_SERVE} decode, "
+        f"{n_cand:.0f} candidates and {picks:.0f} picks an image at conf "
+        f"{imp.conf_thres}, paths {paths}: kernel {k1:.3f} ms, plain "
+        f"{k1_plain:.3f} ms, bound {k1_bound[0]:.4f} ms ({k1_bound[1]}) "
+        f"[{card}]")
+    log("16", f"imported checkpoint served bf16 b{B_SERVE}/{IMGSZ} uint8 "
+        f"through run_batch: median {float(np.median(ms)):.3f} ms a batch "
+        f"(min {min(ms):.3f}, max {max(ms):.3f}, {IMPORT_TURNS} batches), "
+        f"{int(nums.sum())} boxes in the last; launches {k} [{card}]")
+    return k
+
+
 def main() -> None:
     took = {}
 
@@ -3913,6 +4101,8 @@ def main() -> None:
     for k, v in timed("14", phase14, card, sd).items():
         launches[k] += v
     for k, v in timed("15", phase15, card, sd, errs, extras).items():
+        launches[k] += v
+    for k, v in timed("16", phase16, card, extras).items():
         launches[k] += v
     log("times", "seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in took.items())

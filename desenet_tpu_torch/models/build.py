@@ -75,6 +75,9 @@ QUANT_AWARE = frozenset({
     "Upsample", "Concat", "SegMaskPSP", "SegMaskPSP2",
 })
 _PASSTHROUGH = {"Concat", "Upsample", "Contract", "Expand"}
+# nn.Upsample's modes; the JAX package runs "nearest" only
+_UPSAMPLE_MODES = ("nearest", "linear", "bilinear", "bicubic", "trilinear",
+                   "area", "nearest-exact")
 # the consumers a Concat may hand an implicit concat (a part list)
 _SPLIT_CONSUMERS = {"C3", "Conv", "C3TR", "C3Ghost", "BottleneckCSP", "SPP",
                     "SPPF"}
@@ -232,6 +235,9 @@ def parse_config(cfg, nc: Optional[int] = None,
                 raise ValueError(
                     f"row {i} (nn.Upsample): scale must be >= 1, got {scale}")
             mode = args[2] if len(args) > 2 else "nearest"
+            if mode not in _UPSAMPLE_MODES:
+                raise ValueError(f"row {i} (nn.Upsample): mode must be one "
+                                 f"of {_UPSAMPLE_MODES}, got {mode!r}")
             if mode != "nearest":
                 raise NotImplementedError(
                     f"row {i} (nn.Upsample): mode {mode!r} is not ported")

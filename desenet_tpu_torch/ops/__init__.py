@@ -3,10 +3,12 @@ from desenet_tpu_torch.ops.boxes import (
     box_iou,
     clip_coords,
     np_scale_coords,
+    scale_coords,
     wh_iou,
     xyn2xy,
     xywh2xyxy,
     xywhn2xyxy,
+    xyxy2xywh,
     xyxy2xywhn,
 )
 from desenet_tpu_torch.ops.nms import (
@@ -34,10 +36,12 @@ __all__ = [
     "box_iou",
     "clip_coords",
     "np_scale_coords",
+    "scale_coords",
     "wh_iou",
     "xyn2xy",
     "xywh2xyxy",
     "xywhn2xyxy",
+    "xyxy2xywh",
     "xyxy2xywhn",
     "MAX_WH",
     "PRE_TOPK_PRODUCTION",

@@ -2,10 +2,10 @@
 
 Counterpart of ``desenet_tpu/ops/boxes.py`` (what the served program and
 the training loss use, and the JAX package's other public helpers:
-``xywhn2xyxy``, ``xyxy2xywhn``, ``xyn2xy``, ``clip_coords``, ``wh_iou``,
-``bbox_ioa``) plus ``np_scale_coords``, copied from
-``desenet_tpu/eval/validator.py`` because that module imports JAX. Boxes
-live in the last axis of size 4, on torch tensors.
+``xyxy2xywh``, ``xywhn2xyxy``, ``xyxy2xywhn``, ``xyn2xy``, ``clip_coords``,
+``scale_coords``, ``wh_iou``, ``bbox_ioa``) plus ``np_scale_coords``,
+copied from ``desenet_tpu/eval/validator.py`` because that module imports
+JAX. Boxes live in the last axis of size 4, on torch tensors.
 """
 
 from __future__ import annotations
@@ -13,6 +13,12 @@ from __future__ import annotations
 import math
 
 import torch
+
+
+def xyxy2xywh(x: torch.Tensor) -> torch.Tensor:
+    """[x1,y1,x2,y2] -> [cx,cy,w,h]."""
+    x1, y1, x2, y2 = x.unbind(-1)
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], -1)
 
 
 def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
@@ -54,6 +60,25 @@ def clip_coords(boxes: torch.Tensor, shape) -> torch.Tensor:
     x1, y1, x2, y2 = boxes.unbind(-1)
     return torch.stack([x1.clamp(0, w), y1.clamp(0, h), x2.clamp(0, w),
                         y2.clamp(0, h)], -1)
+
+
+def scale_coords(img1_shape, coords: torch.Tensor, img0_shape,
+                 ratio_pad=None) -> torch.Tensor:
+    """xyxy ``coords`` from the letterboxed ``img1_shape`` (h, w) back to
+    the native ``img0_shape`` (h, w), clipped to it. The gain is the
+    smaller of the two ratios and the pad half the leftover, unless
+    ``ratio_pad`` = ((gain, _), (padw, padh)) gives them."""
+    if ratio_pad is None:
+        gain = min(img1_shape[0] / img0_shape[0],
+                   img1_shape[1] / img0_shape[1])
+        pad = ((img1_shape[1] - img0_shape[1] * gain) / 2,
+               (img1_shape[0] - img0_shape[0] * gain) / 2)
+    else:
+        gain = ratio_pad[0][0]
+        pad = ratio_pad[1]
+    coords = coords - torch.tensor([pad[0], pad[1], pad[0], pad[1]],
+                                   dtype=coords.dtype, device=coords.device)
+    return clip_coords(coords / gain, img0_shape)
 
 
 def wh_iou(wh1: torch.Tensor, wh2: torch.Tensor) -> torch.Tensor:

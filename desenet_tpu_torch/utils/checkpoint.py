@@ -18,6 +18,19 @@ A stripped checkpoint (``strip_checkpoint``) holds only ``params`` and
 ``batch_stats``, taken from the EMA. A JAX (orbax) checkpoint is not read
 here: the JAX package loads it and ``utils/convert.py:train_state_from_jax``
 turns it into the port's state, which ``save_checkpoint`` then writes.
+
+The JAX package's schema migrations (``MIGRATIONS``, ``migrate_to_version``
+and the three layout rewrites) are here too, on a JAX variables tree of
+numpy arrays (``{"params": ..., "batch_stats": ...}`` as nested dicts), so
+that ``utils/convert.py:state_dict_from_jax`` takes a tree of any schema:
+
+- v1: the unfused Focus stem, its parameters at ``l{i}/conv/{conv,bn}``;
+- v2: the fused 6x6 stem conv at ``l{i}/{conv,bn}``, C3 blocks stored in
+  the training layout (separate ``cv1``/``cv2``);
+- v3: the v2 tree with a ``layout`` entry in meta.json. Current.
+
+``MIGRATIONS[v]`` turns a v tree into a v+1 tree. Each is exact (bit for
+bit) and idempotent on a tree already migrated.
 """
 
 from __future__ import annotations
@@ -26,6 +39,7 @@ import json
 import os
 from typing import Any, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from desenet_tpu_torch.train.state import TrainState, bn_stats
@@ -96,10 +110,16 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     weights = os.path.join(path, WEIGHTS)
     if not os.path.isfile(weights):
         raise FileNotFoundError(
-            f"{path} holds no {WEIGHTS}: not a desenet_tpu_torch checkpoint "
-            "(a desenet_tpu one crosses through "
-            "utils/convert.py:train_state_from_jax or "
-            "tools/export_torch_sd.py)")
+            f"{path} holds no {WEIGHTS}: not a desenet_tpu_torch checkpoint. "
+            "A reference .pt becomes one through python -m "
+            "desenet_tpu_torch.tools.import_torch_ckpt; a desenet_tpu "
+            "(orbax) one needs the JAX package: its tools/export_torch_sd.py "
+            "writes the weights as an npz that this package loads "
+            "(utils/convert.py:load_npz_state_dict), or "
+            "utils/convert.py:train_state_from_jax takes its training "
+            "state. python -m desenet_tpu_torch.tools.export_torch_sd goes "
+            "the other way, from this package's checkpoint to the "
+            "reference's state dict")
     payload = torch.load(weights, map_location="cpu", weights_only=True)
     meta_path = os.path.join(path, META)
     payload["meta"] = None
@@ -196,3 +216,187 @@ def intersect_trees(src: Mapping[str, torch.Tensor],
         else:
             out[k] = v
     return out, n
+
+
+def _deep_copy(d: dict) -> dict:
+    return {k: _deep_copy(v) if isinstance(v, dict) else v
+            for k, v in d.items()}
+
+
+def _sites(params: dict, is_site, path=()):
+    """Paths of the sub-dicts of ``params`` (depth first) that
+    ``is_site`` accepts."""
+    for k, v in params.items():
+        if isinstance(v, dict):
+            if is_site(v):
+                yield path + (k,)
+            yield from _sites(v, is_site, path + (k,))
+
+
+def _at(tree, site):
+    """The sub-dict of ``tree`` at ``site``, or None where it has none."""
+    for s in site:
+        if not isinstance(tree, dict) or s not in tree:
+            return None
+        tree = tree[s]
+    return tree
+
+
+def migrate_focus_params(variables: dict) -> dict:
+    """A tree with the unfused Focus stem (parameters under
+    ``l{i}/conv/{conv,bn}``) in the fused-conv layout (``l{i}/{conv,bn}``),
+    by the exact space-to-depth rearrangement of the kernel. The rows are
+    found in ``params`` (a row holding only a nested ConvBnAct whose kernel
+    takes a multiple of 4 input channels), then rewritten in every
+    collection."""
+    params = variables.get("params", {})
+    migrate = set()
+    for lname, sub in params.items():
+        try:
+            w = np.asarray(sub["conv"]["conv"]["conv2d"]["kernel"])
+        except (KeyError, TypeError):
+            continue
+        if set(sub) == {"conv"} and w.ndim == 4 and w.shape[2] % 4 == 0:
+            migrate.add(lname)
+    if not migrate:
+        return variables
+
+    out = {}
+    for col, tree in variables.items():
+        tree = dict(tree)
+        for lname in migrate:
+            if lname not in tree:
+                continue
+            inner = tree[lname]["conv"]  # Focus's ConvBnAct: {conv, bn}
+            new = {}
+            if "conv" in inner:
+                w4 = np.asarray(inner["conv"]["conv2d"]["kernel"])
+                k, _, c4, o = w4.shape
+                c = c4 // 4
+                w6 = np.zeros((2 * k, 2 * k, c, o), w4.dtype)
+                for oy in range(2):
+                    for ox in range(2):
+                        s = oy + 2 * ox
+                        w6[oy::2, ox::2] = w4[:, :, c * s:c * (s + 1), :]
+                new["conv"] = {"conv2d": {"kernel": w6}}
+            if "bn" in inner:
+                new["bn"] = inner["bn"]
+            tree[lname] = new
+        out[col] = tree
+    return out
+
+
+def _is_bottleneck(m) -> bool:
+    """C3's inner block is a Bottleneck (cv1 1x1, cv2 3x3). C3Ghost and
+    C3TR share C3's outer layout, but their ``m_0`` (a GhostBottleneck, a
+    TransformerBlock) has no fused ``cv12`` form, so they are not
+    migrated."""
+    if not isinstance(m, dict):
+        return False
+    try:
+        k1 = m["cv1"]["conv"]["conv2d"]["kernel"]
+        k2 = m["cv2"]["conv"]["conv2d"]["kernel"]
+    except (TypeError, KeyError):
+        return False
+    return (tuple(np.shape(k1)[:2]) == (1, 1)
+            and tuple(np.shape(k2)[:2]) == (3, 3))
+
+
+def _is_unfused_c3(v: dict) -> bool:
+    """A C3 in the training layout; ``cv4`` marks a BottleneckCSP."""
+    return ("cv1" in v and "cv2" in v and "cv3" in v and "m_0" in v
+            and "cv4" not in v
+            and isinstance(v.get("cv1"), dict) and "conv" in v["cv1"]
+            and isinstance(v.get("cv2"), dict) and "conv" in v["cv2"]
+            and _is_bottleneck(v["m_0"]))
+
+
+def migrate_unfused_c3(variables: dict) -> dict:
+    """A tree with C3 blocks in the training layout (separate ``cv1`` and
+    ``cv2`` ConvBnActs) in the fused ``cv12``/``bn12`` layout: kernels
+    concatenated along the output axis, BN leaves per channel. Exact."""
+    sites = list(_sites(variables.get("params", {}), _is_unfused_c3))
+    if not sites:
+        return variables
+    out = {col: _deep_copy(tree) for col, tree in variables.items()}
+    for col, tree in out.items():
+        for site in sites:
+            sub = _at(tree, site)
+            if sub is None or "cv1" not in sub or "cv2" not in sub:
+                continue
+            cv1 = sub.pop("cv1")
+            cv2 = sub.pop("cv2")
+            if col == "params" and "conv" in cv1:
+                sub["cv12"] = {"conv2d": {"kernel": np.concatenate(
+                    [np.asarray(cv1["conv"]["conv2d"]["kernel"]),
+                     np.asarray(cv2["conv"]["conv2d"]["kernel"])], axis=-1)}}
+            if "bn" in cv1:
+                sub["bn12"] = {"bn": {
+                    kk: np.concatenate([np.asarray(cv1["bn"]["bn"][kk]),
+                                        np.asarray(cv2["bn"]["bn"][kk])],
+                                       axis=0)
+                    for kk in cv1["bn"]["bn"]}}
+    return out
+
+
+def defuse_c3(variables: dict) -> dict:
+    """The inverse of ``migrate_unfused_c3``: fused ``cv12``/``bn12`` C3
+    blocks split back into ``cv1``/``cv2`` ConvBnActs (the training
+    layout)."""
+    sites = list(_sites(variables.get("params", {}),
+                        lambda v: "cv12" in v and "bn12" in v))
+    if not sites:
+        return variables
+    out = {col: _deep_copy(tree) for col, tree in variables.items()}
+    for col, tree in out.items():
+        for site in sites:
+            sub = _at(tree, site)
+            if sub is None:
+                continue
+            if col == "params" and "cv12" in sub:
+                w = np.asarray(sub.pop("cv12")["conv2d"]["kernel"])
+                half = w.shape[-1] // 2
+                sub.setdefault("cv1", {})["conv"] = {
+                    "conv2d": {"kernel": w[..., :half]}}
+                sub.setdefault("cv2", {})["conv"] = {
+                    "conv2d": {"kernel": w[..., half:]}}
+            if "bn12" in sub:
+                bn = sub.pop("bn12")["bn"]
+                h = {k: np.asarray(v).shape[0] // 2 for k, v in bn.items()}
+                sub.setdefault("cv1", {})["bn"] = {
+                    "bn": {k: np.asarray(v)[:h[k]] for k, v in bn.items()}}
+                sub.setdefault("cv2", {})["bn"] = {
+                    "bn": {k: np.asarray(v)[h[k]:] for k, v in bn.items()}}
+    return out
+
+
+def migrate_legacy(variables: dict) -> dict:
+    """Every layout migration, for an unversioned tree: the fused Focus
+    stem, then the fused C3."""
+    return migrate_unfused_c3(migrate_focus_params(variables))
+
+
+# version v -> the function that makes a v+1 tree of it; v2 -> v3 added
+# only meta.json's "layout", the tree is unchanged
+MIGRATIONS = {
+    1: migrate_focus_params,
+    2: lambda variables: variables,
+}
+
+
+def migrate_to_version(variables: dict, from_version: int,
+                       to_version: int = SCHEMA_VERSION) -> dict:
+    """A tree of schema ``from_version`` through ``MIGRATIONS`` up to
+    ``to_version``. ValueError for a schema newer than this code's or one
+    with no registered migration."""
+    v = int(from_version)
+    if v > SCHEMA_VERSION:
+        raise ValueError(
+            f"checkpoint schema v{v} is newer than this code "
+            f"(v{SCHEMA_VERSION}); upgrade desenet_tpu_torch to load it")
+    while v < to_version:
+        if v not in MIGRATIONS:
+            raise ValueError(f"no migration registered for schema v{v}")
+        variables = MIGRATIONS[v](variables)
+        v += 1
+    return variables

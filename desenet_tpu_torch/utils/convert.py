@@ -25,6 +25,8 @@ import torch
 from desenet_tpu_torch.models.build import SEG_HEADS, DeSeNet, ModelSpec
 from desenet_tpu_torch.train.optim import OptimConfig
 from desenet_tpu_torch.train.state import TrainState, create_train_state
+from desenet_tpu_torch.utils.checkpoint import (SCHEMA_VERSION, migrate_legacy,
+                                                migrate_to_version)
 
 
 def _rfb2_table(fpfx: str, tpfx: str, has_global: bool) -> Dict[str, str]:
@@ -378,18 +380,51 @@ def _expected_shapes(spec: ModelSpec) -> Dict[str, Tuple[int, ...]]:
         return {k: tuple(v.shape) for k, v in DeSeNet(spec).state_dict().items()}
 
 
-def state_dict_from_jax(flat: Mapping[str, np.ndarray], spec: ModelSpec
+def _unflatten(flat: Mapping[str, np.ndarray]) -> dict:
+    """``"params/l0/conv/conv2d/kernel"``-style paths -> nested dicts."""
+    tree: dict = {}
+    for key, val in flat.items():
+        *path, leaf = key.split("/")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = val
+    return tree
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """The inverse of ``_unflatten``."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def state_dict_from_jax(flat: Mapping[str, np.ndarray], spec: ModelSpec,
+                        schema_version=SCHEMA_VERSION
                         ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
     """JAX variables -> the port's state dict.
 
     ``flat`` maps ``"params/l4/m_0/cv1/conv/conv2d/kernel"``-style paths
     (``flax.traverse_util.flatten_dict(variables, sep="/")``, done by the
-    caller) to arrays; fused and unfused JAX layouts are both accepted.
+    caller) to arrays; fused and unfused C3 layouts are both accepted.
+    ``schema_version`` is the tree's checkpoint schema (meta.json's
+    ``schema_version``): an older one is first migrated to the current one
+    (``utils/checkpoint.migrate_to_version``), None (an unversioned tree)
+    goes through ``migrate_legacy``, as the JAX package's
+    ``load_inference_variables`` does.
     Returns ``(state_dict, unfilled)``: ``unfilled`` lists the port model's
     keys that the JAX variables do not cover, which for a valid checkpoint
     are exactly ``DeSeNet.quirk_bn_keys()`` (BNs that never run keep their
     init), and for variables from an eval-mode init also
     ``DeSeNet.train_only_keys()``."""
+    if schema_version is None:
+        flat = _flatten(migrate_legacy(_unflatten(flat)))
+    elif schema_version != SCHEMA_VERSION:
+        flat = _flatten(migrate_to_version(_unflatten(flat), schema_version))
     sd = {}
     for col in ("params", "batch_stats"):
         sd.update(tree_from_jax({k[len(col) + 1:]: v for k, v in flat.items()
@@ -475,6 +510,35 @@ def focus_to_fused(sd: Mapping[str, torch.Tensor], spec: ModelSpec
                     s = oy + 2 * ox
                     w[:, :, oy::2, ox::2] = v[:, c * s:c * (s + 1)]
             out[f"model.{ls.i}.conv.weight"] = w
+    return out
+
+
+def fused_to_focus(sd: Mapping[str, torch.Tensor], spec: ModelSpec
+                   ) -> Dict[str, torch.Tensor]:
+    """The inverse of ``focus_to_fused``: ``sd`` with the fused-layout
+    weights of ``spec``'s Focus and FusedFocus rows
+    (``model.{i}.conv.weight``, ``model.{i}.bn.*``) in the Focus layout
+    (``model.{i}.conv.conv.weight``, ``model.{i}.conv.bn.*``), the
+    reference's; slice oy + 2*ox's tap (di, dj) is the fused kernel's tap
+    (2*di + oy, 2*dj + ox). Other keys pass through."""
+    out = dict(sd)
+    for ls in spec.layers:
+        pre = f"model.{ls.i}."
+        if (ls.name not in ("Focus", "FusedFocus")
+                or pre + "conv.weight" not in out):
+            continue
+        for k in [k for k in out if k.startswith(pre)]:
+            v, rest = out.pop(k), k[len(pre):]
+            if rest != "conv.weight":  # the BN's leaves
+                out[pre + "conv." + rest] = v
+                continue
+            o, c, kk, _ = v.shape
+            w = v.new_empty(o, 4 * c, kk // 2, kk // 2)
+            for oy in range(2):
+                for ox in range(2):
+                    s = oy + 2 * ox
+                    w[:, c * s:c * (s + 1)] = v[:, :, oy::2, ox::2]
+            out[pre + "conv.conv.weight"] = w
     return out
 
 

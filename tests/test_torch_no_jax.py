@@ -12,8 +12,10 @@ runs its kernel probes (K5, K6), builds and loads its native host library
 takes a data-parallel step in two gloo processes
 (``tools/dryrun_multichip.run``), logs a dataset through ``cli.log_dataset``
 (the offline W&B backend), exports a checkpoint's serving program and runs
-it through the consumer, and runs ``utils/profiling.model_info`` and a
-block the DSL cannot name, with the JAX package
+it through the consumer, runs ``utils/profiling.model_info`` and a
+block the DSL cannot name, exports a checkpoint as the reference's state
+dict, imports that back and serves it, and fuzzes the DSL compiler, with
+the JAX package
 ``desenet_tpu``, JAX, flax, optax, orbax, cv2, PyYAML, matplotlib and
 pandas blocked: the port never needs JAX or the JAX package, and the
 card's machine may lack the other four. A second test reads the port's sources and ``chip_smoke.py`` with
@@ -316,6 +318,28 @@ with contextlib.redirect_stdout(io.StringIO()):
     info = profiling.model_info(tiny, 64)
 assert info["params"] == profiling.count_params(tiny)
 assert L.DAPPM(8, 4, 8)(torch.rand(2, 8, 16, 16)).shape == (2, 8, 16, 16)
+
+# the reference-checkpoint export and import, and the DSL fuzzer
+from desenet_tpu_torch.tools import (export_torch_sd, fuzz_model_dsl,
+                                     import_torch_ckpt)
+with tempfile.TemporaryDirectory() as tmp:
+    with open(tmp + "/tiny.json", "w") as fh:
+        json.dump(cfg, fh)
+    params, stats = checkpoint.split_stats(sd)
+    checkpoint._write(tmp + "/ckpt", {"params": params, "batch_stats": stats},
+                      {"cfg": tmp + "/tiny.json", "de_nc": 3, "se_nc": 2})
+    with contextlib.redirect_stdout(io.StringIO()):
+        export_torch_sd.main([tmp + "/ckpt", tmp + "/sd.npz"])
+        with np.load(tmp + "/sd.npz") as z:
+            torch.save({"ema": None, "model": {
+                k: torch.from_numpy(z[k]) for k in z.files}},
+                tmp + "/best.pt")
+        import_torch_ckpt.main([tmp + "/best.pt", tmp + "/back", "--cfg",
+                                tmp + "/tiny.json"])
+        assert fuzz_model_dsl.run(50, seed=0) == []
+    back = load_predictor(tmp + "/back", imgsz=64, conf_thres=1e-3,
+                          half=False, device="cpu")
+    assert np.array_equal(back(img).xyxy[0], res.xyxy[0])
 
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in {b.split(".")[0] for b in BLOCKED}

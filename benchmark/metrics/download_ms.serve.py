@@ -1,0 +1,13 @@
+"""The download of a served batch: host ms a batch inside the program's
+``predict.download`` spans (waiting for the card, then the results'
+copies to numpy), over the traced batches."""
+
+from benchmark.harness.spans import host_ms
+
+LAYER = "host pre and post (api.Predictor.run_batch, __call__)"
+UNIT = "ms"
+MOVES = "serve_img_s"
+
+
+def read(rec: dict):
+    return host_ms(rec, "predict.download")

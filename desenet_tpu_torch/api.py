@@ -43,6 +43,14 @@ memory and every replica's program (forward, K1, K2) queued before any
 result is copied back, with the intent that the cards overlap (not yet
 measured on two cards); the padded rows are dropped. Every replica holds
 the same weights, so the results are those of one device.
+
+With tracing on (``utils/profiling``), ``__call__`` records the spans
+``predict.call`` (``predict.letterbox``, ``predict.stack``, then
+``run_batch``'s, then ``predict.post``), ``run_batch`` records
+``predict.run_batch`` around ``predict.pin``, ``predict.upload``,
+``predict.infer`` (a replica each, attr ``replica``) and one
+``predict.download`` a replica, and ``infer`` records ``infer.forward``,
+``infer.nms`` (K1 with its prep) and ``infer.seg_tail`` (K2).
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ from desenet_tpu_torch.parallel.mesh import Mesh, pad_batch_for_mesh
 from desenet_tpu_torch.utils.convert import load_state_dict
 from desenet_tpu_torch.utils.general import save_one_box
 from desenet_tpu_torch.utils.plots import Annotator, SegAnnotator, colors
+from desenet_tpu_torch.utils.profiling import span
 
 
 class Detections:
@@ -300,16 +309,19 @@ class Predictor:
         with ``stem_s2d`` its (B, H/4, W/4, 48) space-to-depth-4 packing ->
         (NMSOutput, (B, H, W) uint8 seg class map); ``model`` a replica
         (the first by default)."""
-        x = img_u8.permute(0, 3, 1, 2).to(self.dtype)
-        x = x.contiguous(memory_format=self._mf) / 255
-        (dec, _), seg = (model or self.model)(x)
-        nms = non_max_suppression(dec, conf_thres=self.conf_thres,
-                                  iou_thres=self.iou_thres,
-                                  max_det=self.max_det)
+        with span("infer.forward"):
+            x = img_u8.permute(0, 3, 1, 2).to(self.dtype)
+            x = x.contiguous(memory_format=self._mf) / 255
+            (dec, _), seg = (model or self.model)(x)
+        with span("infer.nms"):
+            nms = non_max_suppression(dec, conf_thres=self.conf_thres,
+                                      iou_thres=self.iou_thres,
+                                      max_det=self.max_det)
         if self.int8:  # the int8 program emits full-resolution logits
             return nms, seg.argmax(1).to(torch.uint8)
-        seg_cls = upsample_argmax(seg.permute(0, 2, 3, 1).contiguous(),
-                                  scale=8, align_corners=True)
+        with span("infer.seg_tail"):
+            seg_cls = upsample_argmax(seg.permute(0, 2, 3, 1).contiguous(),
+                                      scale=8, align_corners=True)
         return nms, seg_cls
 
     @staticmethod
@@ -332,37 +344,43 @@ class Predictor:
     def __call__(self, inputs: Union[str, np.ndarray, Sequence]) -> Detections:
         if not isinstance(inputs, (list, tuple)):
             inputs = [inputs]
-        imgs0 = [self._to_bgr(im) for im in inputs]
-        rgb = [np.ascontiguousarray(
-            letterbox(im, self.imgsz)[0]
-            [:, :, ::-1]) for im in imgs0]
-        # the network input's size, before any packing: with stem_s2d the
-        # batch is (B, H/4, W/4, 48), and the letterbox is undone from H, W
-        h, w = rgb[0].shape[:2]
-        batch = (native.assemble_batch_s2d4(rgb) if self.stem_s2d
-                 else np.stack(rgb))
-        boxes, scores, classes, nums, seg_np = self.run_batch(batch)
+        with span("predict.call", n=len(inputs)):
+            with span("predict.letterbox"):
+                imgs0 = [self._to_bgr(im) for im in inputs]
+                rgb = [np.ascontiguousarray(
+                    letterbox(im, self.imgsz)[0]
+                    [:, :, ::-1]) for im in imgs0]
+            # the network input's size, before any packing: with stem_s2d
+            # the batch is (B, H/4, W/4, 48), and the letterbox is undone
+            # from H, W
+            h, w = rgb[0].shape[:2]
+            with span("predict.stack"):
+                batch = (native.assemble_batch_s2d4(rgb) if self.stem_s2d
+                         else np.stack(rgb))
+            boxes, scores, classes, nums, seg_np = self.run_batch(batch)
 
-        xyxy, masks = [], []
-        for i, im0 in enumerate(imgs0):
-            n = int(nums[i])
-            d = np.concatenate(
-                [boxes[i, :n], scores[i, :n, None], classes[i, :n, None]],
-                axis=1).astype(np.float64)
-            if n:
-                np_scale_coords((h, w), d[:, :4], im0.shape[:2])
-            xyxy.append(d)
-            # undo letterbox on the mask: crop the pad, nearest-resize
-            gain = min(h / im0.shape[0], w / im0.shape[1])
-            pw = int(round((w - im0.shape[1] * gain) / 2))
-            ph = int(round((h - im0.shape[0] * gain) / 2))
-            m = seg_np[i][ph:h - ph or None, pw:w - pw or None]
-            if m.shape != im0.shape[:2]:
-                import cv2
+            with span("predict.post"):
+                xyxy, masks = [], []
+                for i, im0 in enumerate(imgs0):
+                    n = int(nums[i])
+                    d = np.concatenate(
+                        [boxes[i, :n], scores[i, :n, None],
+                         classes[i, :n, None]], axis=1).astype(np.float64)
+                    if n:
+                        np_scale_coords((h, w), d[:, :4], im0.shape[:2])
+                    xyxy.append(d)
+                    # undo letterbox on the mask: crop the pad,
+                    # nearest-resize
+                    gain = min(h / im0.shape[0], w / im0.shape[1])
+                    pw = int(round((w - im0.shape[1] * gain) / 2))
+                    ph = int(round((h - im0.shape[0] * gain) / 2))
+                    m = seg_np[i][ph:h - ph or None, pw:w - pw or None]
+                    if m.shape != im0.shape[:2]:
+                        import cv2
 
-                m = cv2.resize(m, (im0.shape[1], im0.shape[0]),
-                               interpolation=cv2.INTER_NEAREST)
-            masks.append(m)
+                        m = cv2.resize(m, (im0.shape[1], im0.shape[0]),
+                                       interpolation=cv2.INTER_NEAREST)
+                    masks.append(m)
         return Detections(imgs0, xyxy, masks, names=self.names,
                           se_names=self.se_names)
 
@@ -374,16 +392,27 @@ class Predictor:
         the host. Returns numpy (boxes, scores, classes, num, seg classes)
         of the B images."""
         n, k = batch.shape[0], len(self._replicas)
-        batch = pad_batch_for_mesh({"image": batch}, Mesh(k, 1))[0]["image"]
-        outs = []
-        for (dev, model), part in zip(self._replicas, np.split(batch, k)):
-            x = torch.from_numpy(part)
-            if dev.type == "cuda":
-                x = x.pin_memory()
-            outs.append(self.infer(x.to(dev, non_blocking=True), model))
-        host = [(nms.boxes.cpu().numpy(), nms.scores.cpu().numpy(),
-                 nms.classes.cpu().numpy(), nms.num.cpu().numpy(),
-                 seg.cpu().numpy()) for nms, seg in outs]
+        with span("predict.run_batch", n=n):
+            batch = pad_batch_for_mesh({"image": batch},
+                                       Mesh(k, 1))[0]["image"]
+            outs = []
+            for r, ((dev, model), part) in enumerate(
+                    zip(self._replicas, np.split(batch, k))):
+                with span("predict.pin", replica=r):
+                    x = torch.from_numpy(part)
+                    if dev.type == "cuda":
+                        x = x.pin_memory()
+                with span("predict.upload", replica=r):
+                    x = x.to(dev, non_blocking=True)
+                with span("predict.infer", replica=r):
+                    outs.append(self.infer(x, model))
+            host = []
+            for r, (nms, seg) in enumerate(outs):
+                with span("predict.download", replica=r):
+                    host.append((nms.boxes.cpu().numpy(),
+                                 nms.scores.cpu().numpy(),
+                                 nms.classes.cpu().numpy(),
+                                 nms.num.cpu().numpy(), seg.cpu().numpy()))
         if k == 1:
             return host[0]
         return tuple(np.concatenate(v)[:n] for v in zip(*host))

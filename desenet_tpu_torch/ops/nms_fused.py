@@ -23,6 +23,10 @@ ascending) and walks them in that order with the walk kernel K3 uses
 (``PATH_ORDERED``); ``greedy_select_ordered_plain`` is that in PyTorch ops
 and gives ``greedy_select_plain``'s rows on every input. Above either cap it
 runs an argmax loop over the anchors (``PATH_ARGMAX``).
+
+With tracing on (``utils/profiling``), ``fused_select_nms`` counts the
+images K1 is handed (``k1.images``) and their candidates
+(``k1.candidates``, summed on the device).
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from desenet_tpu_torch.ops import nms_pallas
 from desenet_tpu_torch.ops.boxes import xywh2xyxy
 from desenet_tpu_torch.ops.nms_pallas import (KEPT_CAP, PATH_ARGMAX,
                                               PATH_ORDERED)
+from desenet_tpu_torch.utils import profiling
 
 launches = 0  # kernel launches made by greedy_select
 # (B,) int32 on the card, per image of the last launch: PATH_ORDERED or
@@ -166,6 +171,9 @@ def fused_select_nms(prediction: torch.Tensor, conf_thres: float,
     classes (B, max_det), valid (B, max_det) bool) with invalid rows zeroed
     (class -1), as the JAX function."""
     planes = nms_planes(prediction, conf_thres, agnostic, classes, max_wh)
+    if profiling.tracing():
+        profiling.count("k1.images", planes[4].shape[0])
+        profiling.count("k1.candidates", (planes[4] > 0).sum())
     out = greedy_select(*planes, max_det, iou_thres)
     out_scores = out[..., 4]
     valid = out_scores > 0.0

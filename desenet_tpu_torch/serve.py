@@ -1,11 +1,11 @@
 """Inference serving: a dynamic micro-batching HTTP server.
 
 The port's own copy of the JAX package's server (``desenet_tpu/serve.py``;
-numpy and the standard library only, cv2 imported where a request body or a
-mask is decoded or encoded). It needs of its predictor ``__call__``,
-``imgsz``, ``names``, ``se_names`` and ``Detections.to_dicts`` (plus
-``masks`` for ``?mask=1``), which ``desenet_tpu_torch.api.Predictor``
-provides:
+numpy, the standard library and the port's ``utils/profiling``, cv2
+imported where a request body or a mask is decoded or encoded). It needs
+of its predictor ``__call__``, ``imgsz``, ``names``, ``se_names`` and
+``Detections.to_dicts`` (plus ``masks`` for ``?mask=1``), which
+``desenet_tpu_torch.api.Predictor`` provides:
 
     srv = InferenceServer(Predictor("yolov5s_seg", sd), port=0)
     srv.start(); ...; srv.stop()
@@ -27,7 +27,8 @@ provides:
 
 Endpoints:
   GET  /healthz            -> {"ok": true}
-  GET  /info               -> model metadata (names, imgsz, buckets, stats)
+  GET  /info               -> model metadata (names, imgsz, buckets, stats,
+                              latency)
   POST /predict[?mask=1]   -> body = image bytes (anything cv2.imdecode
                               reads); returns {"detections": [...],
                               "num": n} plus, with mask=1, the class-id
@@ -35,13 +36,25 @@ Endpoints:
                               image resolution ("seg_png").
 
 ``BatchRunner`` alone (``submit(_Pending(bgr_image, want_mask=False))``)
-needs no cv2. Unlike the original, the runner's stop flag does not shadow
+needs no cv2. Each request has a process-wide id (``_Pending.rid``). The
+runner always keeps its last ``RUNNER_SPANS`` spans ``runner.request``
+(submit to done) and ``runner.queue`` (submit to the start of its batch),
+both with attr ``rid``, in its own ring (``utils/profiling.Ring``):
+``latency()``, which is ``/info``'s ``latency``, gives ``p50_ms``,
+``p99_ms`` and ``n`` of ``runner.request`` and ``queue_p50_ms``,
+``queue_p99_ms`` of ``runner.queue``. With tracing on it also records
+them in the process-wide ring, with ``runner.batch`` (attrs ``bid``,
+``n``, ``bucket``; the predictor's spans are its children) and
+``runner.encode`` (``to_dicts`` and the PNG encodes).
+
+Unlike the original, the runner's stop flag does not shadow
 ``threading.Thread._stop``, so ``join()`` works after ``stop()``.
 """
 
 from __future__ import annotations
 
 import base64
+import itertools
 import json
 import queue
 import threading
@@ -52,6 +65,11 @@ from urllib.parse import urlparse, parse_qs
 
 import numpy as np
 
+from desenet_tpu_torch.utils import profiling
+
+RUNNER_SPANS = 1024  # runner.request and runner.queue spans a runner keeps
+_rids = itertools.count()  # request ids, process-wide
+
 
 def _bucket(n: int, max_batch: int) -> int:
     """Smallest power of two >= n, capped at max_batch."""
@@ -61,7 +79,7 @@ def _bucket(n: int, max_batch: int) -> int:
 
 class _Pending:
     __slots__ = ("img", "want_mask", "done", "result", "error", "cancelled",
-                 "t_submit")
+                 "rid", "t_submit")
 
     def __init__(self, img: np.ndarray, want_mask: bool):
         self.img = img
@@ -73,7 +91,8 @@ class _Pending:
         # cancelled items at batch assembly (no device time for abandoned
         # requests)
         self.cancelled = False
-        self.t_submit = time.monotonic()
+        self.rid = next(_rids)
+        self.t_submit = time.perf_counter_ns()
 
 
 class BatchRunner(threading.Thread):
@@ -100,9 +119,9 @@ class BatchRunner(threading.Thread):
         self._pad_img = np.full((s, s, 3), 114, np.uint8)
         self.stats = {"requests": 0, "batches": 0, "max_batch_seen": 0,
                       "padded": 0, "shed": 0, "cancelled": 0}
-        # ring of recent per-request latencies (submit -> done), seconds
-        self._latencies: List[float] = []
-        self._lat_idx = 0
+        # the last runner.request and runner.queue spans, always kept
+        self.spans = profiling.Ring(RUNNER_SPANS)
+        self._bids = itertools.count()
         self._stopping = False
         # guards the stop-flag check-then-enqueue in submit() vs the drain in
         # stop() (a request admitted between them would strand its HTTP
@@ -141,20 +160,22 @@ class BatchRunner(threading.Thread):
             except queue.Full:
                 pass
 
-    def _record_latency(self, seconds: float):
-        if len(self._latencies) < 1024:
-            self._latencies.append(seconds)
-        else:
-            self._latencies[self._lat_idx] = seconds
-            self._lat_idx = (self._lat_idx + 1) % 1024
+    def _record(self, s: profiling.Span):
+        self.spans.add(s)
+        profiling.record(s)
 
-    def latency_percentiles(self) -> dict:
-        snap = list(self._latencies)  # worker thread may append concurrently
-        if not snap:
-            return {"p50_ms": None, "p99_ms": None}
-        lat = np.asarray(snap, np.float64) * 1e3
-        return {"p50_ms": round(float(np.percentile(lat, 50)), 2),
-                "p99_ms": round(float(np.percentile(lat, 99)), 2)}
+    def latency(self) -> dict:
+        """Median and p99 ms of the kept ``runner.request`` spans and their
+        count ``n``; the same of ``runner.queue`` as ``queue_p50_ms`` and
+        ``queue_p99_ms``. None where there is no span."""
+        def pct(ms, q):
+            return (round(float(np.percentile(ms, q)), 2) if len(ms)
+                    else None)
+
+        req = [s.ms for s in self.spans.spans("runner.request")]
+        que = [s.ms for s in self.spans.spans("runner.queue")]
+        return {"p50_ms": pct(req, 50), "p99_ms": pct(req, 99), "n": len(req),
+                "queue_p50_ms": pct(que, 50), "queue_p99_ms": pct(que, 99)}
 
     def run(self):
         while not self._stopping:
@@ -200,41 +221,54 @@ class BatchRunner(threading.Thread):
     def _run_batch(self, batch: List[_Pending]):
         n = len(batch)
         b = _bucket(n, self.max_batch)
+        started = time.perf_counter_ns()
+        requests = [profiling.Span("runner.request", p.t_submit, rid=p.rid)
+                    for p in batch]
+        for p, req in zip(batch, requests):
+            self._record(profiling.Span("runner.queue", p.t_submit,
+                                        started, parent=req.id, rid=p.rid))
         imgs = [p.img for p in batch] + [self._pad_img] * (b - n)
         try:
-            res = self.predictor(imgs)
-            dicts = res.to_dicts()
-            for i, p in enumerate(batch):
-                # per-item post-processing in its own try: one bad mask
-                # encode must not 500 its batch-mates (their results are
-                # already computed)
-                try:
-                    out = {"detections": dicts[i], "num": len(dicts[i])}
-                    if p.want_mask:
-                        import cv2
-                        ok, png = cv2.imencode(".png", res.masks[i])
-                        if not ok:
-                            raise RuntimeError("mask PNG encode failed")
-                        out["seg_png"] = base64.b64encode(
-                            png.tobytes()).decode("ascii")
-                        out["seg_names"] = list(self.predictor.se_names)
-                    p.result = out
-                except Exception as e:
-                    p.error = f"{type(e).__name__}: {e}"
+            with profiling.span("runner.batch", bid=next(self._bids), n=n,
+                                bucket=b):
+                res = self.predictor(imgs)
+                with profiling.span("runner.encode"):
+                    self._encode(batch, res)
         except Exception as e:  # batch-wide failure: propagate, keep serving
             for p in batch:
                 p.error = f"{type(e).__name__}: {e}"
         finally:
-            now = time.monotonic()
+            done = time.perf_counter_ns()
             with self._lock:
                 self.stats["requests"] += n
                 self.stats["batches"] += 1
                 self.stats["max_batch_seen"] = max(
                     self.stats["max_batch_seen"], n)
                 self.stats["padded"] += b - n
-            for p in batch:
-                self._record_latency(now - p.t_submit)
+            for p, req in zip(batch, requests):
+                req.end_ns = done
+                self._record(req)
                 p.done.set()
+
+    def _encode(self, batch: List[_Pending], res):
+        dicts = res.to_dicts()
+        for i, p in enumerate(batch):
+            # per-item post-processing in its own try: one bad mask encode
+            # must not 500 its batch-mates (their results are already
+            # computed)
+            try:
+                out = {"detections": dicts[i], "num": len(dicts[i])}
+                if p.want_mask:
+                    import cv2
+                    ok, png = cv2.imencode(".png", res.masks[i])
+                    if not ok:
+                        raise RuntimeError("mask PNG encode failed")
+                    out["seg_png"] = base64.b64encode(
+                        png.tobytes()).decode("ascii")
+                    out["seg_names"] = list(self.predictor.se_names)
+                p.result = out
+            except Exception as e:
+                p.error = f"{type(e).__name__}: {e}"
 
 
 class InferenceServer:
@@ -278,7 +312,7 @@ class InferenceServer:
                         "max_batch": outer.runner.max_batch,
                         "max_queue": outer.runner.max_queue,
                         "stats": dict(outer.runner.stats),
-                        "latency": outer.runner.latency_percentiles(),
+                        "latency": outer.runner.latency(),
                     })
                 else:
                     self._json(404, {"error": "not found"})

@@ -33,6 +33,12 @@ the data axis only (each image once). The spatial group's ranks thus hold
 gradients: the backward takes ``loss / spatial``, so that the gradients
 summed over all the processes are the global batch's. BN sums its
 statistics over all of them (bands of a group add up to its images).
+
+With tracing on (``utils/profiling``), a step records ``train.step``
+around ``train.forward``, ``train.loss`` (``train.loss.det``,
+``train.loss.seg``), ``train.backward`` and, when it updates,
+``train.update`` (the gradient sum, the optimizer and the frozen rows'
+restore) and ``train.ema``.
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ from desenet_tpu_torch.train import optim as O
 from desenet_tpu_torch.train.ema import ema_update
 from desenet_tpu_torch.train.schedule import warmup_interp
 from desenet_tpu_torch.train.state import TrainState, bn_stats
+from desenet_tpu_torch.utils.profiling import span
 
 
 def frozen_names(names, freeze: int):
@@ -131,6 +138,11 @@ def make_train_step(
 
     def train_step(state: TrainState, batch: Dict,
                    generator: Optional[torch.Generator] = None):
+        with span("train.step"):
+            return _step(state, batch, generator)
+
+    def _step(state: TrainState, batch: Dict,
+              generator: Optional[torch.Generator]):
         if state.model is not model:
             raise ValueError("the state holds another model than this step's")
         ni = state.step
@@ -148,27 +160,33 @@ def make_train_step(
         band = (spatial.scope(mesh, height, max_stride) if sp > 1
                 else contextlib.nullcontext())
         with band:
-            with torch.autocast(dev.type, dtype=dtype,
-                                enabled=compute_cast):
+            with span("train.forward"), torch.autocast(
+                    dev.type, dtype=dtype, enabled=compute_cast):
                 det_feats, seg_out = model(x)
-            det_total, comps = det_loss_fn(
-                det_feats, torch.as_tensor(batch["det_targets"], device=dev),
-                torch.as_tensor(batch["det_mask"], device=dev))
-            seg_lab = torch.as_tensor(batch["seg_labels"], device=dev).to(
-                torch.int32)
-            if (not isinstance(seg_out, (list, tuple))
-                    and seg_out.shape[2:] != seg_lab.shape[1:]):
-                # 1/8 logits: CE against their 8x align_corners upsample,
-                # tiled
-                seg_l = upsampled_ce(seg_out, seg_lab, seg_lab.shape[1:],
-                                     align_corners=True)
-            else:
-                seg_l = segmentation_loss(seg_out, seg_lab,
-                                          aux_weight=seg_aux_weight)
-            loss = det_gain * det_total + seg_gain * seg_l
+            with span("train.loss"):
+                with span("train.loss.det"):
+                    det_total, comps = det_loss_fn(
+                        det_feats,
+                        torch.as_tensor(batch["det_targets"], device=dev),
+                        torch.as_tensor(batch["det_mask"], device=dev))
+                with span("train.loss.seg"):
+                    seg_lab = torch.as_tensor(batch["seg_labels"],
+                                              device=dev).to(torch.int32)
+                    if (not isinstance(seg_out, (list, tuple))
+                            and seg_out.shape[2:] != seg_lab.shape[1:]):
+                        # 1/8 logits: CE against their 8x align_corners
+                        # upsample, tiled
+                        seg_l = upsampled_ce(seg_out, seg_lab,
+                                             seg_lab.shape[1:],
+                                             align_corners=True)
+                    else:
+                        seg_l = segmentation_loss(seg_out, seg_lab,
+                                                  aux_weight=seg_aux_weight)
+                loss = det_gain * det_total + seg_gain * seg_l
             # accumulates into .grad; the spatial group's copies of the
             # loss add up to one in the summed gradients
-            (loss / sp if sp > 1 else loss).backward()
+            with span("train.backward"):
+                (loss / sp if sp > 1 else loss).backward()
             losses = (loss, *comps, seg_l)
             if process_count() > 1:  # the shares of the processes, added
                 losses = global_sum(torch.stack([v.detach()
@@ -183,7 +201,7 @@ def make_train_step(
         warmup_t = np.clip(ni32 / np.float32(max(warmup_iters, 1)), 0.0, 1.0)
 
         if do_step:
-            with torch.no_grad():
+            with span("train.update"), torch.no_grad():
                 sum_gradients([p.grad for p in state.params.values()
                                if p.grad is not None])
                 pinned = [state.params[k].clone() for k in frozen]
@@ -194,8 +212,9 @@ def make_train_step(
                 for k, v in zip(frozen, pinned):
                     state.params[k].copy_(v)
             state.ema_updates += 1
-            ema_update(state.ema, {**state.params, **bn_stats(model)},
-                       state.ema_updates, ema_base, ema_tau)
+            with span("train.ema"):
+                ema_update(state.ema, {**state.params, **bn_stats(model)},
+                           state.ema_updates, ema_base, ema_tau)
             for p in state.params.values():
                 p.grad = None
             state.last_opt_step = ni

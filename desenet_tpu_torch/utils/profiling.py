@@ -16,19 +16,246 @@ counts the products (convolutions and matmuls, 2 a multiply-add) and
 nothing else. The parameter count is the JAX package's: the BNs that never
 run and the training-only aux heads, which the JAX variables lack
 (``DeSeNet.quirk_bn_keys``, ``train_only_keys``), are not counted.
+
+Spans and counters, the program's own record of where its time and work
+go (the port has no JAX counterpart of these):
+
+    with profiling.span("predict.pin", replica=0): ...
+    profiling.count("k1.candidates", (score > 0).sum())  # on the device
+    profiling.spans(), profiling.counters(), profiling.reset()
+
+Tracing is on while a ``torch.profiler`` session runs (the profiler's own
+enabled flag) or after ``set_tracing(True)``, whose default is
+``DESENET_TRACE=1`` in the environment at import. Off, ``span`` returns one
+shared null context after that one check and ``count`` returns at once:
+nothing is recorded, launched, allocated or synchronized, and
+``record_function`` is not called. On, each finished span goes to a ring
+of ``RING_SPANS`` (the oldest dropped, ``dropped()`` counts them), and
+under a profiler it is also a ``record_function`` of its name, so the
+profiler's events and its Chrome trace show it. Spans are stamped with
+``time.perf_counter_ns()``; ``spans()`` returns them on the profiler's
+clock (epoch ns, ``time.time_ns()``: the profiler's events lie at
+``kineto_results.trace_start_ns()`` plus their ``time_range`` in us), so a
+span of a thread the profiler does not see can be laid against the
+device's timeline. A counter adds host ints, or 0-d device tensors on
+their device (no ``.item()``); ``counters()`` reads them.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import threading
 import time
-from typing import Callable, Dict, Mapping
+from collections import deque
+from typing import Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
+from torch.profiler import record_function
 
 from desenet_tpu_torch.utils.fold import fold_conv_bn  # noqa: F401
+
+RING_SPANS = 65536  # spans the process-wide ring keeps
+_tracing = os.environ.get("DESENET_TRACE") == "1"
+_NULL = contextlib.nullcontext()
+_ids = itertools.count(1)
+_local = threading.local()  # .stack: the ids of this thread's open spans
+
+
+def set_tracing(on: bool) -> None:
+    """Record spans and counters with no profiler running too (``on``), or
+    only under a profiler (off)."""
+    global _tracing
+    _tracing = bool(on)
+
+
+def tracing() -> bool:
+    """Whether spans and counters are recorded now."""
+    return _tracing or _autograd_profiler._is_profiler_enabled
+
+
+class Span:
+    """A named stretch of work: ``start_ns`` and ``end_ns`` (on
+    ``time.perf_counter_ns()`` while recorded, on the profiler's epoch
+    clock as ``spans()`` returns them), its ``id``, the ``parent`` span's
+    id (None at the top) and ``attrs``, a few small ints."""
+
+    __slots__ = ("name", "start_ns", "end_ns", "id", "parent", "attrs")
+
+    def __init__(self, name: str, start_ns: int = 0, end_ns: int = 0,
+                 parent: Optional[int] = None, **attrs):
+        self.name = name
+        self.start_ns = start_ns
+        self.end_ns = end_ns
+        self.id = next(_ids)
+        self.parent = parent
+        self.attrs = attrs
+
+    @property
+    def ms(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e6
+
+    def _shifted(self, offset_ns: int) -> "Span":
+        out = Span.__new__(Span)
+        out.name, out.id, out.parent, out.attrs = (
+            self.name, self.id, self.parent, self.attrs)
+        out.start_ns = self.start_ns + offset_ns
+        out.end_ns = self.end_ns + offset_ns
+        return out
+
+    def __repr__(self):
+        return (f"Span({self.name!r}, {self.ms:.3f} ms, id={self.id}, "
+                f"parent={self.parent}, {self.attrs})")
+
+
+class Ring:
+    """Finished spans, at most ``size``, the oldest dropped first."""
+
+    def __init__(self, size: int):
+        self._spans: deque = deque(maxlen=size)
+        self._dropped = 0
+        self._lock = threading.Lock()
+
+    def add(self, span: Span) -> None:
+        with self._lock:
+            if len(self._spans) == self._spans.maxlen:
+                self._dropped += 1
+            self._spans.append(span)
+
+    def spans(self, name: Optional[str] = None) -> List[Span]:
+        """Copies of the spans (of ``name`` only, if given), oldest first,
+        on the profiler's clock: shifted by an anchor pair
+        (``perf_counter_ns``, ``time_ns``) taken now."""
+        with self._lock:
+            snap = list(self._spans)
+        offset = time.time_ns() - time.perf_counter_ns()
+        return [s._shifted(offset) for s in snap
+                if name is None or s.name == name]
+
+    def dropped(self) -> int:
+        return self._dropped
+
+    def clear(self) -> None:
+        with self._lock:
+            self._spans.clear()
+            self._dropped = 0
+
+
+class _Counters:
+    """Named sums: host numbers, and 0-d tensors added on their device."""
+
+    def __init__(self):
+        self._sums: Dict[tuple, object] = {}
+        self._lock = threading.Lock()
+
+    def add(self, name: str, value) -> None:
+        key = name
+        if isinstance(value, torch.Tensor):
+            value = value.detach()
+            key = (name, value.device)
+        with self._lock:
+            self._sums[key] = self._sums.get(key, 0) + value
+
+    def read(self) -> Dict[str, float]:
+        with self._lock:
+            sums = dict(self._sums)
+        out: Dict[str, float] = {}
+        for key, v in sums.items():
+            name = key[0] if isinstance(key, tuple) else key
+            out[name] = out.get(name, 0) + (
+                v.item() if isinstance(v, torch.Tensor) else v)
+        return out
+
+    def clear(self) -> None:
+        with self._lock:
+            self._sums.clear()
+
+
+_RING = Ring(RING_SPANS)
+_COUNTERS = _Counters()
+
+
+class _Open:
+    """An open span: on the thread's stack, and under a profiler also a
+    ``record_function`` of its name."""
+
+    __slots__ = ("span", "_rf")
+
+    def __init__(self, span: Span):
+        self.span = span
+        self._rf = None
+
+    def __enter__(self) -> Span:
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        s = self.span
+        s.parent = stack[-1] if stack else None
+        stack.append(s.id)
+        if _autograd_profiler._is_profiler_enabled:
+            self._rf = record_function(s.name).__enter__()
+        # stamped inside the record_function's event, whose first opening in
+        # a profiling session spends long before the event's own stamp
+        s.start_ns = time.perf_counter_ns()
+        return s
+
+    def __exit__(self, *exc):
+        s = self.span
+        s.end_ns = time.perf_counter_ns()
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        _local.stack.pop()
+        _RING.add(s)
+        return False
+
+
+def span(name: str, **attrs):
+    """``with span(name, **attrs):`` records the block as a ``Span`` whose
+    parent is the thread's innermost open span, when tracing is on; the
+    shared null context when it is off."""
+    if not (_tracing or _autograd_profiler._is_profiler_enabled):
+        return _NULL
+    return _Open(Span(name, **attrs))
+
+
+def record(span: Span) -> None:
+    """Add a span timed by its caller (``perf_counter_ns`` stamps) to the
+    ring, when tracing is on: a stretch that starts on one thread and ends
+    on another."""
+    if _tracing or _autograd_profiler._is_profiler_enabled:
+        _RING.add(span)
+
+
+def count(name: str, value) -> None:
+    """Add ``value`` (a host number or a 0-d tensor, added on its device)
+    to the counter ``name``, when tracing is on."""
+    if _tracing or _autograd_profiler._is_profiler_enabled:
+        _COUNTERS.add(name, value)
+
+
+def spans(name: Optional[str] = None) -> List[Span]:
+    """The ring's spans (of ``name`` only, if given) on the profiler's
+    clock, oldest first."""
+    return _RING.spans(name)
+
+
+def dropped() -> int:
+    """Spans the ring has dropped since the last ``reset()``."""
+    return _RING.dropped()
+
+
+def counters() -> Dict[str, float]:
+    """Each counter's sum (device sums read back: this waits for them)."""
+    return _COUNTERS.read()
+
+
+def reset() -> None:
+    """Clear the spans and the counters."""
+    _RING.clear()
+    _COUNTERS.clear()
 
 
 def _cuda_devices(out) -> set:
@@ -153,7 +380,8 @@ def model_info(model, img_size: int = 640) -> Dict[str, float]:
 def trace(log_dir: str = "runs/trace"):
     """``torch.profiler`` over the block (the CPU, and the cards where CUDA
     is available), written to ``log_dir/trace.json`` as a Chrome trace
-    (chrome://tracing, Perfetto); yields the profiler."""
+    (chrome://tracing, Perfetto), the program's spans among the host's
+    events; yields the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]

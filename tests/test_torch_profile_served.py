@@ -77,38 +77,3 @@ def test_card_only_tools_refuse_without_a_card(tool):
     with pytest.raises(SystemExit, match="no CUDA device"):
         tool.main([])
 
-
-def test_ab_served_inputs_summary_and_refusals(tmp_path, monkeypatch):
-    """The side-by-side timing tool: its inputs are seeded and of the served
-    shapes, its summary is the mean per tree, and without another checkout
-    or without a card it refuses."""
-    import numpy as np
-
-    from desenet_tpu_torch.tools import ab_served
-
-    assert (ab_served.BATCH, ab_served.IMGSZ) == (128, 640)
-    monkeypatch.setattr(ab_served, "BATCH", 2)  # small for the CPU
-    ab_served.make_inputs(str(tmp_path / "in.npz"))
-    data = np.load(tmp_path / "in.npz")
-    assert data["sparse"].shape == data["dense"].shape == (2, 25200, 11)
-    assert data["logits"].shape == (2, 80, 80, 3)
-    # the dense decode: 3000 anchors pass conf 0.25
-    conf = data["dense"][..., 4:5] * data["dense"][..., 5:]
-    assert ((data["dense"][..., 4] > 0.25)
-            & (conf.max(-1) > 0.25)).sum(1).tolist() == [3000, 3000]
-    runs = [dict(tree=t, **{m: v for m in ab_served.METRICS})
-            for t, v in (("a", 1.0), ("b", 5.0), ("b", 7.0), ("a", 2.0))]
-    means = ab_served.summarise(runs)
-    assert means["a"]["k2_ms"] == 1.5 and means["b"]["program_ms"] == 6.0
-    qruns = [dict(tree=t, **{m: v for m in ab_served.QUANT_METRICS})
-             for t, v in (("a", 1.0), ("b", 5.0), ("b", 7.0), ("a", 2.0))]
-    qmeans = ab_served.summarise(qruns, ab_served.QUANT_METRICS)
-    assert qmeans["a"]["val_fp8_ms"] == 1.5
-    assert qmeans["b"]["int8_program_ms"] == 6.0
-    with pytest.raises(SystemExit, match="--against"):
-        ab_served.main(["--against", str(tmp_path)])
-    if not torch.cuda.is_available():
-        with pytest.raises(SystemExit, match="no CUDA device"):
-            ab_served.main(["--worker", str(tmp_path / "in.npz")])
-        with pytest.raises(SystemExit, match="no CUDA device"):
-            ab_served.main(["--worker", str(tmp_path / "in.npz"), "--quant"])

@@ -44,12 +44,24 @@ result is copied back, with the intent that the cards overlap (not yet
 measured on two cards); the padded rows are dropped. Every replica holds
 the same weights, so the results are those of one device.
 
+On the card ``run_batch`` brings its results back into pinned host
+memory: one fresh tensor an output from PyTorch's caching host allocator,
+every replica's copies queued into its rows before one wait a replica.
+The arrays it returns are views of those tensors, whose blocks go back to
+the allocator's cache when the arrays are dropped; no buffer is reused
+while a caller holds results. ``__call__``'s masks are copies, so a
+``Detections`` holds no batch's pinned block.
+
 With tracing on (``utils/profiling``), ``__call__`` records the spans
 ``predict.call`` (``predict.letterbox``, ``predict.stack``, then
 ``run_batch``'s, then ``predict.post``), ``run_batch`` records
 ``predict.run_batch`` around ``predict.pin``, ``predict.upload``,
 ``predict.infer`` (a replica each, attr ``replica``) and one
-``predict.download`` a replica, and ``infer`` records ``infer.forward``,
+``predict.download`` a replica (on the card the wait for that replica's
+copies) and adds the results' bytes to the counters
+``download.pinned_bytes`` (copied into pinned memory) and
+``download.pageable_bytes`` (handed back in pageable memory: the CPU
+device's, with no copy), and ``infer`` records ``infer.forward``,
 ``infer.nms`` (K1 with its prep) and ``infer.seg_tail`` (K2).
 """
 
@@ -72,7 +84,7 @@ from desenet_tpu_torch.parallel.mesh import Mesh, pad_batch_for_mesh
 from desenet_tpu_torch.utils.convert import load_state_dict
 from desenet_tpu_torch.utils.general import save_one_box
 from desenet_tpu_torch.utils.plots import Annotator, SegAnnotator, colors
-from desenet_tpu_torch.utils.profiling import span
+from desenet_tpu_torch.utils.profiling import count, span
 
 
 class Detections:
@@ -380,6 +392,8 @@ class Predictor:
 
                         m = cv2.resize(m, (im0.shape[1], im0.shape[0]),
                                        interpolation=cv2.INTER_NEAREST)
+                    else:  # still a view of the batch's (pinned) seg map
+                        m = m.copy()
                     masks.append(m)
         return Detections(imgs0, xyxy, masks, names=self.names,
                           se_names=self.se_names)
@@ -390,7 +404,10 @@ class Predictor:
         multiple of the replica count (``pad_batch_for_mesh``: the last
         image repeated), a slice a replica, all queued before any copy to
         the host. Returns numpy (boxes, scores, classes, num, seg classes)
-        of the B images."""
+        of the B images. On the card each array is a view of a fresh
+        pinned host tensor (every replica's rows of one output in one
+        tensor), its block back in PyTorch's host cache once the array is
+        dropped; on the CPU, views of the program's outputs."""
         n, k = batch.shape[0], len(self._replicas)
         with span("predict.run_batch", n=n):
             batch = pad_batch_for_mesh({"image": batch},
@@ -405,17 +422,42 @@ class Predictor:
                 with span("predict.upload", replica=r):
                     x = x.to(dev, non_blocking=True)
                 with span("predict.infer", replica=r):
-                    outs.append(self.infer(x, model))
-            host = []
-            for r, (nms, seg) in enumerate(outs):
+                    nms, seg = self.infer(x, model)
+                outs.append((nms.boxes, nms.scores, nms.classes, nms.num,
+                             seg))
+            if self.device.type == "cuda":
+                host = self._download_pinned(outs)
+                count("download.pinned_bytes", sum(h.nbytes for h in host))
+                count("download.pageable_bytes", 0)
+                return tuple(h[:n].numpy() for h in host)
+            parts = []
+            for r, out in enumerate(outs):
                 with span("predict.download", replica=r):
-                    host.append((nms.boxes.cpu().numpy(),
-                                 nms.scores.cpu().numpy(),
-                                 nms.classes.cpu().numpy(),
-                                 nms.num.cpu().numpy(), seg.cpu().numpy()))
+                    parts.append([v.numpy() for v in out])
+            count("download.pinned_bytes", 0)
+            count("download.pageable_bytes",
+                  sum(v.nbytes for p in parts for v in p))
         if k == 1:
-            return host[0]
-        return tuple(np.concatenate(v)[:n] for v in zip(*host))
+            return tuple(parts[0])
+        return tuple(np.concatenate(v)[:n] for v in zip(*parts))
+
+    def _download_pinned(self, outs) -> List[torch.Tensor]:
+        """Each output of every replica copied into its rows of one fresh
+        pinned host tensor: every copy queued on its replica's current
+        stream, then one event a replica waited for (``predict.download``).
+        """
+        m = outs[0][0].shape[0]
+        host = [torch.empty((len(outs) * m,) + v.shape[1:], dtype=v.dtype,
+                            pin_memory=True) for v in outs[0]]
+        done = []
+        for r, ((dev, _), out) in enumerate(zip(self._replicas, outs)):
+            for h, v in zip(host, out):
+                h[r * m:(r + 1) * m].copy_(v, non_blocking=True)
+            done.append(torch.cuda.current_stream(dev).record_event())
+        for r, ev in enumerate(done):
+            with span("predict.download", replica=r):
+                ev.synchronize()
+        return host
 
 
 def load_predictor(weights: str, **kw) -> Predictor:

@@ -12,12 +12,15 @@ and the places that record them, on the CPU.
   clock (``trace_start_ns`` plus ``time_range``), its ends typically within
   100 us of the event's.
 - A tiny ``Predictor`` records ``predict.*`` and ``infer.*`` in order and
-  counts K1's candidates as ``nms_planes`` gives them; a tiny train step
+  counts K1's candidates as ``nms_planes`` gives them and the results'
+  bytes (``download.*``, only while tracing), with one ``predict.download``
+  a replica; a tiny train step
   records ``train.*``; ``BatchRunner`` keeps ``runner.queue`` and
   ``runner.request`` with one ``rid`` always, and ``/info`` reports their
   percentiles with the sample count.
 """
 
+import copy
 import json
 import threading
 import time
@@ -233,7 +236,42 @@ def test_predictor_spans_in_order_and_k1_count(tracing, tiny_predictor):
         score = nms_fused.nms_planes(dec, pred.conf_thres)[4]
     want = int((score > 0).sum())
     assert want > 0
-    assert profiling.counters() == {"k1.images": 2, "k1.candidates": want}
+    # the results, 64 px at max_det 300: boxes, scores, classes, num, seg
+    out_bytes = 2 * (300 * 4 * 4 + 300 * 4 + 300 * 4 + 4 + 64 * 64)
+    assert profiling.counters() == {"k1.images": 2, "k1.candidates": want,
+                                    "download.pinned_bytes": 0,
+                                    "download.pageable_bytes": out_bytes}
+
+
+def test_run_batch_spans_a_download_a_replica(tracing, tiny_predictor):
+    pred = copy.copy(tiny_predictor)
+    pred._place_replicas([pred.device] * 2)
+    batch = np.random.default_rng(1).integers(0, 256, (3, 64, 64, 3),
+                                              dtype=np.uint8)
+    pred.run_batch(batch)
+    top = profiling.spans("predict.run_batch")
+    assert len(top) == 1 and top[0].attrs == {"n": 3}
+    under = [s for s in profiling.spans() if s.parent == top[0].id]
+    for name in ("predict.pin", "predict.upload", "predict.infer",
+                 "predict.download"):
+        assert [s.attrs for s in under if s.name == name] == [
+            {"replica": 0}, {"replica": 1}]
+    assert len(under) == 8
+
+
+def test_download_counters_only_when_tracing(off, tiny_predictor):
+    batch = np.random.default_rng(2).integers(0, 256, (2, 64, 64, 3),
+                                              dtype=np.uint8)
+    tiny_predictor.run_batch(batch)
+    assert profiling.counters() == {}
+    profiling.set_tracing(True)
+    try:
+        got = tiny_predictor.run_batch(batch)
+    finally:
+        profiling.set_tracing(False)
+    c = profiling.counters()
+    assert c["download.pinned_bytes"] == 0
+    assert c["download.pageable_bytes"] == sum(a.nbytes for a in got)
 
 
 def test_train_step_spans(tracing):

@@ -77,7 +77,7 @@ import torch
 from desenet_tpu_torch import native
 from desenet_tpu_torch.data.augment import letterbox
 from desenet_tpu_torch.models import (build_model, config_path,
-                                     require_seg_head)
+                                     parse_config, require_seg_head)
 from desenet_tpu_torch.ops import non_max_suppression, np_scale_coords
 from desenet_tpu_torch.ops.seg_pallas import upsample_argmax
 from desenet_tpu_torch.parallel.mesh import Mesh, pad_batch_for_mesh
@@ -201,6 +201,16 @@ class Detections:
                 f"{[len(d) for d in self.xyxy]})")
 
 
+def _largest_stride(spec, imgsz: int) -> int:
+    """The model's largest output stride; ValueError where ``imgsz`` is no
+    multiple of it."""
+    stride = max(spec.det_strides, default=32)
+    if imgsz % stride:
+        raise ValueError(f"imgsz {imgsz} is not a multiple of the model's "
+                         f"largest stride {stride}")
+    return stride
+
+
 class Predictor:
     """Serve a ``DeSeNet`` config with given weights.
 
@@ -212,7 +222,9 @@ class Predictor:
     weights and activations (NMS and decode stay f32). ``fuse_focus=False``
     serves the reference's slice-concat Focus stem instead (the same
     function; for A/B). ``nc``, ``se_nc`` and ``anchors`` override the
-    config's. Raises ValueError for a config with no seg head.
+    config's. Raises ValueError for a config with no seg head, and for an
+    ``imgsz`` that is no multiple of the model's largest stride (64 for a
+    P6 model such as ``yolov5x6_seg``, 32 for the P5 ones).
 
     ``int8=True``: the int8 W8A8 program, calibrated on ``calib`` (a few
     representative images: paths, BGR arrays or PIL images; ValueError
@@ -268,8 +280,11 @@ class Predictor:
                     "images (paths/arrays/PIL)")
             from desenet_tpu_torch.quant import quantize_for_inference
 
+            # checked before calibrating, whose forward a wrong size breaks
+            stride = _largest_stride(parse_config(
+                cfg, nc=nc, se_nc=se_nc, anchors=anchors), imgsz)
             lb = [letterbox(self._to_bgr(im), imgsz, auto=False,
-                            stride=32)[0] for im in calib]
+                            stride=stride)[0] for im in calib]
             cal = torch.from_numpy(np.stack(
                 [np.ascontiguousarray(x[:, :, ::-1]) for x in lb])).permute(
                     0, 3, 1, 2).float() / 255.0
@@ -289,6 +304,7 @@ class Predictor:
                     raise
                 stem_s2d = False
                 model, self.spec = build_model(cfg, **kw)
+            _largest_stride(self.spec, imgsz)
             load_state_dict(model, state_dict)
             self.model = model.to(self.device, self.dtype,
                                   memory_format=self._mf)

@@ -3,8 +3,8 @@
 Counterpart of ``desenet_tpu/losses/detection.py`` (the reference
 ComputeLoss, core/utils/loss.py:91-223): anchor-ratio assignment with
 +-0.5-cell neighbour expansion, CIoU box loss, IoU-valued objectness BCE
-with per-scale balance, label-smoothed class BCE, total scaled by the batch
-size.
+with per-scale balance (``level_balance``, YOLOv5 v5.0's for any number
+of levels), label-smoothed class BCE, total scaled by the batch size.
 
 Every (target, anchor, neighbour offset) triple is a slot of a fixed-size
 candidate set, B * M * na * 5 per scale, with a validity mask, as in the JAX
@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -75,6 +75,14 @@ def bce_blur_with_logits(logits, targets, alpha: float = 0.05):
 _OFFSETS = ((0.0, 0.0), (0.5, 0.0), (0.0, 0.5), (-0.5, 0.0), (0.0, -0.5))
 
 
+def level_balance(nl: int) -> Tuple[float, ...]:
+    """The objectness loss's weight of each of ``nl`` levels, as YOLOv5
+    v5.0's ComputeLoss takes it: ``(4.0, 1.0, 0.4)`` at three, else the
+    first ``nl`` of ``(4.0, 1.0, 0.25, 0.06, 0.02)`` (a P6 model's four).
+    The JAX package holds the three-level tuple alone."""
+    return (4.0, 1.0, 0.4) if nl == 3 else (4.0, 1.0, 0.25, 0.06, 0.02)[:nl]
+
+
 @functools.lru_cache(maxsize=64)
 def _const(values: tuple, device: torch.device) -> torch.Tensor:
     """An f32 constant on ``device``, made once: building it from Python
@@ -87,7 +95,8 @@ class DetectionLoss:
     """Functional ComputeLoss.
 
     anchors: (nl, na, 2) in grid units (pixel anchors / stride, as
-    ``Detect.anchors_grid_units()`` gives them)."""
+    ``Detect.anchors_grid_units()`` gives them). ``balance``: a weight a
+    level, ``level_balance(nl)`` when None."""
 
     anchors: Tuple[Tuple[Tuple[float, float], ...], ...]
     nc: int
@@ -100,7 +109,14 @@ class DetectionLoss:
     fl_gamma: float = 0.0
     anchor_t: float = 4.0
     gr: float = 1.0
-    balance: Tuple[float, ...] = (4.0, 1.0, 0.4)
+    balance: Optional[Tuple[float, ...]] = None
+
+    def __post_init__(self):
+        if self.balance is None:
+            object.__setattr__(self, "balance", level_balance(self.nl))
+        if len(self.balance) != self.nl:
+            raise ValueError(f"balance {self.balance} has not one weight "
+                             f"for each of the {self.nl} levels")
 
     @property
     def nl(self):

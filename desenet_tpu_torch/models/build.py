@@ -42,6 +42,7 @@ from desenet_tpu_torch.ops.resize import (resize_bilinear, upsample_nearest,
                                           upsample_nearest_repeat)
 from desenet_tpu_torch.ops.seg_head_pallas import MAX_P8, fused_psp2_eval
 from desenet_tpu_torch.parallel import spatial
+from desenet_tpu_torch.utils.profiling import span
 
 # width-scaled blocks take their output width first; the C3-like ones
 # repeat their inner stack n times, the others repeat as a whole
@@ -78,6 +79,9 @@ _PASSTHROUGH = {"Concat", "Upsample", "Contract", "Expand"}
 # nn.Upsample's modes; the JAX package runs "nearest" only
 _UPSAMPLE_MODES = ("nearest", "linear", "bilinear", "bicubic", "trilinear",
                    "area", "nearest-exact")
+# a P6 model's extra level: the rows at this output stride are timed as the
+# device span forward.p6
+P6_STRIDE = 64
 # the consumers a Concat may hand an implicit concat (a part list)
 _SPLIT_CONSUMERS = {"C3", "Conv", "C3TR", "C3Ghost", "BottleneckCSP", "SPP",
                     "SPPF"}
@@ -432,7 +436,14 @@ class DeSeNet(nn.Module):
     of the batch and the outputs are whole on every spatial rank (Detect's
     inputs and the seg head's output gathered, ``models/heads.py``, or
     K4's inputs); the quantized and fp8-storage programs refuse a
-    scope."""
+    scope.
+
+    With tracing on (``utils/profiling``) and the input on a card,
+    ``forward`` records two kinds of device span (``Span.device_ms``):
+    ``forward.seg_head`` around the seg head's row, and ``forward.p6``
+    around each run of consecutive rows at output stride 64 (a P6
+    model's: rows 9-12 and 30-32 of ``yolov5x6_seg``; none in the P5
+    models)."""
 
     def __init__(self, spec: ModelSpec, seg_upsample: bool = True,
                  decode_cat: bool = True, seg_head_fused: bool = False,
@@ -468,6 +479,11 @@ class DeSeNet(nn.Module):
                                          decode_cat))
             chs.append(ls.c2)
         self.model = nn.ModuleList(mods)
+        p6 = [ls.stride == P6_STRIDE for ls in spec.layers]
+        self._p6_first = {i for i, on in enumerate(p6)
+                          if on and not (i and p6[i - 1])}
+        self._p6_last = {i for i, on in enumerate(p6)
+                         if on and not (i + 1 < len(p6) and p6[i + 1])}
         self._fp_rows = set()
         if quant is not None or act_store is not None:
             self._setup_quant(det_fp_hops)
@@ -500,6 +516,7 @@ class DeSeNet(nn.Module):
             raise ValueError("the int8 and fp8-storage programs do not run "
                              "on height bands (parallel/spatial.py)")
         int8 = qmode and self.quant is not None and self.quant.is_int8
+        card = x.device  # of the device spans (before x is quantized)
         cd = fp_ctx = None
         if qmode:
             cd = self.compute_dtype or next(self.parameters()).dtype
@@ -511,23 +528,32 @@ class DeSeNet(nn.Module):
             cache = {-1: x}
             prev = x
             det_out = seg_out = None
-            for ls, m in zip(self.spec.layers, self.model):
-                if len(ls.f) == 1:
-                    inp = prev if ls.f[0] == ls.i - 1 else cache[ls.f[0]]
-                else:
-                    inp = [prev if j == ls.i - 1 else cache[j] for j in ls.f]
-                with contextlib.ExitStack() as scope:
-                    if qmode:
-                        inp = self._enter_row(scope, ls, inp, cd,
-                                              fp_ctx if int8 else None)
-                    out = self._row(ls, m, inp, cd, qmode)
-                if ls.name == "Detect":
-                    det_out = out
-                elif ls.name in SEG_HEADS:
-                    seg_out = out
-                if ls.i in self.spec.save:
-                    cache[ls.i] = out
-                prev = out
+            with contextlib.ExitStack() as p6:  # the open forward.p6 span
+                for ls, m in zip(self.spec.layers, self.model):
+                    if len(ls.f) == 1:
+                        inp = prev if ls.f[0] == ls.i - 1 else cache[ls.f[0]]
+                    else:
+                        inp = [prev if j == ls.i - 1 else cache[j]
+                               for j in ls.f]
+                    if ls.i in self._p6_first:
+                        p6.enter_context(span("forward.p6", device=card))
+                    with contextlib.ExitStack() as scope:
+                        if ls.name in SEG_HEADS:
+                            scope.enter_context(span("forward.seg_head",
+                                                     device=card))
+                        if qmode:
+                            inp = self._enter_row(scope, ls, inp, cd,
+                                                  fp_ctx if int8 else None)
+                        out = self._row(ls, m, inp, cd, qmode)
+                    if ls.i in self._p6_last:
+                        p6.close()
+                    if ls.name == "Detect":
+                        det_out = out
+                    elif ls.name in SEG_HEADS:
+                        seg_out = out
+                    if ls.i in self.spec.save:
+                        cache[ls.i] = out
+                    prev = out
         return det_out, seg_out
 
     def _fp_ctx(self, x: torch.Tensor):

@@ -23,6 +23,12 @@ collectives itself:
 - ``host_count`` is the number of hosts the processes run on;
 - ``spawn`` starts processes of one group on this host.
 
+With tracing on (``utils/profiling``), each all-reduce that
+``global_sum``, ``global_sum_grad`` and ``sum_gradients`` launch adds 1 to
+the counter ``dist.allreduce.calls`` and its tensor's bytes to
+``dist.allreduce.bytes`` (host ints), the backward's all-reduce of
+``global_sum_grad`` too (a gradient hook, set only while tracing).
+
 At one process (no group, or a group of one) each is the identity.
 """
 
@@ -38,6 +44,7 @@ import torch
 import torch.distributed as dist
 
 from desenet_tpu_torch.parallel import mesh, spatial
+from desenet_tpu_torch.utils.profiling import count, tracing
 
 LOGGER = logging.getLogger("desenet_tpu_torch")
 
@@ -82,6 +89,12 @@ def init_multihost(coordinator_address: str, num_processes: int,
                    if backend != "gloo" else None)
     LOGGER.info("process %d of %d joined %s (%s) on %s", process_id,
                 num_processes, coordinator_address, backend, dev)
+
+
+def _counted(x: torch.Tensor) -> None:
+    """One all-reduce of ``x`` in the counters (when tracing)."""
+    count("dist.allreduce.calls", 1)
+    count("dist.allreduce.bytes", x.numel() * x.element_size())
 
 
 def shutdown() -> None:
@@ -144,6 +157,7 @@ def global_sum(x: torch.Tensor) -> torch.Tensor:
     if n == 1:
         return x
     out = x.detach().clone()
+    _counted(out)
     dist.all_reduce(out, group=None if ctx is None else ctx.mesh.data_group)
     return out
 
@@ -166,7 +180,11 @@ def global_sum_grad(x: torch.Tensor) -> torch.Tensor:
         return x
     from torch.distributed.nn.functional import all_reduce
 
-    return all_reduce(x)
+    _counted(x)
+    out = all_reduce(x)
+    if tracing() and out.requires_grad:  # its backward's all-reduce
+        out.register_hook(_counted)
+    return out
 
 
 def sum_gradients(grads: Iterable[torch.Tensor]) -> None:
@@ -179,6 +197,7 @@ def sum_gradients(grads: Iterable[torch.Tensor]) -> None:
         by_dtype.setdefault(g.dtype, []).append(g)
     for group in by_dtype.values():
         flat = torch.cat([g.reshape(-1) for g in group])
+        _counted(flat)
         dist.all_reduce(flat)
         offset = 0
         for g in group:

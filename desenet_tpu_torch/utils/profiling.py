@@ -21,6 +21,7 @@ Spans and counters, the program's own record of where its time and work
 go (the port has no JAX counterpart of these):
 
     with profiling.span("predict.pin", replica=0): ...
+    with profiling.span("forward.p6", device=x.device): ...  # card time
     profiling.count("k1.candidates", (score > 0).sum())  # on the device
     profiling.spans(), profiling.counters(), profiling.reset()
 
@@ -37,8 +38,14 @@ profiler's events and its Chrome trace show it. Spans are stamped with
 clock (epoch ns, ``time.time_ns()``: the profiler's events lie at
 ``kineto_results.trace_start_ns()`` plus their ``time_range`` in us), so a
 span of a thread the profiler does not see can be laid against the
-device's timeline. A counter adds host ints, or 0-d device tensors on
-their device (no ``.item()``); ``counters()`` reads them.
+device's timeline. A span opened with ``device=`` a CUDA device also
+records a pair of timing ``torch.cuda.Event``s on that device's current
+stream (not the current device's) at its two ends; its
+``device_ms`` is the card's time between them, read by ``spans()`` once
+the card has passed the second (the caller synchronizes first), None
+before that and for every other span. A counter adds host ints, or 0-d
+device tensors on their device (no ``.item()``); ``counters()`` reads
+them.
 """
 
 from __future__ import annotations
@@ -81,9 +88,12 @@ class Span:
     """A named stretch of work: ``start_ns`` and ``end_ns`` (on
     ``time.perf_counter_ns()`` while recorded, on the profiler's epoch
     clock as ``spans()`` returns them), its ``id``, the ``parent`` span's
-    id (None at the top) and ``attrs``, a few small ints."""
+    id (None at the top), ``attrs``, a few small ints, and ``device_ms``,
+    the card's time between its ends for a device span (module
+    docstring), else None."""
 
-    __slots__ = ("name", "start_ns", "end_ns", "id", "parent", "attrs")
+    __slots__ = ("name", "start_ns", "end_ns", "id", "parent", "attrs",
+                 "device_ms", "_events")
 
     def __init__(self, name: str, start_ns: int = 0, end_ns: int = 0,
                  parent: Optional[int] = None, **attrs):
@@ -93,6 +103,15 @@ class Span:
         self.id = next(_ids)
         self.parent = parent
         self.attrs = attrs
+        self.device_ms: Optional[float] = None
+        self._events = None  # (start, end) CUDA events of a device span
+
+    def _resolve(self) -> None:
+        """Read the device span's events into ``device_ms`` once the card
+        has passed the second."""
+        if self._events is not None and self._events[1].query():
+            self.device_ms = self._events[0].elapsed_time(self._events[1])
+            self._events = None
 
     @property
     def ms(self) -> float:
@@ -100,8 +119,10 @@ class Span:
 
     def _shifted(self, offset_ns: int) -> "Span":
         out = Span.__new__(Span)
+        self._resolve()
         out.name, out.id, out.parent, out.attrs = (
             self.name, self.id, self.parent, self.attrs)
+        out.device_ms, out._events = self.device_ms, None
         out.start_ns = self.start_ns + offset_ns
         out.end_ns = self.end_ns + offset_ns
         return out
@@ -182,11 +203,12 @@ class _Open:
     """An open span: on the thread's stack, and under a profiler also a
     ``record_function`` of its name."""
 
-    __slots__ = ("span", "_rf")
+    __slots__ = ("span", "_rf", "_stream")
 
-    def __init__(self, span: Span):
+    def __init__(self, span: Span, stream=None):
         self.span = span
         self._rf = None
+        self._stream = stream  # a device span's CUDA stream
 
     def __enter__(self) -> Span:
         stack = getattr(_local, "stack", None)
@@ -200,10 +222,16 @@ class _Open:
         # stamped inside the record_function's event, whose first opening in
         # a profiling session spends long before the event's own stamp
         s.start_ns = time.perf_counter_ns()
+        if self._stream is not None:
+            s._events = (torch.cuda.Event(enable_timing=True),
+                         torch.cuda.Event(enable_timing=True))
+            s._events[0].record(self._stream)
         return s
 
     def __exit__(self, *exc):
         s = self.span
+        if s._events is not None:
+            s._events[1].record(self._stream)
         s.end_ns = time.perf_counter_ns()
         if self._rf is not None:
             self._rf.__exit__(*exc)
@@ -212,13 +240,18 @@ class _Open:
         return False
 
 
-def span(name: str, **attrs):
+def span(name: str, device: Optional[torch.device] = None, **attrs):
     """``with span(name, **attrs):`` records the block as a ``Span`` whose
     parent is the thread's innermost open span, when tracing is on; the
-    shared null context when it is off."""
+    shared null context when it is off. ``device``, a CUDA device (the
+    block's work queued on that device's current stream), also times the
+    block on the card: ``Span.device_ms``; any other device, or None, does
+    not."""
     if not (_tracing or _autograd_profiler._is_profiler_enabled):
         return _NULL
-    return _Open(Span(name, **attrs))
+    stream = (torch.cuda.current_stream(device)
+              if device is not None and device.type == "cuda" else None)
+    return _Open(Span(name, **attrs), stream)
 
 
 def record(span: Span) -> None:

@@ -7,7 +7,9 @@
     the bar tests/test_model_parity.py holds the JAX model to; the BiSe
     head golden likewise, standalone.
 (b) The port's ModelSpec equals the JAX package's for every config: the
-    four bundled ones, the tiny ones, BiSe and EXOTIC_CFG, both stems. So
+    four bundled ones, the tiny ones, BiSe and EXOTIC_CFG, both stems, and
+    the port's P6 ``yolov5x6_seg`` (which the JAX package does not ship:
+    its parser takes the port's JSON). So
     the row arguments agree, ``n`` on the seg heads included (SegMaskPSP2
     ignores it in both packages, ASPP's map_reduce = 5 - n and Base's C3
     take it).
@@ -21,12 +23,16 @@
     the dropout itself by its rate and its 1/(1-p) scale, in both
     packages, as their bits cannot agree.
 (e) The served program on every non-PSP2 head against the JAX package's
-    (the 1/8 logits through the JAX seg tail), and the refusal of a model
+    (the 1/8 logits through the JAX seg tail); ``yolov5x6_seg`` at width
+    0.125 (four levels to stride 64) against the JAX package's forward on
+    its init: the decode, the levels' maps, the 1/8 seg logits and the
+    served seg map; and the refusal of a model
     with no seg head (the bundled yolov5s) by Predictor, Validator and the
     training step.
 """
 
 import dataclasses
+import json
 import os
 
 import jax
@@ -104,14 +110,21 @@ def test_golden_bise_head(upsample):
 
 SPEC_CASES = ["yolov5s_seg", "yolov5m_seg", "yolov5l_seg", "yolov5s",
               "tiny_psp2", "tiny_psp", "tiny_lab", "tiny_base", "tiny_bise",
-              "exotic"]
+              "exotic", "yolov5x6_seg"]
+# shipped by the port alone: the JAX package's parser takes the port's JSON
+PORT_CONFIGS = ("yolov5x6_seg",)
+
+
+def port_json(name: str) -> dict:
+    with open(config_path(name)) as fh:
+        return json.load(fh)
 
 
 @pytest.mark.parametrize("name", SPEC_CASES)
 def test_spec_matches_jax(name):
     cfg = load_cfg(name) if name.startswith("tiny") or name == "exotic" \
         else config_path(name)
-    jcfg = load_cfg(name)
+    jcfg = port_json(name) if name in PORT_CONFIGS else load_cfg(name)
     for fuse in (False, True):
         got = parse_config(cfg, fuse_focus=fuse)
         want = jax_parse_config(jcfg, fuse_focus=fuse)
@@ -330,6 +343,44 @@ def test_served_seg_map_matches_jax(name, fuse_focus):
     want = np.asarray(jax_upsample_argmax(jseg, scale=8, align_corners=True))
     assert seg.shape == (3, 64, 64) and seg.dtype == torch.uint8
     assert float((seg.numpy() == want).mean()) >= 0.999
+
+
+def test_p6_forward_matches_jax():
+    """yolov5x6_seg at width 0.125 (every depth as shipped) at 128 px, the
+    JAX package's init loaded into the port: the eval forward's decode of
+    every anchor, the four levels' maps and the 1/8 seg logits (f32, the
+    bar of (a)), and the served seg map."""
+    cfg = port_json("yolov5x6_seg")
+    cfg["width_multiple"] = 0.125
+    jmodel, _ = jax_build_model(cfg, seg_upsample=False)
+    x0 = jnp.zeros((1, 128, 128, 3))
+    variables = jax.device_get(jax.jit(lambda k: jmodel.init(
+        {"params": k, "dropout": k}, x0, train=False))(
+            jax.random.PRNGKey(0)))
+    sd, _ = state_dict_from_jax(traverse_util.flatten_dict(variables, sep="/"),
+                                parse_config(cfg))
+    model, spec = build_model(cfg, seg_upsample=False)
+    load_state_dict(model, sd)
+    assert spec.det_strides == (8, 16, 32, 64)
+    imgs = np.random.default_rng(1).integers(0, 256, (2, 128, 128, 3),
+                                             dtype=np.uint8)
+    (jdec, jfeats), jseg = jax.jit(lambda v, x: jmodel.apply(
+        v, x, train=False))(variables, jnp.asarray(imgs, jnp.float32) / 255.0)
+    with torch.no_grad():
+        (dec, feats), seg = model.eval()(nchw(imgs.astype(np.float32) / 255.0))
+    assert dec.shape == (2, 3 * (16 ** 2 + 8 ** 2 + 4 ** 2 + 2 ** 2), 11)
+    np.testing.assert_allclose(dec.numpy(), np.asarray(jdec), rtol=1e-6,
+                               atol=2e-5)
+    assert len(feats) == len(jfeats) == 4
+    for f, jf in zip(feats, jfeats):
+        np.testing.assert_allclose(f.numpy(), np.asarray(jf), atol=2e-5)
+    np.testing.assert_allclose(seg.numpy(), np.asarray(nchw(np.asarray(jseg))),
+                               atol=2e-5)
+    pred = Predictor(cfg, sd, imgsz=128, conf_thres=1e-3, half=False,
+                     device="cpu")
+    _, smap = pred.infer(torch.from_numpy(imgs))
+    want = np.asarray(jax_upsample_argmax(jseg, scale=8, align_corners=True))
+    assert float((smap.numpy() == want).mean()) >= 0.999
 
 
 def test_seg_head_fused_is_psp2_only():

@@ -18,6 +18,20 @@ and the places that record them, on the CPU.
   records ``train.*``; ``BatchRunner`` keeps ``runner.queue`` and
   ``runner.request`` with one ``rid`` always, and ``/info`` reports their
   percentiles with the sample count.
+- A device span (``span(..., device=<a CUDA device>)``) makes no event
+  while tracing is off or for a CPU device, records its pair of events on
+  the current stream of the device it is given (not the current
+  device's), and reads them into ``device_ms`` once the card has passed
+  the second (stand-in events and streams here); the model's
+  ``forward.seg_head`` and ``forward.p6`` spans hold no device time on the
+  CPU.
+
+On two cards (marked ``cuda``, skipped with fewer): a span given the
+second card times the work queued there while the first is current, and
+a two-replica ``Predictor`` reads a seg head's device time on each card.
+Run on the card:
+
+    python -m pytest --noconftest tests/test_torch_tracing.py -q -k card
 """
 
 import copy
@@ -34,7 +48,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from desenet_tpu_torch import serve
 from desenet_tpu_torch.api import Predictor
-from desenet_tpu_torch.models import build_model
+from desenet_tpu_torch.models import build_model, config_path
 from desenet_tpu_torch.ops import nms_fused
 from desenet_tpu_torch.testing import boosted_state, tiny_cfg, train_batch
 from desenet_tpu_torch.train import create_train_state, make_train_step
@@ -205,8 +219,8 @@ def tiny_predictor():
 
 PREDICT = ["predict.call", "predict.letterbox", "predict.stack",
            "predict.run_batch", "predict.pin", "predict.upload",
-           "predict.infer", "infer.forward", "infer.nms", "infer.seg_tail",
-           "predict.download", "predict.post"]
+           "predict.infer", "infer.forward", "forward.seg_head", "infer.nms",
+           "infer.seg_tail", "predict.download", "predict.post"]
 
 
 def test_predictor_spans_in_order_and_k1_count(tracing, tiny_predictor):
@@ -226,6 +240,7 @@ def test_predictor_spans_in_order_and_k1_count(tracing, tiny_predictor):
         assert by[name].attrs == {"replica": 0}
     for name in ("infer.forward", "infer.nms", "infer.seg_tail"):
         assert by[name].parent == by["predict.infer"].id
+    assert by["forward.seg_head"].parent == by["infer.forward"].id
     assert by["predict.call"].attrs == {"n": 2}
 
     # K1's counters against nms_planes on the same decode
@@ -289,14 +304,107 @@ def test_train_step_spans(tracing):
     assert torch.isfinite(m["loss"]) and m["stepped"] == 1
     spans = sorted(profiling.spans(), key=lambda s: s.start_ns)
     assert [s.name for s in spans] == [
-        "train.step", "train.forward", "train.loss", "train.loss.det",
-        "train.loss.seg", "train.backward", "train.update", "train.ema"]
+        "train.step", "train.forward", "forward.seg_head", "train.loss",
+        "train.loss.det", "train.loss.seg", "train.backward",
+        "train.update", "train.ema"]
     by = {s.name: s for s in spans}
+    assert by["forward.seg_head"].parent == by["train.forward"].id
     for name in ("train.forward", "train.loss", "train.backward",
                  "train.update", "train.ema"):
         assert by[name].parent == by["train.step"].id
     for name in ("train.loss.det", "train.loss.seg"):
         assert by[name].parent == by["train.loss"].id
+
+
+class _Event:
+    """A stand-in for ``torch.cuda.Event`` (no card here): the card passes
+    it once ``done`` is set, 2.5 ms after its start's."""
+
+    made = []
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+        self.recorded = False
+        self.done = False
+        _Event.made.append(self)
+
+    def record(self, stream=None):
+        self.recorded = stream
+
+    def query(self):
+        return self.done
+
+    def elapsed_time(self, end):
+        assert self.recorded and end.recorded and end.done
+        return 2.5
+
+
+def test_device_span_off_creates_no_event(off, monkeypatch):
+    _Event.made = []
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    with profiling.span("forward.p6", device=torch.device("cuda", 0)) as s:
+        pass
+    assert s is None and _Event.made == [] and profiling.spans() == []
+
+
+def test_device_span_on_a_cpu_device_creates_no_event(tracing, monkeypatch):
+    _Event.made = []
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    with profiling.span("forward.p6", device=torch.device("cpu")) as s:
+        pass
+    assert s.device_ms is None and s._events is None and _Event.made == []
+
+
+def test_device_span_reads_its_events_once_the_card_has_passed(
+        tracing, monkeypatch):
+    _Event.made = []
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    # the stream of the device given, whichever device is current
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: ("stream of", device))
+    card = torch.device("cuda", 1)
+    with profiling.span("forward.p6", device=card, bid=1):
+        with profiling.span("host.only"):
+            pass
+    start, end = _Event.made
+    assert start.recorded == end.recorded == ("stream of", card)
+    by = {s.name: s for s in profiling.spans()}
+    assert by["forward.p6"].device_ms is None  # the card has not passed
+    assert by["forward.p6"].attrs == {"bid": 1}
+    end.done = True
+    by = {s.name: s for s in profiling.spans()}
+    assert by["forward.p6"].device_ms == 2.5
+    assert by["host.only"].device_ms is None
+
+
+def _p6_model():
+    cfg = json.load(open(config_path("yolov5x6_seg")))
+    cfg.update(width_multiple=0.125)
+    torch.manual_seed(0)
+    return build_model(cfg)[0]
+
+
+@pytest.mark.parametrize("model,p6", [
+    (lambda: build_model(tiny_cfg())[0], 0), (_p6_model, 2)])
+def test_forward_spans_on_the_cpu_hold_no_device_time(tracing, monkeypatch,
+                                                      model, p6):
+    """The seg head's row and each run of stride-64 rows (rows 9-12 and
+    30-32 of a P6 model) are device spans, whose events are made only for
+    an input on a card: none on the CPU."""
+    net = model()
+    _Event.made = []
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    with torch.no_grad():
+        net(torch.rand((1, 3, 128, 128)))
+    spans = sorted(profiling.spans(), key=lambda s: s.start_ns)
+    assert [s.name for s in spans].count("forward.seg_head") == 1
+    assert [s.name for s in spans].count("forward.p6") == p6
+    assert all(s.device_ms is None for s in spans) and _Event.made == []
+    if p6:
+        seg = profiling.spans("forward.seg_head")[0]
+        first, second = profiling.spans("forward.p6")
+        assert first.end_ns <= second.start_ns <= second.end_ns \
+            <= seg.start_ns
 
 
 class _Dets:
@@ -381,3 +489,58 @@ def test_info_reports_latency_with_its_count(off):
     lat = info["latency"]
     assert lat["n"] == 2 and lat["p50_ms"] is not None
     assert lat["queue_p50_ms"] is not None and lat["queue_p99_ms"] is not None
+
+
+# -- two cards -------------------------------------------------------------
+
+def _two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def _busy(dev: torch.device) -> None:
+    a = torch.rand((2048, 2048), device=dev)
+    for _ in range(50):
+        a = a @ a
+        a = a / a.norm()
+
+
+@pytest.mark.cuda
+def test_card_device_span_times_the_device_it_is_given(tracing):
+    first, second = _two_cards()
+    torch.cuda.set_device(first)
+    _busy(second)  # warm
+    torch.cuda.synchronize(second)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record(torch.cuda.current_stream(second))
+    _busy(second)
+    end.record(torch.cuda.current_stream(second))
+    torch.cuda.synchronize(second)
+    alone = start.elapsed_time(end)
+    profiling.reset()
+    with profiling.span("forward.seg_head", device=second):
+        _busy(second)  # nothing queued on the current (first) card
+    torch.cuda.synchronize(second)
+    (s,) = profiling.spans("forward.seg_head")
+    assert s.device_ms is not None and s.device_ms > 0.5 * alone, \
+        (s.device_ms, alone)
+
+
+@pytest.mark.cuda
+def test_card_two_replicas_read_their_seg_head_time(tracing):
+    _two_cards()
+    cfg = tiny_cfg()
+    model, _ = build_model(cfg)
+    pred = Predictor(cfg, boosted_state(model, 0), imgsz=64,
+                     conf_thres=1e-3, half=True, device="cuda", n_devices=2)
+    batch = np.random.default_rng(0).integers(0, 256, (8, 64, 64, 3),
+                                              dtype=np.uint8)
+    pred.run_batch(batch)  # warm
+    profiling.reset()
+    pred.run_batch(batch)
+    for i in range(2):
+        torch.cuda.synchronize(torch.device("cuda", i))
+    heads = profiling.spans("forward.seg_head")
+    assert len(heads) == 2
+    assert all(s.device_ms is not None and s.device_ms > 0 for s in heads)

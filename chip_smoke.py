@@ -37,8 +37,8 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
    bf16), with the conv kernel each of its nine convs took;
 4. the serving path: yolov5s_seg at full width, random weights from seed 0,
    served at 640 through BatchRunner (a single request, then a burst of 5;
-   plus HTTP when cv2 imports), with K1/K2's launch counters reset before
-   and read after;
+   plus HTTP when cv2 imports), with K1's, K2's and the fused conv
+   epilogue's launch counters reset before and read after;
 4b. the validation path: the same model in bf16 through Validator.run over
    an in-memory loader of 2 batches of 32 images at 640 (made with numpy
    from a seed), once with the module seg head and once with the fused one,
@@ -59,6 +59,14 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
    against the module head); K3 is timed a second time on a dense sorted
    set of the same shape (7200 live around 150 clusters), where the whole
    prefix is walked;
+5e. the fused conv epilogue (csrc/conv_epilogue.cu, which every conv
+   whose BN runs in a served forward on the card launches): its calls in
+   one served forward of s (b128/640) and of x6 (yolov5x6_seg, seed-0
+   weights, b32/1280) recorded by (shape, SiLU, shortcut); at each, on
+   seeded bf16 inputs, the kernel against its plain version to 1 ulp
+   (testing.check_epilogue), then the kernel, the plain version and
+   PyTorch's eval BN + SiLU (+ add) timed in turns beside the bound, one
+   line a shape, and each summed over the forward's calls;
 6. the K5/K6 slice: its two entry points (desenet_tpu_torch.tools
    probe_stem_pallas and proto_c3_kernel: parity in f32 and bf16, timing
    at b128/640 bf16) with K5/K6's
@@ -102,9 +110,10 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
    step; without PIL and cv2 one line says that (b) did not run and why;
 9. the model family: (a) yolov5m_seg and yolov5l_seg at full width and
    depth, random weights from seed 0, served at b128/640 bf16 through
-   Predictor (FusedFocus stem) with K1/K2's launch counters reset before
-   and read after, img/s and peak memory, and the f32 served program (TF32
-   off) on two images at 320 on the card against the CPU; (b) each one's
+   Predictor (FusedFocus stem) with K1's, K2's and the fused conv
+   epilogue's launch counters reset before and read after, img/s and
+   peak memory, and the f32 served program (TF32 off) on two images at
+   320 on the card against the CPU; (b) each one's
    validation step through Validator.run on an in-memory batch of 32 at
    640, with the module and the fused seg head, K3/K4's launch counters
    reset before each run and read after, the step timed with either head,
@@ -241,7 +250,8 @@ tests/test_torch_kernels_cuda.py.
 
 Every timing line carries the card's name and power limit. The last three
 lines are the kernels' JSON record (name, route, source, replaces,
-launches, max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms), the
+launches, max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms; the
+epilogue's at s's b128/640 forward, with x6's forward in its x6_* keys), the
 card's name and power limit as nvidia-smi gives them, and {"ok": true,
 "device": {...}}.
 """
@@ -774,7 +784,7 @@ def check_response(res: dict, what: str) -> None:
 def phase4():
     from desenet_tpu_torch.api import Predictor
     from desenet_tpu_torch.models import build_model, config_path, init_weights
-    from desenet_tpu_torch.ops import nms_fused, seg_pallas
+    from desenet_tpu_torch.ops import conv_epilogue, nms_fused, seg_pallas
     from desenet_tpu_torch.serve import BatchRunner, InferenceServer, _Pending
 
     model, spec = build_model(config_path("yolov5s_seg"))
@@ -787,6 +797,7 @@ def phase4():
 
     nms_fused.launches = 0
     seg_pallas.launches = 0
+    conv_epilogue.launches = 0
     runner = BatchRunner(pred, max_batch=16, max_wait_ms=20.0)
     runner.start()
     try:
@@ -849,7 +860,8 @@ def phase4():
         log(4, "cv2 not importable: HTTP front end skipped")
 
     launches = {"nms_fused": nms_fused.launches,
-                "seg_tail": seg_pallas.launches}
+                "seg_tail": seg_pallas.launches,
+                "conv_epilogue": conv_epilogue.launches}
     if min(launches.values()) < 1:
         raise AssertionError(f"main path did not launch every kernel: "
                              f"{launches}")
@@ -1105,6 +1117,124 @@ def phase5_val(model, spec, validator, batch, card: str, timing: dict,
     # K4 on the seg head's inputs of that forward (channels_last NCHW)
     timing["seg_head_psp2"] = k4_on_inputs(head, seen[0], spec.se_nc, card,
                                            errs, 5, "yolov5s_seg")
+
+
+def epilogue_calls(pred, x) -> dict:
+    """The fused epilogue's calls in one forward of the fused Predictor
+    ``pred`` on the uint8 batch ``x``, by (shape, act, residual)."""
+    from desenet_tpu_torch.ops import conv_epilogue as CE
+
+    calls = {}
+    run = CE.conv_epilogue
+
+    def record(y, scale, shift, act, residual=None):
+        key = (tuple(y.shape), bool(act), residual is not None)
+        calls[key] = calls.get(key, 0) + 1
+        return run(y, scale, shift, act, residual)
+
+    CE.conv_epilogue = record  # ConvBnAct calls it through the module
+    try:
+        pred.infer(x)
+        torch.cuda.synchronize()
+    finally:
+        CE.conv_epilogue = run
+    return calls
+
+
+def phase5_epilogue(pred, card: str, errs: dict, timing: dict,
+                    extras: dict) -> None:
+    """The fused conv epilogue (csrc/conv_epilogue.cu) at every shape the
+    served forwards of s (``pred``, b128/640) and x6 (b32/1280) hand it,
+    bf16, with and without the SiLU and the shortcut as served: against
+    its plain version to 1 ulp (testing.check_epilogue), then timed in
+    turns beside the plain version, PyTorch's eval BN + SiLU (+ add) and
+    the bound, summed over the forward's calls."""
+    import torch.nn.functional as F
+
+    from desenet_tpu_torch.api import Predictor
+    from desenet_tpu_torch.models import build_model, config_path, init_weights
+    from desenet_tpu_torch.ops import conv_epilogue as CE
+    from desenet_tpu_torch.testing import check_epilogue
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    served = {"s": epilogue_calls(pred, torch.randint(
+        0, 256, (B_SERVE, IMGSZ, IMGSZ, 3), dtype=torch.uint8, device=dev,
+        generator=g))}
+    model, _ = build_model(config_path("yolov5x6_seg"))
+    sd = init_weights(model, torch.Generator().manual_seed(0)).state_dict()
+    del model
+    x6 = Predictor("yolov5x6_seg", sd, imgsz=1280, half=True, device="cuda")
+    served["x6"] = epilogue_calls(x6, torch.randint(
+        0, 256, (32, 1280, 1280, 3), dtype=torch.uint8, device=dev,
+        generator=g))
+    del x6, sd
+    torch.cuda.empty_cache()
+    totals = {}
+    for what, calls in served.items():
+        k_sum = p_sum = l_sum = b_sum = 0.0
+        for (shape, act, res), n in sorted(calls.items(), key=lambda kv: (
+                -np.prod(kv[0][0]), kv[0][1:])):
+            c = shape[1]
+            gg = torch.Generator(device=dev).manual_seed(5)
+            y = (torch.randn(shape, device=dev, generator=gg) * 2).to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            r = torch.randn(shape, device=dev, generator=gg).to(
+                torch.bfloat16).contiguous(
+                    memory_format=torch.channels_last) if res else None
+            scale = torch.rand(c, device=dev, generator=gg) + 0.5
+            shift = torch.randn(c, device=dev, generator=gg) * 0.3
+            zero, one = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+            with torch.inference_mode():
+                before = CE.launches
+                got = CE.conv_epilogue(y.clone(), scale, shift, act, r)
+                torch.cuda.synchronize()
+                if CE.launches != before + 1:
+                    raise AssertionError(f"epilogue {what} {shape}: no "
+                                         "launch")
+                err = check_epilogue(got, y, scale, shift, act, r,
+                                     f"conv_epilogue {what} {shape}")
+                errs["conv_epilogue"] = max(errs.get("conv_epilogue", 0.0),
+                                            err)
+                del got
+                yy = y.clone()
+
+                def library():  # eval BN (about y * scale + shift),
+                    # SiLU (+ add): the ops the epilogue replaces
+                    t = F.batch_norm(y, zero, one, scale, shift, False, 0.0,
+                                     1e-3)
+                    t = F.silu(t, inplace=True) if act else t
+                    return t.add_(r) if res else t
+
+                pms, kms, lms = in_turns(
+                    (lambda: CE.conv_epilogue_plain(y, scale, shift, act, r),
+                     2),
+                    (lambda: CE.conv_epilogue(yy, scale, shift, act, r), 10),
+                    (library, 5))
+            bound = tm.epilogue_bound(y.numel(), c, act, res)
+            del y, yy, r
+            torch.cuda.empty_cache()
+            k_sum += n * kms
+            p_sum += n * pms
+            l_sum += n * lms
+            b_sum += n * bound[0]
+            log("5e", f"epilogue {what} {shape} bf16, act {act}, shortcut "
+                f"{res}, {n} calls a forward: 1 ulp of plain (max abs err "
+                f"{err:.6g}); kernel {kms:.4f} ms, plain {pms:.4f} ms, eval "
+                f"BN + SiLU{' + add' if res else ''} {lms:.4f} ms, bound "
+                f"{bound[0]:.4f} ms ({bound[1]}), "
+                f"{100 * bound[0] / kms:.1f}% of it [{card}]")
+        totals[what] = (k_sum, p_sum, l_sum, b_sum, sum(calls.values()))
+        log("5e", f"epilogue over one {what} forward ({sum(calls.values())} "
+            f"calls, {len(calls)} shapes): kernel {k_sum:.3f} ms, plain "
+            f"{p_sum:.3f} ms, eval BN + SiLU (+ add) {l_sum:.3f} ms, bound "
+            f"{b_sum:.3f} ms, {100 * b_sum / k_sum:.1f}% of it [{card}]")
+    k, p, lib, bound, _ = totals["s"]
+    timing["conv_epilogue"] = (k, p, (bound, "bytes"), lib)
+    k6, p6, lib6, b6, n6 = totals["x6"]
+    extras["conv_epilogue"] = {"x6_ms": k6, "x6_plain_ms": p6,
+                               "x6_library_ms": lib6, "x6_bound_ms": b6,
+                               "x6_calls": n6, "s_calls": totals["s"][4]}
 
 
 def k4_on_inputs(head, nchw, n: int, card: str, errs: dict, phase,
@@ -1702,13 +1832,13 @@ def phase9(card: str, errs: dict, extras: dict) -> dict:
     from desenet_tpu_torch.api import Predictor
     from desenet_tpu_torch.eval import Validator
     from desenet_tpu_torch.models import build_model, config_path, init_weights
-    from desenet_tpu_torch.ops import (nms_fused, nms_pallas, seg_head_pallas,
-                                       seg_pallas)
+    from desenet_tpu_torch.ops import (conv_epilogue, nms_fused, nms_pallas,
+                                       seg_head_pallas, seg_pallas)
     from desenet_tpu_torch.utils.convert import load_state_dict
 
     dev = torch.device("cuda")
     launches = {"nms_fused": 0, "seg_tail": 0, "nms_greedy": 0,
-                "seg_head_psp2": 0}
+                "seg_head_psp2": 0, "conv_epilogue": 0}
     for name in ("yolov5m_seg", "yolov5l_seg"):
         model, spec = build_model(config_path(name))
         n_params = sum(p.numel() for p in model.parameters())
@@ -1723,16 +1853,19 @@ def phase9(card: str, errs: dict, extras: dict) -> dict:
         torch.cuda.reset_peak_memory_stats()
         nms_fused.launches = 0
         seg_pallas.launches = 0
+        conv_epilogue.launches = 0
         for _ in range(2):
             pred.infer(warm)
         nms, seg = pred.infer(x)
         torch.cuda.synchronize()
         k1, k2 = nms_fused.launches, seg_pallas.launches
-        if min(k1, k2) < 1:
-            raise AssertionError(f"{name} served: K1 launched {k1}, K2 {k2} "
-                                 "times")
+        ke = conv_epilogue.launches
+        if min(k1, k2, ke) < 1:
+            raise AssertionError(f"{name} served: K1 launched {k1}, K2 {k2}, "
+                                 f"the epilogue {ke} times")
         launches["nms_fused"] += k1
         launches["seg_tail"] += k2
+        launches["conv_epilogue"] += ke
         if seg.shape != (B_SERVE, IMGSZ, IMGSZ) or seg.dtype != torch.uint8 \
                 or int(seg.max()) >= spec.se_nc or \
                 not torch.isfinite(nms.boxes).all():
@@ -1743,7 +1876,8 @@ def phase9(card: str, errs: dict, extras: dict) -> dict:
         log(9, f"{name} ({n_params} params) served b{B_SERVE}/{IMGSZ} bf16 "
             f"(uint8 in, FusedFocus stem, forward + K1 + K2): {ms:.3f} "
             f"ms/batch = {B_SERVE / ms * 1e3:.1f} img/s; peak allocated "
-            f"{peak / 2**30:.3f} GiB; launches K1 {k1}, K2 {k2} [{card}]")
+            f"{peak / 2**30:.3f} GiB; launches K1 {k1}, K2 {k2}, the "
+            f"epilogue {ke} [{card}]")
         # the served program in f32 (TF32 off) on the card against the CPU,
         # two images at 320 (the CPU's time), full width and depth
         small = torch.from_numpy(np.random.default_rng(9).integers(
@@ -4085,6 +4219,7 @@ def main() -> None:
     timed("5 val", phase5_val, model, spec, validator, batch, card, timing,
           errs, extras)
     del model, validator
+    timed("5e", phase5_epilogue, pred, card, errs, timing, extras)
     launches.update(timed("6", phase6, pred, card, timing, errs))
     del pred
     launches["nms_greedy"] += timed("7", phase7, card)
@@ -4122,6 +4257,8 @@ def main() -> None:
                      launches, errs, timing),
         kernel_entry("int8_conv", "desenet_tpu/quant.py:276",
                      launches, errs, timing, extras),
+        kernel_entry("conv_epilogue", "none: XLA's conv output fusion (eval "
+                     "BN, SiLU, shortcut)", launches, errs, timing, extras),
     ]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

@@ -15,7 +15,9 @@ The device program is the JAX package's: uint8 images widened in the
 compute dtype (``x / 255``), the model with the one-conv FusedFocus stem
 and 1/8-resolution seg logits, single-label NMS (kernel K1 on the card) and
 the seg tail (kernel K2). Like the JAX package's, it needs a model with a
-seg head.
+seg head. On the card each replica is ``DeSeNet.fuse()``'d once placed:
+every conv whose BN runs is followed by one pass of BN, SiLU and shortcut
+(``ops/conv_epilogue.py``); on the CPU the model runs unfused.
 
 ``Predictor(..., stem_s2d=True)`` serves the JAX package's phase-layout
 stem (``models/layers.py`` ``PhaseStemA``/``PhaseStemB``): the host packs
@@ -319,6 +321,10 @@ class Predictor:
         self.se_names = list(se_names) if se_names else [
             str(i) for i in range(self.spec.se_nc)]
         self._place_replicas(devices)
+        if not int8:  # the int8 program has its own epilogue
+            for dev, model in self._replicas:
+                if dev.type == "cuda":
+                    model.fuse()
 
     def _place_replicas(self, devices: Sequence[torch.device]) -> None:
         """One replica of the model on each of ``devices`` (a device named

@@ -651,6 +651,24 @@ class DeSeNet(nn.Module):
             out = resize_bilinear(out, (h8 * 8, w8 * 8), align_corners=True)
         return out
 
+    def fuse(self) -> "DeSeNet":
+        """Prepare the served eval forward's fused epilogues: every
+        ``ConvBnAct`` (``ConvBnSiLU``, ``FusedFocus`` and ``DWConv``
+        included) keeps its BN's affine in f32 (``fuse_epilogue``), and an
+        eval call whose BN runs then does BN, activation and the Bottleneck
+        shortcut in one pass over the conv's output (``ops.conv_epilogue``).
+        Call it on an eval model whose weights are final: moving,
+        reloading or training the model drops the constants, and the
+        model runs the separate ops again. The state dict is unchanged.
+        ValueError in training mode."""
+        if self.training:
+            raise ValueError("fuse() prepares the eval forward: call it on "
+                             "a model in eval mode")
+        for mod in self.modules():
+            if isinstance(mod, L.ConvBnAct):
+                mod.fuse_epilogue()
+        return self
+
     def quirk_bn_keys(self) -> list:
         """State-dict keys of the BNs that never run (their conv's input is
         1x1). The JAX package has no variables for them; they keep their

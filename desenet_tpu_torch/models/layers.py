@@ -67,7 +67,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from desenet_tpu_torch import quant as Q
-from desenet_tpu_torch.ops import int8_conv
+from desenet_tpu_torch.ops import conv_epilogue, int8_conv
 from desenet_tpu_torch.parallel import multihost, spatial
 from desenet_tpu_torch.parallel.mesh import process_count
 from desenet_tpu_torch.ops.resize import (
@@ -81,6 +81,8 @@ from desenet_tpu_torch.ops.resize import (
     resize_nearest,
 )
 from desenet_tpu_torch.quant import F8_DTYPES, QTensor, to_f8
+from desenet_tpu_torch.utils.fold import bn_affine
+from desenet_tpu_torch.utils.profiling import count
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
@@ -352,10 +354,10 @@ def int8_block(mod, tag: str, x, make, *, act: bool = False,
     chans = tuple(p.data.shape[1] for p in parts)
     dev = parts[0].data.device
     key = (tag, scales, chans)
-    prep = mod._int8_prepared.get(key)
+    prep = mod._derived.get(key)
     if prep is None:
         with torch.no_grad():
-            prep = mod._int8_prepared[key] = make(scales, chans)
+            prep = mod._derived[key] = make(scales, chans)
     if out_scale is not None:
         mode = int8_conv.OUT_INT8
     else:
@@ -403,21 +405,29 @@ class QuantAware:
     cdtype = None
 
     @property
-    def _int8_prepared(self) -> dict:
-        """The folded int8 constants of the block's convs (``int8_block``),
-        by conv and input scales."""
-        return self.__dict__.setdefault("_int8_consts", {})
+    def _derived(self) -> dict:
+        """Constants derived from the block's weights, outside the state
+        dict: the folded int8 constants of its convs (``int8_block``), by
+        conv and input scales, and ``ConvBnAct``'s BN affine for its fused
+        epilogue under "epilogue". Moving, reloading or ``train(True)``
+        drops them all."""
+        return self.__dict__.setdefault("_derived_consts", {})
 
-    def drop_int8_constants(self) -> None:
-        self.__dict__.pop("_int8_consts", None)
+    def drop_derived_constants(self) -> None:
+        self.__dict__.pop("_derived_consts", None)
 
     def _apply(self, fn, *args, **kwargs):
-        self.drop_int8_constants()
+        self.drop_derived_constants()
         return super()._apply(fn, *args, **kwargs)
 
     def _load_from_state_dict(self, *args, **kwargs):
-        self.drop_int8_constants()
+        self.drop_derived_constants()
         super()._load_from_state_dict(*args, **kwargs)
+
+    def train(self, mode: bool = True):
+        if mode:
+            self.drop_derived_constants()
+        return super().train(mode)
 
     def qmap(self) -> dict:
         return {}
@@ -427,7 +437,7 @@ def set_quant(mod, quant, qkey: str, cdtype) -> None:
     """Give ``mod`` and its quant-aware children their config, JAX scope
     path and compute dtype."""
     mod.quant, mod.qkey, mod.cdtype = quant, qkey, cdtype
-    mod.drop_int8_constants()
+    mod.drop_derived_constants()
     for path, name in mod.qmap().items():
         set_quant(mod.get_submodule(path), quant, f"{qkey}/{name}", cdtype)
 
@@ -447,7 +457,19 @@ class Conv2d(nn.Conv2d):
 class ConvBnAct(QuantAware, nn.Module):
     """Conv2d(bias=False) + BN + SiLU: the reference ``Conv`` block, with the
     BN skipped on a 1x1 input map. Sites: ``in`` and ``inmean`` (its input),
-    ``out``."""
+    ``out``. ``forward``'s ``residual`` is added after the activation (the
+    Bottleneck shortcut).
+
+    After ``fuse_epilogue`` (``DeSeNet.fuse``) an eval call without
+    autograd whose BN runs does everything after the conv in one pass,
+    ``ops.conv_epilogue``: the BN's affine from f32 constants, the
+    activation and the residual, rounded once (the kernel on a card). The
+    constants are among ``QuantAware``'s derived constants, outside the
+    state dict; moving or reloading the block, or ``train(True)``, drops
+    them, and the block runs BN, activation and add as separate ops
+    again. While tracing, each eval call adds 1 to the counter
+    ``epilogue.fused`` (in ``ops.conv_epilogue``, once the pass has run)
+    or ``epilogue.plain``."""
 
     def __init__(self, c1: int, c2: int, k=1, s=1, p=None, g: int = 1,
                  d: int = 1, act: bool = True):
@@ -457,11 +479,33 @@ class ConvBnAct(QuantAware, nn.Module):
         self.bn = batch_norm(c2)
         self.act = nn.SiLU() if act else nn.Identity()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.conv(x)
-        if x.shape[2] * x.shape[3] > 1:
+    def forward(self, x: torch.Tensor,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self._tail(self.conv(x), x.shape[2] * x.shape[3] > 1,
+                          residual)
+
+    def _tail(self, y: torch.Tensor, bn_runs: bool,
+              residual: Optional[torch.Tensor]) -> torch.Tensor:
+        """BN (where ``bn_runs``), the activation and ``residual`` on the
+        conv's output ``y``: the fused pass where the class docstring says,
+        else one op each."""
+        if not self.training:
+            consts = self._derived.get("epilogue")
+            if consts is not None and bn_runs and \
+                    not torch.is_grad_enabled():
+                return conv_epilogue.conv_epilogue(
+                    y, *consts, isinstance(self.act, nn.SiLU), residual)
+            count("epilogue.plain", 1)
+        if bn_runs:
             y = self.bn(y)
-        return self.act(y)
+        y = self.act(y)
+        return y if residual is None else y + residual
+
+    def fuse_epilogue(self) -> None:
+        """Keep the BN's affine (``utils/fold.bn_affine``, in f32, or in
+        float64 for a float64 block) for ``forward``'s fused pass."""
+        dtype = torch.promote_types(self.bn.weight.dtype, torch.float32)
+        self._derived["epilogue"] = bn_affine(self.bn, dtype)
 
     def _padding(self):
         p = self.conv.padding
@@ -530,8 +574,9 @@ class ConvBnSiLU(ConvBnAct):
     """ConvBnAct whose BN runs on any map, as the JAX package's bare
     conv + BatchNorm pairs do (CrossConv)."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.act(self.bn(self.conv(x)))
+    def forward(self, x: torch.Tensor,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self._tail(self.conv(x), True, residual)
 
 
 class FusedFocus(ConvBnAct):
@@ -589,8 +634,8 @@ class Bottleneck(QuantAware, nn.Module):
         self.add = shortcut and c1 == c2
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.cv2(self.cv1(x))
-        return y + x if self.add else y
+        # the shortcut is cv2's residual: its fused pass adds it
+        return self.cv2(self.cv1(x), x if self.add else None)
 
     def qmap(self) -> dict:
         return {"cv1": "cv1", "cv2": "cv2"}

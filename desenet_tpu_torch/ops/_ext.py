@@ -67,6 +67,9 @@ _SIGNATURES = {
     "desenet_c3_prof": [_P, _I],
     # int8_conv.cu. &Int8ConvArgs (ops/int8_conv.py:_Args), stream, device
     "desenet_int8_conv": [_P, _P, _I],
+    # conv_epilogue.cu. y, res, scale, shift, P, C, act, is_bf16, vec,
+    # stream, device
+    "desenet_conv_epilogue": [_P] * 4 + [_I] * 5 + [_P, _I],
     # mma_peak.cu. blocks, threads, iters, sink, stream, device
     "desenet_mma_peak": [_I, _I, _I, _P, _P, _I],
     # mma_peak.cu. blocks, threads, iters, op, sink, stream, device

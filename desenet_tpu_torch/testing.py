@@ -347,6 +347,42 @@ def check_close(got: torch.Tensor, want: torch.Tensor, what: str,
     return float((got - want).abs().max())
 
 
+def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """bf16's spacing at |t| (8 bits of mantissa), f32."""
+    e = torch.floor(torch.log2(t.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def check_epilogue(got: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
+                   shift: torch.Tensor, act: bool,
+                   residual: Optional[torch.Tensor], what: str) -> float:
+    """The fused conv epilogue's output ``got`` (``ops/conv_epilogue.py``)
+    against its plain version on the input ``y``: bf16 to 1 ulp of the
+    largest term of its sums (the two differ only in f32 rounding before
+    the one bf16 rounding: a fused multiply-add, ``__expf``), f32 to 1e-5
+    of it. Raises AssertionError; returns the max abs err."""
+    from desenet_tpu_torch.ops.conv_epilogue import conv_epilogue_plain
+
+    want = conv_epilogue_plain(y, scale, shift, act, residual)
+    prod = y.float() * scale.view(1, -1, 1, 1)
+    v = prod + shift.view(1, -1, 1, 1)
+    a = torch.nn.functional.silu(v) if act else v
+    big = torch.maximum(a.abs(), want.float().abs())
+    big = torch.maximum(big, torch.maximum(
+        prod.abs(), shift.abs().view(1, -1, 1, 1).expand_as(prod)))
+    if residual is not None:
+        big = torch.maximum(big, residual.float().abs())
+    err = (got.float() - want.float()).abs()
+    if y.dtype == torch.bfloat16:
+        bad = err > _bf16_ulp(big)
+    else:
+        bad = err > 1e-5 * big + 1e-30
+    if bool(bad.any()):
+        raise AssertionError(f"{what}: {int(bad.sum())} of {bad.numel()} "
+                             f"off, worst {float(err.max())}")
+    return float(err.max())
+
+
 def randomize_bn(module: torch.nn.Module, seed: int) -> torch.nn.Module:
     """Seeded BN statistics and affine parameters for every BatchNorm2d of
     ``module`` (in place), so that BN folds are exercised."""

@@ -132,6 +132,18 @@ def seg_tail_bound(b: int, h: int, w: int, c: int, scale: int,
                     H100_F32_FLOPS)
 
 
+def epilogue_bound(elems: int, c: int, act: bool, residual: bool,
+                   itemsize: int = 2) -> tuple:
+    """The fused conv epilogue (``csrc/conv_epilogue.cu``) in place over
+    ``elems`` elements of ``c`` channels: y read and written once, the
+    residual read, the 2c f32 constants read; a multiply-add an element,
+    four operations more for the SiLU and one for the residual, float32 on
+    the CUDA cores."""
+    nbytes = elems * itemsize * (3 if residual else 2) + 8 * c
+    flops = elems * (2 + (4 if act else 0) + (1 if residual else 0))
+    return bound_ms(flops, nbytes, H100_F32_FLOPS)
+
+
 def nms_fused_bound(b: int, a: int, max_det: int, candidates: float,
                     picks: float) -> tuple:
     """K1 on six (b, a) f32 planes -> (b, max_det, 6): the score plane read

@@ -1,11 +1,13 @@
 """Eval BatchNorm folded into conv weights, in the layouts of the kernels.
 
 Counterparts of ``desenet_tpu/utils/profiling.py:fold_conv_bn`` and
-``desenet_tpu/utils/torch_convert.py:_focus_kernel_to_conv``; ``fold_conv``,
-the one fold of a port conv and its BN, which the seg head's fold
-(``ops/seg_head_pallas.py``, kernel K4) shares; and the folds that carry the
-port's ``Focus`` and ``C3`` modules into the weights of kernels K5
-(``ops/stem_pallas.py``) and K6 (``ops/c3_fused.py``).
+``desenet_tpu/utils/torch_convert.py:_focus_kernel_to_conv``; ``bn_affine``,
+eval BN as a per-channel scale and shift (which the served ConvBnAct's
+fused epilogue keeps, ``models/layers.ConvBnAct.fuse_epilogue``);
+``fold_conv``, the one fold of a port conv and its BN, which the seg head's
+fold (``ops/seg_head_pallas.py``, kernel K4) shares; and the folds that
+carry the port's ``Focus`` and ``C3`` modules into the weights of kernels
+K5 (``ops/stem_pallas.py``) and K6 (``ops/c3_fused.py``).
 
 The reference skips the BN of a conv whose input map is 1x1
 (``ConvBnAct.forward``); ``fold_focus`` and ``fold_c3`` take the module's
@@ -63,9 +65,18 @@ def fold_conv(conv: torch.nn.Conv2d, bn: torch.nn.BatchNorm2d | None
         w = w[0, 0]
     if bn is None:
         return w, torch.zeros(w.shape[-1], device=w.device)
-    s = bn.weight.detach().float() * torch.rsqrt(
-        bn.running_var.detach().float() + bn.eps)
-    return w * s, bn.bias.detach().float() - bn.running_mean.detach().float() * s
+    s, b = bn_affine(bn)
+    return w * s, b
+
+
+def bn_affine(bn: torch.nn.BatchNorm2d, dtype: torch.dtype = torch.float32
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eval BN as ``y * scale + shift``: (gamma * rsqrt(var + eps), beta -
+    mean * scale), each (C,) in ``dtype`` on the BN's device."""
+    s = bn.weight.detach().to(dtype) * torch.rsqrt(
+        bn.running_var.detach().to(dtype) + bn.eps)
+    shift = bn.bias.detach().to(dtype) - bn.running_mean.detach().to(dtype) * s
+    return s, shift
 
 
 def _fold_cba(m: ConvBnAct, bn_runs: bool) -> Tuple[np.ndarray, np.ndarray]:

@@ -249,3 +249,19 @@ def test_ffm_conv_padded_ctx_equals_unpadded(dtype):
         spatial, wpad[:, :, 0:c_hid], bias, 1, h8, w8, extra=ctx_pad,
         w2=wpad[:, :, c_hid:])
     assert torch.equal(got, want)
+
+
+def test_epilogue_bound():
+    # x6's stem output at b32/1280 in bf16: 1.05 G elements read and
+    # written, 4.19 GB at 3.35 TB/s
+    n = 32 * 80 * 640 * 640
+    ms, by = tm.epilogue_bound(n, 80, True, False)
+    assert by == "bytes" and ms == pytest.approx(1.2521, abs=0.0001)
+    # with the shortcut a third read: 6 bytes an element
+    ms, by = tm.epilogue_bound(n // 4, 80, True, True)
+    assert by == "bytes" and ms == pytest.approx(
+        (n // 4 * 6 + 640) / 3.35e12 * 1e3, rel=1e-12)
+    # f32 without the SiLU: 8 bytes and 2 operations an element
+    ms, by = tm.epilogue_bound(1000, 10, False, False, itemsize=4)
+    assert by == "bytes" and ms == pytest.approx(
+        (8000 + 80) / 3.35e12 * 1e3, rel=1e-12)

@@ -562,11 +562,11 @@ def test_int8_constants_fold_once_and_drop_on_load():
     blk = block(sd_a)
     with torch.no_grad():
         y_a = blk.qforward(x).data
-        (prep,) = blk._int8_prepared.values()
+        (prep,) = blk._derived.values()
         assert torch.equal(blk.qforward(x).data, y_a)
-        assert next(iter(blk._int8_prepared.values())) is prep
+        assert next(iter(blk._derived.values())) is prep
         blk.load_state_dict(sd_b)
-        assert not blk._int8_prepared
+        assert not blk._derived
         y_b = blk.qforward(x).data
         assert torch.equal(y_b, block(sd_b).qforward(x).data)
     assert not torch.equal(y_a, y_b)

@@ -253,9 +253,12 @@ def test_predictor_spans_in_order_and_k1_count(tracing, tiny_predictor):
     assert want > 0
     # the results, 64 px at max_det 300: boxes, scores, classes, num, seg
     out_bytes = 2 * (300 * 4 * 4 + 300 * 4 + 300 * 4 + 4 + 64 * 64)
+    # the CPU Predictor runs unfused: the 72 ConvBnAct calls of each of the
+    # two eval forwards count plain
     assert profiling.counters() == {"k1.images": 2, "k1.candidates": want,
                                     "download.pinned_bytes": 0,
-                                    "download.pageable_bytes": out_bytes}
+                                    "download.pageable_bytes": out_bytes,
+                                    "epilogue.plain": 2 * 72}
 
 
 def test_run_batch_spans_a_download_a_replica(tracing, tiny_predictor):

@@ -3602,8 +3602,8 @@ def _served_forward(pred, x_u8: torch.Tensor):
 
 def _stem_device_ms(model, x: torch.Tensor) -> tuple:
     """(device ms a call, kernel rows) of rows 0 and 1 of ``model`` on
-    ``x`` by the profiler (tools/profile_served.kernel_table)."""
-    from desenet_tpu_torch.tools.profile_served import kernel_table
+    ``x`` by the profiler (tools/timing.kernel_table)."""
+    from desenet_tpu_torch.tools.timing import kernel_table
 
     def stem():
         with torch.inference_mode():

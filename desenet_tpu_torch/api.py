@@ -46,13 +46,16 @@ result is copied back, with the intent that the cards overlap (not yet
 measured on two cards); the padded rows are dropped. Every replica holds
 the same weights, so the results are those of one device.
 
-On the card ``run_batch`` brings its results back into pinned host
-memory: one fresh tensor an output from PyTorch's caching host allocator,
-every replica's copies queued into its rows before one wait a replica.
-The arrays it returns are views of those tensors, whose blocks go back to
-the allocator's cache when the arrays are dropped; no buffer is reused
-while a caller holds results. ``__call__``'s masks are copies, so a
-``Detections`` holds no batch's pinned block.
+``run_batch`` brings its results back by one path on every device: one
+fresh host tensor an output, each replica's outputs copied into its rows.
+On the card the tensors are pinned, from PyTorch's caching host
+allocator, and every replica's copies are queued before one wait a
+replica; their blocks go back to the allocator's cache when the arrays
+are dropped, so no buffer is reused while a caller holds results. On the
+CPU the tensors are pageable and each replica's copies run in turn. The
+arrays it returns are views of those tensors: on the CPU, copies of the
+program's outputs. ``__call__``'s masks are copies, so a ``Detections``
+holds no batch's pinned block.
 
 With tracing on (``utils/profiling``), ``__call__`` records the spans
 ``predict.call`` (``predict.letterbox``, ``predict.stack``, then
@@ -60,10 +63,10 @@ With tracing on (``utils/profiling``), ``__call__`` records the spans
 ``predict.run_batch`` around ``predict.pin``, ``predict.upload``,
 ``predict.infer`` (a replica each, attr ``replica``) and one
 ``predict.download`` a replica (on the card the wait for that replica's
-copies) and adds the results' bytes to the counters
-``download.pinned_bytes`` (copied into pinned memory) and
-``download.pageable_bytes`` (handed back in pageable memory: the CPU
-device's, with no copy), and ``infer`` records ``infer.forward``,
+copies, on the CPU the copies) and adds the results' bytes to the
+counters ``download.pinned_bytes`` (copied into pinned memory: on the
+card) and ``download.pageable_bytes`` (copied into pageable memory: on
+the CPU), and ``infer`` records ``infer.forward``,
 ``infer.nms`` (K1 with its prep) and ``infer.seg_tail`` (K2).
 """
 
@@ -268,6 +271,11 @@ class Predictor:
             devices = [torch.device("cuda", i) for i in range(self.n_devices)]
             self.device = devices[0]
         else:
+            if self.device.type == "cuda" and self.device.index is None:
+                # held by index: a kernel launch on another card (another
+                # replica's, another Predictor's) leaves that card current
+                self.device = torch.device("cuda",
+                                           torch.cuda.current_device())
             devices = [self.device] * self.n_devices
         self.dtype = torch.bfloat16 if half else torch.float32
         self.int8 = int8
@@ -426,10 +434,11 @@ class Predictor:
         multiple of the replica count (``pad_batch_for_mesh``: the last
         image repeated), a slice a replica, all queued before any copy to
         the host. Returns numpy (boxes, scores, classes, num, seg classes)
-        of the B images. On the card each array is a view of a fresh
-        pinned host tensor (every replica's rows of one output in one
-        tensor), its block back in PyTorch's host cache once the array is
-        dropped; on the CPU, views of the program's outputs."""
+        of the B images, each a view of a fresh host tensor (every
+        replica's rows of one output in one tensor; ``_download``): on the
+        card a pinned one, its block back in PyTorch's host cache once the
+        array is dropped; on the CPU a pageable one, so the arrays are
+        copies of the program's outputs, not views of them."""
         n, k = batch.shape[0], len(self._replicas)
         with span("predict.run_batch", n=n):
             batch = pad_batch_for_mesh({"image": batch},
@@ -447,38 +456,38 @@ class Predictor:
                     nms, seg = self.infer(x, model)
                 outs.append((nms.boxes, nms.scores, nms.classes, nms.num,
                              seg))
-            if self.device.type == "cuda":
-                host = self._download_pinned(outs)
-                count("download.pinned_bytes", sum(h.nbytes for h in host))
-                count("download.pageable_bytes", 0)
-                return tuple(h[:n].numpy() for h in host)
-            parts = []
-            for r, out in enumerate(outs):
-                with span("predict.download", replica=r):
-                    parts.append([v.numpy() for v in out])
-            count("download.pinned_bytes", 0)
-            count("download.pageable_bytes",
-                  sum(v.nbytes for p in parts for v in p))
-        if k == 1:
-            return tuple(parts[0])
-        return tuple(np.concatenate(v)[:n] for v in zip(*parts))
+            host = self._download(outs)
+            return tuple(h[:n].numpy() for h in host)
 
-    def _download_pinned(self, outs) -> List[torch.Tensor]:
+    def _download(self, outs) -> List[torch.Tensor]:
         """Each output of every replica copied into its rows of one fresh
-        pinned host tensor: every copy queued on its replica's current
-        stream, then one event a replica waited for (``predict.download``).
-        """
+        host tensor, pinned when the replicas are on a card. On the card
+        every copy is queued on its replica's current stream, then one
+        event a replica is waited for (``predict.download``); on the CPU
+        each replica's copies run inside its ``predict.download``."""
         m = outs[0][0].shape[0]
+        pinned = self.device.type == "cuda"
         host = [torch.empty((len(outs) * m,) + v.shape[1:], dtype=v.dtype,
-                            pin_memory=True) for v in outs[0]]
-        done = []
-        for r, ((dev, _), out) in enumerate(zip(self._replicas, outs)):
-            for h, v in zip(host, out):
+                            pin_memory=pinned) for v in outs[0]]
+
+        def copy_rows(r):
+            for h, v in zip(host, outs[r]):
                 h[r * m:(r + 1) * m].copy_(v, non_blocking=True)
-            done.append(torch.cuda.current_stream(dev).record_event())
-        for r, ev in enumerate(done):
+
+        waits = []
+        for r, (dev, _) in enumerate(self._replicas):
+            if pinned:
+                copy_rows(r)
+                waits.append(
+                    torch.cuda.current_stream(dev).record_event().synchronize)
+            else:
+                waits.append(lambda r=r: copy_rows(r))
+        for r, wait in enumerate(waits):
             with span("predict.download", replica=r):
-                ev.synchronize()
+                wait()
+        nbytes = sum(h.nbytes for h in host)
+        count("download.pinned_bytes", nbytes if pinned else 0)
+        count("download.pageable_bytes", 0 if pinned else nbytes)
         return host
 
 

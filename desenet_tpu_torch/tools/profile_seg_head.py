@@ -4,7 +4,7 @@
     python -m desenet_tpu_torch.tools.profile_seg_head --device cpu \\
         --batch 1 --side 16
 
-``torch.profiler`` over ``profile_served.RUNS`` warm calls of
+``torch.profiler`` over ``timing.RUNS`` warm calls of
 ``fused_psp2_eval`` (a seeded random SegMaskPSP2 head at yolov5s_seg's
 widths, c_hid 128, on seeded inputs of ``side`` x ``side`` positions at 1/8
 resolution; bf16 on a card), then of the module head (cuDNN) on the same
@@ -21,8 +21,7 @@ import torch
 
 from desenet_tpu_torch.ops import seg_head_pallas
 from desenet_tpu_torch.testing import psp2_inputs, random_psp2_head
-from desenet_tpu_torch.tools.profile_served import kernel_table, show
-from desenet_tpu_torch.tools.timing import card_line
+from desenet_tpu_torch.tools.timing import card_line, kernel_table, show
 
 C_HID = 128
 

@@ -5,15 +5,15 @@
     python -m desenet_tpu_torch.tools.profile_served --device cpu \\
         --batch 1 --imgsz 64
 
-``torch.profiler`` over ``RUNS`` warm calls of the served device program
-(``Predictor.infer``: yolov5s_seg or ``--cfg``, random weights from seed 0,
-bf16 on a card, uint8 images in, the FusedFocus stem or with
-``--no-fuse-focus`` the Focus one), then over the model's stem alone on that
-program's stem input. For each, a table of the device kernels (on the CPU:
-the host ops, by self time) with milliseconds and calls per run, most time
-first, and their total, with the card's name and power limit. The port's
-own kernels on that path (K1, K2) are listed below the table where they do
-not reach it.
+``torch.profiler`` over ``timing.RUNS`` warm calls of the served device
+program (``Predictor.infer``: yolov5s_seg or ``--cfg``, random weights from
+seed 0, bf16 on a card, uint8 images in, the FusedFocus stem or with
+``--no-fuse-focus`` the Focus one), then over the model's stem alone on
+that program's stem input. For each, a table of the device kernels (on
+the CPU: the host ops, by self time) with milliseconds and calls per run,
+most time first, and their total, with the card's name and power limit.
+The port's own kernels on that path (K1, K2) are listed below the table
+where they do not reach it.
 """
 
 from __future__ import annotations
@@ -21,46 +21,10 @@ from __future__ import annotations
 import argparse
 
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 from desenet_tpu_torch.api import Predictor
 from desenet_tpu_torch.models import build_model, config_path, init_weights
-from desenet_tpu_torch.tools.timing import card_line
-
-RUNS = 5  # profiled calls
-TOP = 30  # table rows printed
-OWN = ("nms_fused_kernel", "seg_tail_")  # the port's kernels, always printed
-
-
-def kernel_table(fn, device: torch.device):
-    """[(name, ms per run, calls per run)] of the kernels (the host ops on
-    the CPU) that ``RUNS`` calls of ``fn`` launch, most time first."""
-    cuda = device.type == "cuda"
-    sync = torch.cuda.synchronize if cuda else (lambda: None)
-    fn()
-    sync()
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    with profile(activities=acts) as prof:
-        for _ in range(RUNS):
-            fn()
-        sync()
-    want = DeviceType.CUDA if cuda else DeviceType.CPU
-    rows = [(e.key, (e.self_device_time_total if cuda
-                     else e.self_cpu_time_total) / 1e3 / RUNS, e.count / RUNS)
-            for e in prof.key_averages() if e.device_type == want]
-    return sorted(rows, key=lambda r: -r[1])
-
-
-def show(title: str, rows, tail: str) -> float:
-    total = sum(ms for _, ms, _ in rows)
-    print(f"{title}: {total:.3f} ms per run in {len(rows)} kernels "
-          f"{tail}", flush=True)
-    for i, (name, ms, calls) in enumerate(rows):
-        if i < TOP or any(own in name for own in OWN):
-            print(f"  {ms:9.3f} ms {calls:7.1f} calls  {name[:110]}",
-                  flush=True)
-    return total
+from desenet_tpu_torch.tools.timing import card_line, kernel_table, show
 
 
 def main(argv=None) -> int:

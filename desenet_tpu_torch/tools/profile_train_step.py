@@ -7,7 +7,7 @@ seg loss (``upsampled_ce`` on 1/8 logits) and with the materialized one
         --batch 2 --imgsz 64
 
 ``torch.profiler`` over warm steps of ``train.make_train_step`` on
-yolov5s_seg at full width and depth (random weights from seed 0, the
+``CFG``, yolov5s_seg at full width and depth (random weights from seed 0, the
 recipe's hyperparameters, SGD, bf16 compute under autocast on a card,
 synthetic uint8 batches from ``testing.train_batch``): forward, detection
 loss, seg loss, one backward, the 3-group update and the EMA. For either
@@ -27,21 +27,21 @@ import torch
 
 from desenet_tpu_torch.models import build_model, config_path, init_weights
 from desenet_tpu_torch.testing import train_batch
-from desenet_tpu_torch.tools.profile_served import kernel_table, show
-from desenet_tpu_torch.tools.timing import card_line
+from desenet_tpu_torch.tools.timing import card_line, kernel_table, show
 from desenet_tpu_torch.train import create_train_state, make_train_step
 from desenet_tpu_torch.train.engine import load_hyp, loss_and_schedule
 
+CFG = "yolov5s_seg"  # bundled config name or .json/.yaml path
 NOMINAL_BS = 64  # the recipe's nbs: at batch 64 every step is an optimizer step
 WALL_REPS = 5
 
 
 def trainer(fused: bool, device, batch: int, imgsz: int,
             dtype: torch.dtype, seed: int = 0, warmup_iters: int = 3):
-    """yolov5s_seg in training mode at full width on ``device`` (weights
-    from ``seed``, channels-last), the recipe's loss gains and schedule,
-    SGD. Returns ``(state, step, spec)``."""
-    model, spec = build_model(config_path("yolov5s_seg"),
+    """``CFG`` (yolov5s_seg at full width) in training mode on ``device``
+    (weights from ``seed``, channels-last), the recipe's loss gains and
+    schedule, SGD. Returns ``(state, step, spec)``."""
+    model, spec = build_model(config_path(CFG),
                               seg_upsample=not fused, train=True)
     init_weights(model, torch.Generator().manual_seed(seed))
     model.to(device, memory_format=torch.channels_last)

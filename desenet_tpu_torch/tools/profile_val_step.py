@@ -26,8 +26,7 @@ import torch
 
 from desenet_tpu_torch.eval import Validator
 from desenet_tpu_torch.models import build_model, config_path, init_weights
-from desenet_tpu_torch.tools.profile_served import kernel_table, show
-from desenet_tpu_torch.tools.timing import card_line
+from desenet_tpu_torch.tools.timing import card_line, kernel_table, show
 
 WALL_REPS = 10
 

@@ -1,10 +1,13 @@
-"""Timing on the card, shared by the probes and ``chip_smoke.py``."""
+"""Timing on the card and the profiler's kernel table, shared by the
+probes, the profilers and ``chip_smoke.py``."""
 
 from __future__ import annotations
 
 import subprocess
 
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 
 def card_line() -> str:
@@ -37,6 +40,41 @@ def in_turns(*runs) -> list:
     first = [cuda_ms(fn, reps) for fn, reps in runs]
     second = [cuda_ms(fn, reps) for fn, reps in reversed(runs)][::-1]
     return [(a + b) / 2 for a, b in zip(first, second)]
+
+
+RUNS = 5  # profiled calls
+TOP = 30  # table rows printed
+OWN = ("nms_fused_kernel", "seg_tail_")  # the port's kernels, always printed
+
+
+def kernel_table(fn, device: torch.device):
+    """[(name, ms per run, calls per run)] of the kernels (the host ops on
+    the CPU) that ``RUNS`` calls of ``fn`` launch, most time first."""
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    fn()
+    sync()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        for _ in range(RUNS):
+            fn()
+        sync()
+    want = DeviceType.CUDA if cuda else DeviceType.CPU
+    rows = [(e.key, (e.self_device_time_total if cuda
+                     else e.self_cpu_time_total) / 1e3 / RUNS, e.count / RUNS)
+            for e in prof.key_averages() if e.device_type == want]
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def show(title: str, rows, tail: str) -> float:
+    total = sum(ms for _, ms, _ in rows)
+    print(f"{title}: {total:.3f} ms per run in {len(rows)} kernels "
+          f"{tail}", flush=True)
+    for i, (name, ms, calls) in enumerate(rows):
+        if i < TOP or any(own in name for own in OWN):
+            print(f"  {ms:9.3f} ms {calls:7.1f} calls  {name[:110]}",
+                  flush=True)
+    return total
 
 
 # ---- bounds: the least time the card could take for a kernel's work -------

@@ -9,7 +9,8 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
 0. environment: torch/CUDA versions, the card, its power limit;
 1. build: nvcc builds the kernels from desenet_tpu_torch/csrc, one process
    per source, all at once (ptxas lines; the tensor-core kernels of K4, K5
-   and K6 must not spill, and their SASS must hold HMMA instructions where
+   and K6 and the served stem must not spill, and their SASS must hold HMMA
+   (the served stem's: HGMMA, wgmma) instructions where
    cuobjdump is at hand), and beside them the host compiler builds the
    native host library from csrc/host (desenet_tpu_torch/native.py), with
    libjpeg where jpeglib.h is found;
@@ -37,8 +38,9 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
    bf16), with the conv kernel each of its nine convs took;
 4. the serving path: yolov5s_seg at full width, random weights from seed 0,
    served at 640 through BatchRunner (a single request, then a burst of 5;
-   plus HTTP when cv2 imports), with K1's, K2's and the fused conv
-   epilogue's launch counters reset before and read after;
+   plus HTTP when cv2 imports), with K1's, K2's, the fused conv
+   epilogue's and the served stem's launch counters reset before and read
+   after;
 4b. the validation path: the same model in bf16 through Validator.run over
    an in-memory loader of 2 batches of 32 images at 640 (made with numpy
    from a seed), once with the module seg head and once with the fused one,
@@ -67,11 +69,20 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
    (testing.check_epilogue), then the kernel, the plain version and
    PyTorch's eval BN + SiLU (+ add) timed in turns beside the bound, one
    line a shape, and each summed over the forward's calls;
+5s. the served stem (ops/stem_pallas.served_stem, the third kernel of
+   csrc/stem_conv.cu: row 0 of a fuse()'d bf16 model on the uint8 batch)
+   at the s, l and x6 stem shapes (b128/640 to 32 and 64, b32/1280 to 80)
+   on a seeded FusedFocus: against its plain version (BF16_BAR) and
+   against the parent's path on the same batch (infer's widen, cuDNN's
+   conv, the conv_epilogue pass; BF16_MODULE_BAR), the device rows of
+   either path by the profiler, both timed in turns beside the byte bound
+   (uint8 in, bf16 out) with the kernel's share of it;
 6. the K5/K6 slice: its two entry points (desenet_tpu_torch.tools
    probe_stem_pallas and proto_c3_kernel: parity in f32 and bf16, timing
    at b128/640 bf16) with K5/K6's
    launch counters reset before and read after; then, on the b128/640 bf16
-   served forward, the input and output of the FusedFocus stem and of every
+   served forward, the input and output of the FusedFocus stem (its uint8
+   batch, widened as infer widened it before) and of every
    C3 are hooked, K5 (on fold_focus's weights) and K6 (on fold_c3's) are
    held against their plain versions and against the modules' outputs, and
    the three are timed in turns, one line per layer;
@@ -286,8 +297,13 @@ IMGSZ = 640
 CSRC = "desenet_tpu_torch/csrc"
 
 
-# the tensor-core kernels: the bf16 variants of K6, of K4's conv and of K5
-MMA_KERNELS = ("c3_mma_kernel", "conv_gemm_mma_kernel", "stem_mma_kernel")
+# the tensor-core kernels: the bf16 variants of K6, of K4's conv and of K5,
+# and the served stem
+MMA_KERNELS = ("c3_mma_kernel", "conv_gemm_mma_kernel", "stem_mma_kernel",
+               "stem_u8_kernel")
+# the served stem's shapes: (cell, batch, side, CO)
+SERVED_STEMS = (("s", 128, 640, 32), ("l", 128, 640, 64),
+                ("x6", 32, 1280, 80))
 
 
 def log(phase, msg: str) -> None:
@@ -403,7 +419,7 @@ def phase1():
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-        elif "HMMA." in line and fn is not None:
+        elif ("HMMA." in line or "HGMMA." in line) and fn is not None:
             hmma.setdefault(fn, []).append(" ".join(line.split()[1:6]))
     for kernel in MMA_KERNELS:
         found = [(k, v) for k, v in hmma.items() if kernel in k]
@@ -784,7 +800,8 @@ def check_response(res: dict, what: str) -> None:
 def phase4():
     from desenet_tpu_torch.api import Predictor
     from desenet_tpu_torch.models import build_model, config_path, init_weights
-    from desenet_tpu_torch.ops import conv_epilogue, nms_fused, seg_pallas
+    from desenet_tpu_torch.ops import (conv_epilogue, nms_fused, seg_pallas,
+                                       stem_pallas)
     from desenet_tpu_torch.serve import BatchRunner, InferenceServer, _Pending
 
     model, spec = build_model(config_path("yolov5s_seg"))
@@ -798,6 +815,7 @@ def phase4():
     nms_fused.launches = 0
     seg_pallas.launches = 0
     conv_epilogue.launches = 0
+    stem_pallas.served_launches = 0
     runner = BatchRunner(pred, max_batch=16, max_wait_ms=20.0)
     runner.start()
     try:
@@ -862,9 +880,10 @@ def phase4():
     launches = {"nms_fused": nms_fused.launches,
                 "seg_tail": seg_pallas.launches,
                 "conv_epilogue": conv_epilogue.launches}
-    if min(launches.values()) < 1:
+    served = stem_pallas.served_launches
+    if min(launches.values()) < 1 or served < 1:
         raise AssertionError(f"main path did not launch every kernel: "
-                             f"{launches}")
+                             f"{launches}, the served stem {served}")
     log(4, f"kernel launches on the serving path: {launches}")
     return pred, launches, sd
 
@@ -1237,6 +1256,66 @@ def phase5_epilogue(pred, card: str, errs: dict, timing: dict,
                                "x6_calls": n6, "s_calls": totals["s"][4]}
 
 
+def phase5s(card: str, extras: dict) -> None:
+    """The served stem at ``SERVED_STEMS``' shapes (module docstring, 5s):
+    a seeded bf16 FusedFocus after ``fuse_epilogue``, on a seeded uint8
+    batch, as row 0 runs in the served program and as it ran before."""
+    from desenet_tpu_torch.models.layers import FusedFocus
+    from desenet_tpu_torch.ops import stem_pallas as S
+    from desenet_tpu_torch.testing import BF16_BAR, randomize_bn
+    from desenet_tpu_torch.tools.timing import kernel_table
+
+    dev = torch.device("cuda")
+    served = {}
+    for name, b, side, co in SERVED_STEMS:
+        torch.manual_seed(co)
+        m = randomize_bn(FusedFocus(3, co), seed=co).to(
+            dev, torch.bfloat16, memory_format=torch.channels_last).eval()
+        m.fuse_epilogue()
+        g = torch.Generator(device=dev).manual_seed(side + co)
+        x = torch.randint(0, 256, (b, side, side, 3), dtype=torch.uint8,
+                          device=dev, generator=g)
+        xv = x.permute(0, 3, 1, 2)
+
+        def parent():  # infer's widen, then row 0 on the widened batch
+            return m(xv.to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last) / 255)
+
+        def stem():
+            return m(xv)
+
+        with torch.inference_mode():
+            before = S.served_launches
+            got = stem()
+            torch.cuda.synchronize()
+            if S.served_launches != before + 1:
+                raise AssertionError(f"served stem {name}: no launch")
+            scale, shift = m._derived["epilogue"]
+            err = check_bf16(got.permute(0, 2, 3, 1), S.served_stem_plain(
+                x, m._derived["stem"], scale, shift), f"served stem {name} "
+                "vs plain", BF16_BAR)
+            perr = check_bf16(got, parent(), f"served stem {name} vs the "
+                              "parent's path", BF16_MODULE_BAR)
+            del got
+            rows = {k: kernel_table(fn, dev)
+                    for k, fn in (("parent", parent), ("served", stem))}
+            pms, sms = in_turns((parent, 5), (stem, 10))
+        bound, by = tm.served_stem_bound(b, side, side, co)
+        served[name] = {"ms": sms, "parent_ms": pms, "bound_ms": bound,
+                        "bound_pct": 100 * bound / sms, "max_abs_err": err}
+        for k, r in rows.items():
+            log("5s", f"{name} {k} path's device rows a call: " + "; ".join(
+                f"{n[:72]} {ms:.3f} ms x{calls:g}" for n, ms, calls in r))
+        log("5s", f"served stem {name} ({b}, {side}, {side}, 3) uint8 -> "
+            f"{co} bf16: max abs err vs plain {err:.6g}, vs the parent's "
+            f"path {perr:.6g}; kernel {sms:.4f} ms, the parent's path "
+            f"{pms:.4f} ms, bound {bound:.4f} ms ({by}), "
+            f"{100 * bound / sms:.1f}% of it [{card}]")
+        del m, x, xv
+        torch.cuda.empty_cache()
+    extras.setdefault("stem_conv", {})["served"] = served
+
+
 def k4_on_inputs(head, nchw, n: int, card: str, errs: dict, phase,
                  what: str) -> tuple:
     """K4 on a SegMaskPSP2 head's inputs ``nchw`` (a bf16 forward's),
@@ -1350,6 +1429,9 @@ def phase6(pred, card: str, timing: dict, errs: dict) -> dict:
     bound_by = {}
     for i in rows:
         inp, out = seen[i]
+        if inp.dtype == torch.uint8:  # the served stem's batch, widened
+            inp = inp.to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last) / 255
         x = inp.permute(0, 2, 3, 1)  # NHWC view of the channels_last input
         hw = tuple(inp.shape[2:])
         m = net[i]
@@ -4220,6 +4302,7 @@ def main() -> None:
           errs, extras)
     del model, validator
     timed("5e", phase5_epilogue, pred, card, errs, timing, extras)
+    timed("5s", phase5s, card, extras)
     launches.update(timed("6", phase6, pred, card, timing, errs))
     del pred
     launches["nms_greedy"] += timed("7", phase7, card)
@@ -4252,7 +4335,7 @@ def main() -> None:
         kernel_entry("seg_head_psp2", "desenet_tpu/ops/seg_head_pallas.py:239",
                      launches, errs, timing, extras),
         kernel_entry("stem_conv", "desenet_tpu/ops/stem_pallas.py:77",
-                     launches, errs, timing),
+                     launches, errs, timing, extras),
         kernel_entry("c3_fused", "tools/proto_c3_kernel.py:35",
                      launches, errs, timing),
         kernel_entry("int8_conv", "desenet_tpu/quant.py:276",

@@ -17,7 +17,10 @@ and 1/8-resolution seg logits, single-label NMS (kernel K1 on the card) and
 the seg tail (kernel K2). Like the JAX package's, it needs a model with a
 seg head. On the card each replica is ``DeSeNet.fuse()``'d once placed:
 every conv whose BN runs is followed by one pass of BN, SiLU and shortcut
-(``ops/conv_epilogue.py``); on the CPU the model runs unfused.
+(``ops/conv_epilogue.py``), and a bf16 replica's FusedFocus stem takes
+the uint8 batch as uploaded, widening it inside its conv, BN and SiLU
+(``ops/stem_pallas.served_stem``); on the CPU the model runs unfused on
+the widened batch.
 
 ``Predictor(..., stem_s2d=True)`` serves the JAX package's phase-layout
 stem (``models/layers.py`` ``PhaseStemA``/``PhaseStemB``): the host packs
@@ -350,11 +353,16 @@ class Predictor:
         """The device program: (B, H, W, 3) uint8 RGB on the device, or
         with ``stem_s2d`` its (B, H/4, W/4, 48) space-to-depth-4 packing ->
         (NMSOutput, (B, H, W) uint8 seg class map); ``model`` a replica
-        (the first by default)."""
+        (the first by default). A card replica whose row 0 can take the
+        uint8 batch (``DeSeNet.uint8_refusal``: ``fuse()``'d, bf16, the
+        standard stem) gets its channels_last view, and row 0 widens it;
+        any other gets it widened here."""
+        model = model or self.model
         with span("infer.forward"):
-            x = img_u8.permute(0, 3, 1, 2).to(self.dtype)
-            x = x.contiguous(memory_format=self._mf) / 255
-            (dec, _), seg = (model or self.model)(x)
+            x = img_u8.permute(0, 3, 1, 2)
+            if not (x.is_cuda and model.uint8_refusal(x) is None):
+                x = x.to(self.dtype).contiguous(memory_format=self._mf) / 255
+            (dec, _), seg = model(x)
         with span("infer.nms"):
             nms = non_max_suppression(dec, conf_thres=self.conf_thres,
                                       iou_thres=self.iou_thres,

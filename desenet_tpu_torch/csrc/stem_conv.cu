@@ -48,11 +48,53 @@
 //   2^-11 relative error in tanh before the one rounding of the output.
 //   tools/profile_stem_phases.py switches the kernel's parts off one by one
 //   (a -DK5_PROF build).
+//
+// A third kernel, stem_u8_kernel, is the served stem (desenet_stem_u8): row 0
+// of a fuse()'d bf16 model on the card, straight from the uploaded (B, H, W,
+// 3) uint8 batch. It replaces three passes of the served program: the widen
+// x.to(bf16) / 255, cuDNN's stem conv and the stem's conv_epilogue pass. Per
+// value: bf16(float(u8) * (1 / 255)), bit for bit the widen (PyTorch's CUDA
+// division by a scalar multiplies by its f32 reciprocal); the products of
+// the unfolded bf16 weights summed in f32; eval BN's affine in f32 (one
+// multiply-add); the SiLU; one rounding to bf16. Bound by the bytes of its
+// output (at b128 / 640 px and CO 32, 839 MB of the 996 MB it moves; the
+// uint8 input is 157 MB). CO is any multiple of 8 up to 80 (yolov5x6_seg's),
+// one instantiation each. Design:
+// - The tile walk and the window are tc's, on 32 x 32 pixel tiles. Each
+//   tile's uint8 window arrives by 16-byte cp.async into one of two raw
+//   buffers (a row starts 16 bytes left of the tile's first input byte, so
+//   on a 16-byte boundary wherever W is a multiple of 16; plain byte loads
+//   otherwise) while the tile before is multiplied, and is widened once into
+//   the bf16 window that the A loads read.
+// - The products run on Hopper's warpgroup MMA (wgmma, m64 x CO x k16, seven
+//   k steps): a job is 64 pixels, two rows of 32, and all CO channels at
+//   once, as up to three wgmma widths (64, 32, 16, 8). A comes from
+//   registers, loaded as tc's A fragments (one 32-bit shared load a
+//   register, K ordered (ky, kx * 3 + c)), once a pixel whatever CO is; B,
+//   the tap matrix, lies in shared memory in wgmma's K-major layout, read by
+//   the tensor cores through a descriptor. (mma.sync, tc's design, loads A
+//   again for every four n8 tiles and B for every 32 pixels: 38-46% of the
+//   byte bound on an NVIDIA H100 80GB HBM3 at 700 W.) Up to CO 32 a
+//   warpgroup's next job runs under this job's epilogue.
+// - B's columns are dealt so that each lane's D fragment holds neighbouring
+//   channels of its pixels; a warp writes its 16 pixels' CO channels into
+//   shared memory as they lie in global memory, and one lane hands them to
+//   the bulk copy unit (cp.async.bulk): the 839 MB of stores leave no store
+//   instruction in the warps' stream.
+// - The SiLU is x sigmoid(x) = h + h tanh(h), h = x / 2, with tanh.approx.f32
+//   (K5's form): one special-function operation a value, about 2^-11
+//   relative error in tanh before the one rounding, a quarter of a bf16
+//   half ulp. conv_epilogue.cu's v / (1 + exp(-v)) takes two (ex2, rcp):
+//   at b128 / 640 px it reached 55-59% of the byte bound at CO 32 against
+//   61-62% (65% against 74% at CO 64, 65% against 79% at CO 80).
+// Dynamic shared memory: the window, the two raw buffers, B, the halved f32
+// scale and shift, the warps' pixels (98 KB at CO 80: two blocks an SM).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <cstdint>
 #include <type_traits>
 
 #include "mma_bf16.cuh"
@@ -459,6 +501,564 @@ cudaError_t launch_mma(const void* x, const void* wm, const void* bias,
 
 }  // namespace tc
 
+// ---- the served stem: uint8 in, BN and SiLU inside (bf16) ------------------
+
+namespace u8 {
+
+using tc::kKSteps;
+using tc::kPitch;
+using tc::kThreads;
+using tc::kTW;
+using tc::kWarps;
+
+constexpr int kTH = 32;  // output rows of a tile (tc's: 16)
+constexpr int kWinRows = 2 * kTH + 4;
+constexpr int kCoMax = 80;
+// A raw row holds the image bytes from 16 before the tile's first input
+// byte (the padding column 2 ox0 - 2's) on: kPitch / 2 of them, as many as
+// the window row's bf16 values, which start at the same image byte.
+constexpr int kLead = 16;
+constexpr int kRawPitch = kPitch / 2;         // bytes of a raw row
+constexpr int kWinBytes = kWinRows * kPitch;  // the bf16 window
+constexpr int kRawBytes = kWinRows * kRawPitch;
+constexpr int kFirst = 2 * (kLead - 6);  // window byte of column 2 ox0 - 2
+constexpr int kJobs = kTH / 2 / (kWarps / 4);  // row pairs a warpgroup takes
+// Up to this CO a warpgroup's next job runs on the tensor cores under this
+// job's epilogue (two accumulator sets), and each lane keeps the scale and
+// shift of its channels in registers; wider, both would spill.
+constexpr int kPipeCoMax = 32;
+constexpr float kInv255 = 1.0f / 255.0f;
+
+// bytes: the window, two raw windows, B (7 k16 steps of 16 x CO bf16), the
+// halved f32 scale and shift, each warp's 16 output pixels
+inline size_t smem_bytes(int co) {
+  return kWinBytes + 2 * kRawBytes + static_cast<size_t>(kKSteps) * 32 * co +
+         8 * co + static_cast<size_t>(kWarps) * 32 * co;
+}
+
+// byte i of w as bf16(float(byte) * (1 / 255)): 2^23 + byte assembled as a
+// float's bits, less 2^23, is the byte exactly
+__device__ __forceinline__ float widen(uint32_t w, int i) {
+  const float v = __fsub_rn(
+      __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440 | i)), 8388608.0f);
+  return __fmul_rn(v, kInv255);
+}
+
+// From the sum y and the halved constants: h = (y scale + shift) / 2 (one
+// multiply-add, exactly half of the affine's), then v sigmoid(v) = h + h
+// tanh(h), or 2 h = v without the SiLU.
+__device__ __forceinline__ float finish(float y, float s2, float b2,
+                                        bool silu) {
+  const float h = fmaf(y, s2, b2);
+  return silu ? fmaf(h, tc::tanh_f32(h), h) : h + h;
+}
+
+// D (64 x N, f32) += A (64 x 16 bf16, this warp's 16 rows in registers, as
+// mma.sync's A fragment) * B (16 x N bf16 in shared memory, by descriptor);
+// acc 0 overwrites D. One warpgroup, asynchronous: wgmma.fence before,
+// commit and wait after.
+template <int N>
+struct Wg;
+
+template <>
+struct Wg<8> {
+  static __device__ __forceinline__ void mma(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+  }
+};
+
+template <>
+struct Wg<16> {
+  static __device__ __forceinline__ void mma(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+  }
+};
+
+template <>
+struct Wg<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+  }
+};
+
+template <>
+struct Wg<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+  }
+};
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// B in shared memory for one k16 step and N columns, K-major without
+// swizzle: core matrices of 8 columns x 8 k (16 bytes a column), the two k
+// halves 128 bytes apart (LBO), consecutive 8-column groups 256 bytes apart
+// (SBO)
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(128 >> 4) << 16 |
+         static_cast<uint64_t>(256 >> 4) << 32;
+}
+
+// CO's columns as up to three wgmma widths (64, 32, 16, 8), widest first
+template <int CO>
+struct Split {
+  static constexpr int w(int c) {
+    return c >= 64 ? 64 : c >= 32 ? 32 : c >= 16 ? 16 : c >= 8 ? 8 : 0;
+  }
+  static constexpr int p0 = w(CO);
+  static constexpr int p1 = w(CO - p0);
+  static constexpr int p2 = w(CO - p0 - p1);
+  static_assert(p0 + p1 + p2 == CO, "CO is no sum of three widths");
+};
+
+// A job's accumulators: D of each piece, N / 2 floats a thread
+template <int CO>
+struct Acc {
+  using S = Split<CO>;
+  float d0[S::p0 / 2], d1[S::p1 ? S::p1 / 2 : 1], d2[S::p2 ? S::p2 / 2 : 1];
+
+  // the seven k16 steps of a job on A (this warp's registers) and B
+  // (bdesc: its descriptor at step 0), issued and committed, not waited
+  // for; step 0 overwrites D. Each step's and piece's descriptor is bdesc
+  // plus its start address's offset (16-byte units in the low bits), made
+  // here from a bdesc the compiler cannot see through, so that it does not
+  // hoist the 14 of CO 80 (28 registers) out of the job loop.
+  __device__ __forceinline__ void issue(const uint32_t (&a)[kKSteps][4],
+                                        uint64_t bdesc) {
+    asm volatile("" : "+l"(bdesc));
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < kKSteps; ++ks) {
+      const uint64_t dk = bdesc + 2 * CO * ks;
+      Wg<S::p0>::mma(d0, a[ks], dk, ks);
+      if constexpr (S::p1 > 0) Wg<S::p1>::mma(d1, a[ks], dk + 2 * S::p0, ks);
+      if constexpr (S::p2 > 0)
+        Wg<S::p2>::mma(d2, a[ks], dk + 2 * (S::p0 + S::p1), ks);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  }
+
+  // after the wait: the values are read from here on, not before
+  __device__ __forceinline__ void keep() {
+    u8::keep(d0);
+    if constexpr (S::p1 > 0) u8::keep(d1);
+    if constexpr (S::p2 > 0) u8::keep(d2);
+  }
+};
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Output channel of B column n (of CO) in the pieces of widths p0, p1, p2:
+// column 8 j + c of the piece (n0, P) is channel n0 + 2 (P / 8) (c / 2) +
+// 2 j + c % 2, so that lane 4 g + t, whose D fragment holds columns 8 j + 2 t
+// and 8 j + 2 t + 1 of every block j, holds the 2 P / 8 neighbouring
+// channels from n0 + P t / 4.
+__device__ __forceinline__ int b_channel(int n, int p0, int p1, int p2) {
+  const int n0 = n < p0 ? 0 : n < p0 + p1 ? p0 : p0 + p1;
+  const int nb = (n < p0 ? p0 : n < p0 + p1 ? p1 : p2) / 8;
+  const int j = (n - n0) / 8, c = (n - n0) % 8;
+  return n0 + 2 * nb * (c >> 1) + 2 * j + (c & 1);
+}
+
+// The lane's 2 P / 8 channels of its pixels g and g + 8 (words v[0], v[1])
+// into the staged pixels at px (pixel g's). A pixel's channels are 2 CO
+// bytes apart; where that puts the two pixels of a quarter warp on the same
+// banks (P 64), odd pixels store their 16-byte pieces in turned order.
+template <int P>
+__device__ __forceinline__ void stage_piece(const uint32_t (&v)[2][P / 8],
+                                            unsigned char* px, int co,
+                                            int c0, int g) {
+  constexpr int kNB = P / 8;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    unsigned char* dst = px + 2 * (8 * h * co + c0);
+    if constexpr (kNB == 8) {
+      const uint4 lo = make_uint4(v[h][0], v[h][1], v[h][2], v[h][3]);
+      const uint4 hi = make_uint4(v[h][4], v[h][5], v[h][6], v[h][7]);
+      const bool odd = g & 1;
+      *reinterpret_cast<uint4*>(dst + (odd ? 16 : 0)) = odd ? hi : lo;
+      *reinterpret_cast<uint4*>(dst + (odd ? 0 : 16)) = odd ? lo : hi;
+    } else if constexpr (kNB % 4 == 0) {
+#pragma unroll
+      for (int j = 0; j < kNB; j += 4)
+        *reinterpret_cast<uint4*>(dst + 4 * j) =
+            make_uint4(v[h][j], v[h][j + 1], v[h][j + 2], v[h][j + 3]);
+    } else if constexpr (kNB % 2 == 0) {
+#pragma unroll
+      for (int j = 0; j < kNB; j += 2)
+        *reinterpret_cast<uint2*>(dst + 4 * j) =
+            make_uint2(v[h][j], v[h][j + 1]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kNB; ++j)
+        reinterpret_cast<uint32_t*>(dst)[j] = v[h][j];
+    }
+  }
+}
+
+// One piece of P columns from N0: the lane's 2 P / 8 channels of its two
+// pixels through the epilogue, packed, into the warp's staged pixels (px:
+// its pixel g). Each channel pair's halved scale and shift come once, from
+// the lane's registers (rs, rb: its CO / 8 pairs, where kReg) or from
+// shared memory.
+template <int P, int N0, bool kReg, int NC>
+__device__ __forceinline__ void finish_piece(const float (&d)[P / 2],
+                                             const float* sc, const float* sh,
+                                             const float2 (&rs)[NC],
+                                             const float2 (&rb)[NC], bool silu,
+                                             unsigned char* px, int co, int g,
+                                             int t) {
+  constexpr int kNB = P / 8;
+  const int c0 = N0 + 2 * kNB * t;
+  uint32_t v[2][kNB];
+#pragma unroll
+  for (int j = 0; j < kNB; ++j) {
+    float2 s, b;
+    if constexpr (kReg) {
+      s = rs[N0 / 8 + j];
+      b = rb[N0 / 8 + j];
+    } else {
+      s = *reinterpret_cast<const float2*>(sc + c0 + 2 * j);
+      b = *reinterpret_cast<const float2*>(sh + c0 + 2 * j);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      v[h][j] = tc::pack2(finish(d[4 * j + 2 * h], s.x, b.x, silu),
+                          finish(d[4 * j + 2 * h + 1], s.y, b.y, silu));
+  }
+  stage_piece<P>(v, px, co, c0, g);
+}
+
+// Hopper's bulk copy (the TMA unit) of ``bytes`` from shared memory to
+// global memory, in this thread's bulk group; both addresses 16-byte
+// aligned, ``bytes`` a multiple of 16.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(src), "r"(bytes)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// x: (B, H, W, 3) uint8; wm: the public (112, CO) tap matrix, bf16 bit
+// patterns; scale, shift: CO f32; out (B, H/2, W/2, CO) bf16. vec: 16-byte
+// copies of the window (W % 16 == 0, x 16-byte aligned), else byte loads.
+// A block's two warpgroups take kJobs row pairs of each tile each; a job is
+// one m64 product: warp w of the group takes 16 pixels of row 2 pair + w / 2
+// (from pixel 16 (w % 2)).
+template <int CO>
+__global__ void __launch_bounds__(kThreads, 2)
+    stem_u8_kernel(const uint8_t* __restrict__ x,
+                   const unsigned short* __restrict__ wm,
+                   const float* __restrict__ scale,
+                   const float* __restrict__ shift, int H, int W, int Ho,
+                   int Wo, int tiles_x, int tiles_y, int ntiles, int vec,
+                   int silu_on, bf16* __restrict__ out) {
+  using S = Split<CO>;
+  // two accumulator sets where they fit in 128 registers with the A
+  // fragments (28) and the epilogue's
+  constexpr bool kPipe = CO <= kPipeCoMax;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* win = smem;
+  unsigned char* raw = smem + kWinBytes;
+  unsigned char* bsm = raw + 2 * kRawBytes;
+  float* sc = reinterpret_cast<float*>(bsm + kKSteps * 32 * CO);
+  float* sh = sc + CO;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int grp = warp >> 2, w = warp & 3;
+  const bool silu = silu_on != 0;
+  // this warp's 16 output pixels, as they lie in global memory
+  unsigned char* px_s = reinterpret_cast<unsigned char*>(sh + CO) + warp * 32 * CO;
+
+  for (int e = tid; e < CO; e += kThreads) {  // halved: h = v / 2 (finish)
+    sc[e] = 0.5f * scale[e];
+    sh[e] = 0.5f * shift[e];
+  }
+  // B: 16 bytes (8 k of one column) a thread at a time; region of k16 step
+  // ks at 32 CO ks, piece from column n0 at + 32 n0, core (q, h) at + 256 q
+  // + 128 h, column 8 q + i at + 16 i
+  for (int e = tid; e < kKSteps * 2 * CO; e += kThreads) {
+    const int ks = e / (2 * CO), r = e - ks * 2 * CO;
+    const int h = r / CO, n = r - h * CO;  // k half, column
+    const int ch = b_channel(n, S::p0, S::p1, S::p2);
+    const int k0 = 16 * ks + 8 * h;
+    uint32_t q[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      q[i] = tc::tap(wm, CO, k0 + 2 * i, ch) |
+             static_cast<uint32_t>(tc::tap(wm, CO, k0 + 2 * i + 1, ch)) << 16;
+    *reinterpret_cast<uint4*>(bsm + 32 * CO * ks + 256 * (n >> 3) +
+                              128 * h + 16 * (n & 7)) =
+        make_uint4(q[0], q[1], q[2], q[3]);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  // the lane's CO / 8 channel pairs: pair j of piece (n0, P) is channels
+  // n0 + 2 (P / 8) t + 2 j, + 1
+  float2 rs[kPipe ? CO / 8 : 1], rb[kPipe ? CO / 8 : 1];
+  if constexpr (kPipe) {
+#pragma unroll
+    for (int i = 0; i < CO / 8; ++i) {
+      const int n0 = i < S::p0 / 8 ? 0 : i < (S::p0 + S::p1) / 8 ? S::p0
+                                                                 : S::p0 + S::p1;
+      const int P = i < S::p0 / 8 ? S::p0 : i < (S::p0 + S::p1) / 8 ? S::p1
+                                                                    : S::p2;
+      const int c = n0 + 2 * (P / 8) * t + 2 * (i - n0 / 8);
+      rs[i] = make_float2(0.5f * scale[c], 0.5f * scale[c + 1]);
+      rb[i] = make_float2(0.5f * shift[c], 0.5f * shift[c + 1]);
+    }
+  }
+
+  // a tile's raw window into buffer buf, zero outside the image
+  auto stage = [&](int tile, int buf) {
+    const int tx = tile % tiles_x;
+    const int rest = tile / tiles_x;
+    const int ty = rest % tiles_y;
+    const int b = rest / tiles_y;
+    const uint8_t* xb = x + static_cast<size_t>(b) * H * W * 3;
+    const int iy0 = 2 * ty * kTH - 2;
+    const int e0 = 6 * tx * kTW - kLead;  // first byte, in the image row
+    unsigned char* dst = raw + buf * kRawBytes;
+    if (vec) {
+      constexpr int kPerRow = kRawPitch / 16;
+      for (int e = tid; e < kWinRows * kPerRow; e += kThreads) {
+        const int r = e / kPerRow;
+        const int iy = iy0 + r;
+        const int el = e0 + 16 * (e - r * kPerRow);
+        const bool ok = iy >= 0 && iy < H && el >= 0 && el < 3 * W;
+        const uint8_t* src = ok ? xb + static_cast<size_t>(iy) * W * 3 + el : xb;
+        mma::cp_async16(mma::smem_addr(dst + 16 * e), src, ok);
+      }
+    } else {
+      for (int e = tid; e < kRawBytes; e += kThreads) {
+        const int r = e / kRawPitch;
+        const int iy = iy0 + r;
+        const int el = e0 + (e - r * kRawPitch);
+        const bool ok = iy >= 0 && iy < H && el >= 0 && el < 3 * W;
+        dst[e] = ok ? xb[static_cast<size_t>(iy) * W * 3 + el] : 0;
+      }
+    }
+  };
+
+  const uint64_t bdesc = b_desc(mma::smem_addr(bsm));
+  int tile = blockIdx.x;
+  if (tile < ntiles) stage(tile, 0);
+  mma::cp_async_commit();
+  for (int it = 0; tile < ntiles; tile += gridDim.x, ++it) {
+    const int buf = it & 1;
+    mma::cp_async_wait<0>();
+    __syncthreads();  // raw[buf] is in; the last tile is done with win
+    {  // widen: 4 bytes -> 4 bf16 a step
+      const uint32_t* src =
+          reinterpret_cast<const uint32_t*>(raw + buf * kRawBytes);
+      for (int e = tid; e < kRawBytes / 4; e += kThreads) {
+        const int r = e / (kRawPitch / 4), q = e - r * (kRawPitch / 4);
+        const uint32_t v = src[e];
+        *reinterpret_cast<uint2*>(win + r * kPitch + 8 * q) =
+            make_uint2(tc::pack2(widen(v, 0), widen(v, 1)),
+                       tc::pack2(widen(v, 2), widen(v, 3)));
+      }
+    }
+    // raw[buf ^ 1] was widened before the barrier above
+    if (tile + gridDim.x < ntiles) stage(tile + gridDim.x, buf ^ 1);
+    mma::cp_async_commit();
+    __syncthreads();  // the window is widened
+
+    const int tx = tile % tiles_x;
+    const int rest = tile / tiles_x;
+    const int ty = rest % tiles_y;
+    const int b = rest / tiles_y;
+    const int px0 = tx * kTW + 16 * (w & 1);  // this warp's first pixel
+    const int npx = min(16, Wo - px0);         // of them in the map
+    // row of job j for this warp, and its A fragments
+    auto row = [&](int j) { return 2 * (grp * kJobs + j) + (w >> 1); };
+    // job j's A fragments
+    auto load_a = [&](uint32_t (&a)[kKSteps][4], int j) {
+      // this lane's pixel g of the warp's 16, at its pair 2t of a k16 step
+      const unsigned char* pa =
+          win + 2 * row(j) * kPitch + kFirst + (16 * (w & 1) + g) * 12 + t * 4;
+#pragma unroll
+      for (int ks = 0; ks < kKSteps; ++ks) {
+        const uint32_t o0 = tc::a_offset(16 * ks, t);
+        const uint32_t o1 = tc::a_offset(16 * ks + 8, t);
+        a[ks][0] = *reinterpret_cast<const uint32_t*>(pa + o0);
+        a[ks][1] = *reinterpret_cast<const uint32_t*>(pa + 96 + o0);
+        // k >= 108 (the last step's lanes t >= 2) is the padding, zero
+        const bool pad = ks == kKSteps - 1 && t >= 2;
+        a[ks][2] = pad ? 0u : *reinterpret_cast<const uint32_t*>(pa + o1);
+        a[ks][3] = pad ? 0u : *reinterpret_cast<const uint32_t*>(pa + 96 + o1);
+      }
+    };
+    // job j's epilogue: its pixels through BN and SiLU into px_s, then to
+    // global memory by the bulk copy unit
+    auto finish_job = [&](const Acc<CO>& acc, int j) {
+      const int oy = ty * kTH + row(j);
+      if (oy >= Ho || npx <= 0) return;  // uniform over the warp
+      // the warp's last bulk store has left px_s
+      if (lane == 0)
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      __syncwarp();
+      unsigned char* px = px_s + g * 2 * CO;  // pixels g and g + 8
+      // the narrow pieces first: their registers are free before the
+      // widest's 2 x 8 packed words are made (at CO 80 the other order
+      // spills)
+      if constexpr (S::p2 > 0)
+        finish_piece<S::p2, S::p0 + S::p1, kPipe>(acc.d2, sc, sh, rs, rb,
+                                                  silu, px, CO, g, t);
+      if constexpr (S::p1 > 0)
+        finish_piece<S::p1, S::p0, kPipe>(acc.d1, sc, sh, rs, rb, silu, px,
+                                          CO, g, t);
+      finish_piece<S::p0, 0, kPipe>(acc.d0, sc, sh, rs, rb, silu, px, CO, g,
+                                    t);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0)
+        bulk_store(out + ((static_cast<size_t>(b) * Ho + oy) * Wo + px0) * CO,
+                   mma::smem_addr(px_s), npx * CO * 2);
+    };
+    uint32_t a[kKSteps][4];
+    if constexpr (kPipe) {
+      // job j + 1's products on the tensor cores under job j's epilogue
+      Acc<CO> acc[2];
+      load_a(a, 0);
+      acc[0].issue(a, bdesc);
+      wg_wait<0>();
+      acc[0].keep();
+#pragma unroll
+      for (int j = 0; j < kJobs; ++j) {
+        Acc<CO>& next = acc[(j + 1) & 1];
+        if (j + 1 < kJobs) {
+          load_a(a, j + 1);
+          next.issue(a, bdesc);
+        }
+        finish_job(acc[j & 1], j);
+        if (j + 1 < kJobs) {
+          wg_wait<0>();
+          next.keep();
+        }
+      }
+    } else {
+#pragma unroll 1
+      for (int j = 0; j < kJobs; ++j) {
+        Acc<CO> acc;
+        load_a(a, j);
+        acc.issue(a, bdesc);
+        wg_wait<0>();
+        acc.keep();
+        finish_job(acc, j);
+      }
+    }
+  }
+  if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+template <int CO>
+cudaError_t launch(const void* x, const void* wm, const void* scale,
+                   const void* shift, int B, int H, int W, int vec, int silu,
+                   void* out, int device, cudaStream_t st) {
+  int sms = 0;
+  cudaError_t e =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return e;
+  const size_t smem = smem_bytes(CO);
+  auto kernel = stem_u8_kernel<CO>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                    smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int tiles_x = (W / 2 + kTW - 1) / kTW;
+  const int tiles_y = (H / 2 + kTH - 1) / kTH;
+  const long long ntiles = static_cast<long long>(B) * tiles_y * tiles_x;
+  if (ntiles > INT_MAX) return cudaErrorInvalidValue;
+  const long long full = static_cast<long long>(per_sm) * sms;
+  const int grid = static_cast<int>(ntiles < full ? ntiles : full);
+  kernel<<<grid, kThreads, smem, st>>>(
+      static_cast<const uint8_t*>(x), static_cast<const unsigned short*>(wm),
+      static_cast<const float*>(scale), static_cast<const float*>(shift), H,
+      W, H / 2, W / 2, tiles_x, tiles_y, static_cast<int>(ntiles), vec, silu,
+      static_cast<bf16*>(out));
+  return cudaGetLastError();
+}
+
+template <int CO = 8>
+cudaError_t dispatch(int co, const void* x, const void* wm, const void* scale,
+                     const void* shift, int B, int H, int W, int vec, int silu,
+                     void* out, int device, cudaStream_t st) {
+  if (co == CO)
+    return launch<CO>(x, wm, scale, shift, B, H, W, vec, silu, out, device,
+                      st);
+  if constexpr (CO < kCoMax)
+    return dispatch<CO + 8>(co, x, wm, scale, shift, B, H, W, vec, silu, out,
+                            device, st);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace u8
+
 }  // namespace
 
 // x (B, H, W, 3), the (112, CO) tap matrix wm in x's type, f32 bias. Variant
@@ -479,6 +1079,24 @@ extern "C" int desenet_stem_conv(const void* x, const void* wm,
   if (variant != 1 || !is_bf16) return cudaErrorInvalidValue;
   return silu_on ? tc::launch_mma<true>(x, wm, bias, B, H, W, CO, out, device, st)
                  : tc::launch_mma<false>(x, wm, bias, B, H, W, CO, out, device, st);
+}
+
+// The served stem: x (B, H, W, 3) uint8, H and W even; the (112, CO) tap
+// matrix wm in bf16 of the conv's unfolded weights, CO a multiple of 8 up to
+// 80; eval BN's scale and shift, CO f32 each; out (B, H/2, W/2, CO) bf16,
+// 16-byte aligned. vec: 16-byte copies (W a multiple of 16, x 16-byte
+// aligned; the wrapper checks), else byte loads.
+extern "C" int desenet_stem_u8(const void* x, const void* wm,
+                               const void* scale, const void* shift, int B,
+                               int H, int W, int CO, int silu_on, int vec,
+                               void* out, void* stream, int device) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  if (CO <= 0 || CO % 8 || CO > u8::kCoMax || H % 2 || W % 2)
+    return cudaErrorInvalidValue;
+  if (B == 0 || H == 0 || W == 0) return cudaSuccess;
+  return u8::dispatch(CO, x, wm, scale, shift, B, H, W, vec, silu_on, out,
+                      device, static_cast<cudaStream_t>(stream));
 }
 
 // Which parts of the tensor-core kernel run (a -DK5_PROF build only; see

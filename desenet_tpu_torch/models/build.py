@@ -42,7 +42,7 @@ from desenet_tpu_torch.ops.resize import (resize_bilinear, upsample_nearest,
                                           upsample_nearest_repeat)
 from desenet_tpu_torch.ops.seg_head_pallas import MAX_P8, fused_psp2_eval
 from desenet_tpu_torch.parallel import spatial
-from desenet_tpu_torch.utils.profiling import span
+from desenet_tpu_torch.utils.profiling import count, span
 
 # width-scaled blocks take their output width first; the C3-like ones
 # repeat their inner stack n times, the others repeat as a whole
@@ -438,12 +438,22 @@ class DeSeNet(nn.Module):
     K4's inputs); the quantized and fp8-storage programs refuse a
     scope.
 
+    ``forward`` also takes the uint8 image itself, the (B, 3, H, W)
+    channels_last view of a (B, H, W, 3) uint8 batch, where row 0 is a
+    served stem that can take it (``layers.ConvBnAct``: an eval bf16 model
+    after ``fuse()``, no autograd, neither quantized nor fp8 storage, not
+    ``stem_s2d``, no spatial scope; ``uint8_refusal``): row 0 widens it
+    and runs conv, BN and SiLU in one pass. Any other uint8 input is a
+    ValueError that says why.
+
     With tracing on (``utils/profiling``) and the input on a card,
-    ``forward`` records two kinds of device span (``Span.device_ms``):
+    ``forward`` records three kinds of device span (``Span.device_ms``):
+    ``forward.stem`` around row 0 (with a uint8 input, the widen too),
     ``forward.seg_head`` around the seg head's row, and ``forward.p6``
     around each run of consecutive rows at output stride 64 (a P6
     model's: rows 9-12 and 30-32 of ``yolov5x6_seg``; none in the P5
-    models)."""
+    models). An eval forward on a float input counts ``stem.plain``; one
+    on a uint8 input counts ``stem.fused`` in ``served_stem``."""
 
     def __init__(self, spec: ModelSpec, seg_upsample: bool = True,
                  decode_cat: bool = True, seg_head_fused: bool = False,
@@ -515,6 +525,13 @@ class DeSeNet(nn.Module):
         if qmode and spatial.active():
             raise ValueError("the int8 and fp8-storage programs do not run "
                              "on height bands (parallel/spatial.py)")
+        if x.dtype == torch.uint8:
+            why = self.uint8_refusal(x)
+            if why is not None:
+                raise ValueError("DeSeNet takes a uint8 image only through "
+                                 f"the served stem: {why}")
+        elif not self.training:
+            count("stem.plain", 1)
         int8 = qmode and self.quant is not None and self.quant.is_int8
         card = x.device  # of the device spans (before x is quantized)
         cd = fp_ctx = None
@@ -538,6 +555,9 @@ class DeSeNet(nn.Module):
                     if ls.i in self._p6_first:
                         p6.enter_context(span("forward.p6", device=card))
                     with contextlib.ExitStack() as scope:
+                        if ls.i == 0:
+                            scope.enter_context(span("forward.stem",
+                                                     device=card))
                         if ls.name in SEG_HEADS:
                             scope.enter_context(span("forward.seg_head",
                                                      device=card))
@@ -555,6 +575,20 @@ class DeSeNet(nn.Module):
                         cache[ls.i] = out
                     prev = out
         return det_out, seg_out
+
+    def uint8_refusal(self, x: torch.Tensor) -> Optional[str]:
+        """Why ``forward`` cannot take the uint8 image ``x`` through the
+        served stem (class docstring), or None."""
+        if self.quant is not None or self.act_store is not None:
+            return "the int8 or fp8-storage program"
+        if self.stem_s2d:
+            return "the phase-layout stem (stem_s2d)"
+        if spatial.active():
+            return "a spatial scope (height bands)"
+        m = self.model[0]
+        if type(m) not in (L.ConvBnAct, L.FusedFocus):
+            return f"row 0 is {type(m).__name__}, not a ConvBnAct"
+        return m.stem_refusal(x)
 
     def _fp_ctx(self, x: torch.Tensor):
         """autocast to the compute dtype where it is not the parameters'."""
@@ -656,7 +690,9 @@ class DeSeNet(nn.Module):
         ``ConvBnAct`` (``ConvBnSiLU``, ``FusedFocus`` and ``DWConv``
         included) keeps its BN's affine in f32 (``fuse_epilogue``), and an
         eval call whose BN runs then does BN, activation and the Bottleneck
-        shortcut in one pass over the conv's output (``ops.conv_epilogue``).
+        shortcut in one pass over the conv's output (``ops.conv_epilogue``);
+        a served stem in row 0 also keeps its tap matrix, and then takes a
+        uint8 image (class docstring).
         Call it on an eval model whose weights are final: moving,
         reloading or training the model drops the constants, and the
         model runs the separate ops again. The state dict is unchanged.

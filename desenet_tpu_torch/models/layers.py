@@ -67,7 +67,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from desenet_tpu_torch import quant as Q
-from desenet_tpu_torch.ops import conv_epilogue, int8_conv
+from desenet_tpu_torch.ops import conv_epilogue, int8_conv, stem_pallas
 from desenet_tpu_torch.parallel import multihost, spatial
 from desenet_tpu_torch.parallel.mesh import process_count
 from desenet_tpu_torch.ops.resize import (
@@ -409,8 +409,8 @@ class QuantAware:
         """Constants derived from the block's weights, outside the state
         dict: the folded int8 constants of its convs (``int8_block``), by
         conv and input scales, and ``ConvBnAct``'s BN affine for its fused
-        epilogue under "epilogue". Moving, reloading or ``train(True)``
-        drops them all."""
+        epilogue under "epilogue" (a served stem's tap matrix under
+        "stem"). Moving, reloading or ``train(True)`` drops them all."""
         return self.__dict__.setdefault("_derived_consts", {})
 
     def drop_derived_constants(self) -> None:
@@ -469,7 +469,17 @@ class ConvBnAct(QuantAware, nn.Module):
     them, and the block runs BN, activation and add as separate ops
     again. While tracing, each eval call adds 1 to the counter
     ``epilogue.fused`` (in ``ops.conv_epilogue``, once the pass has run)
-    or ``epilogue.plain``."""
+    or ``epilogue.plain``.
+
+    A 6x6/s2 pad-2 block from 3 channels with CO a multiple of 8 up to
+    ``stem_pallas.SERVED_CO_MAX`` (the FusedFocus stem) is a served stem:
+    after ``fuse_epilogue`` it also keeps its tap matrix, and an eval call
+    without autograd in bf16 takes the uint8 image itself, the (B, 3, H,
+    W) channels_last view of the (B, H, W, 3) batch, widens it and does
+    conv, BN and SiLU in one pass (``stem_pallas.served_stem``: the kernel
+    on a card, counted ``stem.fused`` and ``epilogue.fused``). A uint8
+    image that any other call gets is a ValueError that says why
+    (``stem_refusal``)."""
 
     def __init__(self, c1: int, c2: int, k=1, s=1, p=None, g: int = 1,
                  d: int = 1, act: bool = True):
@@ -481,8 +491,60 @@ class ConvBnAct(QuantAware, nn.Module):
 
     def forward(self, x: torch.Tensor,
                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if x.dtype == torch.uint8:
+            return self._served_stem(x, residual)
         return self._tail(self.conv(x), x.shape[2] * x.shape[3] > 1,
                           residual)
+
+    def _stem_shape_refusal(self) -> Optional[str]:
+        """Why this block is no served stem by its shape, or None."""
+        c = self.conv
+        got = (c.in_channels, c.kernel_size, c.stride, c.padding,
+               c.dilation, c.groups)
+        if got != (3, (6, 6), (2, 2), (2, 2), (1, 1), 1):
+            return (f"a conv of (c1, k, s, p, d, g) {got}, not 6x6/s2 pad 2 "
+                    "from 3 channels")
+        if c.out_channels % 8 or c.out_channels > stem_pallas.SERVED_CO_MAX:
+            return (f"{c.out_channels} output channels, not a multiple of 8 "
+                    f"up to {stem_pallas.SERVED_CO_MAX}")
+        return None
+
+    def stem_refusal(self, x: torch.Tensor) -> Optional[str]:
+        """Why ``forward`` cannot take the uint8 image ``x`` as the served
+        stem (class docstring), or None."""
+        why = self._stem_shape_refusal()
+        if why is not None:
+            return why
+        if self.training:
+            return "training mode"
+        if torch.is_grad_enabled():
+            return "autograd enabled"
+        if "stem" not in self._derived:
+            return ("no fuse(), or a move, reload or train() since, has "
+                    "dropped its constants")
+        if self.conv.weight.dtype != torch.bfloat16:
+            return f"weights in {self.conv.weight.dtype}, not bfloat16"
+        if x.dim() != 4 or x.shape[1] != 3 or x.shape[2] % 2 \
+                or x.shape[3] % 2:
+            return (f"an image of shape {tuple(x.shape)}, not (B, 3, H, W) "
+                    "with H and W even")
+        if x.device != self.conv.weight.device:
+            return f"the image on {x.device}, the weights on another device"
+        return None
+
+    def _served_stem(self, x: torch.Tensor,
+                     residual: Optional[torch.Tensor]) -> torch.Tensor:
+        why = self.stem_refusal(x)
+        if why is None and residual is not None:
+            why = "a residual to add"
+        if why is not None:
+            raise ValueError(f"{type(self).__name__} takes a uint8 image only "
+                             f"as the served stem: {why}")
+        scale, shift = self._derived["epilogue"]
+        y = stem_pallas.served_stem(x.permute(0, 2, 3, 1),
+                                    self._derived["stem"], scale, shift,
+                                    silu=isinstance(self.act, nn.SiLU))
+        return y.permute(0, 3, 1, 2)  # NCHW view of the NHWC output
 
     def _tail(self, y: torch.Tensor, bn_runs: bool,
               residual: Optional[torch.Tensor]) -> torch.Tensor:
@@ -503,9 +565,15 @@ class ConvBnAct(QuantAware, nn.Module):
 
     def fuse_epilogue(self) -> None:
         """Keep the BN's affine (``utils/fold.bn_affine``, in f32, or in
-        float64 for a float64 block) for ``forward``'s fused pass."""
+        float64 for a float64 block) for ``forward``'s fused pass, and a
+        served stem's tap matrix (``stem_pallas.stem_weight_matrix``)."""
         dtype = torch.promote_types(self.bn.weight.dtype, torch.float32)
         self._derived["epilogue"] = bn_affine(self.bn, dtype)
+        if self._stem_shape_refusal() is None:  # the tap matrix, in bf16
+            w = self.conv.weight.detach()
+            self._derived["stem"] = stem_pallas.stem_weight_matrix(
+                w.permute(2, 3, 1, 0).float().cpu().numpy(), w.dtype).to(
+                    w.device)
 
     def _padding(self):
         p = self.conv.padding

@@ -58,6 +58,9 @@ _SIGNATURES = {
     # K5 (stem_conv.cu). x, wm, bias, B, H, W, CO, silu_on, is_bf16, variant,
     # out, stream, device
     "desenet_stem_conv": [_P] * 3 + [_I] * 7 + [_P, _P, _I],
+    # the served stem (stem_conv.cu). x, wm, scale, shift, B, H, W, CO,
+    # silu_on, vec, out, stream, device
+    "desenet_stem_u8": [_P] * 4 + [_I] * 6 + [_P, _P, _I],
     # which parts of K5's tensor-core kernel run (-DK5_PROF builds). skip
     "desenet_stem_prof": [_I],
     # K6 (c3_fused.cu). x, w12, b12, wb1, bb1, wb2, bb2, w3, b3, B, H, W, C,

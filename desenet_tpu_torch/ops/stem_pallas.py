@@ -24,6 +24,17 @@ Inference only (BN folded into the weights: ``utils/fold.fold_focus``), as
 in the JAX package. The kernels read the NHWC image directly; the JAX
 package's phase-plane prepass (``_plane_split``), which exists because the
 TPU cannot deinterleave NHWC rows inside a kernel, has no counterpart here.
+
+``served_stem`` is the served program's row 0 on the card (``DeSeNet``'s
+forward on a uint8 image, ``models/layers.ConvBnAct``): the (B, H, W, 3)
+uint8 batch as uploaded, widened as ``infer`` widens it (``widen_u8``), the
+6x6/s2 conv on the unfolded bf16 weights (their ``stem_weight_matrix``)
+with f32 sums on Hopper's warpgroup MMA, eval BN's affine in f32 and the
+SiLU, rounded once to bf16: the third kernel of ``csrc/stem_conv.cu``, or
+``served_stem_plain`` on a CPU tensor. It replaces the widen, the conv and
+its epilogue pass, and counts ``stem.fused`` and ``epilogue.fused`` while
+tracing (on a card after the launch); ``served_launches`` counts its
+launches.
 """
 
 from __future__ import annotations
@@ -33,13 +44,19 @@ import torch
 import torch.nn.functional as F
 
 from desenet_tpu_torch.ops import _ext
+from desenet_tpu_torch.utils.profiling import count
 
 launches = 0  # kernel launches made by stem_conv
+served_launches = 0  # kernel launches made by served_stem
 last_variant = None  # "mma" or "fma": the kernel the last launch took
 K_STEPS = 7   # k16 steps of the tensor-core kernel: 108 -> 112
 K_TAPS = 108  # 3x3 offsets x 12 phase planes
 K_PAD = 112   # the JAX tap matrix's padded depth (rows 108-111 are zero)
 CO_MAX = 64   # widest stem the kernel takes (yolov5l_seg's)
+SERVED_CO_MAX = 80  # widest stem served_stem takes (yolov5x6_seg's)
+# the widen's factor: PyTorch's CUDA division by a scalar multiplies by its
+# f32 reciprocal, so ``u8.to(bf16) / 255`` is bf16(float(u8) * INV255)
+INV255 = float(np.float32(1) / np.float32(255))
 
 
 def stem_weight_matrix(w, dtype=torch.bfloat16) -> torch.Tensor:
@@ -136,10 +153,9 @@ def _silu_f32(y):
     return y * torch.sigmoid(y)
 
 
-def stem_conv_plain(x: torch.Tensor, wm: torch.Tensor, bias: torch.Tensor,
-                    silu: bool = True) -> torch.Tensor:
-    """The kernel's arithmetic in PyTorch ops: the (B, H/2, W/2, 108) tap
-    patches of the zero-padded image times the tap matrix, in f32."""
+def _tap_sums(x: torch.Tensor, wm: torch.Tensor) -> torch.Tensor:
+    """The (B, H/2, W/2, 108) tap patches of the zero-padded image times
+    the tap matrix, summed in f32."""
     b, h, w, _ = x.shape
     ho, wo = h // 2, w // 2
     xp = F.pad(x, (0, 0, 2, 2, 2, 2))
@@ -151,7 +167,14 @@ def stem_conv_plain(x: torch.Tensor, wm: torch.Tensor, bias: torch.Tensor,
                     ky, kx = 2 * dy + sy, 2 * dx + sx
                     taps.append(xp[:, ky:ky + 2 * ho:2, kx:kx + 2 * wo:2])
     patches = torch.cat(taps, -1)  # (B, ho, wo, 108) in kk order
-    y = torch.matmul(patches.float(), wm[:K_TAPS].float()) + bias.float()
+    return torch.matmul(patches.float(), wm[:K_TAPS].float())
+
+
+def stem_conv_plain(x: torch.Tensor, wm: torch.Tensor, bias: torch.Tensor,
+                    silu: bool = True) -> torch.Tensor:
+    """The kernel's arithmetic in PyTorch ops: the (B, H/2, W/2, 108) tap
+    patches of the zero-padded image times the tap matrix, in f32."""
+    y = _tap_sums(x, wm) + bias.float()
     if silu:
         y = _silu_f32(y)
     return y.to(x.dtype)
@@ -216,4 +239,82 @@ def stem_conv(x: torch.Tensor, wm: torch.Tensor, bias: torch.Tensor, *,
         out.data_ptr(), stream, dev), f"stem_conv kernel ({variant})")
     launches += 1
     last_variant = variant
+    return out
+
+
+# ---- the served stem -------------------------------------------------------
+
+
+def widen_u8(x: torch.Tensor) -> torch.Tensor:
+    """uint8 -> bf16 as ``infer`` widens on the card: bf16(float(x) *
+    INV255)."""
+    return (x.float() * INV255).to(torch.bfloat16)
+
+
+def served_stem_plain(x: torch.Tensor, wm: torch.Tensor, scale: torch.Tensor,
+                      shift: torch.Tensor, silu: bool = True) -> torch.Tensor:
+    """The served stem's arithmetic in PyTorch ops: ``x`` widened to bf16
+    (``widen_u8``), the tap sums in f32, ``* scale + shift`` and the SiLU in
+    f32, one rounding to bf16. (The kernel's SiLU, ``h + h tanh(h)`` with
+    ``tanh.approx``, differs from the exact one by about 2^-11 of a value
+    before the rounding.)"""
+    v = _tap_sums(widen_u8(x), wm) * scale.float() + shift.float()
+    if silu:
+        v = _silu_f32(v)
+    return v.to(torch.bfloat16)
+
+
+def _served_refusal(x: torch.Tensor, wm: torch.Tensor, scale: torch.Tensor,
+                    shift: torch.Tensor):
+    """What keeps ``served_stem`` from these tensors, or None."""
+    if x.dtype != torch.uint8 or x.dim() != 4 or x.shape[3] != 3 \
+            or x.shape[1] % 2 or x.shape[2] % 2 or 0 in x.shape[1:3]:
+        return (f"x is {x.dtype} {tuple(x.shape)}, not a (B, H, W, 3) "
+                "uint8 batch with H and W even")
+    co = wm.shape[1] if wm.dim() == 2 else -1
+    if wm.dtype != torch.bfloat16 or wm.dim() != 2 or wm.shape[0] != K_PAD \
+            or co % 8 or not 0 < co <= SERVED_CO_MAX:
+        return (f"wm is {wm.dtype} {tuple(wm.shape)}, not a bfloat16 (112, "
+                f"CO) tap matrix with CO a multiple of 8 up to "
+                f"{SERVED_CO_MAX}")
+    for name, c in (("scale", scale), ("shift", shift)):
+        if c.dtype != torch.float32 or tuple(c.shape) != (co,):
+            return f"{name} is {c.dtype} {tuple(c.shape)}, not ({co},) f32"
+    if not (wm.device == scale.device == shift.device == x.device):
+        return "x, wm, scale and shift lie on different devices"
+    if x.device.type not in ("cpu", "cuda"):
+        return f"x is on {x.device}, not the CPU or a card"
+    return None
+
+
+def served_stem(x: torch.Tensor, wm: torch.Tensor, scale: torch.Tensor,
+                shift: torch.Tensor, *, silu: bool = True) -> torch.Tensor:
+    """The served stem (module docstring): x (B, H, W, 3) uint8, H and W
+    even; wm the (112, CO) bf16 tap matrix of the conv's weights
+    (``stem_weight_matrix``), CO a multiple of 8 up to ``SERVED_CO_MAX``;
+    scale and shift eval BN's (CO,) f32 affine (``utils/fold.bn_affine``).
+    Returns (B, H/2, W/2, CO) bf16. ValueError for tensors it cannot
+    take."""
+    global served_launches
+    why = _served_refusal(x, wm, scale, shift)
+    if why is not None:
+        raise ValueError(f"served_stem: {why}")
+    x = x.contiguous()
+    if x.device.type == "cpu":
+        out = served_stem_plain(x, wm, scale, shift, silu)
+    else:
+        b, h, w, _ = x.shape
+        co = wm.shape[1]
+        out = torch.empty((b, h // 2, w // 2, co), dtype=torch.bfloat16,
+                          device=x.device)
+        vec = w % 16 == 0 and x.data_ptr() % 16 == 0
+        wm, scale, shift = (t.contiguous() for t in (wm, scale, shift))
+        stream, dev = _ext.stream_and_device(x)
+        _ext.check(_ext.load().desenet_stem_u8(
+            x.data_ptr(), wm.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            b, h, w, co, int(silu), int(vec), out.data_ptr(),
+            stream, dev), "served stem kernel")
+        served_launches += 1
+    count("stem.fused", 1)
+    count("epilogue.fused", 1)
     return out

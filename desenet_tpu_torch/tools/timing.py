@@ -160,6 +160,16 @@ def stem_bound(b: int, h: int, w: int, co: int, itemsize: int = 2) -> tuple:
     return bound_ms(2 * out_px * 108 * co, nbytes)
 
 
+def served_stem_bound(b: int, h: int, w: int, co: int) -> tuple:
+    """The served stem on (b, h, w, 3) uint8 -> (b, h/2, w/2, co) bf16:
+    the image's bytes read once, the output written once, the bf16 tap
+    matrix and the f32 scale and shift read once; 108 taps a pixel and
+    channel."""
+    out_px = b * (h // 2) * (w // 2)
+    nbytes = b * h * w * 3 + (out_px * co + 112 * co) * 2 + 8 * co
+    return bound_ms(2 * out_px * 108 * co, nbytes)
+
+
 def seg_tail_bound(b: int, h: int, w: int, c: int, scale: int,
                    itemsize: int = 2) -> tuple:
     """K2 on (b, h, w, c) logits -> (b, h*scale, w*scale) uint8: two

@@ -56,6 +56,18 @@ def test_c3_bounds_of_the_served_rows():
     assert 2 * macs / tm.H100_BF16_FLOPS * 1e3 == pytest.approx(1.30, abs=0.005)
 
 
+@pytest.mark.parametrize("b,side,co,want", [
+    (128, 640, 32, 0.297),   # s: 157.3 MB of uint8 in, 838.9 MB out
+    (128, 640, 64, 0.548),   # l: 1677.7 MB out
+    (32, 1280, 80, 0.673)])  # x6: 2097.2 MB out
+def test_served_stem_bounds(b, side, co, want):
+    ms, by = tm.served_stem_bound(b, side, side, co)
+    assert by == "bytes" and ms == pytest.approx(want, abs=0.0005)
+    assert ms == pytest.approx(
+        (b * side * side * 3 + 2 * b * (side // 2) ** 2 * co) / 3.35e12
+        * 1e3, rel=1e-5)
+
+
 def test_other_kernels_bounds():
     ms, by = tm.stem_bound(128, 640, 640, 32)
     assert by == "bytes" and ms == pytest.approx(0.35, abs=0.006)  # 1.15 GB

@@ -23,8 +23,8 @@ and the places that record them, on the CPU.
   the current stream of the device it is given (not the current
   device's), and reads them into ``device_ms`` once the card has passed
   the second (stand-in events and streams here); the model's
-  ``forward.seg_head`` and ``forward.p6`` spans hold no device time on the
-  CPU.
+  ``forward.stem``, ``forward.seg_head`` and ``forward.p6`` spans hold no
+  device time on the CPU.
 
 On two cards (marked ``cuda``, skipped with fewer): a span given the
 second card times the work queued there while the first is current, and
@@ -219,8 +219,9 @@ def tiny_predictor():
 
 PREDICT = ["predict.call", "predict.letterbox", "predict.stack",
            "predict.run_batch", "predict.pin", "predict.upload",
-           "predict.infer", "infer.forward", "forward.seg_head", "infer.nms",
-           "infer.seg_tail", "predict.download", "predict.post"]
+           "predict.infer", "infer.forward", "forward.stem",
+           "forward.seg_head", "infer.nms", "infer.seg_tail",
+           "predict.download", "predict.post"]
 
 
 def test_predictor_spans_in_order_and_k1_count(tracing, tiny_predictor):
@@ -240,6 +241,7 @@ def test_predictor_spans_in_order_and_k1_count(tracing, tiny_predictor):
         assert by[name].attrs == {"replica": 0}
     for name in ("infer.forward", "infer.nms", "infer.seg_tail"):
         assert by[name].parent == by["predict.infer"].id
+    assert by["forward.stem"].parent == by["infer.forward"].id
     assert by["forward.seg_head"].parent == by["infer.forward"].id
     assert by["predict.call"].attrs == {"n": 2}
 
@@ -254,11 +256,12 @@ def test_predictor_spans_in_order_and_k1_count(tracing, tiny_predictor):
     # the results, 64 px at max_det 300: boxes, scores, classes, num, seg
     out_bytes = 2 * (300 * 4 * 4 + 300 * 4 + 300 * 4 + 4 + 64 * 64)
     # the CPU Predictor runs unfused: the 72 ConvBnAct calls of each of the
-    # two eval forwards count plain
+    # two eval forwards count plain, and so does each one's stem
     assert profiling.counters() == {"k1.images": 2, "k1.candidates": want,
                                     "download.pinned_bytes": 0,
                                     "download.pageable_bytes": out_bytes,
-                                    "epilogue.plain": 2 * 72}
+                                    "epilogue.plain": 2 * 72,
+                                    "stem.plain": 2}
 
 
 def test_run_batch_spans_a_download_a_replica(tracing, tiny_predictor):
@@ -307,10 +310,11 @@ def test_train_step_spans(tracing):
     assert torch.isfinite(m["loss"]) and m["stepped"] == 1
     spans = sorted(profiling.spans(), key=lambda s: s.start_ns)
     assert [s.name for s in spans] == [
-        "train.step", "train.forward", "forward.seg_head", "train.loss",
-        "train.loss.det", "train.loss.seg", "train.backward",
+        "train.step", "train.forward", "forward.stem", "forward.seg_head",
+        "train.loss", "train.loss.det", "train.loss.seg", "train.backward",
         "train.update", "train.ema"]
     by = {s.name: s for s in spans}
+    assert by["forward.stem"].parent == by["train.forward"].id
     assert by["forward.seg_head"].parent == by["train.forward"].id
     for name in ("train.forward", "train.loss", "train.backward",
                  "train.update", "train.ema"):

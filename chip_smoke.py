@@ -45,6 +45,16 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
    an in-memory loader of 2 batches of 32 images at 640 (made with numpy
    from a seed), once with the module seg head and once with the fused one,
    with K3/K4's launch counters reset before each run and read after;
+4m. the Segment model's serving path: yolov5x_v7seg at full width, bf16,
+   the benchmark's seeded weights (harness/weights_v7seg.py), one b128
+   batch of 640x480 frames letterboxed to 640 through Predictor.run_batch
+   with K1's, the epilogue's, the served stem's and the mask assembly's
+   launch counters reset just before and each required (the kernels
+   line's mask_assembly launches are this run's); the anchors held to the
+   decode rows of the served boxes, scores and classes, and the masks to
+   the plain assembly on the decode and prototypes that forward gave
+   (testing.check_masks; its widest ratio is the kernels line's
+   max_abs_err, with phase 5m's);
 5. numbers: the served program at batch 128 / 640 px, the validation step
    at batch 32 with either seg head, each kernel beside its plain version
    at the main path's shapes, beside the one PyTorch call that computes the
@@ -77,6 +87,12 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
    conv, the conv_epilogue pass; BF16_MODULE_BAR), the device rows of
    either path by the profiler, both timed in turns beside the byte bound
    (uint8 in, bf16 out) with the kernel's share of it;
+5m. the mask assembly of a Segment model (ops/mask_assembly.py,
+   csrc/mask_assembly.cu) on testing.MASK_CASES in bf16 and f32 against
+   its plain version (testing.check_masks: bits equal but where |c . P| is
+   under 1e-3 of its median), then at the served cell's shape (b128 at
+   640, about 100 boxes an image, bf16 NHWC prototypes) timed in turns
+   beside the plain version on the card and its byte bound;
 6. the K5/K6 slice: its two entry points (desenet_tpu_torch.tools
    probe_stem_pallas and proto_c3_kernel: parity in f32 and bf16, timing
    at b128/640 bf16) with K5/K6's
@@ -295,6 +311,8 @@ TRAIN_TIMED_STEPS = 10
 N_VAL_BATCHES = 2
 IMGSZ = 640
 CSRC = "desenet_tpu_torch/csrc"
+V7SEG_CONF = "benchmark/configs/yolov5x_v7seg.json"  # phase 4m's model
+V7SEG_SEED = 2147483693
 
 
 # the tensor-core kernels: the bf16 variants of K6, of K4's conv and of K5,
@@ -1314,6 +1332,140 @@ def phase5s(card: str, extras: dict) -> None:
         del m, x, xv
         torch.cuda.empty_cache()
     extras.setdefault("stem_conv", {})["served"] = served
+
+
+def phase4m(card: str, errs: dict) -> dict:
+    """The Segment model on its served path (module docstring, 4m):
+    yolov5x_v7seg in a bf16 card Predictor on one b128 batch of the
+    benchmark's cell, the launch counters reset just before ``run_batch``
+    and each required; that run's masks against the plain assembly on the
+    decode and prototypes its forward gave (a forward hook), and its
+    anchors against the decode rows of the boxes it served."""
+    from benchmark.harness.frames import letterbox_rgb, make_frames
+    from benchmark.harness.weights_v7seg import seeded_weights
+    from desenet_tpu_torch.api import Predictor
+    from desenet_tpu_torch.ops import (conv_epilogue, mask_assembly, nms_fused,
+                                       stem_pallas)
+    from desenet_tpu_torch.ops.boxes import xywh2xyxy
+    from desenet_tpu_torch.testing import check_masks
+
+    dev = torch.device("cuda")
+    with open(V7SEG_CONF) as fh:
+        conf = json.load(fh)
+    size = conf["imgsz"]
+    sd = seeded_weights(conf, V7SEG_SEED, dev)
+    pred = Predictor(conf["model"], sd, imgsz=size, half=True, device="cuda")
+    nc = pred.spec.de_nc
+    batch = letterbox_rgb(make_frames(B_SERVE, size * 3 // 4, size,
+                                      V7SEG_SEED + 2, dev).cpu().numpy(),
+                          size)
+    seen = []
+    hook = pred._replicas[0][1].register_forward_hook(
+        lambda m, i, o: seen.append((o[0][0], o[1])))
+    nms_fused.launches = 0
+    conv_epilogue.launches = 0
+    stem_pallas.served_launches = 0
+    mask_assembly.launches = 0
+    try:
+        t = time.perf_counter()
+        boxes, scores, classes, num, bits, anchors = pred.run_batch(batch)
+        first_s = time.perf_counter() - t
+    finally:
+        hook.remove()
+    launched = {"nms_fused": nms_fused.launches,
+                "conv_epilogue": conv_epilogue.launches,
+                "served_stem": stem_pallas.served_launches,
+                "mask_assembly": mask_assembly.launches}
+    if min(launched.values()) < 1:
+        raise AssertionError(f"the Segment model's main path did not launch "
+                             f"every kernel: {launched}")
+    (dec, proto), = seen
+    idx, bx, n = (torch.from_numpy(a).to(dev) for a in (anchors, boxes, num))
+    valid = torch.arange(bx.shape[1], device=dev)[None] < n[:, None]
+    rows = dec.gather(1, idx.long().clamp(min=0)[..., None].expand(
+        -1, -1, dec.shape[2]))
+    best, cls = (rows[..., 5:5 + nc] * rows[..., 4:5]).max(-1)
+    box_err = float((xywh2xyxy(rows[..., :4]) - bx).abs().amax(-1)[valid]
+                    .max())
+    score_err = float((best - torch.from_numpy(scores).to(dev)).abs()[valid]
+                      .max())
+    if (box_err > 0.05 or score_err > 1e-6 or not bool(
+            (cls.float() == torch.from_numpy(classes).to(dev))[valid].all())):
+        raise AssertionError(f"the served anchors are not the rows of the "
+                             f"served boxes: box {box_err}, score "
+                             f"{score_err}")
+    with torch.inference_mode():
+        want = mask_assembly.assemble_masks_plain(dec, idx, bx, n, proto, nc,
+                                                  (size, size))
+    flips, worst = check_masks(torch.from_numpy(bits), want, dec, idx, n,
+                               proto, nc)
+    errs["mask_assembly"] = max(errs.get("mask_assembly", 0.0), worst)
+    log("4m", f"yolov5x_v7seg bf16 b{B_SERVE} at {size} (the cell's seed "
+        f"{V7SEG_SEED} weights and frames): run_batch {first_s:.2f} s (first "
+        f"call), {float(n.float().mean()):.1f} boxes an image, launches "
+        f"{launched}; anchors are the served rows (box {box_err:.3g} px, "
+        f"score {score_err:.3g}); masks equal to the plain assembly on the "
+        f"run's own decode and prototypes but {flips} of {want.numel() * 8} "
+        f"bits (the widest at {worst:.3g} of |c.P|'s median) [{card}]")
+    del pred, seen, dec, proto, rows, want
+    torch.cuda.empty_cache()
+    return launched
+
+
+def phase5m(card: str, errs: dict, timing: dict) -> None:
+    """The mask assembly (csrc/mask_assembly.cu) on ``testing.MASK_CASES``
+    in bf16 and f32 against its plain version (bits equal but where |c . P|
+    is under 1e-3 of its median, ``testing.check_masks``), then timed at
+    the served cell's shape (b128 at 640, about 100 boxes an image, bf16
+    NHWC prototypes) beside the plain version on the card and its bound."""
+    from desenet_tpu_torch.ops import mask_assembly as M
+    from desenet_tpu_torch.testing import (MASK_CASES, check_masks,
+                                           mask_assembly_case)
+
+    dev = torch.device("cuda")
+    for case in MASK_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dec, idx, boxes, num, proto, nc, hw = mask_assembly_case(
+                case, dtype=dtype)
+            want = M.assemble_masks_plain(dec, idx, boxes, num, proto, nc, hw)
+            args = [t.to(dev) for t in (dec, idx, boxes, num)]
+            pc = proto.to(dev).contiguous(memory_format=torch.channels_last)
+            got = M.assemble_masks(*args, pc, nc, hw)
+            flips, worst = check_masks(got, want, dec, idx, num, proto, nc)
+            errs["mask_assembly"] = max(errs.get("mask_assembly", 0.0),
+                                        worst)
+            log("5m", f"mask assembly {case} {dtype}: bits equal to plain "
+                f"but {flips} of {want.numel() * 8} (the widest at "
+                f"{worst:.3g} of |c.P|'s median, under 1e-3)")
+    b, _, _, img, max_det = MASK_CASES[-1]
+    crop_px = 0
+    for i in range(b):
+        n = int(num[i])
+        box = boxes[i, :n] / 4
+        w = (box[:, 2].ceil().clamp(0, img // 4)
+             - box[:, 0].ceil().clamp(0, img // 4)).clamp(min=0)
+        h = (box[:, 3].ceil().clamp(0, img // 4)
+             - box[:, 1].ceil().clamp(0, img // 4)).clamp(min=0)
+        crop_px += float((w * h).sum())
+    kept = float(num.sum())
+    # the same boxes in bf16 (the case draws them before the cast)
+    dec, idx, boxes, num, proto, nc, hw = mask_assembly_case(MASK_CASES[-1])
+    args = [t.to(dev) for t in (dec, idx, boxes, num)]
+    pc = proto.to(dev).contiguous(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        ms, plain = in_turns(
+            (lambda: M.assemble_masks(*args, pc, nc, hw), 20),
+            (lambda: M.assemble_masks_plain(*args, pc, nc, hw), 2))
+    bound = tm.mask_assembly_bound(b, img // 4, img // 4, 32, max_det, kept,
+                                   crop_px)
+    timing["mask_assembly"] = (ms, plain, bound, None)
+    log("5m", f"mask assembly b{b} at {img} bf16, {kept / b:.1f} boxes an "
+        f"image, {crop_px / b:.0f} crop pixels an image: kernel {ms:.4f} ms, "
+        f"plain (torch ops on the card) {plain:.3f} ms, bound "
+        f"{bound[0]:.4f} ms ({bound[1]}), {100 * bound[0] / ms:.1f}% of it "
+        f"[{card}]")
+    del dec, args, pc, proto
+    torch.cuda.empty_cache()
 
 
 def k4_on_inputs(head, nchw, n: int, card: str, errs: dict, phase,
@@ -4296,6 +4448,8 @@ def main() -> None:
     pred, launches, sd = timed("4", phase4)
     model, spec, validator, batch, val_launches = timed("4b", phase4b, sd)
     launches.update(val_launches)
+    for k, v in timed("4m", phase4m, card, errs).items():
+        launches[k] = launches.get(k, 0) + v
     extras = {}
     timing = timed("5", phase5, pred, card, extras)
     timed("5 val", phase5_val, model, spec, validator, batch, card, timing,
@@ -4303,6 +4457,7 @@ def main() -> None:
     del model, validator
     timed("5e", phase5_epilogue, pred, card, errs, timing, extras)
     timed("5s", phase5s, card, extras)
+    timed("5m", phase5m, card, errs, timing)
     launches.update(timed("6", phase6, pred, card, timing, errs))
     del pred
     launches["nms_greedy"] += timed("7", phase7, card)
@@ -4342,6 +4497,9 @@ def main() -> None:
                      launches, errs, timing, extras),
         kernel_entry("conv_epilogue", "none: XLA's conv output fusion (eval "
                      "BN, SiLU, shortcut)", launches, errs, timing, extras),
+        kernel_entry("mask_assembly", "none: YOLOv5 v7.0's process_mask "
+                     "(upsample=False) in PyTorch ops", launches, errs,
+                     timing),
     ]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

@@ -60,6 +60,22 @@ arrays it returns are views of those tensors: on the CPU, copies of the
 program's outputs. ``__call__``'s masks are copies, so a ``Detections``
 holds no batch's pinned block.
 
+A model with a ``Segment`` row (YOLOv5 v7.0's instance segmentation,
+``yolov5x_v7seg``) serves instance masks in place of the seg map: the
+forward gives the decode and the prototypes, K1 also returns each kept
+box's anchor (``ops/nms_fused.py``, the class scores read from columns 5
+to 5+nc), and ``ops/mask_assembly.py`` (its kernel on the card) packs each
+kept box's mask at the prototypes' resolution, 1/4 of the input, as v7.0's
+``process_mask(..., upsample=False)``; no seg tail runs. ``run_batch``
+then returns (boxes, scores, classes, num, masks (B, max_det, H/4, W/32)
+uint8 bits, anchors (B, max_det) int32) and ``__call__`` each box's mask,
+unpacked, at the frame's size. A box's anchor is the row of the model's
+decode it came from (its level, anchor shape and grid cell; -1 past
+``num``): it tells which cell fired, and indexes the decode (the
+model's first output) for the box's 32 mask coefficients or its other
+classes' scores. The
+int8 program takes no such model.
+
 With tracing on (``utils/profiling``), ``__call__`` records the spans
 ``predict.call`` (``predict.letterbox``, ``predict.stack``, then
 ``run_batch``'s, then ``predict.post``), ``run_batch`` records
@@ -70,7 +86,10 @@ copies, on the CPU the copies) and adds the results' bytes to the
 counters ``download.pinned_bytes`` (copied into pinned memory: on the
 card) and ``download.pageable_bytes`` (copied into pageable memory: on
 the CPU), and ``infer`` records ``infer.forward``,
-``infer.nms`` (K1 with its prep) and ``infer.seg_tail`` (K2).
+``infer.nms`` (K1 with its prep) and ``infer.seg_tail`` (K2), or for a
+``Segment`` model ``infer.masks`` (the mask assembly, which counts
+``masks.images`` and ``masks.kept``; the forward's device span
+``forward.proto`` times Proto).
 """
 
 from __future__ import annotations
@@ -85,8 +104,12 @@ import torch
 from desenet_tpu_torch import native
 from desenet_tpu_torch.data.augment import letterbox
 from desenet_tpu_torch.models import (build_model, config_path,
-                                     parse_config, require_seg_head)
+                                     mask_coefficients, parse_config,
+                                     require_seg_head)
 from desenet_tpu_torch.ops import non_max_suppression, np_scale_coords
+from desenet_tpu_torch.ops.mask_assembly import assemble_masks
+from desenet_tpu_torch.ops.nms import MAX_WH, NMSOutput
+from desenet_tpu_torch.ops.nms_fused import fused_select_nms
 from desenet_tpu_torch.ops.seg_pallas import upsample_argmax
 from desenet_tpu_torch.parallel.mesh import Mesh, pad_batch_for_mesh
 from desenet_tpu_torch.utils.convert import load_state_dict
@@ -101,7 +124,9 @@ class Detections:
     def __init__(self, imgs_bgr, xyxy, masks, names, se_names, times=None):
         self.imgs = imgs_bgr  # native BGR images
         self.xyxy = xyxy  # list of (n, 6) [x1,y1,x2,y2,conf,cls]
-        self.masks = masks  # list of (H0, W0) class-id masks
+        # list of (H0, W0) class-id masks, or of a Segment model's (n, H0,
+        # W0) 0/1 masks, one a box
+        self.masks = masks
         self.names = names
         self.se_names = se_names
         self.n = len(imgs_bgr)
@@ -173,6 +198,9 @@ class Detections:
         seg_ann = SegAnnotator()
         out = []
         for im, d, m in zip(self.imgs, self.xyxy, self.masks):
+            if m.ndim == 3:  # instance masks: their union as class 1
+                m = (m.max(0) if len(m) else
+                     np.zeros(im.shape[:2], np.uint8))
             ann = Annotator(np.ascontiguousarray(im))
             for *xyxy, conf, c in d:
                 ann.box_label(xyxy, f"{self.names[int(c)]} {conf:.2f}",
@@ -287,6 +315,9 @@ class Predictor:
         self._mf = (torch.channels_last if self.device.type == "cuda"
                     else torch.contiguous_format)
         if int8:
+            if mask_coefficients(parse_config(cfg, nc=nc, se_nc=se_nc)):
+                raise ValueError("int8=True: the int8 program takes no "
+                                 "Segment model (instance masks)")
             if not calib:
                 raise ValueError(
                     "int8=True needs calib=[...]: a few representative "
@@ -322,6 +353,7 @@ class Predictor:
             self.model = model.to(self.device, self.dtype,
                                   memory_format=self._mf)
         require_seg_head(self.spec, "Predictor")
+        self.nm = mask_coefficients(self.spec)  # 0: the semantic seg map
         self.stem_s2d = bool(stem_s2d)
         self.imgsz = imgsz
         self.conf_thres = conf_thres
@@ -352,7 +384,9 @@ class Predictor:
     def infer(self, img_u8: torch.Tensor, model=None):
         """The device program: (B, H, W, 3) uint8 RGB on the device, or
         with ``stem_s2d`` its (B, H/4, W/4, 48) space-to-depth-4 packing ->
-        (NMSOutput, (B, H, W) uint8 seg class map); ``model`` a replica
+        (NMSOutput, (B, H, W) uint8 seg class map), or for a ``Segment``
+        model (NMSOutput, (B, max_det, H/4, W/32) uint8 mask bits, (B,
+        max_det) int32 anchors of the kept boxes); ``model`` a replica
         (the first by default). A card replica whose row 0 can take the
         uint8 batch (``DeSeNet.uint8_refusal``: ``fuse()``'d, bf16, the
         standard stem) gets its channels_last view, and row 0 widens it;
@@ -363,6 +397,8 @@ class Predictor:
             if not (x.is_cuda and model.uint8_refusal(x) is None):
                 x = x.to(self.dtype).contiguous(memory_format=self._mf) / 255
             (dec, _), seg = model(x)
+        if self.nm:
+            return self._instance_masks(dec, seg, x.shape[2:])
         with span("infer.nms"):
             nms = non_max_suppression(dec, conf_thres=self.conf_thres,
                                       iou_thres=self.iou_thres,
@@ -373,6 +409,19 @@ class Predictor:
             seg_cls = upsample_argmax(seg.permute(0, 2, 3, 1).contiguous(),
                                       scale=8, align_corners=True)
         return nms, seg_cls
+
+    def _instance_masks(self, dec, proto, img_hw):
+        """K1 with each pick's anchor, then the kept boxes' masks."""
+        nc = self.spec.de_nc
+        with span("infer.nms"):
+            *res, index = fused_select_nms(
+                dec, self.conf_thres, self.iou_thres, self.max_det,
+                max_wh=MAX_WH, nc=nc, return_index=True)
+            nms = NMSOutput(*res, res[3].sum(1).to(torch.int32))
+        with span("infer.masks"):
+            masks = assemble_masks(dec, index, nms.boxes, nms.num, proto, nc,
+                                   tuple(img_hw))
+        return nms, masks, index
 
     @staticmethod
     def _to_bgr(im) -> np.ndarray:
@@ -407,7 +456,7 @@ class Predictor:
             with span("predict.stack"):
                 batch = (native.assemble_batch_s2d4(rgb) if self.stem_s2d
                          else np.stack(rgb))
-            boxes, scores, classes, nums, seg_np = self.run_batch(batch)
+            boxes, scores, classes, nums, seg_np, *_ = self.run_batch(batch)
 
             with span("predict.post"):
                 xyxy, masks = [], []
@@ -419,6 +468,10 @@ class Predictor:
                     if n:
                         np_scale_coords((h, w), d[:, :4], im0.shape[:2])
                     xyxy.append(d)
+                    if self.nm:
+                        masks.append(_frame_masks(seg_np[i, :n],
+                                                  im0.shape[:2]))
+                        continue
                     # undo letterbox on the mask: crop the pad,
                     # nearest-resize
                     gain = min(h / im0.shape[0], w / im0.shape[1])
@@ -442,11 +495,13 @@ class Predictor:
         multiple of the replica count (``pad_batch_for_mesh``: the last
         image repeated), a slice a replica, all queued before any copy to
         the host. Returns numpy (boxes, scores, classes, num, seg classes)
-        of the B images, each a view of a fresh host tensor (every
-        replica's rows of one output in one tensor; ``_download``): on the
-        card a pinned one, its block back in PyTorch's host cache once the
-        array is dropped; on the CPU a pageable one, so the arrays are
-        copies of the program's outputs, not views of them."""
+        of the B images (a ``Segment`` model: (boxes, scores, classes,
+        num, mask bits, anchors), module docstring), each a view of a
+        fresh host tensor (every replica's rows of one output in one
+        tensor; ``_download``): on the card a pinned one, its block back
+        in PyTorch's host cache once the array is dropped; on the CPU a
+        pageable one, so the arrays are copies of the program's outputs,
+        not views of them."""
         n, k = batch.shape[0], len(self._replicas)
         with span("predict.run_batch", n=n):
             batch = pad_batch_for_mesh({"image": batch},
@@ -461,9 +516,9 @@ class Predictor:
                 with span("predict.upload", replica=r):
                     x = x.to(dev, non_blocking=True)
                 with span("predict.infer", replica=r):
-                    nms, seg = self.infer(x, model)
+                    nms, *rest = self.infer(x, model)
                 outs.append((nms.boxes, nms.scores, nms.classes, nms.num,
-                             seg))
+                             *rest))
             host = self._download(outs)
             return tuple(h[:n].numpy() for h in host)
 
@@ -497,6 +552,23 @@ class Predictor:
         count("download.pinned_bytes", nbytes if pinned else 0)
         count("download.pageable_bytes", 0 if pinned else nbytes)
         return host
+
+
+def _frame_masks(bits: np.ndarray, frame_hw) -> np.ndarray:
+    """A ``Segment`` model's (n, hp, wp / 8) packed masks of one image at
+    the prototypes' scale -> (n, H0, W0) uint8 0/1 masks of the frame: the
+    letterbox's pad cropped at that scale (v7.0's ``scale_image``
+    arithmetic), then a nearest resize (cv2's ``INTER_NEAREST`` pick,
+    source pixel ``floor(dst * src / dst_size)``)."""
+    m = np.unpackbits(bits, axis=-1, bitorder="little")
+    hp, wp = m.shape[1:]
+    h0, w0 = frame_hw
+    gain = min(hp / h0, wp / w0)
+    pad_w, pad_h = (wp - w0 * gain) / 2, (hp - h0 * gain) / 2
+    m = m[:, int(pad_h):int(hp - pad_h), int(pad_w):int(wp - pad_w)]
+    ys = np.arange(h0) * m.shape[1] // h0
+    xs = np.arange(w0) * m.shape[2] // w0
+    return np.ascontiguousarray(m[:, ys[:, None], xs[None, :]])
 
 
 def load_predictor(weights: str, **kw) -> Predictor:

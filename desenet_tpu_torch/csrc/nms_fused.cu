@@ -43,6 +43,9 @@
 // by the count alone; any score may pass the threshold, so that path is
 // always there.
 //
+// index, where the caller passes one, gets each pick's anchor (-1 after the
+// last pick): a Segment model's masks read their coefficients there.
+//
 // The IoU is bit for bit the plain PyTorch version's
 // inter / (barea + area - inter + 1e-9), the picked box in the barea place
 // (nms_walk.cuh), so the rows equal greedy_select_plain's on every input.
@@ -101,8 +104,10 @@ __device__ __forceinline__ void write_row(float* __restrict__ out, int r,
 struct EmitSorted {
   const Ordered* S;
   float* __restrict__ out;
+  int* __restrict__ index;
   __device__ __forceinline__ void operator()(int r, int j) const {
     write_row(out, r, S->box[j], key_score(S->key[j]), S->cls[j]);
+    if (index) index[r] = static_cast<int>(static_cast<unsigned>(S->key[j]));
   }
 };
 
@@ -111,8 +116,10 @@ struct EmitAnchor {
   Planes box;
   const float* __restrict__ cls;
   float* __restrict__ out;
+  int* __restrict__ index;
   __device__ __forceinline__ void operator()(int r, int j, float s) const {
     write_row(out, r, box(j), s, cls[j]);
+    if (index) index[r] = j;
   }
 };
 
@@ -122,7 +129,8 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ score,
                      const float* __restrict__ cls, int A, int max_det,
                      float iou_thres, float* __restrict__ scratch,
-                     float* __restrict__ out, int* __restrict__ paths) {
+                     float* __restrict__ out, int* __restrict__ paths,
+                     int* __restrict__ index) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int wtot[kWarps];
   __shared__ float red_s[2][kWarps];
@@ -139,9 +147,12 @@ __global__ void __launch_bounds__(kThreads)
   score += off;
   cls += off;
   out += static_cast<size_t>(b) * max_det * 6;
+  if (index) index += static_cast<size_t>(b) * max_det;
   Ordered& S = *reinterpret_cast<Ordered*>(smem);
 
   for (int j = tid; j < max_det * 6; j += kThreads) out[j] = 0.f;
+  if (index)
+    for (int j = tid; j < max_det; j += kThreads) index[j] = -1;
   if (tid == 0) n_cand = 0;
   __syncthreads();
 
@@ -169,7 +180,7 @@ __global__ void __launch_bounds__(kThreads)
                                 : scratch + static_cast<size_t>(b) * 3 * A;
     argmax_loop(live, live + A, reinterpret_cast<int*>(live + 2 * A), wtot,
                 red_s, red_i, box, score, A, max_det, iou_thres,
-                EmitAnchor{box, cls, out});
+                EmitAnchor{box, cls, out, index});
     return;
   }
 
@@ -203,19 +214,20 @@ __global__ void __launch_bounds__(kThreads)
 
   // 3. the walk over the n sorted candidates
   ordered_walk(S.walk, wtot, &s_next, &s_nk, S.box, n, max_det, iou_thres,
-               EmitSorted{&S, out});
+               EmitSorted{&S, out, index});
 }
 
 }  // namespace
 
 // scratch: (B, 3, A) floats where A > kLoopCap (16384), else unused. paths:
 // (B,) ints, 0 where the image took the ordered walk, 1 where the argmax loop.
+// index: (B, max_det) ints, each pick's anchor (-1 after the last), or null.
 extern "C" int desenet_nms_fused(const void* x1, const void* y1,
                                  const void* x2, const void* y2,
                                  const void* score, const void* cls, int B,
                                  int A, int max_det, float iou_thres,
                                  void* scratch, void* out, void* paths,
-                                 void* stream, int device) {
+                                 void* index, void* stream, int device) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   e = cudaFuncSetAttribute(nms_fused_kernel,
@@ -229,6 +241,7 @@ extern "C" int desenet_nms_fused(const void* x1, const void* y1,
       static_cast<const float*>(x2), static_cast<const float*>(y2),
       static_cast<const float*>(score), static_cast<const float*>(cls), A,
       max_det, iou_thres, static_cast<float*>(scratch),
-      static_cast<float*>(out), static_cast<int*>(paths));
+      static_cast<float*>(out), static_cast<int*>(paths),
+      static_cast<int*>(index));
   return cudaGetLastError();
 }

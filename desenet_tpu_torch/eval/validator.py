@@ -30,7 +30,8 @@ from desenet_tpu_torch.utils.metrics import (
     ap_per_class,
     match_predictions,
 )
-from desenet_tpu_torch.models.build import require_seg_head
+from desenet_tpu_torch.models.build import (mask_coefficients,
+                                            require_seg_head)
 from desenet_tpu_torch.ops import PRE_TOPK_VAL, non_max_suppression
 from desenet_tpu_torch.ops.boxes import np_scale_coords
 
@@ -92,6 +93,10 @@ class Validator:
     ):
         if hasattr(model, "spec"):
             require_seg_head(model.spec, "Validator")
+            if mask_coefficients(model.spec):
+                raise NotImplementedError(
+                    "Validator: a Segment model (instance masks) has no "
+                    "validation in the port (no mask mAP)")
         self.model = model
         self.device, self.dtype = _model_device_dtype(model, device)
         self.nc = nc

@@ -1,8 +1,8 @@
 import os
 
 from desenet_tpu_torch.models.build import (DeSeNet, ModelSpec, build_model,
-                                            init_weights, parse_config,
-                                            require_seg_head)
+                                            init_weights, mask_coefficients,
+                                            parse_config, require_seg_head)
 
 CONFIG_DIR = os.path.join(os.path.dirname(__file__), "configs")
 
@@ -25,6 +25,7 @@ __all__ = [
     "ModelSpec",
     "build_model",
     "init_weights",
+    "mask_coefficients",
     "parse_config",
     "config_path",
     "require_seg_head",

@@ -57,8 +57,11 @@ _STRIDED = {"Conv", "DWConv", "GhostConv", "CrossConv", "MixConv2d",
             "GhostBottleneck"}
 SEG_HEADS = {"SegMaskLab", "SegMaskBase", "SegMaskPSP", "SegMaskPSP2",
              "SegMaskBiSe"}
-_MIN_ARGS = {"nn.Upsample": 2, "Detect": 2, "Contract": 1, "Expand": 1,
-             **{h: 1 for h in SEG_HEADS}}
+# the detection heads: Detect, and YOLOv5 v7.0's instance-segmentation
+# Segment (Detect plus mask coefficients and Proto)
+DET_HEADS = {"Detect", "Segment"}
+_MIN_ARGS = {"nn.Upsample": 2, "Detect": 2, "Segment": 2, "Contract": 1,
+             "Expand": 1, **{h: 1 for h in SEG_HEADS}}
 _BLOCKS = {
     "Conv": L.ConvBnAct, "GhostConv": L.GhostConv,
     "Bottleneck": L.Bottleneck, "GhostBottleneck": L.GhostBottleneck,
@@ -179,9 +182,9 @@ def parse_config(cfg, nc: Optional[int] = None,
             raise ValueError(
                 f"model config row {i} must be [from, number, module, args], "
                 f"got {row!r}") from None
-        if mname not in _BLOCKS_WITH_WIDTH | SEG_HEADS | {
+        if mname not in _BLOCKS_WITH_WIDTH | SEG_HEADS | DET_HEADS | {
                 "nn.Upsample", "Concat", "nn.BatchNorm2d", "Contract",
-                "Expand", "Detect"}:
+                "Expand"}:
             raise ValueError(f"unknown module {mname!r} in model config row {i}")
         fs = tuple(
             (x if x >= 0 else i + x) for x in (f if isinstance(f, list) else [f])
@@ -263,22 +266,25 @@ def parse_config(cfg, nc: Optional[int] = None,
                               in_stride * g) if mname == "Contract" else
                     LayerSpec(i, fs, mname, (g,), c_in // (g * g),
                               in_stride // g))
-        elif mname == "Detect":
+        elif mname in DET_HEADS:
             det_layer = i
             det_strides = tuple(strides[x + 1] for x in fs)
             anc = args[1]
             if isinstance(anc, int):  # 'anchors: N' shorthand
                 if not 0 < anc <= 64:
                     raise ValueError(
-                        f"row {i} (Detect): 'anchors: N' shorthand must have "
-                        f"0 < N <= 64 anchors per scale, got {anc}")
+                        f"row {i} ({mname}): 'anchors: N' shorthand must "
+                        f"have 0 < N <= 64 anchors per scale, got {anc}")
                 anc = [list(range(anc * 2))] * len(fs)
             anchors = anc
-            spec = LayerSpec(
-                i, fs, "Detect",
-                (int(args[0]),
-                 tuple(tuple(float(v) for v in r) for r in anc)),
-                0, 0)
+            head_args = (int(args[0]),
+                         tuple(tuple(float(v) for v in r) for r in anc))
+            if mname == "Segment":  # [nc, anchors, nm, npr]: npr scaled
+                head_args += (int(args[2]) if len(args) > 2 else 32,
+                              L.make_divisible(
+                                  (args[3] if len(args) > 3 else 256) * gw,
+                                  8))
+            spec = LayerSpec(i, fs, mname, head_args, 0, 0)
         else:  # a seg head
             seg_layer = i
             n_seg = _round_depth(int(args[1]), gd) if len(args) > 1 else 1
@@ -317,6 +323,9 @@ def _instantiate(ls: LayerSpec, c1, spec: ModelSpec, seg_upsample: bool,
     if ls.name == "Detect":
         return H.Detect(a[0], a[1], c1, spec.det_strides,
                         decode_cat=decode_cat)
+    if ls.name == "Segment":
+        return H.Segment(a[0], a[1], a[2], a[3], c1, spec.det_strides,
+                         decode_cat=decode_cat)
     if ls.name == "SegMaskPSP2":
         # n is ignored, as in the JAX package and the reference
         n_segcls, _, c_hid, _ = a
@@ -397,7 +406,9 @@ class DeSeNet(nn.Module):
     ``((decoded (B, A, 5+nc), det_feats [per-scale (B, na, ny, nx, no)]),
     seg)``, the JAX model's eval-mode outputs, with ``seg`` NCHW:
     full-resolution logits, or 1/8-resolution ones when built with
-    ``seg_upsample=False``. In training mode (``.train()``) it returns
+    ``seg_upsample=False``. A model with a ``Segment`` row (YOLOv5 v7.0's
+    instance segmentation, ``heads.Segment``) returns ``((decoded (B, A,
+    5+nc+nm), det_feats), proto (B, nm, H/4, W/4))`` in its place. In training mode (``.train()``) it returns
     ``(det_feats, seg)`` as the JAX model's ``train=True`` does: no decode,
     BN on batch statistics (``layers.BatchNorm2d``). Module ``model.{i}`` is
     DSL row i.
@@ -474,7 +485,7 @@ class DeSeNet(nn.Module):
         chs = [spec.ch_in]
         mods = []
         for ls in spec.layers:
-            if ls.name == "Detect" or ls.name in SEG_HEADS:
+            if ls.name in DET_HEADS or ls.name in SEG_HEADS:
                 c1 = [chs[x + 1] for x in ls.f]
             elif ls.name == "Concat":
                 c1 = sum(chs[x + 1] for x in ls.f)
@@ -569,6 +580,8 @@ class DeSeNet(nn.Module):
                         p6.close()
                     if ls.name == "Detect":
                         det_out = out
+                    elif ls.name == "Segment":  # ((decode, feats), proto)
+                        det_out, seg_out = out
                     elif ls.name in SEG_HEADS:
                         seg_out = out
                     if ls.i in self.spec.save:
@@ -638,11 +651,12 @@ class DeSeNet(nn.Module):
             if len({v.dtype for v in inp}) > 1:
                 inp = [L.to_compute(v, cd) for v in inp]
             return torch.cat(inp, 1)
-        if ls.name == "Detect":
+        if ls.name in DET_HEADS:
             # of bands: the whole maps on every spatial rank (1x1 convs,
             # then the decode and the loss as on one device)
-            xs = inp if isinstance(inp, list) else [inp]
-            return m([spatial.gather_rows(v) for v in xs])
+            xs = [spatial.gather_rows(v)
+                  for v in (inp if isinstance(inp, list) else [inp])]
+            return m.qforward(xs) if qmode and ls.name == "Segment" else m(xs)
         if ls.name in SEG_HEADS:
             xs = inp if isinstance(inp, list) else [inp]
             if qmode and hasattr(m, "qforward"):
@@ -727,11 +741,21 @@ class DeSeNet(nn.Module):
                       for k in mod.state_dict() if k.startswith(p))
 
 
+def mask_coefficients(spec: ModelSpec) -> int:
+    """The mask coefficients an anchor of a ``Segment`` model (its ``nm``),
+    0 for a model whose detection head is ``Detect``."""
+    if spec.det_layer < 0 or spec.layers[spec.det_layer].name != "Segment":
+        return 0
+    return int(spec.layers[spec.det_layer].args[2])
+
+
 def require_seg_head(spec: ModelSpec, what: str) -> None:
     """Raise ValueError where ``spec`` has no seg head: the JAX package's
     served, validation and training programs all take the seg output
-    (detection-only configs such as ``yolov5s`` fail there deep inside)."""
-    if spec.seg_layer < 0:
+    (detection-only configs such as ``yolov5s`` fail there deep inside).
+    A ``Segment`` row (instance masks) counts as one; the programs that
+    cannot take it refuse it themselves."""
+    if spec.seg_layer < 0 and not mask_coefficients(spec):
         raise ValueError(
             f"{what} needs a model with a seg head (a SegMask* row); this "
             f"config has none (se_nc {spec.se_nc}), like the bundled "
@@ -797,7 +821,7 @@ def init_weights(model: DeSeNet, generator: torch.Generator) -> DeSeNet:
             if id(mod) in det_convs:
                 mod.bias.copy_(H.detect_bias_init(
                     det.na, det.no, det.strides[det_convs[id(mod)]], fan_in,
-                    generator))
+                    generator, nc=det.nc))
             else:
                 uniform(mod.bias, bound)
         elif isinstance(mod, nn.BatchNorm2d):

@@ -7,6 +7,13 @@ reference's (``m.{i}`` for the Detect convs; for SegMaskPSP2 ``m8.0``/
 ``m16.0``/``m32.0``, ``spatial_path``, ``context_path``, ``ffm``, ``out.0``;
 the others' in their docstrings).
 
+``Segment`` and ``Proto`` are YOLOv5 v7.0's instance-segmentation head
+(``models/yolo.py`` Segment, ``models/common.py`` Proto; no JAX
+counterpart): ``Detect`` with ``nm`` mask coefficients behind each
+anchor's classes, and mask prototypes at 1/4 of the input from the P3
+map. State-dict names are v7.0's (``m.{i}``, ``proto.cv1``/``cv2``/
+``cv3``).
+
 Every seg head takes ``upsample``: False returns the 1/8-resolution logits
 that the served program feeds to the seg-tail kernel
 (``ops/seg_pallas.py``), True their 8x align_corners bilinear upsample.
@@ -63,22 +70,29 @@ from desenet_tpu_torch.models.layers import (
     to_compute,
 )
 from desenet_tpu_torch.ops import int8_conv
-from desenet_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_band
+from desenet_tpu_torch.ops.resize import (resize_bilinear,
+                                          resize_bilinear_band,
+                                          upsample_nearest,
+                                          upsample_nearest_repeat)
 from desenet_tpu_torch.parallel.spatial import active, gather_rows
 from desenet_tpu_torch.quant import QTensor
+from desenet_tpu_torch.utils.profiling import span
 
 
 def detect_bias_init(na: int, no: int, stride: float, fan_in: int,
-                     generator: torch.Generator) -> torch.Tensor:
+                     generator: torch.Generator, nc: int = None
+                     ) -> torch.Tensor:
     """torch-uniform base plus the focal prior of the reference Detect init:
-    obj += log(8/(640/stride)^2), cls += log(0.6/(nc-0.99)). Returns the
-    (na*no,) bias on the CPU."""
-    nc = no - 5
+    obj += log(8/(640/stride)^2), cls += log(0.6/(nc-0.99)) on the ``nc``
+    class columns (default: every column after obj; a Segment head's mask
+    coefficients keep the uniform base, as v7.0's ``_initialize_biases``
+    leaves them). Returns the (na*no,) bias on the CPU."""
+    nc = no - 5 if nc is None else nc
     bound = 1.0 / math.sqrt(fan_in)
     b = torch.empty(na, no).uniform_(-bound, bound, generator=generator)
     b[:, 4] += math.log(8.0 / (640.0 / stride) ** 2)
     if nc > 1:
-        b[:, 5:] += math.log(0.6 / (nc - 0.99))
+        b[:, 5:5 + nc] += math.log(0.6 / (nc - 0.99))
     return b.view(-1)
 
 
@@ -149,16 +163,75 @@ class Detect(nn.Module):
             if self.training:
                 continue
             grid, anchor = self._grid_and_anchors(i, ny, nx, y.device)
-            s = torch.sigmoid(y.float())
+            yf = y.float()
+            nd = 5 + self.nc  # the sigmoid's columns; a Segment's rest raw
+            s = torch.sigmoid(yf if nd == self.no else yf[..., :nd])
             xy = (s[..., 0:2] * 2.0 - 0.5 + grid) * self.strides[i]
             wh = (s[..., 2:4] * 2.0) ** 2 * anchor
-            z = torch.cat([xy, wh, s[..., 4:]], -1)
+            z = torch.cat([xy, wh, s[..., 4:]]
+                          + ([] if nd == self.no else [yf[..., nd:]]), -1)
             decoded.append(z.reshape(b, -1, self.no))
         if self.training:
             return feats
         if not self.decode_cat:
             return decoded, feats
         return torch.cat(decoded, 1), feats
+
+
+class Proto(nn.Module):
+    """YOLOv5 v7.0's mask prototypes (``models/common.py`` Proto): a 3x3
+    ConvBnAct, a nearest 2x upsample, a 3x3 ConvBnAct and a 1x1 ConvBnAct
+    to ``c2`` prototypes, so (B, c1, H/8, W/8) -> (B, c2, H/4, W/4).
+    ``qforward``: under fp8 storage each conv stores its output and the
+    upsample repeats the stored values."""
+
+    def __init__(self, c1: int, c_: int = 256, c2: int = 32):
+        super().__init__()
+        self.cv1 = ConvBnAct(c1, c_, 3)
+        self.cv2 = ConvBnAct(c_, c_, 3)
+        self.cv3 = ConvBnAct(c_, c2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv3(self.cv2(upsample_nearest(self.cv1(x), 2)))
+
+    def qforward(self, x: torch.Tensor) -> torch.Tensor:
+        y = upsample_nearest_repeat(self.cv1.qforward(x), 2)
+        return self.cv3.qforward(self.cv2.qforward(y))
+
+
+class Segment(Detect):
+    """YOLOv5 v7.0's instance-segmentation head (``models/yolo.py``
+    Segment): ``Detect`` with ``no = 5 + nc + nm`` columns an anchor, the
+    last ``nm`` a mask's coefficients, and ``Proto(ch[0], npr, nm)`` on the
+    first (P3) map. The decode applies the sigmoid to columns 0 to 4 + nc
+    and leaves the coefficients raw, in float32.
+
+    ``forward(xs)`` returns ``((decoded, feats), proto)``, proto (B, nm,
+    2 H3, 2 W3) in the maps' dtype (in training ``(feats, proto)``).
+    With tracing on and the maps on a card, Proto is the device span
+    ``forward.proto``."""
+
+    def __init__(self, nc: int, anchors: Sequence[Sequence[float]], nm: int,
+                 npr: int, ch: Sequence[int], strides: Sequence[int],
+                 decode_cat: bool = True):
+        super().__init__(nc, anchors, ch, strides, decode_cat=decode_cat)
+        self.nm = nm
+        self.no = 5 + nc + nm
+        self.m = nn.ModuleList(nn.Conv2d(c, self.no * self.na, 1) for c in ch)
+        self.proto = Proto(ch[0], npr, nm)
+
+    def forward(self, xs: Sequence[torch.Tensor]):
+        with span("forward.proto", device=xs[0].device):
+            p = self.proto(xs[0])
+        return super().forward(xs), p
+
+    def qforward(self, xs: Sequence[torch.Tensor]):
+        """Under fp8 storage: Proto's convs store their outputs (the
+        prototypes come back in the maps' dtype); the detection part runs
+        as ``forward``, on the fp maps that feed it."""
+        with span("forward.proto", device=xs[0].device):
+            p = to_compute(self.proto.qforward(xs[0]), xs[0].dtype)
+        return super().forward(xs), p
 
 
 def _up(x: torch.Tensor, scale: int) -> torch.Tensor:

@@ -32,9 +32,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # x1, y1, x2, y2, score, cls, B, A, max_det, iou_thres, scratch, out,
-    # paths, stream, device
+    # paths, index, stream, device
     "desenet_nms_fused": [_P] * 6 + [_I, _I, _I, ctypes.c_float, _P, _P, _P,
-                                     _P, _I],
+                                     _P, _P, _I],
     # x, is_bf16, ys, wy, xs, wx, seg, B, h, w, C, H, W, variant, G, rpt,
     # out, stream, device
     "desenet_seg_tail": [_P, _I] + [_P] * 5 + [_I] * 9 + [_P, _P, _I],
@@ -73,6 +73,11 @@ _SIGNATURES = {
     # conv_epilogue.cu. y, res, scale, shift, P, C, act, is_bf16, vec,
     # stream, device
     "desenet_conv_epilogue": [_P] * 4 + [_I] * 5 + [_P, _I],
+    # mask_assembly.cu. decode, A, ncol, coff, index, boxes, num, proto,
+    # is_bf16, B, Hp, Wp, max_det, sx, sy, out, stream, device
+    "desenet_mask_assembly": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _I, ctypes.c_float, ctypes.c_float, _P,
+                              _P, _I],
     # mma_peak.cu. blocks, threads, iters, sink, stream, device
     "desenet_mma_peak": [_I, _I, _I, _P, _P, _I],
     # mma_peak.cu. blocks, threads, iters, op, sink, stream, device

@@ -14,6 +14,13 @@ drop every candidate with IoU > ``iou_thres`` against it, where
 ``area = max(x2-x1, 0) * max(y2-y1, 0)`` and
 ``iou = inter / (barea + area - inter + 1e-9)``; stop after ``max_det``
 picks or when no score > 0 is left. Rows after the last pick are zero.
+With ``return_index`` each version also gives the anchor index of every
+pick ((B, max_det) int32, in the decode's order; -1 after the last pick):
+a ``Segment`` model's masks gather their coefficients there.
+
+``nms_planes`` scores the ``nc`` class columns after objectness: a
+``Detect`` decode's every column from 5 on (``nc=None``), a ``Segment``
+decode's columns 5 to 5+nc, its mask coefficients left out.
 
 The kernel chooses between two paths on the device, per image, by the
 candidate count alone (``last_paths`` holds the path each image of the last
@@ -50,11 +57,14 @@ LOOP_CAP = nms_pallas.SMEM_CAP  # anchors the argmax loop keeps in shared memory
 
 
 def greedy_select_plain(x1, y1, x2, y2, score, cls, max_det: int,
-                        iou_thres: float) -> torch.Tensor:
+                        iou_thres: float, return_index: bool = False):
     """The kernel's selection in PyTorch ops, all images advancing together:
-    six (B, A) f32 planes -> (B, max_det, 6) rows."""
+    six (B, A) f32 planes -> (B, max_det, 6) rows (and, with
+    ``return_index``, the picks' anchors)."""
     b, a = score.shape
     out = score.new_zeros((b, max_det, 6))
+    index = torch.full((b, max_det), -1, dtype=torch.int32,
+                       device=score.device)
     area = (x2 - x1).clamp(min=0) * (y2 - y1).clamp(min=0)
     sc = score.clone()
     img = torch.arange(b, device=score.device)
@@ -67,6 +77,7 @@ def greedy_select_plain(x1, y1, x2, y2, score, cls, max_det: int,
         bx1, by1, bx2, by2 = x1[img, j], y1[img, j], x2[img, j], y2[img, j]
         row = torch.stack([bx1, by1, bx2, by2, m, cls[img, j]], -1)
         out[:, k] = torch.where(live[:, None], row, 0.0)
+        index[:, k] = torch.where(live, j.to(torch.int32), -1)
         iw = (torch.minimum(bx2[:, None], x2)
               - torch.maximum(bx1[:, None], x1)).clamp(min=0)
         ih = (torch.minimum(by2[:, None], y2)
@@ -75,13 +86,14 @@ def greedy_select_plain(x1, y1, x2, y2, score, cls, max_det: int,
         iou = inter / (area[img, j][:, None] + area - inter + 1e-9)
         drop = (iou > iou_thres) | (anchor[None] == j[:, None])
         sc = torch.where(live[:, None] & drop, -1.0, sc)
-    return out
+    return (out, index) if return_index else out
 
 
 def greedy_select_ordered_plain(x1, y1, x2, y2, score, cls, max_det: int,
                                 iou_thres: float,
                                 chunk: int = nms_pallas.CHUNK,
-                                surv: int = nms_pallas.SURV) -> torch.Tensor:
+                                surv: int = nms_pallas.SURV,
+                                return_index: bool = False):
     """The kernel's ordered path in PyTorch ops, image by image: the
     candidates (score > 0) compacted, sorted once by (score descending,
     anchor ascending), walked by ``nms_pallas.greedy_nms_ordered_plain`` in
@@ -89,6 +101,8 @@ def greedy_select_ordered_plain(x1, y1, x2, y2, score, cls, max_det: int,
     written as rows. Same arguments and result as ``greedy_select_plain``."""
     b, _ = score.shape
     out = score.new_zeros((b, max_det, 6))
+    index = torch.full((b, max_det), -1, dtype=torch.int32,
+                       device=score.device)
     for im in range(b):
         cand = torch.nonzero(score[im] > 0).flatten()  # anchor order
         order = torch.sort(score[im, cand], descending=True, stable=True)[1]
@@ -102,13 +116,16 @@ def greedy_select_ordered_plain(x1, y1, x2, y2, score, cls, max_det: int,
         k = idx[0, :n].long()
         out[im, :n] = torch.cat(
             [boxes[k], sc[0, :n, None], cls[im, j[k], None]], -1)
-    return out
+        index[im, :n] = j[k].to(torch.int32)
+    return (out, index) if return_index else out
 
 
 def greedy_select(x1, y1, x2, y2, score, cls, max_det: int,
-                  iou_thres: float) -> torch.Tensor:
+                  iou_thres: float, return_index: bool = False):
     """Greedy NMS selection over six contiguous (B, A) float32 planes on one
-    device -> (B, max_det, 6) float32 rows [x1, y1, x2, y2, score, cls]."""
+    device -> (B, max_det, 6) float32 rows [x1, y1, x2, y2, score, cls];
+    with ``return_index`` also (B, max_det) int32, each pick's anchor (-1
+    after the last)."""
     global launches, last_paths
     planes = (x1, y1, x2, y2, score, cls)
     for p in planes:
@@ -120,7 +137,7 @@ def greedy_select(x1, y1, x2, y2, score, cls, max_det: int,
         if p.device != score.device:
             raise ValueError("greedy_select planes lie on different devices")
     if score.device.type == "cpu":
-        return greedy_select_plain(*planes, max_det, iou_thres)
+        return greedy_select_plain(*planes, max_det, iou_thres, return_index)
     if score.device.type != "cuda":
         raise ValueError(f"greedy_select runs on CPU or CUDA, not "
                          f"{score.device}")
@@ -130,23 +147,29 @@ def greedy_select(x1, y1, x2, y2, score, cls, max_det: int,
     scratch = torch.empty((b, 3, a) if a > LOOP_CAP else (0,),
                           dtype=torch.float32, device=score.device)
     paths = torch.empty((b,), dtype=torch.int32, device=score.device)
+    index = (torch.empty((b, max_det), dtype=torch.int32, device=score.device)
+             if return_index else None)
     stream, dev = _ext.stream_and_device(score)
     _ext.check(_ext.load().desenet_nms_fused(
         *(p.data_ptr() for p in planes), b, a, max_det, float(iou_thres),
-        scratch.data_ptr(), out.data_ptr(), paths.data_ptr(), stream, dev),
+        scratch.data_ptr(), out.data_ptr(), paths.data_ptr(),
+        None if index is None else index.data_ptr(), stream, dev),
         "nms_fused kernel")
     launches += 1
     last_paths = paths
-    return out
+    return (out, index) if return_index else out
 
 
 def nms_planes(prediction: torch.Tensor, conf_thres: float,
-               agnostic: bool = False, classes=None, max_wh: float = 4096.0):
-    """The prep: (B, A, 5+nc) decode -> the six (B, A) f32 planes
-    x1, y1, x2, y2 (class-offset), score (-1 where not a candidate), cls."""
+               agnostic: bool = False, classes=None, max_wh: float = 4096.0,
+               nc=None):
+    """The prep: (B, A, 5+nc) decode (a Segment's (B, A, 5+nc+nm), with
+    its ``nc`` given) -> the six (B, A) f32 planes x1, y1, x2, y2
+    (class-offset), score (-1 where not a candidate), cls."""
     p = prediction.float()
     obj = p[..., 4]
-    cls_conf = p[..., 5:] * obj[..., None]  # conf = obj * cls
+    scores = p[..., 5:] if nc is None else p[..., 5:5 + nc]
+    cls_conf = scores * obj[..., None]  # conf = obj * cls
     best_conf, best_cls_i = cls_conf.max(-1)
     ok = (obj > conf_thres) & (best_conf > conf_thres)
     if classes is not None:
@@ -164,17 +187,23 @@ def nms_planes(prediction: torch.Tensor, conf_thres: float,
 
 def fused_select_nms(prediction: torch.Tensor, conf_thres: float,
                      iou_thres: float, max_det: int, agnostic: bool = False,
-                     classes=None, max_wh: float = 4096.0):
-    """Single-label NMS over the full (B, A, 5+nc) decode, no top-k cap.
+                     classes=None, max_wh: float = 4096.0, nc=None,
+                     return_index: bool = False):
+    """Single-label NMS over the full (B, A, 5+nc) decode, no top-k cap
+    (``nc`` as ``nms_planes``).
 
     Returns (boxes (B, max_det, 4) xyxy, scores (B, max_det),
     classes (B, max_det), valid (B, max_det) bool) with invalid rows zeroed
-    (class -1), as the JAX function."""
-    planes = nms_planes(prediction, conf_thres, agnostic, classes, max_wh)
+    (class -1), as the JAX function; with ``return_index`` also each
+    pick's anchor ((B, max_det) int32, -1 in invalid rows)."""
+    planes = nms_planes(prediction, conf_thres, agnostic, classes, max_wh,
+                        nc)
     if profiling.tracing():
         profiling.count("k1.images", planes[4].shape[0])
         profiling.count("k1.candidates", (planes[4] > 0).sum())
-    out = greedy_select(*planes, max_det, iou_thres)
+    out = greedy_select(*planes, max_det, iou_thres, return_index)
+    if return_index:
+        out, index = out
     out_scores = out[..., 4]
     valid = out_scores > 0.0
     out_cls_off = out[..., 5]
@@ -183,4 +212,6 @@ def fused_select_nms(prediction: torch.Tensor, conf_thres: float,
                             0.0)
     out_cls = torch.where(valid, out_cls_off, -1.0)
     out_scores = torch.where(valid, out_scores, 0.0)
+    if return_index:
+        return out_boxes, out_scores, out_cls, valid, index
     return out_boxes, out_scores, out_cls, valid

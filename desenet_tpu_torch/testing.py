@@ -860,3 +860,75 @@ def check_int8(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     if err > tol:
         raise AssertionError(f"{what}: logits max |diff| {err} > {tol}")
     return err
+
+
+# the mask assembly (ops/mask_assembly.py): (B, A, nc, img, max_det) of
+# the cases the card and the CPU tests share; the last is the served
+# cell's shape, b128 at 640 with about 100 boxes an image
+MASK_CASES = (
+    (3, 600, 80, 128, 40),
+    (2, 300, 3, 96, 7),       # Wp 24: a row of 3 bytes, byte stores
+    (128, 25200, 80, 640, 300),
+)
+
+
+def mask_assembly_case(case, seed: int = 0, dtype=torch.bfloat16,
+                       kept: int = 100):
+    """Seeded inputs of ``ops.mask_assembly.assemble_masks``: (decode (B,
+    A, 5 + nc + 32) f32 with N(0, 1) coefficients, index (B, max_det)
+    int32, boxes (B, max_det, 4) f32, num (B,) int32, proto (B, 32, img/4,
+    img/4) in ``dtype``, nc, (img, img)). Image 0 keeps no box and image 1
+    all ``max_det``; the others up to ``kept``. The boxes lie anywhere
+    from beyond the image's top left to beyond its bottom right, a third
+    of them with every edge on a whole proto pixel (multiples of 4 px)."""
+    b, a, nc, img, max_det = case
+    g = torch.Generator().manual_seed(seed)
+    decode = torch.rand((b, a, 5 + nc + 32), generator=g)
+    decode[..., 5 + nc:] = torch.randn((b, a, 32), generator=g)
+    hp = img // 4
+    proto = torch.randn((b, 32, hp, hp), generator=g).mul(0.5).to(dtype)
+    num = torch.randint(0, min(kept, max_det) + 1, (b,), generator=g)
+    num[0] = 0
+    if b > 1:
+        num[1] = max_det
+    index = torch.full((b, max_det), -1, dtype=torch.int32)
+    boxes = torch.zeros((b, max_det, 4))
+    for i in range(b):
+        n = int(num[i])
+        index[i, :n] = torch.randperm(a, generator=g)[:n].to(torch.int32)
+        xy = torch.rand((n, 2), generator=g) * (img * 1.2) - img * 0.1
+        wh = torch.rand((n, 2), generator=g) * img * 0.5
+        bx = torch.cat([xy, xy + wh], 1)
+        whole = torch.rand((n,), generator=g) < 1 / 3
+        bx[whole] = (bx[whole] / 4).round() * 4
+        boxes[i, :n] = bx
+    return decode, index, boxes, num.to(torch.int32), proto, nc, (img, img)
+
+
+def check_masks(got: torch.Tensor, want: torch.Tensor, decode, index, num,
+                proto, nc: int, rel: float = 1e-3) -> tuple:
+    """The packed masks ``got`` equal ``want`` bit for bit, except at
+    pixels where ``|c . P|`` is below ``rel`` times its median over the
+    box's plane (float64 sums; there the two float32 sums may fall on
+    either side of 0). Returns (the count of bits that differ, the largest
+    ``|c . P|`` over its plane's median at a bit that differs, 0 where
+    none does)."""
+    got, want = got.cpu(), want.cpu()
+    assert got.shape == want.shape and got.dtype == torch.uint8
+    diff = np.unpackbits((got ^ want).numpy(), axis=-1, bitorder="little")
+    if not diff.any():
+        return 0, 0.0
+    bb, jj = np.nonzero(diff.reshape(diff.shape[0], diff.shape[1], -1)
+                        .any(-1))
+    worst = 0.0
+    for i, j in zip(bb.tolist(), jj.tolist()):
+        assert j < int(num[i]), (i, j, "a row past num differs")
+        p = proto[i].cpu().double()
+        c = decode[i, int(index[i, j]), 5 + nc:5 + nc + p.shape[0]].cpu()
+        v = (c.double() @ p.reshape(p.shape[0], -1)).abs().view(
+            p.shape[1], p.shape[2])
+        bad = torch.from_numpy(diff[i, j].astype(bool))
+        ratio = float(v[bad].max()) / float(v.median())
+        assert ratio < rel, (i, j, ratio)
+        worst = max(worst, ratio)
+    return int(diff.sum()), worst

@@ -44,7 +44,8 @@ def in_turns(*runs) -> list:
 
 RUNS = 5  # profiled calls
 TOP = 30  # table rows printed
-OWN = ("nms_fused_kernel", "seg_tail_")  # the port's kernels, always printed
+# the port's kernels, always printed
+OWN = ("nms_fused_kernel", "seg_tail_", "mask_assembly_kernel")
 
 
 def kernel_table(fn, device: torch.device):
@@ -203,6 +204,19 @@ def nms_fused_bound(b: int, a: int, max_det: int, candidates: float,
     nbytes = 4 * (b * a + 5 * b * candidates + 6 * b * max_det)
     return bound_ms(b * picks * candidates * NMS_PAIR_FLOPS, nbytes,
                     H100_F32_FLOPS)
+
+
+def mask_assembly_bound(b: int, hp: int, wp: int, nm: int, max_det: int,
+                        kept: float, crop_px: float,
+                        itemsize: int = 2) -> tuple:
+    """The mask assembly over ``b`` images of (nm, hp, wp) prototypes in
+    ``itemsize`` bytes -> (b, max_det, hp, wp / 8) bits: 2 nm operations
+    (f32 on the CUDA cores) for each of the ``crop_px`` proto pixels inside
+    the ``kept`` boxes' crops; the prototypes read once, nm f32
+    coefficients a kept box, every bit row written once."""
+    nbytes = b * nm * hp * wp * itemsize + 4 * nm * kept \
+        + b * max_det * hp * wp / 8
+    return bound_ms(2.0 * nm * crop_px, nbytes, H100_F32_FLOPS)
 
 
 def nms_greedy_bound(b: int, k: int, max_det: int, live: float,

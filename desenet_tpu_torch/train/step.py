@@ -51,7 +51,8 @@ import numpy as np
 import torch
 
 from desenet_tpu_torch.losses import DetectionLoss, segmentation_loss
-from desenet_tpu_torch.models.build import require_seg_head
+from desenet_tpu_torch.models.build import (mask_coefficients,
+                                            require_seg_head)
 from desenet_tpu_torch.models.layers import Dropout
 from desenet_tpu_torch.ops.seg_ce import upsampled_ce
 from desenet_tpu_torch.parallel import spatial
@@ -122,6 +123,11 @@ def make_train_step(
     ``metrics``: ``loss, lbox, lobj, lcls, lseg`` (0-d tensors on the
     device, the global batch's), ``lr`` (float) and ``stepped`` (0 or 1)."""
     require_seg_head(model.spec, "make_train_step")
+    if mask_coefficients(model.spec):
+        raise NotImplementedError(
+            "make_train_step: a Segment model (YOLOv5 v7.0 instance "
+            "segmentation) has no training step in the port: its mask loss "
+            "(BCE over overlap masks) is not written (ROADMAP.md, Queue 6)")
     if fused_seg == bool(model.seg_upsample):
         raise ValueError(
             f"fused_seg={fused_seg} needs a model built with "

@@ -45,6 +45,15 @@ logits) and ``testing.INT8_GROUPED_CASES`` (g 2 and 4, depthwise 3x3 and
 its int32 sums bit-equal to the plain version's float64 conv, its outputs
 at ``testing.check_int8``'s bar.
 
+K1's anchor index (``return_index``, a Segment model's masks read their
+coefficients there) equals the plain versions' on every case of
+``testing.NMS_FUSED_CASES``, and the rows with it equal those without. The
+mask assembly (csrc/mask_assembly.cu) sums its 32 products in another order
+than the plain version's matmul: on ``testing.MASK_CASES`` (bf16 and f32
+prototypes; the last the served cell's b128 at 640) its bits equal the
+plain version's except where ``|c . P|`` is below 1e-3 of its median
+(``testing.check_masks``).
+
 The training step (no kernel of its own) is held against itself on the
 CPU, as chip_smoke.py's phase 7(a) holds it: the tiny model's SGD steps on
 the card and on the CPU (``testing.TRAIN_PARITY_STEPS``: two in float64, one
@@ -56,11 +65,13 @@ import numpy as np
 import pytest
 import torch
 
-from desenet_tpu_torch.ops import (c3_fused, int8_conv, nms_fused,
-                                   nms_pallas, seg_head_pallas, seg_pallas,
-                                   stem_pallas)
+from desenet_tpu_torch.ops import (c3_fused, int8_conv, mask_assembly,
+                                   nms_fused, nms_pallas, seg_head_pallas,
+                                   seg_pallas, stem_pallas)
 from desenet_tpu_torch.testing import (C3_SERVED, INT8_CONV_CASES,
-                                       INT8_GROUPED_CASES, NMS_FUSED_CASES,
+                                       INT8_GROUPED_CASES, MASK_CASES,
+                                       NMS_FUSED_CASES, check_masks,
+                                       mask_assembly_case,
                                        SEG_TAIL_CASES, check_close,
                                        check_psp2, dense_decode,
                                        dense_sorted_candidates,
@@ -131,6 +142,39 @@ def test_nms_kernel_cases(cuda, case):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert nms_fused.last_paths.tolist() == [path] * planes[4].shape[0]
+
+
+@pytest.mark.parametrize("case", NMS_FUSED_CASES, ids=lambda c: c[0])
+def test_nms_kernel_index_cases(cuda, case):
+    """K1 with each pick's anchor: the anchors equal the plain version's,
+    the rows those without."""
+    _, _, _, max_det, path = case
+    planes = [p.to(cuda) for p in nms_fused_case(case)]
+    got, idx = nms_fused.greedy_select(*planes, max_det, 0.45,
+                                       return_index=True)
+    rows = nms_fused.greedy_select(*planes, max_det, 0.45)
+    want, want_idx = nms_fused.greedy_select_plain(*planes, max_det, 0.45,
+                                                   return_index=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rows) and torch.equal(got, want)
+    assert torch.equal(idx, want_idx)
+    assert nms_fused.last_paths.tolist() == [path] * planes[4].shape[0]
+
+
+@pytest.mark.parametrize("case", MASK_CASES, ids=lambda c: f"b{c[0]}_{c[3]}")
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mask_assembly_kernel_matches_plain(cuda, case, dtype):
+    decode, index, boxes, num, proto, nc, hw = mask_assembly_case(
+        case, dtype=dtype)
+    want = mask_assembly.assemble_masks_plain(decode, index, boxes, num,
+                                              proto, nc, hw)
+    before = mask_assembly.launches
+    got = mask_assembly.assemble_masks(
+        decode.to(cuda), index.to(cuda), boxes.to(cuda), num.to(cuda),
+        proto.to(cuda).contiguous(memory_format=torch.channels_last), nc, hw)
+    assert mask_assembly.launches == before + 1
+    flips, _ = check_masks(got, want, decode, index, num, proto, nc)
+    assert flips <= 1e-6 * want.numel() * 8
 
 
 def test_nms_kernel_paths_chosen_per_image(cuda):

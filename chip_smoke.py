@@ -54,7 +54,12 @@ non-zero; without a CUDA device it exits non-zero before printing a result):
    decode rows of the served boxes, scores and classes, and the masks to
    the plain assembly on the decode and prototypes that forward gave
    (testing.check_masks; its widest ratio is the kernels line's
-   max_abs_err, with phase 5m's);
+   max_abs_err, with phase 5m's); then Proto's phase path (the folded
+   2x2 conv and the phase pass, csrc/conv_epilogue.cu) held against the
+   upsample and 3x3 conv on that forward's own P3 map (check_bf16), its
+   launch required in the run, and the phase kernel timed on that map's
+   folded conv output beside its plain version and its byte bound, and
+   Proto both ways (the kernels line's conv_epilogue_phases);
 5. numbers: the served program at batch 128 / 640 px, the validation step
    at batch 32 with either seg head, each kernel beside its plain version
    at the main path's shapes, beside the one PyTorch call that computes the
@@ -1334,16 +1339,21 @@ def phase5s(card: str, extras: dict) -> None:
     extras.setdefault("stem_conv", {})["served"] = served
 
 
-def phase4m(card: str, errs: dict) -> dict:
+def phase4m(card: str, errs: dict, timing: dict, extras: dict) -> dict:
     """The Segment model on its served path (module docstring, 4m):
     yolov5x_v7seg in a bf16 card Predictor on one b128 batch of the
     benchmark's cell, the launch counters reset just before ``run_batch``
     and each required; that run's masks against the plain assembly on the
     decode and prototypes its forward gave (a forward hook), and its
-    anchors against the decode rows of the boxes it served."""
+    anchors against the decode rows of the boxes it served; then Proto's
+    phase path against the upsample and 3x3 conv on that forward's P3 map
+    (a forward pre-hook), the phase kernel and Proto timed."""
+    import torch.nn.functional as F
+
     from benchmark.harness.frames import letterbox_rgb, make_frames
     from benchmark.harness.weights_v7seg import seeded_weights
     from desenet_tpu_torch.api import Predictor
+    from desenet_tpu_torch.models.heads import Proto
     from desenet_tpu_torch.ops import (conv_epilogue, mask_assembly, nms_fused,
                                        stem_pallas)
     from desenet_tpu_torch.ops.boxes import xywh2xyxy
@@ -1359,11 +1369,15 @@ def phase4m(card: str, errs: dict) -> dict:
     batch = letterbox_rgb(make_frames(B_SERVE, size * 3 // 4, size,
                                       V7SEG_SEED + 2, dev).cpu().numpy(),
                           size)
-    seen = []
-    hook = pred._replicas[0][1].register_forward_hook(
-        lambda m, i, o: seen.append((o[0][0], o[1])))
+    seen, p3 = [], []
+    model = pred._replicas[0][1]
+    m = next(mod for mod in model.modules() if isinstance(mod, Proto))
+    hooks = (model.register_forward_hook(
+        lambda mod, i, o: seen.append((o[0][0], o[1]))),
+        m.register_forward_pre_hook(lambda mod, i: p3.append(i[0])))
     nms_fused.launches = 0
     conv_epilogue.launches = 0
+    conv_epilogue.phase_launches = 0
     stem_pallas.served_launches = 0
     mask_assembly.launches = 0
     try:
@@ -1371,9 +1385,11 @@ def phase4m(card: str, errs: dict) -> dict:
         boxes, scores, classes, num, bits, anchors = pred.run_batch(batch)
         first_s = time.perf_counter() - t
     finally:
-        hook.remove()
+        for h in hooks:
+            h.remove()
     launched = {"nms_fused": nms_fused.launches,
                 "conv_epilogue": conv_epilogue.launches,
+                "conv_epilogue_phases": conv_epilogue.phase_launches,
                 "served_stem": stem_pallas.served_launches,
                 "mask_assembly": mask_assembly.launches}
     if min(launched.values()) < 1:
@@ -1407,7 +1423,48 @@ def phase4m(card: str, errs: dict) -> dict:
         f"score {score_err:.3g}); masks equal to the plain assembly on the "
         f"run's own decode and prototypes but {flips} of {want.numel() * 8} "
         f"bits (the widest at {worst:.3g} of |c.P|'s median) [{card}]")
-    del pred, seen, dec, proto, rows, want
+    del seen, dec, proto, rows, want
+    torch.cuda.empty_cache()
+
+    x, = p3
+    k = m.cv2._derived["phases"]
+    with torch.inference_mode():
+        got = m(x)
+        want = m.cv3(m.cv2(F.interpolate(m.cv1(x), scale_factor=2,
+                                         mode="nearest")))
+        err = check_bf16(got, want, "the phased Proto on the served P3 map")
+        errs["conv_epilogue_phases"] = err
+        del got, want
+        y = F.conv2d(m.cv1(x), k, padding=1)
+        scale, shift = m.cv2._derived["epilogue"]
+        ms, plain = in_turns(
+            (lambda: conv_epilogue.conv_epilogue_phases(y, scale, shift), 20),
+            (lambda: conv_epilogue.conv_epilogue_phases_plain(y, scale,
+                                                              shift), 2))
+
+        def unphased():
+            m.cv2._derived.pop("phases", None)
+            return m(x)
+
+        def phased():
+            m.cv2._derived["phases"] = k
+            return m(x)
+
+        new_ms, old_ms = in_turns((phased, 5), (unphased, 5))
+        m.cv2._derived["phases"] = k
+    b, c_, h, w = x.shape[0], m.cv2.conv.out_channels, x.shape[2], x.shape[3]
+    bound = tm.epilogue_phases_bound(b, h, w, c_)
+    timing["conv_epilogue_phases"] = (ms, plain, bound, None)
+    extras["conv_epilogue_phases"] = {"source": f"{CSRC}/conv_epilogue.cu",
+                                      "proto_ms": new_ms,
+                                      "proto_unphased_ms": old_ms}
+    log("4m", f"Proto's phase path on the run's own P3 map {tuple(x.shape)}: "
+        f"against the upsample and 3x3 conv max abs err {err:.4g} "
+        f"(check_bf16); the phase kernel on {tuple(y.shape)} {ms:.4f} ms, "
+        f"plain {plain:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
+        f"{100 * bound[0] / ms:.1f}% of it; Proto {new_ms:.3f} ms, with the "
+        f"upsample and 3x3 conv {old_ms:.3f} ms [{card}]")
+    del pred, model, m, x, y, p3
     torch.cuda.empty_cache()
     return launched
 
@@ -4448,10 +4505,12 @@ def main() -> None:
     pred, launches, sd = timed("4", phase4)
     model, spec, validator, batch, val_launches = timed("4b", phase4b, sd)
     launches.update(val_launches)
-    for k, v in timed("4m", phase4m, card, errs).items():
+    extras, proto_timing = {}, {}
+    for k, v in timed("4m", phase4m, card, errs, proto_timing,
+                      extras).items():
         launches[k] = launches.get(k, 0) + v
-    extras = {}
     timing = timed("5", phase5, pred, card, extras)
+    timing.update(proto_timing)
     timed("5 val", phase5_val, model, spec, validator, batch, card, timing,
           errs, extras)
     del model, validator
@@ -4500,6 +4559,9 @@ def main() -> None:
         kernel_entry("mask_assembly", "none: YOLOv5 v7.0's process_mask "
                      "(upsample=False) in PyTorch ops", launches, errs,
                      timing),
+        kernel_entry("conv_epilogue_phases", "none: XLA's fusion of Proto's "
+                     "nearest 2x upsample into its 3x3 conv", launches, errs,
+                     timing, extras),
     ]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

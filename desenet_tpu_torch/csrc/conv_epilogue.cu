@@ -240,3 +240,162 @@ extern "C" int desenet_conv_epilogue(void* y, const void* res,
                  : dispatch<float>(y, res, sc, sh, n, C, act, vec != 0, st,
                                    device);
 }
+
+// ---- the phase store -------------------------------------------------------
+//
+// Proto's nearest 2x upsample and 3x3 conv run as one 2x2 conv over the
+// small map, pad 1, with four output phases (ops/conv_epilogue.py
+// fold_phases): y is (B, H+1, W+1, 4C) NHWC, its channel p C + c at
+// (i + py, j + px), p = 2 py + px, is output channel c at (2i + py, 2j + px).
+// This pass applies BN's affine and the SiLU and writes each phase into its
+// place in the (B, 2H, 2W, C) NHWC output:
+//   out[b, 2i+py, 2j+px, c] = silu(y[b, i+py, j+px, p C + c] * scale[c]
+//                                  + shift[c])
+// in f32, rounded once on the store. The arithmetic is the plain version's,
+// op for op (a product and a sum each rounded, expf, an IEEE division), so
+// the two agree bit for bit.
+//
+// Replaces no TPU kernel: XLA fuses the upsample into the conv's input, so
+// the JAX package never writes the 2x map either. Bound by bytes: y read
+// and the output written once, each about the size of the 2x map.
+//
+// Design: a block an output row at a time (grid-stride over the B 2H
+// rows), its threads walking the row's W pixel pairs (2j, 2j + 1) of C
+// channels in 16-byte groups (or one element each where C or a pointer does
+// not allow them): a thread reads a group of each pixel's phase from y,
+// two contiguous runs, and writes both, so a warp's stores are whole
+// coalesced runs of the row and each thread has two loads in flight and
+// reads its constants once for both. A thread carries its (pair, channel)
+// from one trip to the next: no division in the loop. scale and shift are
+// staged in shared memory as in the kernels above. On an H100 it reads
+// 78-80% of its byte bound; the exact arithmetic costs about 2.5 points of
+// that against the kernels' fast intrinsics above.
+
+namespace {
+
+__device__ __forceinline__ float phase_act(float x, float s, float b) {
+  const float v = __fadd_rn(__fmul_rn(x, s), b);
+  return __fdiv_rn(v, __fadd_rn(1.0f, expf(-v)));
+}
+
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    phases_kernel(const T* __restrict__ y, T* __restrict__ out,
+                  const float* __restrict__ scale,
+                  const float* __restrict__ shift, int B, int H, int W,
+                  int C) {
+  constexpr int V = kVec ? 16 / sizeof(T) : 1;
+  const float* s = stage(scale, shift, C);
+  const int groups = C / V;        // a pixel's groups
+  const int per_row = W * groups;  // an output row's pixel pairs' groups
+  const int j0 = threadIdx.x / groups;
+  const int c0 = (threadIdx.x % groups) * V;
+  const int dj = blockDim.x / groups;
+  const int dc = (blockDim.x % groups) * V;
+  const long long pix = 4LL * C;  // elements of a y pixel
+  const long long rows = 2LL * B * H;
+  for (long long r = blockIdx.x; r < rows; r += gridDim.x) {
+    const long long b = r / (2 * H);
+    const int Y = static_cast<int>(r - b * 2 * H);
+    const int py = Y & 1;
+    // phase 2 py at (i + py, j) is output pixel 2j, phase 2 py + 1 at
+    // (i + py, j + 1) pixel 2j + 1
+    const T* src = y + (b * (H + 1) + (Y >> 1) + py) * (W + 1) * pix +
+                   2LL * py * C;
+    T* dst = out + r * 2 * W * C;
+    int j = j0, c = c0;
+    for (int t = threadIdx.x; t < per_row; t += blockDim.x) {
+      const T* p = src + j * pix + c;
+      T* q = dst + 2LL * j * C + c;
+      if constexpr (kVec) {
+        float f[V], g[V];
+        unpack(__ldg(reinterpret_cast<const uint4*>(p)), f);
+        unpack(__ldg(reinterpret_cast<const uint4*>(p + pix + C)), g);
+#pragma unroll
+        for (int k = 0; k < V; k += 4) {
+          const float4 a = *reinterpret_cast<const float4*>(s + c + k);
+          const float4 h = *reinterpret_cast<const float4*>(s + C + c + k);
+          f[k] = phase_act(f[k], a.x, h.x);
+          f[k + 1] = phase_act(f[k + 1], a.y, h.y);
+          f[k + 2] = phase_act(f[k + 2], a.z, h.z);
+          f[k + 3] = phase_act(f[k + 3], a.w, h.w);
+          g[k] = phase_act(g[k], a.x, h.x);
+          g[k + 1] = phase_act(g[k + 1], a.y, h.y);
+          g[k + 2] = phase_act(g[k + 2], a.z, h.z);
+          g[k + 3] = phase_act(g[k + 3], a.w, h.w);
+        }
+        *reinterpret_cast<uint4*>(q) = pack(f);
+        *reinterpret_cast<uint4*>(q + C) = pack(g);
+      } else {
+        q[0] = from_float<T>(phase_act(to_float(p[0]), s[c], s[C + c]));
+        q[C] = from_float<T>(phase_act(to_float(p[pix + C]), s[c],
+                                       s[C + c]));
+      }
+      j += dj;
+      c += dc;
+      if (c >= C) {
+        c -= C;
+        ++j;
+      }
+    }
+  }
+}
+
+// one block a row, at most as many as the card holds at once: the kernel's
+// registers leave fewer than kBlocksPerSm resident, and a second partial
+// wave of blocks would each walk as many rows as the first
+template <typename T, bool kVec>
+cudaError_t launch_phases(const T* y, T* out, const float* scale,
+                          const float* shift, int B, int H, int W, int C,
+                          cudaStream_t st, int device) {
+  const size_t smem = 2 * sizeof(float) * static_cast<size_t>(C);
+  int per_sm = 0, sms = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, phases_kernel<T, kVec>, kThreads, smem);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return e;
+  const long long rows = 2LL * B * H;
+  const long long full = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms;
+  const int grid = static_cast<int>(rows < full ? rows : full);
+  phases_kernel<T, kVec><<<grid, kThreads, smem, st>>>(y, out, scale, shift,
+                                                       B, H, W, C);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_phases(const void* y, void* out, const float* scale,
+                            const float* shift, int B, int H, int W, int C,
+                            bool vec, cudaStream_t st, int device) {
+  const T* yt = static_cast<const T*>(y);
+  T* ot = static_cast<T*>(out);
+  return vec ? launch_phases<T, true>(yt, ot, scale, shift, B, H, W, C, st,
+                                      device)
+             : launch_phases<T, false>(yt, ot, scale, shift, B, H, W, C, st,
+                                       device);
+}
+
+}  // namespace
+
+// y: (B, H+1, W+1, 4C) NHWC, float32 or bfloat16 (the folded 2x2 conv's
+// output over a (B, H, W) map); out: (B, 2H, 2W, C) NHWC of y's type;
+// scale, shift: C float32. vec: 16-byte groups (C a multiple of 16 /
+// element size, y and out 16-byte aligned; the wrapper checks), else one
+// element a thread.
+extern "C" int desenet_conv_epilogue_phases(const void* y, void* out,
+                                            const void* scale,
+                                            const void* shift, int B, int H,
+                                            int W, int C, int is_bf16,
+                                            int vec, void* stream,
+                                            int device) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  const float* sh = static_cast<const float*>(shift);
+  return is_bf16 ? dispatch_phases<__nv_bfloat16>(y, out, sc, sh, B, H, W,
+                                                  C, vec != 0, st, device)
+                 : dispatch_phases<float>(y, out, sc, sh, B, H, W, C,
+                                          vec != 0, st, device);
+}

@@ -706,7 +706,9 @@ class DeSeNet(nn.Module):
         eval call whose BN runs then does BN, activation and the Bottleneck
         shortcut in one pass over the conv's output (``ops.conv_epilogue``);
         a served stem in row 0 also keeps its tap matrix, and then takes a
-        uint8 image (class docstring).
+        uint8 image (class docstring); a ``Segment`` head's ``Proto``
+        keeps its upsample and 3x3 conv folded into one 2x2 conv
+        (``heads.Proto.fuse_phases``).
         Call it on an eval model whose weights are final: moving,
         reloading or training the model drops the constants, and the
         model runs the separate ops again. The state dict is unchanged.
@@ -717,6 +719,8 @@ class DeSeNet(nn.Module):
         for mod in self.modules():
             if isinstance(mod, L.ConvBnAct):
                 mod.fuse_epilogue()
+            elif isinstance(mod, H.Proto):
+                mod.fuse_phases()
         return self
 
     def quirk_bn_keys(self) -> list:

@@ -48,6 +48,7 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from desenet_tpu_torch import quant as Q
@@ -70,13 +71,15 @@ from desenet_tpu_torch.models.layers import (
     to_compute,
 )
 from desenet_tpu_torch.ops import int8_conv
+from desenet_tpu_torch.ops.conv_epilogue import (conv_epilogue_phases,
+                                                 fold_phases)
 from desenet_tpu_torch.ops.resize import (resize_bilinear,
                                           resize_bilinear_band,
                                           upsample_nearest,
                                           upsample_nearest_repeat)
 from desenet_tpu_torch.parallel.spatial import active, gather_rows
 from desenet_tpu_torch.quant import QTensor
-from desenet_tpu_torch.utils.profiling import span
+from desenet_tpu_torch.utils.profiling import count, span
 
 
 def detect_bias_init(na: int, no: int, stride: float, fan_in: int,
@@ -183,7 +186,18 @@ class Proto(nn.Module):
     ConvBnAct, a nearest 2x upsample, a 3x3 ConvBnAct and a 1x1 ConvBnAct
     to ``c2`` prototypes, so (B, c1, H/8, W/8) -> (B, c2, H/4, W/4).
     ``qforward``: under fp8 storage each conv stores its output and the
-    upsample repeats the stored values."""
+    upsample repeats the stored values.
+
+    After ``fuse_phases`` (``DeSeNet.fuse``) an eval call without autograd
+    runs the upsample and ``cv2`` as one 2x2 conv of the folded weight
+    over the small map and the phase pass
+    (``ops/conv_epilogue.py``: ``fold_phases``, ``conv_epilogue_phases``),
+    so the 2x map is written once, by that pass. The folded weight is
+    among ``cv2``'s derived constants (``layers.QuantAware``), under
+    "phases": moving, reloading or ``train(True)`` drops it, and the
+    upsample and conv run apart again. While tracing, each eval call adds
+    1 to the counter ``proto.phased`` (after the pass) or ``proto.plain``.
+    """
 
     def __init__(self, c1: int, c_: int = 256, c2: int = 32):
         super().__init__()
@@ -192,7 +206,27 @@ class Proto(nn.Module):
         self.cv3 = ConvBnAct(c_, c2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.cv3(self.cv2(upsample_nearest(self.cv1(x), 2)))
+        y = self.cv1(x)
+        if not self.training:
+            k = self.cv2._derived.get("phases")
+            if k is not None and not torch.is_grad_enabled():
+                y = conv_epilogue_phases(F.conv2d(y, k, padding=1),
+                                         *self.cv2._derived["epilogue"])
+                count("proto.phased", 1)
+                return self.cv3(y)
+            count("proto.plain", 1)
+        return self.cv3(self.cv2(upsample_nearest(y, 2)))
+
+    def fuse_phases(self) -> None:
+        """Keep ``cv2``'s weight folded with the upsample
+        (``fold_phases``), in the weight's layout, and its BN's affine
+        (``ConvBnAct.fuse_epilogue``), for ``forward``'s phase path."""
+        self.cv2.fuse_epilogue()
+        w = self.cv2.conv.weight
+        k = fold_phases(w)
+        if w.is_contiguous(memory_format=torch.channels_last):
+            k = k.contiguous(memory_format=torch.channels_last)
+        self.cv2._derived["phases"] = k
 
     def qforward(self, x: torch.Tensor) -> torch.Tensor:
         y = upsample_nearest_repeat(self.cv1.qforward(x), 2)

@@ -73,6 +73,9 @@ _SIGNATURES = {
     # conv_epilogue.cu. y, res, scale, shift, P, C, act, is_bf16, vec,
     # stream, device
     "desenet_conv_epilogue": [_P] * 4 + [_I] * 5 + [_P, _I],
+    # conv_epilogue.cu, the phase store. y, out, scale, shift, B, H, W, C,
+    # is_bf16, vec, stream, device
+    "desenet_conv_epilogue_phases": [_P] * 4 + [_I] * 6 + [_P, _I],
     # mask_assembly.cu. decode, A, ncol, coff, index, boxes, num, proto,
     # is_bf16, B, Hp, Wp, max_det, sx, sy, out, stream, device
     "desenet_mask_assembly": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I,

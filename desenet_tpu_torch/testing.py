@@ -932,3 +932,58 @@ def check_masks(got: torch.Tensor, want: torch.Tensor, decode, index, num,
         assert ratio < rel, (i, j, ratio)
         worst = max(worst, ratio)
     return int(diff.sum()), worst
+
+
+# (B, C, H, W): the phase pass's cases, y (B, 4C, H+1, W+1). C 64 takes the
+# 16-byte groups in bf16 and f32, 20 in f32 only (a multiple of 4, not of
+# 8), 3 in neither; H and W odd and even
+PHASE_CASES = [(3, 64, 5, 7), (2, 20, 4, 3), (2, 3, 6, 5)]
+# Proto at the x7seg cell's widths (c1, c_, c2) on a b2 P3 map of 80 x 80
+PROTO_SERVED = (320, 320, 32, 80)
+
+
+def phases_case(case, dtype=torch.bfloat16, seed: int = 0):
+    """The phase pass's inputs for ``PHASE_CASES`` entry ``case``: the
+    folded conv's output y (B, 4C, H+1, W+1) channels_last in ``dtype``
+    and the (C,) f32 scale and shift, on the CPU."""
+    b, c, h, w = case
+    g = torch.Generator().manual_seed(seed)
+    y = (torch.randn((b, 4 * c, h + 1, w + 1), generator=g) * 2).to(
+        dtype).contiguous(memory_format=torch.channels_last)
+    scale = torch.rand(c, generator=g) + 0.5
+    shift = torch.randn(c, generator=g) * 0.3
+    return y, scale, shift
+
+
+# (what, words of its ValueError): the tensors the phase kernel refuses
+PHASE_REFUSALS = [("dtype", "not bfloat16 or float32"),
+                  ("layout", "channels_last"),
+                  ("channels", "not four times"), ("wide", "more than"),
+                  ("small", "not at least 2 x 2"), ("constants", "scale is"),
+                  ("autograd", "autograd")]
+
+
+def phases_refusal_case(what: str):
+    """The phase pass's inputs (``phases_case`` of the first case, on the
+    CPU) broken as ``PHASE_REFUSALS`` names, or whole for "none"."""
+    from desenet_tpu_torch.ops.conv_epilogue import MAX_C
+
+    y, scale, shift = phases_case(PHASE_CASES[0])
+    if what == "dtype":
+        y = y.half()
+    elif what == "layout":
+        y = y.contiguous()
+    elif what == "channels":
+        scale, shift = scale[1:], shift[1:]
+    elif what == "wide":
+        c = MAX_C + 1
+        y = torch.zeros((1, 4 * c, 2, 2), dtype=torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        scale, shift = torch.ones(c), torch.zeros(c)
+    elif what == "small":
+        y = y[:, :, :1].contiguous(memory_format=torch.channels_last)
+    elif what == "constants":
+        scale = scale.double()
+    elif what == "autograd":
+        y = y.float().requires_grad_()
+    return y, scale, shift

@@ -193,6 +193,17 @@ def epilogue_bound(elems: int, c: int, act: bool, residual: bool,
     return bound_ms(flops, nbytes, H100_F32_FLOPS)
 
 
+def epilogue_phases_bound(b: int, h: int, w: int, c: int,
+                          itemsize: int = 2) -> tuple:
+    """The phase pass (``csrc/conv_epilogue.cu``) over the folded conv's
+    (b, h+1, w+1, 4c) output -> (b, 2h, 2w, c): both tensors once and the
+    2c f32 constants; per output element a product, a sum and four
+    operations for the SiLU, float32 on the CUDA cores."""
+    out = b * 4 * h * w * c
+    nbytes = (b * 4 * (h + 1) * (w + 1) * c + out) * itemsize + 8 * c
+    return bound_ms(6 * out, nbytes, H100_F32_FLOPS)
+
+
 def nms_fused_bound(b: int, a: int, max_det: int, candidates: float,
                     picks: float) -> tuple:
     """K1 on six (b, a) f32 planes -> (b, max_det, 6): the score plane read

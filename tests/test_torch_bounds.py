@@ -277,3 +277,14 @@ def test_epilogue_bound():
     ms, by = tm.epilogue_bound(1000, 10, False, False, itemsize=4)
     assert by == "bytes" and ms == pytest.approx(
         (8000 + 80) / 3.35e12 * 1e3, rel=1e-12)
+
+
+def test_epilogue_phases_bound():
+    # Proto's cv2 at b128/640 in bf16: the folded conv's (128, 81, 81,
+    # 1280) output read, the (128, 160, 160, 320) map written, 4.247 GB
+    ms, by = tm.epilogue_phases_bound(128, 80, 80, 320)
+    assert by == "bytes" and ms == pytest.approx(1.2678, abs=0.0001)
+    # f32, one pixel: 4 (2 x 2 x 4c) read, 4c written, 4 bytes each
+    ms, by = tm.epilogue_phases_bound(1, 1, 1, 10, itemsize=4)
+    assert by == "bytes" and ms == pytest.approx(
+        ((160 + 40) * 4 + 80) / 3.35e12 * 1e3, rel=1e-12)

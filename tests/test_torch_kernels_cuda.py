@@ -54,6 +54,15 @@ prototypes; the last the served cell's b128 at 640) its bits equal the
 plain version's except where ``|c . P|`` is below 1e-3 of its median
 (``testing.check_masks``).
 
+The phase pass (csrc/conv_epilogue.cu ``desenet_conv_epilogue_phases``,
+Proto's upsample and 3x3 conv as one folded 2x2 conv) does the plain
+version's arithmetic op for op: on ``testing.PHASE_CASES`` in bf16 and f32,
+on the 16-byte and the one-element path (and a y off 16-byte alignment),
+its output equals the plain version's bit for bit; each refusal of
+``testing.PHASE_REFUSALS`` is a ValueError and launches nothing; Proto at
+the x7seg cell's widths (``testing.PROTO_SERVED``, b2) takes the phase path
+and agrees with the upsample and 3x3 conv at ``check_close``'s bars.
+
 The training step (no kernel of its own) is held against itself on the
 CPU, as chip_smoke.py's phase 7(a) holds it: the tiny model's SGD steps on
 the card and on the CPU (``testing.TRAIN_PARITY_STEPS``: two in float64, one
@@ -65,12 +74,15 @@ import numpy as np
 import pytest
 import torch
 
-from desenet_tpu_torch.ops import (c3_fused, int8_conv, mask_assembly,
-                                   nms_fused, nms_pallas, seg_head_pallas,
-                                   seg_pallas, stem_pallas)
+from desenet_tpu_torch.ops import (c3_fused, conv_epilogue, int8_conv,
+                                   mask_assembly, nms_fused, nms_pallas,
+                                   seg_head_pallas, seg_pallas, stem_pallas)
 from desenet_tpu_torch.testing import (C3_SERVED, INT8_CONV_CASES,
                                        INT8_GROUPED_CASES, MASK_CASES,
-                                       NMS_FUSED_CASES, check_masks,
+                                       NMS_FUSED_CASES, PHASE_CASES,
+                                       PHASE_REFUSALS, PROTO_SERVED,
+                                       check_masks, phases_case,
+                                       phases_refusal_case,
                                        mask_assembly_case,
                                        SEG_TAIL_CASES, check_close,
                                        check_psp2, dense_decode,
@@ -553,3 +565,83 @@ def test_int8_conv_grouped_takes_one_part(cuda):
     c = int8_conv_case(INT8_GROUPED_CASES[0], cuda)
     with pytest.raises(ValueError, match="one for a grouped conv"):
         int8_conv.run(c["parts"] * 2, c["prep"])
+
+
+# ---- the phase pass (csrc/conv_epilogue.cu desenet_conv_epilogue_phases) ---
+
+
+@pytest.mark.parametrize("case", PHASE_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_phase_kernel_matches_plain(cuda, case, dtype):
+    """The plain version's arithmetic op for op, so bit for bit: on the
+    16-byte groups (C 64; C 20 in f32) and one element a thread (C 3; C 20
+    in bf16)."""
+    y, scale, shift = (t.to(cuda) for t in phases_case(case, dtype))
+    before = conv_epilogue.phase_launches
+    got = conv_epilogue.conv_epilogue_phases(y, scale, shift)
+    want = conv_epilogue.conv_epilogue_phases_plain(y, scale, shift)
+    torch.cuda.synchronize()
+    assert conv_epilogue.phase_launches == before + 1
+    b, c, h, w = case
+    assert got.shape == (b, c, 2 * h, 2 * w) and got.dtype == dtype
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_phase_kernel_misaligned_takes_one_element(cuda, dtype):
+    """A y one element off 16-byte alignment: one element a thread, still
+    bit for bit."""
+    y0, scale, shift = (t.to(cuda) for t in phases_case(PHASE_CASES[0],
+                                                        dtype, seed=1))
+    n, c4, h1, w1 = y0.shape
+    buf = torch.empty(y0.numel() + 1, dtype=dtype, device=cuda)
+    y = torch.as_strided(buf, y0.shape, (h1 * w1 * c4, 1, w1 * c4, c4),
+                         storage_offset=1)
+    y.copy_(y0)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert y.data_ptr() % 16 != 0
+    got = conv_epilogue.conv_epilogue_phases(y, scale, shift)
+    assert torch.equal(got, conv_epilogue.conv_epilogue_phases_plain(
+        y0, scale, shift))
+
+
+@pytest.mark.parametrize("what,says", PHASE_REFUSALS)
+def test_phase_kernel_refusals_raise(cuda, what, says):
+    """A card tensor the phase kernel cannot take is a ValueError that
+    names why, never the plain version, and launches nothing."""
+    y, scale, shift = (t.to(cuda) if isinstance(t, torch.Tensor) else t
+                       for t in phases_refusal_case(what))
+    before = conv_epilogue.phase_launches
+    with pytest.raises(ValueError, match=says):
+        conv_epilogue.conv_epilogue_phases(y, scale, shift)
+    assert conv_epilogue.phase_launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_phased_proto_on_the_card(cuda, full_f32, dtype):
+    """Proto at the x7seg cell's widths on a b2 P3 map, channels_last:
+    the phase path (the folded conv and the phase kernel) against the
+    upsample and 3x3 conv with the one-pass epilogue (``check_close``:
+    bf16 at ``BF16_BAR``, f32 with TF32 off at rtol/atol 1e-4)."""
+    from desenet_tpu_torch.models.heads import Proto
+    from desenet_tpu_torch.testing import randomize_bn
+
+    c1, c_, c2, hw = PROTO_SERVED
+    torch.manual_seed(0)
+    proto = randomize_bn(Proto(c1, c_, c2), seed=0).eval().to(
+        cuda, dtype, memory_format=torch.channels_last)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn((2, c1, hw, hw), generator=g).to(cuda, dtype).contiguous(
+        memory_format=torch.channels_last)
+    with torch.inference_mode():
+        for cv in (proto.cv1, proto.cv2, proto.cv3):
+            cv.fuse_epilogue()
+        want = proto(x)
+        proto.fuse_phases()
+        before = conv_epilogue.phase_launches
+        got = proto(x)
+        torch.cuda.synchronize()
+    assert conv_epilogue.phase_launches == before + 1
+    check_close(got, want, "phased Proto", 1e-4)

@@ -318,9 +318,10 @@ def test_fp8_storage_reaches_proto(weights, frames):
 
 
 def test_fuse_reaches_proto(weights, frames):
-    """``fuse()`` gives Proto's three ConvBnActs the one-pass epilogue (its
-    plain version on the CPU: BN's affine folded in f32, so within a few
-    roundings of the separate ops)."""
+    """``fuse()`` gives Proto's three ConvBnActs the one-pass epilogue and
+    its upsample and 3x3 conv the phase fold (their plain versions on the
+    CPU: BN's affine and the folded taps in f32, so within a few roundings
+    of the separate ops)."""
     cfg, sd = weights
     model, _ = build_model(cfg, seg_upsample=False)
     load_state_dict(model, sd)
@@ -330,6 +331,8 @@ def test_fuse_reaches_proto(weights, frames):
         proto = model.fuse().model[24].proto
         assert all("epilogue" in cv._derived
                    for cv in (proto.cv1, proto.cv2, proto.cv3))
+        c_ = proto.cv2.conv.out_channels
+        assert proto.cv2._derived["phases"].shape == (4 * c_, c_, 2, 2)
         (d1, _), p1 = model(x)
     torch.testing.assert_close(p1, p0, rtol=1e-4, atol=1e-6)
     torch.testing.assert_close(d1, d0, rtol=1e-4, atol=1e-4)
